@@ -1,4 +1,5 @@
-"""Carry a serving bundle between the JAX reference's layout and the port.
+"""Carry a bundle, its BN state and an optimiser state between the JAX
+reference's layout and the port.
 
 The reference keeps its parameters as nested dicts of arrays, with every
 linear kernel ``(in, out)`` and each tower's blocks stacked on a leading
@@ -10,9 +11,15 @@ reference's paths, so the mapping only unstacks and restacks the layer axis:
   clip.visual.blocks.<path>[i]  <->  clip.visual.blocks.<i>.<path>
   peft.layers.<name>[i]         <->  peft.layers.<i>.<name>
 
+The optimiser state (``SgdState``, ``AdamState``, ``RmspropState``) maps the
+same way: the reference's state holds trees shaped like its trainable tree
+(None at frozen leaves), the port's holds ``{dotted name: tensor}`` dicts
+keyed like the bundle's parameters, so a test can start both stacks mid-run
+from one state.
+
 Only numpy crosses the boundary; this module imports neither JAX nor the
-reference package.  The reference's text tower is not part of this slice,
-so ``from_jax`` leaves it out and ``to_jax`` does not produce it.
+reference package.  The reference's text tower is not ported, so
+``from_jax`` leaves it out and ``to_jax`` does not produce it.
 """
 
 from __future__ import annotations
@@ -24,17 +31,22 @@ from .core.clip import CLIP, CLIPSpec
 from .peft.base import PeftConfig, require_ported
 from .peft.kadaptation import KAdaptation
 from .train.head import Head
+from .train.optim import AdamState, RmspropState, SgdState
 from .utils.device import resolve_device
 
 _STACKED = {"clip": ("visual", "blocks"), "peft": ("layers",)}
 
 
+_OPT_STATES = {cls.__name__: cls for cls in (SgdState, AdamState, RmspropState)}
+
+
 def _flatten(tree, prefix: tuple = ()) -> dict:
+    """Leaves of a nested dict by path; None leaves (frozen) are left out."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
             out.update(_flatten(val, prefix + (key,)))
-        else:
+        elif val is not None:
             out[prefix + (key,)] = val
     return out
 
@@ -119,3 +131,42 @@ def to_jax(bundle: dict, bn_state: dict):
            "head": _from_state_dict(bundle["head"].state_dict(), ())}
     bn = {k: v.detach().cpu().numpy() for k, v in bn_state.items()}
     return out, bn
+
+
+def _tree_to_port(tree: dict, dev) -> dict:
+    """A reference tree over the bundle (``{"clip", "peft", "head"}``, None
+    at frozen leaves) -> ``{dotted name: tensor}``, layers unstacked."""
+    out = {}
+    for top, sub in tree.items():
+        if isinstance(sub, dict):
+            sd = _to_state_dict(_flatten(sub), _STACKED.get(top, ()))
+            out.update({f"{top}.{name}": t.to(dev) for name, t in sd.items()})
+    return out
+
+
+def _tree_to_jax(named: dict) -> dict:
+    """``{dotted name: tensor}`` -> the reference's nested numpy tree over
+    the bundle, layers restacked (frozen leaves absent)."""
+    by_top: dict = {}
+    for name, t in named.items():
+        top, rest = name.split(".", 1)
+        by_top.setdefault(top, {})[rest] = t
+    return {top: _from_state_dict(sd, _STACKED.get(top, ())) for top, sd in by_top.items()}
+
+
+def opt_state_from_jax(state_np, *, device=None):
+    """The reference's optimiser state as numpy (its ``SgdState``,
+    ``AdamState`` or ``RmspropState``, or any named tuple of those names and
+    fields) -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    cls = _OPT_STATES[type(state_np).__name__]
+    fields = state_np._asdict()
+    return cls(**{k: int(np.asarray(v)) if k == "step" else _tree_to_port(v, dev)
+                  for k, v in fields.items()})
+
+
+def opt_state_to_jax(state):
+    """The port's optimiser state -> the same named tuple with the
+    reference's numpy trees (``step`` as an int32 array)."""
+    return type(state)(**{k: np.asarray(v, np.int32) if k == "step" else _tree_to_jax(v)
+                          for k, v in state._asdict().items()})

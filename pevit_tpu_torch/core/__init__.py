@@ -7,6 +7,7 @@ from .clip import (
     VisionTransformer,
     encode_image,
     init_clip_params,
+    patchify_images,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "VisionTransformer",
     "encode_image",
     "init_clip_params",
+    "patchify_images",
 ]

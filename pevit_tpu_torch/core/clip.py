@@ -2,9 +2,9 @@
 
 Counterpart of ``pevit_tpu/core/clip.py``: the spec dataclasses (copied),
 random initialisation with the reference's distributions, and the image
-encoder on normalised float images.  Blocks run as a plain Python loop over
-a ``ModuleList``.  The text tower and the uint8 pre-patchified input path
-belong to the training slice.
+encoder, on normalised float images or on pre-patchified uint8 patches with
+the normalisation folded into the patch-embedding GEMM.  Blocks run as a
+plain Python loop over a ``ModuleList``.  The text tower is not ported yet.
 """
 
 from __future__ import annotations
@@ -137,6 +137,16 @@ def init_clip_params(generator: torch.Generator, spec: CLIPSpec, *, device=None)
     return clip.to(dev)
 
 
+def patchify_images(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(N, H, W, 3) -> (N, (H/p)*(W/p), p*p*3), a dtype-preserving shuffle,
+    applied once per dataset to the uint8 images so that each batch feeds
+    the patch-embedding GEMM directly."""
+    n, h, w, c = x.shape
+    p = patch_size
+    g, gw = h // p, w // p
+    return x.reshape(n, g, p, gw, p, c).permute(0, 1, 3, 2, 4, 5).reshape(n, g * gw, p * p * c)
+
+
 def encode_image(
     clip: CLIP,
     x: torch.Tensor,
@@ -146,24 +156,40 @@ def encode_image(
     hooks: Optional[BlockHooks] = None,
     generator: Optional[torch.Generator] = None,
     compute_dtype: torch.dtype = torch.float32,
+    use_fused_mlp: bool = True,
     apply_proj: bool = True,
+    patch_fold: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Visual tower forward on (B, H, W, 3) normalised float images.
+    """Visual tower forward.
+
+    ``x`` is (B, H, W, 3) normalised float images, or (B, G*G, p*p*3)
+    pre-patchified raw uint8 patches (:func:`patchify_images`) with
+    ``patch_fold=(mean, std)``: the per-channel normalisation then folds into
+    the patch-embedding GEMM (W' = W s, b' = t W with s = 1/(255 std),
+    t = -mean/std, built in float32 and cast to the compute dtype).
 
     Returns (B, embed_dim), or (B, width) when ``apply_proj`` is False (the
     projection folded into the classifier head).  ``peft`` holds the PEFT
-    parameters (``.shared`` and per-layer ``.layers``) that ``hooks`` use.
+    parameters (``.shared`` and per-layer ``.layers``) that ``hooks`` use;
+    ``use_fused_mlp`` picks each block's MLP route.
     """
     v = spec.vision
     vp = clip.visual
     B = x.shape[0]
-    p, g = v.patch_size, v.grid
+    p = v.patch_size
     dt = compute_dtype
 
-    x = x.to(dt)
-    # patchify == non-overlapping conv == one GEMM (no bias)
-    x = x.reshape(B, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(B, g * g, p * p * 3)
-    x = x @ vp.patch_embed.kernel.to(dt)
+    if x.dim() == 3:
+        if patch_fold is None:
+            raise ValueError("pre-patchified input requires patch_fold=(mean, std)")
+        mean, std = (torch.as_tensor(t, device=x.device).float() for t in patch_fold)
+        kernel32 = vp.patch_embed.kernel.float()  # (p*p*3, width)
+        s = (1.0 / (255.0 * std)).repeat(p * p)
+        t = (-mean / std).repeat(p * p)
+        x = x.to(dt) @ (kernel32 * s[:, None]).to(dt) + (t @ kernel32).to(dt)
+    else:
+        # patchify == non-overlapping conv == one GEMM (no bias)
+        x = patchify_images(x.to(dt), p) @ vp.patch_embed.kernel.to(dt)
     cls = vp.class_embedding.to(dt).expand(B, 1, v.width)
     x = torch.cat([cls, x], dim=1) + vp.positional_embedding.to(dt)
     x = layer_norm(x, vp.ln_pre.scale, vp.ln_pre.bias)
@@ -172,7 +198,8 @@ def encode_image(
         delta_fn = None
         if hooks is not None and hooks.attn_delta is not None:
             delta_fn = partial(hooks.attn_delta, peft.shared, peft.layers[i], generator)
-        x = residual_attention_block(blk, x, n_head=v.heads, qv_delta_fn=delta_fn)
+        x = residual_attention_block(blk, x, n_head=v.heads, qv_delta_fn=delta_fn,
+                                     use_fused_mlp=use_fused_mlp)
 
     x = layer_norm(x[:, 0, :], vp.ln_post.scale, vp.ln_post.bias)
     if not apply_proj:

@@ -124,13 +124,20 @@ def multi_head_attention(p: Attention, x: torch.Tensor, *, n_head: int,
 
 def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_head: int,
                              qv_delta_fn: Optional[DeltaFn] = None,
+                             use_fused_mlp: bool = True,
                              ln_eps: float = 1e-5) -> torch.Tensor:
-    """One CLIP block: x + attn(LN1(x)), then the fused residual MLP
-    (LN2 -> c_fc -> QuickGELU -> c_proj -> + residual), with ``ln_eps`` for
-    both LayerNorms.  GEMM weights are cast to the compute dtype; the LN
-    parameters stay float32."""
+    """One CLIP block: x + attn(LN1(x)), then LN2 -> c_fc -> QuickGELU ->
+    c_proj -> + residual, with ``ln_eps`` for both LayerNorms.
+
+    ``use_fused_mlp`` routes the MLP half through the fused residual MLP,
+    whose backward gives dx only: valid only while the MLP and LN2 weights
+    are frozen (it raises otherwise).  Off, the block takes the unfused
+    ``layer_norm`` + ``mlp`` path, differentiable in every weight.  GEMM
+    weights are cast to the compute dtype; the LN parameters stay float32."""
     h = layer_norm(x, p.ln_1.scale, p.ln_1.bias, eps=ln_eps)
     x = x + multi_head_attention(p.attn, h, n_head=n_head, qv_delta_fn=qv_delta_fn)
+    if not use_fused_mlp:
+        return x + mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps))
     dt = x.dtype
     return fused_mlp_residual(
         x, p.ln_2.scale, p.ln_2.bias,

@@ -6,9 +6,11 @@ by 1/sqrt(hd) and with any PEFT delta added; logits and softmax run in
 float32; the probabilities are rounded to v's type before the product with
 v, which accumulates in float32; the output has the input's type.
 
-``attention_core`` is what the tower calls.  On a CUDA tensor it launches the
-hand-written kernel (``csrc/attention_fwd.cu``) or raises; on a CPU tensor it
-runs the plain version.  There is no fallback between the two.
+``attention_core`` is what the tower calls, an autograd Function.  On a CUDA
+tensor its forward launches the hand-written kernel (``csrc/attention_fwd.cu``)
+or raises; on a CPU tensor it runs the plain version.  There is no fallback
+between the two.  Its backward is plain PyTorch on both devices
+(:func:`attention_bwd_ref`), as the reference's backward is plain XLA.
 """
 
 from __future__ import annotations
@@ -71,14 +73,51 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     return out
 
 
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor) -> tuple:
+    """Gradients of the attention core on (B, N, H, hd) tensors, in the
+    recompute form of the reference's ``_fused_bwd``: p in float32 (not
+    rounded), dv = p^T g, dp = g v^T, ds = p (dp - sum(dp p)), dq = ds k and
+    dk = ds^T q, each cast to its input's dtype."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+    p = torch.softmax(logits, dim=-1)
+    g32 = g.float()
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, g32).to(v.dtype)
+    dp = torch.einsum("bnhd,bmhd->bhnm", g32, v.float())
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k.float()).to(q.dtype)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q.float()).to(k.dtype)
+    return dq, dk, dv
+
+
+class _AttentionCore(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or :func:`attention_ref` (CPU).  Saves only
+    q, k and v, as the reference's custom VJP does; the backward recomputes
+    the probabilities in plain PyTorch (:func:`attention_bwd_ref`), as the
+    reference runs its backward in plain XLA.  Gradients come back in the
+    inputs' (B, N, H, hd) layout, and autograd routes them into whatever
+    views q, k and v are (k and v are strided views of the packed qkv
+    projection)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.is_cuda:
+            return attention_fwd(q, k, v)
+        t = lambda x: x.transpose(1, 2)
+        return t(attention_ref(t(q), t(k), t(v)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return attention_bwd_ref(*ctx.saved_tensors, g)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Mask-free attention on (B, N, H, hd) tensors -> (B, N, H, hd).
+    """Mask-free attention on (B, N, H, hd) tensors -> (B, N, H, hd),
+    differentiable in q, k and v.
 
     CUDA tensors go through the kernel (which raises on what it does not
     take); CPU tensors through :func:`attention_ref`."""
-    if q.is_cuda:
-        return attention_fwd(q, k, v)
-    if q.device.type != "cpu":
+    if not q.is_cuda and q.device.type != "cpu":
         raise ValueError(f"attention_core runs on CUDA or CPU tensors, got {q.device}")
-    t = lambda x: x.transpose(1, 2)
-    return t(attention_ref(t(q), t(k), t(v)))
+    return _AttentionCore.apply(q, k, v)

@@ -1,6 +1,6 @@
 """PEFT registry (counterpart of ``pevit_tpu/peft/base.py``).
 
-This slice carries KAdaptation and the methods without PEFT parameters
+The port carries KAdaptation and the methods without PEFT parameters
 (linear_probe, full_finetune, zeroshot); LoRA, adapter and Compacter are
 known names whose hooks come with a later slice.
 """
@@ -62,3 +62,22 @@ def make_hooks(cfg: PeftConfig, spec: CLIPSpec, train: bool) -> Optional[BlockHo
             dropout_p=cfg.kadapt_dropout_p,
         ))
     return None
+
+
+def peft_num_params(cfg: PeftConfig, spec: CLIPSpec) -> int:
+    """Parameter count of the method's PEFT module (0 for no-PEFT methods)."""
+    if not cfg.has_peft_params:
+        return 0
+    require_ported(cfg)
+    return _kadaptation.num_params(spec.vision.layers, spec.vision.width)
+
+
+def peft_trainable_filter(cfg: PeftConfig):
+    """``pred(path) -> bool`` over parameter paths inside the PEFT module,
+    as the reference's name-substring freezing selects them: for
+    KAdaptation, LoRA and the adapter the whole module trains (q/v factors,
+    shared phm rules and per-layer biases); Compacter's shared phm rule stays
+    frozen at its init."""
+    if cfg.method == "compacter":
+        return lambda path: len(path) > 0 and path[0] != "shared"
+    return lambda path: True

@@ -131,3 +131,45 @@ def test_from_jax_without_device_needs_cuda(monkeypatch):
     bundle, bn = jax_bundle()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bridge.from_jax(bundle, bn, PORT_TINY, PortPeftConfig(method="kadaptation"))
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adam", "rmsprop"])
+def test_optimizer_state_round_trip_is_bit_exact(kind):
+    """A reference optimiser state over the trainable tree (None at frozen
+    leaves) -> the port's named dicts -> back, bit for bit; the port's keys
+    are the bundle's parameter names."""
+    from pevit_tpu.train import optim as jo
+    from pevit_tpu_torch.train import named_parameters
+
+    bundle, bn = jax_bundle()
+    trainable = {"clip": jax.tree.map(lambda _: None, bundle["clip"]), "peft": bundle["peft"],
+                 "head": {"linear": bundle["head"]["linear"], "logit_scale": None}}
+    init, _ = jo.make_optimizer(kind)
+    rng = np.random.default_rng(5)
+    state = init(trainable)
+    state = jax.tree.map(lambda a: np.asarray(rng.standard_normal(a.shape), np.asarray(a).dtype)
+                         if np.asarray(a).ndim else np.int32(7), state)
+    ported = bridge.opt_state_from_jax(state, device="cpu")
+    names = set(named_parameters(port_bundle(bundle, bn)[0]))
+    for field, val in ported._asdict().items():
+        if field == "step":
+            assert val == 7
+        else:
+            assert set(val) <= names and "peft.layers.1.q_left" in val and "head.linear.bias" in val
+    back = bridge.opt_state_to_jax(ported)
+    assert type(back).__name__ == type(state).__name__
+    for field, val in state._asdict().items():
+        if field == "step":
+            assert back.step.dtype == np.int32 and back.step == val
+        else:
+            _assert_same_tree(getattr(back, field), _prune(jax.tree.map(np.asarray, val)))
+
+
+def _prune(tree):
+    """Drop None leaves and the dicts left empty (the frozen side)."""
+    out = {}
+    for k, v in tree.items():
+        v = _prune(v) if isinstance(v, dict) else v
+        if v is not None and not (isinstance(v, dict) and not v):
+            out[k] = v
+    return out

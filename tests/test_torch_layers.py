@@ -139,3 +139,23 @@ def test_kv_stay_views_of_the_packed_projection(monkeypatch):
     assert seen["k"].shape == (B, N, H, C // H)
     assert seen["k"].stride() == (N * 3 * C, 3 * C, C // H, 1)
     assert seen["v"].stride() == (N * 3 * C, 3 * C, C // H, 1)
+
+
+@pytest.mark.parametrize("ln_eps", [1e-5, 1e-12])
+def test_unfused_route_matches_and_trains_every_weight(ln_eps):
+    """use_fused_mlp=False takes layer_norm + mlp (the full_finetune route):
+    the same output, and gradients for the MLP and LN2 weights, which the
+    fused route refuses."""
+    rng = np.random.default_rng(6)
+    p = _block_params(rng)
+    x = _rand(rng, B, N, C)
+    want = jl.residual_attention_block(_jax(p), jnp.asarray(x), n_head=H, ln_eps=ln_eps)
+    blk = _module(tl.ResidualAttentionBlock, p)
+    got = tl.residual_attention_block(blk, torch.from_numpy(x), n_head=H, ln_eps=ln_eps,
+                                      use_fused_mlp=False)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    got.square().sum().backward()
+    assert blk.mlp.c_fc.kernel.grad.abs().sum() > 0 and blk.ln_2.scale.grad.abs().sum() > 0
+    fused = tl.residual_attention_block(blk, torch.from_numpy(x), n_head=H, ln_eps=ln_eps)
+    with pytest.raises(RuntimeError, match="gradient of x only"):
+        fused.square().sum().backward()
