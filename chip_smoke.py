@@ -12,14 +12,17 @@ on):
    once) and print each instantiation's ptxas registers and spills;
 3. kernels: hold the attention and fused-MLP forward kernels against their
    plain PyTorch versions on the card at the serving path's shapes and
-   dtypes (and at the training batch of 128), and time kernel, plain version
-   and, where one exists, the PyTorch library call computing the same
-   function;
+   dtypes (and at the training batch of 128; attention also at the eval
+   remainder of 8 images), and time kernel, plain version and, where one
+   exists, the PyTorch library call computing the same function.  Each
+   kernel has a bf16 and an fp32 body; the dtype picks it;
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
-   (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, timed beside
-   its bound; and the attention core's plain backward timed at N = 50,
-   batch 128;
+   (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
+   at R = 5800 and 400 (phase 5's natural tail and eval remainder), timed
+   beside its bound and beside ``gemm_ms``, its three products as bf16 (or
+   fp32) ``torch.matmul`` calls, a yardstick the port never calls; and the
+   attention core's plain backward timed at N = 50, batch 128;
 4. serving: a full-width ViT-B/32 KAdaptation classifier (random weights
    from a seed, non-zero adaptation factors, random BN statistics, a
    100-class head fitted to 100 seeded prototype images) behind
@@ -74,6 +77,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SERVE_BATCH = 256
 TRAIN_BATCH = 128
+# phase 5's ragged batches: 500 train images = 3 x 128 + a natural tail of
+# 116; 200 val images = 3 chunks of 64 + a remainder of 8
+TRAIN_TAIL, EVAL_REMAINDER = 116, 8
 
 
 def card_line() -> str:
@@ -82,19 +88,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def entry_tag(entry: str) -> str:
+    """A compiled kernel's name and template arguments, from ptxas's mangled
+    entry name, e.g. ``attention_fwd_bf16<17>`` or ``ln_rows_bf16<24>``."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", entry)
+    if m is None:
+        return entry.strip()
+    name = entry[m.end():m.end() + int(m.group(1))]
+    rest = entry[m.end() + len(name):]
+    if not rest.startswith("I"):
+        return name
+    targs = rest[1:rest.index("E")]
+    types = {"13__nv_bfloat16": "bf16", "f": "float", "t": "uint16", "j": "uint32"}
+    args = [types[t] for t in re.findall(r"^(13__nv_bfloat16|f|t|j)", targs)]
+    return f"{name}<{', '.join(args + re.findall(r'Li(\d+)', targs))}>"
+
+
 def ptxas_summary(name: str, log: str) -> list:
-    """One line per compiled instantiation: dtype, width, registers, spills."""
+    """One line per compiled instantiation: kernel, registers, spills."""
     out, entry, spills = [], "", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line
         elif "Used" in line and "registers" in line:
-            dtype = "bf16" if "bfloat16" in entry else "fp32"
-            width = re.search(r"Li(\d+)E", entry)
-            tag = f"{dtype} C={32 * int(width.group(1))}" if width else dtype
-            if "transpose_kernel" in entry:
-                tag = "transpose " + ("16-bit" if "transpose_kernelIt" in entry else "32-bit")
-            out.append(f"ptxas {name} {tag}: {line.split(':', 1)[1].strip()}; {spills}")
+            out.append(f"ptxas {name} {entry_tag(entry)}: {line.split(':', 1)[1].strip()}; "
+                       f"{spills}")
         elif "spill stores" in line:
             spills = line.strip()
     return out
@@ -207,9 +225,14 @@ def check_fused_mlp_bwd(gen, dtype, c, rows):
     esize = torch.finfo(dtype).bits // 8
     n_bytes = (3 * rows * c + 2 * c * f + f) * esize + 2 * c * 4
     bms, by = bound_ms(n_bytes, 6 * rows * c * f, dtype)  # the three GEMMs it runs
+    # a yardstick only: K3's three products as torch.matmul calls on operands
+    # of the same shapes and dtype (no one PyTorch call computes K3)
+    u, dh = r(rows, c).to(dtype), r(rows, f).to(dtype)
+    gemms = lambda: (u @ wfc, dy @ wproj.T, dh @ wfc.T)
     return {**row, "ms": time_ms(lambda: fused_mlp_bwd(*args), reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_bwd_ref(*args), reps=5),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5), "bound_ms": bms,
+            "bound_by": by}
 
 
 def time_attention_bwd(gen, dtype, n, batch):
@@ -604,13 +627,16 @@ def main() -> int:
             table["attention_fwd"].append(check_attention(gen, dtype, n))
         for c in (768, 1024):
             table["fused_mlp_fwd"].append(check_fused_mlp(gen, dtype, c, rows))
-    table["attention_fwd"].append(check_attention(gen, torch.bfloat16, 50, TRAIN_BATCH))
+    for batch in (TRAIN_BATCH, EVAL_REMAINDER):
+        table["attention_fwd"].append(check_attention(gen, torch.bfloat16, 50, batch))
     table["fused_mlp_fwd"].append(check_fused_mlp(gen, torch.bfloat16, 768, TRAIN_BATCH * 50))
 
     # 3b. the fused-MLP backward, and the attention core's plain backward
     for dtype in (torch.bfloat16, torch.float32):
         for c in (768, 1024):
             table["fused_mlp_bwd"].append(check_fused_mlp_bwd(gen, dtype, c, TRAIN_BATCH * 50))
+    for batch in (TRAIN_TAIL, EVAL_REMAINDER):
+        table["fused_mlp_bwd"].append(check_fused_mlp_bwd(gen, torch.bfloat16, 768, batch * 50))
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)

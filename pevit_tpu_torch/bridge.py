@@ -37,6 +37,17 @@ from .utils.device import resolve_device
 _STACKED = {"clip": ("visual", "blocks"), "peft": ("layers",)}
 
 
+def stacked_layer_axes(name: str) -> int:
+    """Layer axes the reference stacks onto the leaf behind the port's
+    dotted parameter ``name``: 1 for ``clip.visual.blocks.<i>.*`` and
+    ``peft.layers.<i>.*`` (one layer's slice of a stacked leaf), else 0."""
+    top, _, rest = name.partition(".")
+    stacked = _STACKED.get(top, ())
+    path = tuple(rest.split("."))
+    k = len(stacked)
+    return int(bool(stacked) and path[:k] == stacked and len(path) > k + 1 and path[k].isdigit())
+
+
 _OPT_STATES = {cls.__name__: cls for cls in (SgdState, AdamState, RmspropState)}
 
 

@@ -48,7 +48,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on (B, N, H, 64) CUDA tensors, which may be strided
     views (e.g. of a packed qkv projection) with unit stride inside a head.
-    Returns a contiguous (B, N, H, 64) tensor."""
+    The dtype picks the kernel's body: bfloat16 runs on the tensor cores and
+    needs 16-byte aligned rows, float32 on the FMA units.  Returns a
+    contiguous (B, N, H, 64) tensor."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("attention_fwd takes CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -66,6 +68,10 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         raise ValueError(f"attention kernel takes 1 <= N <= {MAX_SEQ}, got {N}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention kernel needs unit stride along head_dim")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+                                         for t in (q, k, v)):
+        raise ValueError("the bfloat16 attention kernel copies 16-byte rows: q, k, v need "
+                         "16-byte aligned base pointers and strides that are multiples of 8")
     out = torch.empty((B, N, H, hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -38,7 +38,7 @@ KERNEL = Kernel(
 BWD_KERNEL = Kernel(
     "fused_mlp_bwd",
     "fused_mlp_bwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
     replaces="pevit_tpu/ops/fused_mlp.py:122",
 )
 WIDTHS = (256, 512, 768, 1024)
@@ -128,11 +128,22 @@ def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-
     return y
 
 
+def bwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
+    """Scratch of one backward launch, laid out as ``csrc/fused_mlp_bwd.cu``
+    carves it.  float32: the transposed weights Wfc^T and Wproj^T.
+    bfloat16: Wfc^T, u and dh (bf16), du (float32) and (mean, rstd) per row."""
+    if dtype == torch.float32:
+        return 2 * C * F * 4
+    return (C * F + R * C + R * F) * 2 + R * C * 4 + R * 8
+
+
 def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     """The backward CUDA kernel: dx of the fused residual MLP.  dy and x:
     contiguous (..., C) of one shape and dtype; the weights as for
-    :func:`fused_mlp_fwd` (no bproj).  Two (F, C)-sized scratch buffers hold
-    the kernel's transposed weight copies."""
+    :func:`fused_mlp_fwd` (no bproj).  The dtype picks the kernel's body:
+    bfloat16 runs its GEMMs on the tensor cores and needs 16-byte aligned
+    dy, x, wfc and wproj; float32 runs on the FMA units.  The scratch
+    (:func:`bwd_workspace_bytes`) is allocated here."""
     weights = dict(zip(_WEIGHTS[:5], (ln_scale, ln_bias, wfc, bfc, wproj)))
     R, C, F = _check("fused_mlp_bwd", x, weights)
     if not (dy.is_cuda and dy.device == x.device and dy.is_contiguous()):
@@ -140,12 +151,14 @@ def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
                          f"{tuple(x.shape)} {x.dtype}")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (dy, x, wfc, wproj)):
+        raise ValueError("the bfloat16 fused MLP backward copies 16-byte chunks: dy, x, wfc "
+                         "and wproj need 16-byte aligned base pointers")
     dx = torch.empty_like(x)
-    wfc_t = torch.empty((F, C), dtype=x.dtype, device=x.device)
-    wproj_t = torch.empty((C, F), dtype=x.dtype, device=x.device)
+    work = torch.empty(bwd_workspace_bytes(x.dtype, R, C, F), dtype=torch.uint8, device=x.device)
     BWD_KERNEL.launch(dy.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in weights.values()),
-                      wfc_t.data_ptr(), wproj_t.data_ptr(), dx.data_ptr(),
-                      _DTYPE_CODES[x.dtype], R, C, F, float(eps), stream_ptr(x))
+                      work.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], R, C, F,
+                      float(eps), stream_ptr(x))
     return dx
 
 

@@ -127,9 +127,14 @@ def build_wd_mask(params: dict, without_wd_list, *, timm_filter: bool = False):
 
     'ln'/'bn' rules zero decay on normalisation scale and bias, 'bias' on
     every ``*.bias`` leaf; ``timm_filter`` is timm's filter_bias_and_bn, no
-    decay on any parameter of rank <= 1.  The rank is the tensor's own: the
-    port keeps one tensor per layer where the reference stacks the layers
-    on a leading axis.  Returns None when nothing is masked."""
+    decay on any parameter of rank <= 1.  The reference reads that rank on
+    its trainable tree, where each tower's layers are stacked on a leading
+    axis; the port keeps one tensor per layer, so the rank here is the
+    tensor's own plus the layer axes that the reference stacks onto its leaf
+    (``bridge.stacked_layer_axes`` of its name).  Returns None when nothing
+    is masked."""
+    from ..bridge import stacked_layer_axes  # bridge imports this module
+
     rules = set(without_wd_list or [])
 
     def is_ln(k: str) -> bool:
@@ -142,7 +147,7 @@ def build_wd_mask(params: dict, without_wd_list, *, timm_filter: bool = False):
 
     def leaf_mask(name: str, leaf: torch.Tensor) -> float:
         keys = name.split(".")
-        if timm_filter and leaf.ndim <= 1:
+        if timm_filter and leaf.ndim + stacked_layer_axes(name) <= 1:
             return 0.0
         if "ln" in rules and any(is_ln(k) for k in keys):
             return 0.0
