@@ -15,14 +15,16 @@ on):
    dtypes (and at the training batch of 128; attention also at the eval
    remainder of 8 images), and time kernel, plain version and, where one
    exists, the PyTorch library call computing the same function.  Each
-   kernel has a bf16 and an fp32 body; the dtype picks it;
+   kernel has a bf16 and an fp32 body; the dtype picks it.  The fused-MLP
+   forward (K2) rows carry ``gemm_ms``, its two products as ``torch.matmul``
+   calls, a yardstick the port never calls;
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
    at R = 5800 and 400 (phase 5's natural tail and eval remainder), timed
    beside its bound and beside ``gemm_ms``, its three products as bf16 (or
-   fp32) ``torch.matmul`` calls, a yardstick the port never calls; and the
-   attention core's plain backward timed at N = 50, batch 128;
+   fp32) ``torch.matmul`` calls; K2 in bf16 at R = 5800 and 400 too; and
+   the attention core's plain backward timed at N = 50, batch 128;
 4. serving: a full-width ViT-B/32 KAdaptation classifier (random weights
    from a seed, non-zero adaptation factors, random BN statistics, a
    100-class head fitted to 100 seeded prototype images) behind
@@ -191,10 +193,18 @@ def check_fused_mlp(gen, dtype, c, rows):
     esize = torch.finfo(dtype).bits // 8
     n_bytes = (2 * rows * c + 2 * c * f + f + c) * esize + 2 * c * 4
     bms, by = bound_ms(n_bytes, 4 * rows * c * f, dtype)
+    # a yardstick only: K2's two products as torch.matmul calls on operands
+    # of the same shapes and dtype (no one PyTorch call computes K2), drawn
+    # from the default generator so that the later checks' draws from
+    # ``gen`` do not depend on them
+    u = torch.randn(rows, c, device="cuda").to(dtype)
+    g = torch.randn(rows, f, device="cuda").to(dtype)
+    gemms = lambda: (u @ wfc, g @ wproj)
     return {"shape": f"R={rows} C={c} F={f}", "dtype": str(dtype).split(".")[-1],
             "max_abs_err": err, "ms": time_ms(lambda: fused_mlp_fwd(*args), reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_residual_ref(*args), reps=5),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5), "bound_ms": bms,
+            "bound_by": by}
 
 
 def check_fused_mlp_bwd(gen, dtype, c, rows):
@@ -637,6 +647,8 @@ def main() -> int:
             table["fused_mlp_bwd"].append(check_fused_mlp_bwd(gen, dtype, c, TRAIN_BATCH * 50))
     for batch in (TRAIN_TAIL, EVAL_REMAINDER):
         table["fused_mlp_bwd"].append(check_fused_mlp_bwd(gen, torch.bfloat16, 768, batch * 50))
+    for batch in (TRAIN_TAIL, EVAL_REMAINDER):
+        table["fused_mlp_fwd"].append(check_fused_mlp(gen, torch.bfloat16, 768, batch * 50))
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)

@@ -5,8 +5,8 @@ shared library for ``sm_90a`` (Hopper), loaded with ``ctypes``.  Nothing is
 built or loaded at import time: a library is built at its first launch, or
 ahead of time by :func:`build_all`, which starts one ``nvcc`` per source and
 waits for all of them.  Builds land in ``BUILD_DIR`` (listed in .gitignore),
-named by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -62,7 +62,12 @@ class Kernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        """Keyed by the source, every header beside it and the flags, so that
+        an edit to a shared header rebuilds every kernel."""
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            digest.update(header.name.encode() + b"\0" + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def start_build(self):

@@ -32,7 +32,7 @@ _I = ctypes.c_int
 KERNEL = Kernel(
     "fused_mlp_fwd",
     "fused_mlp_fwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
     replaces="pevit_tpu/ops/fused_mlp.py:63",
 )
 BWD_KERNEL = Kernel(
@@ -116,15 +116,36 @@ def _check(name, x, weights: dict) -> tuple:
     return x.numel() // C, C, F
 
 
+def fwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
+    """Scratch of one forward launch, laid out as ``csrc/fused_mlp_fwd.cu``
+    carves it.  float32: none.  bfloat16: u (R x C) and g (R x F) in bf16."""
+    if dtype == torch.float32:
+        return 0
+    return (R * C + R * F) * 2
+
+
+def _check_aligned(name, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the bfloat16 {name} copies 16-byte chunks: its activations and both "
+                         "weight matrices need 16-byte aligned base pointers")
+
+
 def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-5):
     """The forward CUDA kernel.  x: contiguous (..., C) in float32 or
     bfloat16; wfc (C, F), bfc (F,), wproj (F, C), bproj (C,) in x's dtype;
-    ln scale and bias float32 (C,).  C in ``WIDTHS``, F a multiple of 128."""
+    ln scale and bias float32 (C,).  C in ``WIDTHS``, F a multiple of 128.
+    The dtype picks the kernel's body: bfloat16 runs its GEMMs on the
+    tensor cores and needs 16-byte aligned x, wfc and wproj; float32 runs on
+    the FMA units.  The scratch (:func:`fwd_workspace_bytes`) is allocated
+    here."""
     weights = dict(zip(_WEIGHTS, (ln_scale, ln_bias, wfc, bfc, wproj, bproj)))
     R, C, F = _check("fused_mlp_fwd", x, weights)
+    if x.dtype == torch.bfloat16:
+        _check_aligned("fused MLP forward", x, wfc, wproj)
     y = torch.empty_like(x)
-    KERNEL.launch(x.data_ptr(), *(t.data_ptr() for t in weights.values()), y.data_ptr(),
-                  _DTYPE_CODES[x.dtype], R, C, F, float(eps), stream_ptr(x))
+    work = torch.empty(fwd_workspace_bytes(x.dtype, R, C, F), dtype=torch.uint8, device=x.device)
+    KERNEL.launch(x.data_ptr(), *(t.data_ptr() for t in weights.values()), work.data_ptr(),
+                  y.data_ptr(), _DTYPE_CODES[x.dtype], R, C, F, float(eps), stream_ptr(x))
     return y
 
 
@@ -151,9 +172,8 @@ def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (dy, x, wfc, wproj)):
-        raise ValueError("the bfloat16 fused MLP backward copies 16-byte chunks: dy, x, wfc "
-                         "and wproj need 16-byte aligned base pointers")
+    if x.dtype == torch.bfloat16:
+        _check_aligned("fused MLP backward", dy, x, wfc, wproj)
     dx = torch.empty_like(x)
     work = torch.empty(bwd_workspace_bytes(x.dtype, R, C, F), dtype=torch.uint8, device=x.device)
     BWD_KERNEL.launch(dy.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in weights.values()),

@@ -5,7 +5,7 @@ setup(
     version="0.1.0",
     description="TPU-native parameter-efficient model adaptation for Vision Transformers (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests", "tools")),
-    package_data={"pevit_tpu_torch.ops": ["csrc/*.cu"]},
+    package_data={"pevit_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pyyaml", "regex", "scikit-learn", "pillow"],
     entry_points={

@@ -4,6 +4,8 @@ Pallas kernels in interpret mode, on the same bf16 inputs.
 
 * attention (K1): logits, softmax and its normalisation in float32, p
   rounded to bf16 before the product with v, the output rounded once;
+* fused MLP forward (K2): u and g rounded to bf16, h in float32 with bfc
+  widened, m rounded to bf16 and added to x in bf16;
 * fused MLP backward (K3): u and dh rounded to bf16, the rest in float32,
   the LayerNorm backward rounded and added to dy in bf16.
 
@@ -100,6 +102,29 @@ def _jax_dx(x, dy, w):
     _, vjp = jax.vjp(lambda xx: jax_fused(xx, *jw, True), _jax(x))  # interpret mode
     (dx,) = vjp(_jax(dy))
     return _numpy(dx)
+
+
+def _jax_y(x, w):
+    return _numpy(jax_fused(_jax(x), *(_jax(t) for t in w), True))  # interpret mode
+
+
+@pytest.mark.parametrize("b,n", [(5, 7), (2, 200), (3, 12)])
+def test_fused_mlp_ref_bf16_matches_pallas_forward(b, n):
+    """35, 400 and 36 rows: none fills the reference's 256-row tiles."""
+    x, _, w = _mlp_inputs(b, n, seed=b * n)
+    got = tf.fused_mlp_residual_ref(x, *w)
+    assert got.dtype == torch.bfloat16
+    _assert_same_rounding(got, _jax_y(x, w))
+
+
+@pytest.mark.parametrize("b,n", [(5, 7), (2, 200), (3, 12)])
+def test_fused_mlp_fwd_unrounded_is_told_apart(b, n):
+    """Control: u, g and m left in float32, with x + m rounded once at the
+    end, change y in many elements."""
+    x, _, w = _mlp_inputs(b, n, seed=b * n)
+    other = tf.fused_mlp_residual_ref(x.float(), *(t.float() for t in w))
+    other = other.bfloat16().float().numpy()
+    assert (other != _jax_y(x, w)).mean() > 10 * MAX_DIFFERING
 
 
 @pytest.mark.parametrize("b,n", [(5, 7), (2, 200), (3, 12)])

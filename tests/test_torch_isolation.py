@@ -78,6 +78,25 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         kernel.start_build()
 
 
+def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
+    """An edit to a ``csrc/*.cuh`` header renames every kernel's library, so
+    a build never reuses one compiled from the old header."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "shared.cuh").write_text("// one\n")
+    kernel = _build.Kernel("k", "k.cu", [], replaces="-")
+    first = kernel.library_path()
+    assert first.parent == tmp_path / "build" and kernel.library_path() == first
+    (csrc / "shared.cuh").write_text("// two\n")
+    second = kernel.library_path()
+    assert second != first
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert kernel.library_path() not in (first, second)
+
+
 def test_resolve_device_needs_cuda_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -91,6 +110,6 @@ def test_resolve_device_needs_cuda_unless_asked(monkeypatch):
 
 def test_kernel_sources_ship_as_package_data():
     setup = (REPO / "setup.py").read_text()
-    assert "csrc/*.cu" in setup
+    assert "csrc/*.cu" in setup and "csrc/*.cuh" in setup
     for k in KERNELS:
         assert k.source.is_file() and k.source.suffix == ".cu"
