@@ -50,22 +50,46 @@ on):
    exactly zero on both paths); a whole fp32 run on both paths, in the same
    order, gives per-epoch val logits within 1e-3 of the largest logit.
    Train images/s at batch 128 are printed;
-6. report: one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
-   line last.
+6. the command: ``kronecker_adaptation_clip.main`` in this process, with
+   the flags of ``scripts/kadapter_clip.sh`` (5-shot cifar-10, the LR x WD
+   sweep on, the head initialised from text features, ``vitb32_CLIP.yaml``
+   at full width and depth: 224 px, 12 x 768 vision and 12 x 512 text
+   layers, 10 sweep epochs and 50 final ones), random weights and the
+   synthetic cifar-10 split (no dataset or checkpoint is in the repo).
+   Checks: the JSON and TXT artifacts have the reference's schema;
+   ``predictions`` is (160, 10) with rows summing to 1; the sweep cache
+   holds 42 to 90 trials and the chosen (lr, wd) is the reference walk's
+   over those scores; K1, K2 and K3 launch exactly as often as the sweep's
+   and the final run's steps and eval chunks ask; the text features on the
+   card match the same tower's on the CPU within 1e-4 of their largest
+   value; a second run replays from the completion sidecar, with no launch,
+   in under a minute.  Times of the text features, the sweep (per trial),
+   the final run (train images/s) and the whole phase are printed.  Then
+   each kernel is held against its plain version, in the command's dtype,
+   at every batch the command gave it (each train-step size for all three,
+   each eval-chunk size for K1 and K2), and timed there;
+7. report: one ``{"kernels": [...]}`` line: launches from phase 6, the
+   other numbers at the phase-6 batch that launched the kernel most, every
+   phase-6 batch under ``by_shape``; then the ``{"ok": true, ...}`` line
+   last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 import dataclasses
 import io
 import json
+import logging
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -604,6 +628,252 @@ def compare_whole_run(task, data) -> dict:
             "max_abs_change_first_to_last_epoch": moved}
 
 
+# ---------------------------------------------------------------------------
+# 6. the command
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+ARTIFACT_KEYS = ["model_name", "dataset_name", "num_trainable_params", "num_params",
+                 "num_visual_params", "num_backbone_params", "n_shot", "rnd_seeds", "predictions"]
+TXT_LINE = re.compile(r"best acc is:([0-9.eE+-]+), num_params is:(\S+?), "
+                      r"n_trainable_params is:([0-9.eE+-]+), backbone_params is:(\S+?)\.")
+
+
+def command_argv(tmp: Path) -> list:
+    """scripts/kadapter_clip.sh's flags for cifar-10, seed 0, with random
+    weights and the synthetic split in ``tmp``."""
+    return ["--ds", str(REPO / "resources/datasets/cifar10.yaml"),
+            "--model", str(REPO / "resources/model/vitb32_CLIP.yaml"),
+            "--no-tuning", "False", "--lr", "0.0", "--l2", "0.0",
+            "DATASET.NUM_SAMPLES_PER_CLASS", "5", "DATASET.RANDOM_SEED_SAMPLING", "0",
+            "TRAIN.INIT_HEAD_WITH_TEXT_ENCODER", "True", "MODEL.PRETRAINED", "random",
+            "DATASET.ALLOW_SYNTHETIC", "True", "DATASET.ROOT", str(tmp / "data"),
+            "OUTPUT_DIR", str(tmp / "out")]
+
+
+def reference_walk(score, config) -> tuple:
+    """The reference's sequential (lr, wd) selection (kadaptation_clip.py:
+    188-243, 446-466), replayed over ``score(lr, wd)``."""
+    grid = np.logspace(config.TRAIN.SEARCH_WD_LOG_LOWER, config.TRAIN.SEARCH_WD_LOG_UPPER,
+                       97).tolist()
+    seeds = set(np.logspace(config.TRAIN.SEARCH_WD_LOG_LOWER, config.TRAIN.SEARCH_WD_LOG_UPPER, 7))
+    init_idx = [i for i, v in enumerate(grid) if v in seeds]
+    best_lr, best_wd, best = 0.0, 0.0, 0.0
+    for lr in np.logspace(-6, -1, 6).tolist():
+        peak_idx, peak = -1, 0.0
+        for idx in init_idx:
+            if score(lr, grid[idx]) > peak:
+                peak_idx, peak = idx, score(lr, grid[idx])
+        span = 8
+        while span > 0:
+            left, right = max(peak_idx - span, 0), min(peak_idx + span, len(grid) - 1)
+            for idx in (i for i in (left, right) if i != peak_idx):
+                s = score(lr, grid[left] if config.TRAIN.WD_SEARCH_LEFT else grid[idx])
+                if s > peak:
+                    peak_idx, peak = idx, s
+            span //= 2
+        if peak > best:
+            best, best_lr, best_wd = peak, lr, grid[peak_idx]
+    return best_lr, best_wd
+
+
+@contextlib.contextmanager
+def timed_command(times: dict):
+    """Time the command's text features, sweep and ``run_method`` by
+    wrapping them where the command looks them up; keeps the text features
+    and the tower they came from."""
+    import pevit_tpu_torch.evaluation as evaluation
+    import pevit_tpu_torch.train as train
+    from pevit_tpu_torch.train import sweep
+
+    saved = evaluation.extract_text_features, sweep.hyperparameter_sweep_lr, train.run_method
+
+    def wrap(name, fn, keep=False):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            if keep:
+                times[name + "_call"] = (args, out)
+            return out
+        return timed
+
+    evaluation.extract_text_features = wrap("text_features", saved[0], keep=True)
+    sweep.hyperparameter_sweep_lr = wrap("sweep", saved[1])
+    train.run_method = wrap("run_method", saved[2], keep=True)
+    try:
+        yield
+    finally:
+        evaluation.extract_text_features, sweep.hyperparameter_sweep_lr, train.run_method = saved
+
+
+def check_text_features_on_cpu(call) -> dict:
+    """The card's text features against the same tower's run on the CPU."""
+    from pevit_tpu_torch.evaluation import extract_text_features
+
+    (config, clip, spec), card = call
+    cpu_clip = copy.deepcopy(clip).cpu()
+    cpu = extract_text_features(config, cpu_clip, spec)
+    err = float(np.abs(card - cpu).max())
+    scale = float(np.abs(cpu).max())
+    if card.shape != cpu.shape or not err <= 1e-4 * scale:
+        raise AssertionError(f"text features card vs CPU: max err {err} > 1e-4 * {scale}")
+    return {"shape": list(card.shape), "max_abs_err": err, "max_abs": scale}
+
+
+def command_batches(task, data, trials: int) -> tuple:
+    """Images in each train step and each eval chunk of the command, as two
+    ``{images: times run}`` counts: every sweep trial trains END_EPOCH
+    epochs on the train split and evaluates the val split after each, the
+    final run END_EPOCH + EXTRA_FINAL_TRAIN_EPOCH epochs on train + val,
+    evaluated on the test split; full batches plus a natural tail (one of a
+    single image skipped), eval chunks of ``task.eval_chunk`` plus a natural
+    remainder."""
+    config = task.config
+    n_train, n_val, n_test = (len(data[i]) for i in (1, 3, 5))
+    sweep_e = config.TRAIN.END_EPOCH
+    final_e = sweep_e + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
+
+    def add(counts, n, size, times, tail_min):
+        counts[size] += times * (n // size)
+        if n % size >= tail_min:
+            counts[n % size] += times
+
+    train, evals = collections.Counter(), collections.Counter()
+    add(train, n_train, task.static.batch_size, trials * sweep_e, 2)
+    add(train, n_train + n_val, task.static.batch_size, final_e, 2)
+    add(evals, n_val, task.eval_chunk, trials * sweep_e, 1)
+    add(evals, n_test, task.eval_chunk, final_e, 1)
+    return +train, +evals
+
+
+def expected_launches(train, evals, layers: int) -> dict:
+    """K1 and K2 run once a block in every train step and eval chunk, K3
+    once a block in every train step."""
+    steps, chunks = sum(train.values()), sum(evals.values())
+    return {"attention_fwd": layers * (steps + chunks), "fused_mlp_fwd": layers * (steps + chunks),
+            "fused_mlp_bwd": layers * steps}
+
+
+def command_kernel_rows(gen, shapes: dict) -> dict:
+    """Every kernel against its plain version at each batch the command gave
+    it (phase 6's train steps and eval chunks), in the command's dtype, with
+    the launches the command made at that batch."""
+    train, evals, layers = shapes["train"], shapes["evals"], shapes["layers"]
+    dtype, tokens, width = getattr(torch, shapes["dtype"]), shapes["tokens"], shapes["width"]
+    rows = {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    for b in sorted(set(train) | set(evals)):
+        n = {"images": b, "launches": layers * (train[b] + evals[b])}
+        rows["attention_fwd"].append({**check_attention(gen, dtype, tokens, b), **n})
+        rows["fused_mlp_fwd"].append({**check_fused_mlp(gen, dtype, width, b * tokens), **n})
+    for b in sorted(train):
+        n = {"images": b, "launches": layers * train[b]}
+        rows["fused_mlp_bwd"].append({**check_fused_mlp_bwd(gen, dtype, width, b * tokens), **n})
+    return rows
+
+
+def kernel_report(kernels, launches: dict, command_table: dict) -> list:
+    """The ``kernels`` line: launches from the command's run; the other
+    numbers at the command's batch that launched the kernel most (the larger
+    batch on a tie); every batch of the command under ``by_shape``."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    report = []
+    for k in kernels:
+        rows_ = command_table[k.name]
+        main_row = max(rows_, key=lambda r: (r["launches"], r["images"]))
+        if sum(r["launches"] for r in rows_) != launches[k.name]:
+            raise AssertionError(f"{k.name}: the command's batches do not add up to its launches")
+        report.append({"name": k.name, "route": "cuda",
+                       "source": str(k.source.relative_to(REPO)),
+                       "replaces": k.replaces, "launches": launches[k.name],
+                       **{key: main_row[key] for key in keys}, "shape": main_row["shape"],
+                       "dtype": main_row["dtype"],
+                       "by_shape": [{key: r[key] for key in ("images", "shape", "launches") + keys}
+                                    for r in rows_]})
+    return report
+
+
+def run_command(kernels) -> dict:
+    """Phase 6: the KAdaptation command end to end, then once more to replay."""
+    from pevit_tpu_torch.commands import kronecker_adaptation_clip
+    from pevit_tpu_torch.config import get_default_config
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cmd_") as tmp:
+        tmp = Path(tmp)
+        argv = command_argv(tmp)
+        times = {}
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with timed_command(times):
+            best, info = kronecker_adaptation_clip.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+
+        folder = tmp / "out" / "predictions" / "finetuning_5"
+        artifact = json.loads((folder / "seed0_cifar-10.json").read_text())
+        line = TXT_LINE.search((folder / "seed0_cifar-10.txt").read_text())
+        if list(artifact) != ARTIFACT_KEYS or line is None:
+            raise AssertionError(f"artifacts off the reference schema: {list(artifact)}, {line}")
+        preds = np.asarray(artifact["predictions"][0])
+        if preds.shape != (160, 10) or not np.allclose(preds.sum(-1), 1.0, atol=1e-4):
+            raise AssertionError(f"predictions {preds.shape}, row sums {preds.sum(-1)[:4]}")
+
+        (cache,) = (tmp / "out" / "cifar-10" / "sweep_cache").iterdir()
+        records = [json.loads(x) for x in cache.read_text().splitlines()]
+        scores = {(r["lr"], r["wd"]): r["score"] for r in records}
+        if not 42 <= len(scores) <= 90:
+            raise AssertionError(f"{len(scores)} distinct sweep trials, want 42 to 90")
+        want = reference_walk(lambda lr, wd: scores[(repr(lr), repr(wd))], get_default_config())
+        if (info["best_lr"], info["best_l2_lambda"]) != want:
+            raise AssertionError(f"sweep chose {info['best_lr']}, {info['best_l2_lambda']}; "
+                                 f"the reference walk over its scores chooses {want}")
+
+        (task, data, config), _ = times["run_method_call"]
+        trials = len(records)  # each trained once, replays aside
+        vision = task.static.spec.vision
+        train, evals = command_batches(task, data, trials)
+        want_launches = expected_launches(train, evals, vision.layers)
+        if launches != want_launches:
+            raise AssertionError(f"command launches {launches}, want {want_launches} for "
+                                 f"{trials} trials and the final run")
+        shapes = {"train": train, "evals": evals, "layers": vision.layers,
+                  "dtype": task.static.compute_dtype, "width": vision.width,
+                  "tokens": (vision.input_resolution // vision.patch_size) ** 2 + 1}
+
+        text = check_text_features_on_cpu(times["text_features_call"])
+
+        for k in kernels:
+            k.launches = 0
+        t1 = time.perf_counter()
+        best2, info2 = kronecker_adaptation_clip.main(argv)
+        replay_s = time.perf_counter() - t1
+        replay_launches = {k.name: k.launches for k in kernels}
+        if best2 != best or any(replay_launches.values()) or replay_s > 60:
+            raise AssertionError(f"replay: best {best2} vs {best}, launches {replay_launches}, "
+                                 f"{replay_s:.1f} s")
+        root = logging.getLogger()  # the command's log handlers write into ``tmp``
+        for h in root.handlers[:]:
+            h.close()
+            root.removeHandler(h)
+    final_s = times["run_method"] - times["sweep"]
+    final_images = (len(data[1]) + len(data[3])) * (config.TRAIN.END_EPOCH
+                                                    + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH)
+    return {"best_acc": best, "best_lr": info["best_lr"], "best_wd": info["best_l2_lambda"],
+            "n_params": info["n_params"], "n_trainable_params": info["n_trainable_params"],
+            "trials": trials, "distinct_trials": len(scores), "launches": launches,
+            "train_step_images": dict(train), "eval_chunk_images": dict(evals),
+            "text_features": text, "shapes": shapes, "seconds": {
+                "command": seconds, "text_features": times["text_features"],
+                "sweep": times["sweep"], "sweep_per_trial": times["sweep"] / trials,
+                "final_run": final_s, "replay": replay_s,
+                "phase": time.perf_counter() - t_phase},
+            "final_train_images_per_s": final_images / final_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a CUDA card",
@@ -706,18 +976,17 @@ def main() -> int:
     run32 = compare_whole_run(make_task(clip, "float32", 0.0), data)
     print(f"whole-run val logits kernel vs plain path: {json.dumps(run32)} [{card}]", flush=True)
 
-    # 6. report
-    repo = Path(__file__).resolve().parent
-    report = []
-    for k in KERNELS:
-        # bf16: K1 and K2 at the batch-256 serving shape, K3 at the batch-128
-        # training shape; launches from the training run
-        main_row = table[k.name][0]
-        report.append({"name": k.name, "route": "cuda",
-                       "source": str(k.source.relative_to(repo)),
-                       "replaces": k.replaces, "launches": train["launches"][k.name],
-                       **{key: main_row[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                         "bound_ms", "bound_by", "library_ms")}})
+    # 6. the command, then every kernel at the batches it gave each one
+    command = run_command(KERNELS)
+    shapes = command.pop("shapes")
+    print(f"command kronecker_adaptation_clip: {json.dumps(command)} [{card}]", flush=True)
+    command_table = command_kernel_rows(gen, shapes)
+    for name, rows_ in command_table.items():
+        for r in rows_:
+            print(f"command kernel {name} {json.dumps(r)} [{card}]", flush=True)
+
+    # 7. report
+    report = kernel_report(KERNELS, command["launches"], command_table)
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,7 @@ over unchanged) with one module per layer; parameter names match the
 reference's paths, so the mapping only unstacks and restacks the layer axis:
 
   clip.visual.blocks.<path>[i]  <->  clip.visual.blocks.<i>.<path>
+  clip.text.blocks.<path>[i]    <->  clip.text.blocks.<i>.<path>
   peft.layers.<name>[i]         <->  peft.layers.<i>.<name>
 
 The optimiser state (``SgdState``, ``AdamState``, ``RmspropState``) maps the
@@ -18,8 +19,7 @@ keyed like the bundle's parameters, so a test can start both stacks mid-run
 from one state.
 
 Only numpy crosses the boundary; this module imports neither JAX nor the
-reference package.  The reference's text tower is not ported, so
-``from_jax`` leaves it out and ``to_jax`` does not produce it.
+reference package.
 """
 
 from __future__ import annotations
@@ -34,18 +34,28 @@ from .train.head import Head
 from .train.optim import AdamState, RmspropState, SgdState
 from .utils.device import resolve_device
 
-_STACKED = {"clip": ("visual", "blocks"), "peft": ("layers",)}
+# the prefixes under which the reference stacks layers on a leading axis
+_STACKED = {"clip": (("visual", "blocks"), ("text", "blocks")), "peft": (("layers",),)}
+
+
+def _stacked_prefix(path: tuple, prefixes: tuple):
+    """The stacked prefix that ``path`` lies under, or None."""
+    for stacked in prefixes:
+        if path[:len(stacked)] == stacked:
+            return stacked
+    return None
 
 
 def stacked_layer_axes(name: str) -> int:
     """Layer axes the reference stacks onto the leaf behind the port's
-    dotted parameter ``name``: 1 for ``clip.visual.blocks.<i>.*`` and
-    ``peft.layers.<i>.*`` (one layer's slice of a stacked leaf), else 0."""
+    dotted parameter ``name``: 1 for ``clip.visual.blocks.<i>.*``,
+    ``clip.text.blocks.<i>.*`` and ``peft.layers.<i>.*`` (one layer's slice
+    of a stacked leaf), else 0."""
     top, _, rest = name.partition(".")
-    stacked = _STACKED.get(top, ())
     path = tuple(rest.split("."))
-    k = len(stacked)
-    return int(bool(stacked) and path[:k] == stacked and len(path) > k + 1 and path[k].isdigit())
+    stacked = _stacked_prefix(path, _STACKED.get(top, ()))
+    k = len(stacked or ())
+    return int(stacked is not None and len(path) > k + 1 and path[k].isdigit())
 
 
 _OPT_STATES = {cls.__name__: cls for cls in (SgdState, AdamState, RmspropState)}
@@ -62,12 +72,13 @@ def _flatten(tree, prefix: tuple = ()) -> dict:
     return out
 
 
-def _to_state_dict(flat: dict, stacked: tuple) -> dict:
+def _to_state_dict(flat: dict, prefixes: tuple) -> dict:
     sd = {}
-    k = len(stacked)
     for path, arr in flat.items():
         arr = np.asarray(arr)
-        if stacked and path[:k] == stacked:
+        stacked = _stacked_prefix(path, prefixes)
+        if stacked is not None:
+            k = len(stacked)
             for i in range(arr.shape[0]):
                 sd[".".join(stacked + (str(i),) + path[k:])] = torch.from_numpy(np.array(arr[i]))
         else:
@@ -75,21 +86,22 @@ def _to_state_dict(flat: dict, stacked: tuple) -> dict:
     return sd
 
 
-def _from_state_dict(sd: dict, stacked: tuple) -> dict:
-    k = len(stacked)
+def _from_state_dict(sd: dict, prefixes: tuple) -> dict:
     tree: dict = {}
     layers: dict = {}
     for name, t in sd.items():
         path = tuple(name.split("."))
         arr = t.detach().cpu().numpy()
-        if stacked and path[:k] == stacked:
-            layers.setdefault(path[k + 1:], {})[int(path[k])] = arr
+        stacked = _stacked_prefix(path, prefixes)
+        if stacked is not None:
+            k = len(stacked)
+            layers.setdefault((stacked, path[k + 1:]), {})[int(path[k])] = arr
             continue
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = arr
-    for sub, per_layer in layers.items():
+    for (stacked, sub), per_layer in layers.items():
         node = tree
         for key in stacked + sub[:-1]:
             node = node.setdefault(key, {})
@@ -105,16 +117,21 @@ def _load(module: torch.nn.Module, sd: dict, what: str) -> None:
     module.load_state_dict(sd)
 
 
+def clip_from_jax(clip_np: dict, spec: CLIPSpec, *, device=None) -> CLIP:
+    """The reference's CLIP tree (``visual``, ``text``, ``logit_scale``) as
+    numpy -> the port's ``CLIP`` on ``device``."""
+    clip = CLIP(spec)
+    _load(clip, _to_state_dict(_flatten(clip_np), _STACKED["clip"]), "clip")
+    return clip.to(resolve_device(device))
+
+
 def from_jax(bundle_np: dict, bn_state_np: dict, spec: CLIPSpec, peft_cfg: PeftConfig, *,
              device=None):
     """Reference bundle ``{"clip", "peft", "head"}`` and BN state ``{"mean",
     "var"}`` as numpy -> (the port's bundle of modules, BN state tensors) on
     ``device``."""
     dev = resolve_device(device)
-    clip_np = {"visual": bundle_np["clip"]["visual"],
-               "logit_scale": bundle_np["clip"]["logit_scale"]}
-    clip = CLIP(spec)
-    _load(clip, _to_state_dict(_flatten(clip_np), _STACKED["clip"]), "clip")
+    clip = clip_from_jax(bundle_np["clip"], spec, device=dev)
 
     peft = None
     if peft_cfg.has_peft_params:
@@ -126,7 +143,7 @@ def from_jax(bundle_np: dict, bn_state_np: dict, spec: CLIPSpec, peft_cfg: PeftC
     head = Head(*kernel.shape)
     _load(head, _to_state_dict(_flatten(bundle_np["head"]), ()), "head")
 
-    bundle = {"clip": clip.to(dev), "peft": None if peft is None else peft.to(dev),
+    bundle = {"clip": clip, "peft": None if peft is None else peft.to(dev),
               "head": head.to(dev)}
     bn = {k: torch.from_numpy(np.array(bn_state_np[k], np.float32)).to(dev)
           for k in ("mean", "var")}
@@ -134,8 +151,7 @@ def from_jax(bundle_np: dict, bn_state_np: dict, spec: CLIPSpec, peft_cfg: PeftC
 
 
 def to_jax(bundle: dict, bn_state: dict):
-    """The port's bundle and BN state -> the reference's layout as numpy
-    (``clip`` holds ``visual`` and ``logit_scale``)."""
+    """The port's bundle and BN state -> the reference's layout as numpy."""
     out = {"clip": _from_state_dict(bundle["clip"].state_dict(), _STACKED["clip"]),
            "peft": None if bundle.get("peft") is None
            else _from_state_dict(bundle["peft"].state_dict(), _STACKED["peft"]),

@@ -1,8 +1,8 @@
 """A minimal yacs-compatible configuration node.
 
 A copy of ``pevit_tpu/config/cfg_node.py`` (the port imports nothing of the
-JAX package), with one change: PyYAML is imported only inside the methods
-that read or write YAML, so the port imports without it.
+JAX package), with one change: YAML is read and written by the port's own
+``yaml_subset`` module, not by PyYAML, which the card's Python lacks.
 
 The reference framework configures everything through yacs ``CfgNode`` trees
 (reference: vision_benchmark/config/default.py:7-272).  This module provides
@@ -26,6 +26,8 @@ import ast
 import copy
 import os.path as op
 from typing import Any
+
+from . import yaml_subset
 
 _FROZEN = "__frozen__"
 _NEW_ALLOWED = "__new_allowed__"
@@ -112,10 +114,8 @@ class CfgNode(dict):
     def merge_from_file(self, cfg_file: str) -> None:
         """Merge a YAML file, honouring recursive BASE includes
         (reference: vision_benchmark/config/default.py:237-249)."""
-        import yaml
-
         with open(cfg_file, "r") as f:
-            yaml_cfg = yaml.safe_load(f) or {}
+            yaml_cfg = yaml_subset.load(f.read()) or {}
         for base in yaml_cfg.pop("BASE", ["" ]) or [""]:
             if base:
                 self.merge_from_file(op.join(op.dirname(cfg_file), base))
@@ -166,9 +166,8 @@ class CfgNode(dict):
         return node
 
     def dump(self) -> str:
-        import yaml
-
-        return yaml.safe_dump(_to_plain(self), sort_keys=True)
+        """YAML text of the tree, keys sorted (``yaml_subset.dump``)."""
+        return yaml_subset.dump(_to_plain(self))
 
     def get(self, key, default=None):  # keep dict.get semantics (used for SPEC lookups)
         return super().get(key, default)

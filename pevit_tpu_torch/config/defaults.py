@@ -4,8 +4,8 @@ A copy of ``pevit_tpu/config/defaults.py``'s tree, key for key, so that
 ``TaskStatic.from_config`` and ``TrainTask`` read the same config objects on
 both stacks.  The ``TPU`` node is kept whole: the port reads ``PARITY_FP32``
 and ``COMPUTE_DTYPE`` as numeric semantics and ignores the TPU-side knobs
-(see ``train/trainer.py``).  ``update_config`` (the CLI's YAML + override +
-world-size merge) comes with the CLI slice.
+(see ``train/trainer.py``).  ``update_config`` is the CLI's YAML + override +
+world-size merge.
 
 Key-for-key compatible with the reference yacs tree
 (vision_benchmark/config/default.py:7-234) so the published dataset/model YAML
@@ -20,6 +20,8 @@ dtype, sweep parallelism); everything else is shared surface.
 """
 
 from __future__ import annotations
+
+import os.path as op
 
 from .cfg_node import CfgNode as CN
 
@@ -238,3 +240,28 @@ def get_default_config() -> CN:
     cfg = _C.clone()
     return cfg
 
+
+
+def update_config(config, args) -> None:
+    """Merge the YAML file ``args.cfg``, then the ``KEY VALUE`` overrides in
+    ``args.opts``, as the reference's update_config
+    (vision_benchmark/config/default.py:252-272): TRAIN.LR is scaled by the
+    world size (1 for the port's single process), NAME gains the file's
+    stem, and a mixup/cutmix setting turns MIXUP_PROB on."""
+    from ..utils import dist as comm
+
+    config.defrost()
+    config.merge_from_file(args.cfg)
+    config.merge_from_list(getattr(args, "opts", []) or [])
+    config.TRAIN.LR *= comm.world_size()
+    file_name, _ = op.splitext(op.basename(args.cfg))
+    config.NAME = file_name + config.NAME
+    config.RANK = comm.rank()
+
+    if "METHOD" in config.TRAIN.LR_SCHEDULER and config.TRAIN.LR_SCHEDULER.METHOD == "timm":
+        config.TRAIN.LR_SCHEDULER.ARGS = config.TRAIN.LR_SCHEDULER.get("ARGS", {})
+
+    aug = config.AUG
+    if aug.MIXUP > 0.0 or aug.MIXCUT > 0.0 or aug.MIXCUT_MINMAX:
+        aug.MIXUP_PROB = 1.0
+    config.freeze()

@@ -3,9 +3,11 @@ from .clip import (
     BlockHooks,
     CLIPSpec,
     TextSpec,
+    TextTransformer,
     VisionSpec,
     VisionTransformer,
     encode_image,
+    encode_text,
     init_clip_params,
     patchify_images,
 )
@@ -15,9 +17,11 @@ __all__ = [
     "BlockHooks",
     "CLIPSpec",
     "TextSpec",
+    "TextTransformer",
     "VisionSpec",
     "VisionTransformer",
     "encode_image",
+    "encode_text",
     "init_clip_params",
     "patchify_images",
 ]

@@ -1,10 +1,12 @@
-"""CLIP specs and the ViT visual tower.
+"""CLIP specs, the ViT visual tower and the causal text tower.
 
 Counterpart of ``pevit_tpu/core/clip.py``: the spec dataclasses (copied),
-random initialisation with the reference's distributions, and the image
+random initialisation with the reference's distributions, the image
 encoder, on normalised float images or on pre-patchified uint8 patches with
-the normalisation folded into the patch-embedding GEMM.  Blocks run as a
-plain Python loop over a ``ModuleList``.  The text tower is not ported yet.
+the normalisation folded into the patch-embedding GEMM, and the text
+encoder.  Blocks run as a plain Python loop over a ``ModuleList``.  The text
+tower carries no PEFT parameters; its attention is masked (plain PyTorch)
+and its MLP unfused, as in the reference, so it reaches no kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +20,13 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .layers import LayerNorm, ResidualAttentionBlock, layer_norm, residual_attention_block
+from .layers import (
+    LayerNorm,
+    ResidualAttentionBlock,
+    causal_mask,
+    layer_norm,
+    residual_attention_block,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +81,36 @@ class CLIPSpec:
             text=TextSpec(width=768, heads=12, layers=12, output_dim=768),
         )
 
+    @staticmethod
+    def from_config(config) -> "CLIPSpec":
+        """From a MODEL.SPEC config node (resources/model/*.yaml), for
+        random-init models; ``input_resolution`` follows TRAIN.IMAGE_SIZE."""
+        spec = config.MODEL.SPEC
+        patch = 16 if "16" in str(config.MODEL.NAME) else 32
+        vision = spec.get("VISION", {}) or {}
+        text = spec.get("TEXT", {}) or {}
+        embed = spec.get("EMBED_DIM", 512)
+        vwidth = vision.get("WIDTH", 768)
+        return CLIPSpec(
+            embed_dim=embed,
+            vision=VisionSpec(
+                input_resolution=config.TRAIN.IMAGE_SIZE[0],
+                patch_size=vision.get("PATCH_SIZE", patch),
+                width=vwidth,
+                layers=vision.get("LAYERS", 12),
+                heads=max(1, vwidth // 64),
+                output_dim=embed,
+            ),
+            text=TextSpec(
+                context_length=text.get("CONTEXT_LENGTH", 77),
+                vocab_size=text.get("VOCAB_SIZE", 49408),
+                width=text.get("WIDTH", 512),
+                heads=text.get("HEADS", 8),
+                layers=text.get("LAYERS", 12),
+                output_dim=embed,
+            ),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockHooks:
@@ -101,39 +139,70 @@ class VisionTransformer(nn.Module):
         self.proj = nn.Parameter(torch.zeros(v.width, v.output_dim))
 
 
+class TextTransformer(nn.Module):
+    """Parameters of the causal text tower (the reference's ``text``)."""
+
+    def __init__(self, t: TextSpec):
+        super().__init__()
+        self.token_embedding = nn.Parameter(torch.zeros(t.vocab_size, t.width))
+        self.positional_embedding = nn.Parameter(torch.zeros(t.context_length, t.width))
+        self.blocks = nn.ModuleList(ResidualAttentionBlock(t.width) for _ in range(t.layers))
+        self.ln_final = LayerNorm(t.width)
+        self.text_projection = nn.Parameter(torch.zeros(t.width, t.output_dim))
+
+
 class CLIP(nn.Module):
-    """The CLIP parameters this slice uses: the visual tower and logit_scale."""
+    """The CLIP parameters: the visual tower, the text tower and logit_scale."""
 
     def __init__(self, spec: CLIPSpec):
         super().__init__()
         self.visual = VisionTransformer(spec.vision)
+        self.text = TextTransformer(spec.text)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
 
+def _init_blocks(blocks: nn.ModuleList, width: int, normal) -> None:
+    proj_std = (width ** -0.5) * ((2 * len(blocks)) ** -0.5)
+    for blk in blocks:
+        normal(blk.attn.in_proj.kernel, width ** -0.5)
+        normal(blk.attn.out_proj.kernel, proj_std)
+        normal(blk.mlp.c_fc.kernel, (2 * width) ** -0.5)
+        normal(blk.mlp.c_proj.kernel, proj_std)
+
+
 def init_clip_params(generator: torch.Generator, spec: CLIPSpec, *, device=None) -> CLIP:
-    """Random CLIP visual tower with the reference's init distributions
-    (normal draws from ``generator``, a CPU generator; biases zero, LN
-    identity), moved to ``device``."""
+    """Random CLIP with the reference's init distributions (biases zero, LN
+    identity), moved to ``device``.
+
+    The visual tower is drawn from ``generator`` (a CPU generator), as it
+    was before the text tower was ported.  The text tower is drawn from its
+    own CPU generator, seeded from ``generator.initial_seed()``, so that
+    adding it changes neither the visual weights of a seed nor any later
+    draw from ``generator``."""
     dev = resolve_device(device)
-    v = spec.vision
+    v, t = spec.vision, spec.text
     clip = CLIP(spec)
-    vis = clip.visual
+    vis, txt = clip.visual, clip.text
 
-    def normal(p: nn.Parameter, std: float) -> None:
-        with torch.no_grad():
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
+    def drawer(gen: torch.Generator):
+        def normal(p: nn.Parameter, std: float) -> None:
+            with torch.no_grad():
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+        return normal
 
+    normal = drawer(generator)
     scale = v.width ** -0.5
     normal(vis.patch_embed.kernel, (3 * v.patch_size * v.patch_size) ** -0.5)
     normal(vis.class_embedding, scale)
     normal(vis.positional_embedding, scale)
-    proj_std = (v.width ** -0.5) * ((2 * v.layers) ** -0.5)
-    for blk in vis.blocks:
-        normal(blk.attn.in_proj.kernel, v.width ** -0.5)
-        normal(blk.attn.out_proj.kernel, proj_std)
-        normal(blk.mlp.c_fc.kernel, (2 * v.width) ** -0.5)
-        normal(blk.mlp.c_proj.kernel, proj_std)
+    _init_blocks(vis.blocks, v.width, normal)
     normal(vis.proj, scale)
+
+    normal = drawer(torch.Generator().manual_seed((generator.initial_seed() + 1) % 2 ** 63))
+    normal(txt.token_embedding, 0.02)
+    normal(txt.positional_embedding, 0.01)
+    _init_blocks(txt.blocks, t.width, normal)
+    normal(txt.text_projection, t.width ** -0.5)
     return clip.to(dev)
 
 
@@ -205,3 +274,24 @@ def encode_image(
     if not apply_proj:
         return x
     return x @ vp.proj.to(x.dtype)
+
+
+def encode_text(clip: CLIP, tokens: torch.Tensor, *, spec: CLIPSpec,
+                compute_dtype: torch.dtype = torch.float32, ln_eps: float = 1e-5) -> torch.Tensor:
+    """Text tower forward (reference model.py:1154-1167): (B, context_length)
+    token ids -> (B, embed_dim), read at each sequence's EOT token (its
+    highest id, the first one on ties).  Causal attention on the plain path
+    and the unfused MLP, as the reference's text tower runs them;
+    ``ln_eps`` is 1e-5 for OpenAI CLIP (1e-12 for clip_swin's text tower)."""
+    t = spec.text
+    tp = clip.text
+    dt = compute_dtype
+    x = tp.token_embedding[tokens].to(dt) + tp.positional_embedding.to(dt)
+    mask = causal_mask(t.context_length, device=x.device)
+    for blk in tp.blocks:
+        x = residual_attention_block(blk, x, n_head=t.heads, mask=mask, use_fused_mlp=False,
+                                     ln_eps=ln_eps)
+    x = layer_norm(x, tp.ln_final.scale, tp.ln_final.bias, eps=ln_eps)
+    eot = tokens.argmax(dim=-1)
+    x = x[torch.arange(x.shape[0], device=x.device), eot]
+    return x @ tp.text_projection.to(x.dtype)

@@ -1,4 +1,4 @@
-"""Transformer layers of the CLIP ViT tower.
+"""Transformer layers of the CLIP towers.
 
 Counterpart of ``pevit_tpu/core/layers.py`` (the reference-shaped path).
 Parameters live in small ``nn.Module`` containers; the math is plain
@@ -10,6 +10,10 @@ splits its C columns head-major into ``(H, hd)``.
 Numerics kept from the reference: LayerNorm statistics in float32 with the
 result cast back to the activation dtype; QuickGELU; softmax in float32; q
 scaled by 1/sqrt(hd) BEFORE the PEFT delta is added.
+
+Attention with a mask (the text tower's causal mask) is plain PyTorch, as in
+the reference (``pevit_tpu/core/layers.py:229-233``, plain XLA there); only
+mask-free attention goes through the attention kernel, which takes no mask.
 """
 
 from __future__ import annotations
@@ -96,9 +100,26 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
 DeltaFn = Callable[[torch.Tensor], tuple]
 
 
+def causal_mask(n: int, *, device=None) -> torch.Tensor:
+    """Additive causal mask, -inf above the diagonal (reference
+    model.py:1139-1145)."""
+    return torch.full((n, n), float("-inf"), device=device).triu(1)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T + mask) v on (B, N, H, hd): float32 logits, the mask
+    added, softmax, the probabilities cast to v's dtype before the product."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", probs, v)
+
+
 def multi_head_attention(p: Attention, x: torch.Tensor, *, n_head: int,
+                         mask: Optional[torch.Tensor] = None,
                          qv_delta_fn: Optional[DeltaFn] = None) -> torch.Tensor:
-    """Mask-free self-attention over x: (B, N, C).
+    """Self-attention over x: (B, N, C), with an additive (N, N) ``mask`` or
+    none.
 
     ``qv_delta_fn(x)`` receives the LN'd block input and returns per-head
     (B, H, N, hd) deltas for q and v (either may be None); the q delta is
@@ -118,16 +139,18 @@ def multi_head_attention(p: Attention, x: torch.Tensor, *, n_head: int,
             q = q + q_delta.transpose(1, 2).to(q.dtype)
         if v_delta is not None:
             v = v + v_delta.transpose(1, 2).to(v.dtype)
-    out = attention_core(q, k, v)
+    out = attention_core(q, k, v) if mask is None else masked_attention(q, k, v, mask)
     return linear(out.reshape(B, N, C), p.out_proj)
 
 
 def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_head: int,
+                             mask: Optional[torch.Tensor] = None,
                              qv_delta_fn: Optional[DeltaFn] = None,
                              use_fused_mlp: bool = True,
                              ln_eps: float = 1e-5) -> torch.Tensor:
     """One CLIP block: x + attn(LN1(x)), then LN2 -> c_fc -> QuickGELU ->
-    c_proj -> + residual, with ``ln_eps`` for both LayerNorms.
+    c_proj -> + residual, with ``ln_eps`` for both LayerNorms and an
+    additive attention ``mask`` or none.
 
     ``use_fused_mlp`` routes the MLP half through the fused residual MLP,
     whose backward gives dx only: valid only while the MLP and LN2 weights
@@ -135,7 +158,7 @@ def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_he
     ``layer_norm`` + ``mlp`` path, differentiable in every weight.  GEMM
     weights are cast to the compute dtype; the LN parameters stay float32."""
     h = layer_norm(x, p.ln_1.scale, p.ln_1.bias, eps=ln_eps)
-    x = x + multi_head_attention(p.attn, h, n_head=n_head, qv_delta_fn=qv_delta_fn)
+    x = x + multi_head_attention(p.attn, h, n_head=n_head, mask=mask, qv_delta_fn=qv_delta_fn)
     if not use_fused_mlp:
         return x + mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps))
     dt = x.dtype

@@ -5,5 +5,7 @@ from .metrics import (
     map_11_points,
     roc_auc,
 )
+from .text_features import build_prompts, extract_text_features
 
-__all__ = ["accuracy", "balanced_accuracy_score", "get_metric", "map_11_points", "roc_auc"]
+__all__ = ["accuracy", "balanced_accuracy_score", "build_prompts", "extract_text_features",
+           "get_metric", "map_11_points", "roc_auc"]

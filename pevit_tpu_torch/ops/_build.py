@@ -33,13 +33,28 @@ CUDA_ROOT = "/usr/local/cuda"  # where the toolkit sits unless CUDA_HOME says ot
 _LOCK = threading.Lock()
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C launcher returned a CUDA error: the card failed, not the
+    caller's input."""
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel's library could not be built: no ``nvcc``, or ``nvcc``
+    failed on the source."""
+
+
+class KernelInputError(ValueError):
+    """A kernel's wrapper was given CUDA tensors that its kernel does not
+    take (device, dtype, shape, layout or alignment)."""
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), CUDA_ROOT):
         if cand and (Path(cand) / "bin" / "nvcc").is_file():
             return str(Path(cand) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     return found
 
 
@@ -99,7 +114,7 @@ class Kernel:
         ``cudaGetLastError()``); raise on a CUDA error, else count it."""
         err = self._bind()(*args)
         if err != 0:
-            raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")
+            raise KernelLaunchError(f"{self.name}: CUDA launch failed with error {err}")
         self.launches += 1
 
 
@@ -110,7 +125,7 @@ def _finish(build) -> str:
     proc, tmp, out = build
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {out.name}:\n{log}")
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}) for {out.name}:\n{log}")
     os.replace(tmp, out)
     return log
 
@@ -124,10 +139,10 @@ def build_all(kernels) -> dict:
     for name, build in builds.items():
         try:
             logs[name] = _finish(build)
-        except RuntimeError as e:
+        except KernelBuildError as e:
             errors.append(str(e))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelBuildError("\n".join(errors))
     return {name: log for name, log in logs.items() if builds[name] is not None}
 
 

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ._build import Kernel, stream_ptr
+from ._build import Kernel, KernelInputError, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,26 +52,26 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     needs 16-byte aligned rows, float32 on the FMA units.  Returns a
     contiguous (B, N, H, 64) tensor."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("attention_fwd takes CUDA tensors")
+        raise KernelInputError("attention_fwd takes CUDA tensors")
     if not (q.device == k.device == v.device):
-        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+        raise KernelInputError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(f"q, k, v must share one (B, N, H, hd) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+        raise KernelInputError(f"q, k, v must share one (B, N, H, hd) shape, got "
+                               f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q, k, v must share a dtype in {list(_DTYPE_CODES)}, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise KernelInputError(f"q, k, v must share a dtype in {list(_DTYPE_CODES)}, got "
+                               f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, N, H, hd = q.shape
     if hd != HEAD_DIM:
-        raise ValueError(f"attention kernel takes head_dim {HEAD_DIM}, got {hd}")
+        raise KernelInputError(f"attention kernel takes head_dim {HEAD_DIM}, got {hd}")
     if not 0 < N <= MAX_SEQ:
-        raise ValueError(f"attention kernel takes 1 <= N <= {MAX_SEQ}, got {N}")
+        raise KernelInputError(f"attention kernel takes 1 <= N <= {MAX_SEQ}, got {N}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("attention kernel needs unit stride along head_dim")
+        raise KernelInputError("attention kernel needs unit stride along head_dim")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
                                          for t in (q, k, v)):
-        raise ValueError("the bfloat16 attention kernel copies 16-byte rows: q, k, v need "
-                         "16-byte aligned base pointers and strides that are multiples of 8")
+        raise KernelInputError("the bfloat16 attention kernel copies 16-byte rows: q, k, v need "
+                               "16-byte aligned base pointers and strides that are multiples of 8")
     out = torch.empty((B, N, H, hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from ._build import Kernel, stream_ptr
+from ._build import Kernel, KernelInputError, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,26 +93,26 @@ def _check(name, x, weights: dict) -> tuple:
     returns (R, C, F)."""
     tensors = (x, *weights.values())
     if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError(f"{name} takes CUDA tensors on one device")
+        raise KernelInputError(f"{name} takes CUDA tensors on one device")
     if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name} takes {list(_DTYPE_CODES)}, got {x.dtype}")
+        raise KernelInputError(f"{name} takes {list(_DTYPE_CODES)}, got {x.dtype}")
     if any(t.dtype != x.dtype for n, t in weights.items() if not n.startswith("ln")):
-        raise ValueError("wfc, bfc, wproj, bproj must have x's dtype")
+        raise KernelInputError("wfc, bfc, wproj, bproj must have x's dtype")
     if weights["ln_scale"].dtype != torch.float32 or weights["ln_bias"].dtype != torch.float32:
-        raise ValueError("ln scale and bias must be float32")
+        raise KernelInputError("ln scale and bias must be float32")
     C = x.shape[-1]
     F = weights["wfc"].shape[-1]
     if C not in WIDTHS:
-        raise ValueError(f"fused MLP kernel takes C in {WIDTHS}, got {C}")
+        raise KernelInputError(f"fused MLP kernel takes C in {WIDTHS}, got {C}")
     if F % HIDDEN_MULTIPLE:
-        raise ValueError(f"fused MLP kernel takes F a multiple of {HIDDEN_MULTIPLE}, got {F}")
+        raise KernelInputError(f"fused MLP kernel takes F a multiple of {HIDDEN_MULTIPLE}, got {F}")
     shapes = {"wfc": (C, F), "bfc": (F,), "wproj": (F, C), "bproj": (C,),
               "ln_scale": (C,), "ln_bias": (C,)}
     for n, t in weights.items():
         if tuple(t.shape) != shapes[n]:
-            raise ValueError(f"{n} must be {shapes[n]}, got {tuple(t.shape)}")
+            raise KernelInputError(f"{n} must be {shapes[n]}, got {tuple(t.shape)}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} takes contiguous tensors")
+        raise KernelInputError(f"{name} takes contiguous tensors")
     return x.numel() // C, C, F
 
 
@@ -126,8 +126,8 @@ def fwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
 
 def _check_aligned(name, *tensors):
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the bfloat16 {name} copies 16-byte chunks: its activations and both "
-                         "weight matrices need 16-byte aligned base pointers")
+        raise KernelInputError(f"the bfloat16 {name} copies 16-byte chunks: its activations "
+                               "and both weight matrices need 16-byte aligned base pointers")
 
 
 def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-5):
@@ -168,10 +168,10 @@ def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     weights = dict(zip(_WEIGHTS[:5], (ln_scale, ln_bias, wfc, bfc, wproj)))
     R, C, F = _check("fused_mlp_bwd", x, weights)
     if not (dy.is_cuda and dy.device == x.device and dy.is_contiguous()):
-        raise ValueError("fused_mlp_bwd takes contiguous CUDA tensors on one device")
+        raise KernelInputError("fused_mlp_bwd takes contiguous CUDA tensors on one device")
     if dy.shape != x.shape or dy.dtype != x.dtype:
-        raise ValueError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
-                         f"{tuple(x.shape)} {x.dtype}")
+        raise KernelInputError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
+                               f"{tuple(x.shape)} {x.dtype}")
     if x.dtype == torch.bfloat16:
         _check_aligned("fused MLP backward", dy, x, wfc, wproj)
     dx = torch.empty_like(x)

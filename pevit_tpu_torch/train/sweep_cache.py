@@ -1,0 +1,133 @@
+"""On-disk sweep trial-score cache: a sweep or a campaign resumes after a
+crash.
+
+Counterpart of ``pevit_tpu/train/sweep_cache.py``: every finished trial's
+score is appended to a JSONL file keyed by a fingerprint of (config, data
+digest, epochs, seed), so that a re-run replays the finished trials and
+trains only the rest; selection is recomputed from the scores, never cached.
+
+The fingerprint follows the reference's rules: it covers the config's dump
+with the pure-output paths blanked, the split shapes and dtypes, every label
+and a strided pixel sample of the images, whether they lie in numpy or in a
+tensor on any device, and ``SEMANTICS_VERSION``.  It is built on the port's
+own config dump, so it is not the reference's fingerprint, and a cache
+written by one package is never read by the other.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+from typing import Optional
+
+import numpy as np
+
+from ..utils.device import to_numpy
+
+# config keys that name OUTPUT locations: they cannot change a trial's score
+_VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CACHE_DIR"))
+
+# The port's training and evaluation semantics version, part of every sweep
+# and job fingerprint.  Bump it on any change that can alter trial scores,
+# best-epoch selection or final accuracies under an unchanged config and
+# data.  History:
+#   1  the port's first sweep and command
+SEMANTICS_VERSION = 1
+
+
+def _dtype_name(arr) -> str:
+    return str(arr.dtype).removeprefix("torch.")
+
+
+def _sample_bytes(arr, max_rows: int = 64) -> bytes:
+    """A strided row sample: slicing before the copy keeps a split on the
+    card to ``max_rows`` rows of transfer."""
+    n = int(arr.shape[0]) if arr.ndim else 1
+    stride = max(1, n // max_rows)
+    return np.ascontiguousarray(to_numpy(arr[::stride])).tobytes()
+
+
+def data_fingerprint(data) -> str:
+    h = hashlib.sha256()
+    for arr in data:
+        if arr is None:
+            h.update(b"none")
+            continue
+        h.update(str(tuple(arr.shape)).encode())
+        h.update(_dtype_name(arr).encode())
+        # labels are small: hash them whole; images get the strided sample
+        full = arr.ndim <= 2 and int(np.prod(arr.shape)) <= 1_000_000
+        h.update(np.ascontiguousarray(to_numpy(arr)).tobytes() if full else _sample_bytes(arr))
+    return h.hexdigest()
+
+
+def sweep_fingerprint(config, data, end_epoch: int, seed: int) -> str:
+    cfg = config.clone()
+    cfg.defrost()
+    for path in _VOLATILE_KEYS:
+        node = cfg
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = ""
+    h = hashlib.sha256()
+    h.update(f"semantics={SEMANTICS_VERSION};".encode())
+    h.update(cfg.dump().encode())
+    h.update(f"end_epoch={end_epoch};seed={seed};".encode())
+    h.update(data_fingerprint(data).encode())
+    return h.hexdigest()[:24]
+
+
+class SweepCache:
+    """Append-only JSONL score store for one sweep fingerprint, keyed by the
+    exact repr of (lr, wd) (both runs derive the grid from one
+    ``np.logspace``)."""
+
+    def __init__(self, directory: str, fingerprint: str):
+        self.path = os.path.join(directory, f"sweep_{fingerprint}.jsonl")
+        self._scores: dict[tuple[str, str], float] = {}
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(self.path):
+            with open(self.path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                        self._scores[(rec["lr"], rec["wd"])] = float(rec["score"])
+                    except (ValueError, KeyError):
+                        # a run killed mid-write leaves one truncated last line
+                        logging.warning("sweep cache %s: skipping corrupt line", self.path)
+            if self._scores:
+                logging.info("sweep cache %s: resuming with %d finished trials",
+                             self.path, len(self._scores))
+
+    @staticmethod
+    def _key(lr: float, wd: float) -> tuple[str, str]:
+        return (repr(float(lr)), repr(float(wd)))
+
+    def __len__(self) -> int:
+        return len(self._scores)
+
+    def get(self, lr: float, wd: float) -> Optional[float]:
+        return self._scores.get(self._key(lr, wd))
+
+    def put(self, lr: float, wd: float, score: float) -> None:
+        k = self._key(lr, wd)
+        self._scores[k] = float(score)
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"lr": k[0], "wd": k[1], "score": float(score)}) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+
+
+def open_sweep_cache(config, data, end_epoch: int, seed: int) -> Optional[SweepCache]:
+    """The cache when ``TPU.SWEEP_CACHE_DIR`` names a directory, else None
+    (``auto`` is resolved to ``<run output dir>/sweep_cache`` by the
+    command; a library caller that never resolved it gets no cache)."""
+    directory = str(config.TPU.get("SWEEP_CACHE_DIR", "") or "")
+    if not directory or directory == "auto":
+        return None
+    return SweepCache(directory, sweep_fingerprint(config, data, end_epoch, seed))

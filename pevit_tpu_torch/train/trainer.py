@@ -46,18 +46,24 @@ from ..peft.base import (
     peft_num_params,
     peft_trainable_filter,
 )
-from ..utils.device import compute_dtype, resolve_device
+from ..utils.device import compute_dtype, resolve_device, to_numpy
 from .head import head_forward, init_bn_state, init_head
 from .optim import build_wd_mask, clip_grad_norm, make_optimizer, step_decay_lr
 from .partition import combine, count_params, named_parameters, partition
 
 # TPU-side knobs the port reads from the config and ignores, with their
-# defaults.  FAST_LN changes numerics in the reference (LayerNorm statistics
-# in the activation dtype); the others change only how XLA schedules the
-# same math (remat, unrolling, layouts, a concatenated delta GEMM, folding
-# LN2's affine into c_fc) or pick a kernel the port always runs.
+# defaults.  FAST_LN and FAST_LN_SWEEP change numerics in the reference
+# (LayerNorm statistics in the activation dtype, for the whole run or for
+# the sweep's trials); the others change only how XLA schedules the same
+# math (remat, unrolling, layouts, a concatenated delta GEMM, folding LN2's
+# affine into c_fc), pick a kernel the port always runs, or lay trials and
+# batches over a device mesh (the port runs on one card).
 IGNORED_TPU_KNOBS = {
     "FAST_LN": False,
+    "FAST_LN_SWEEP": False,
+    "SWEEP_TRIALS_OVER_MESH": True,
+    "MESH_DATA": -1,
+    "MESH_MODEL": 1,
     "FOLD_LN2": False,
     "SCAN_UNROLL": 0,
     "STEP_UNROLL": 1,
@@ -436,10 +442,14 @@ class TrainTask:
         trainable, frozen = partition(bundle, trainable_pred(st))
         return trainable, frozen, init_bn_state(st.head_dim, device=self.device)
 
+    def max_parallel_trials(self) -> int:
+        """The sweep's trial chunk: TPU.SWEEP_PARALLEL_TRIALS (one card; the
+        chunk's trials run one after another)."""
+        return max(1, self.config.TPU.SWEEP_PARALLEL_TRIALS)
+
     def model_info(self, trainable) -> dict:
-        """Parameter counts.  The port's CLIP holds the visual tower and the
-        logit scale only (no text tower), so ``n_backbone_params`` and
-        ``n_params`` count those."""
+        """Parameter counts, as the reference's (kadaptation_clip.py:284-289):
+        the backbone is the whole CLIP (both towers and its logit scale)."""
         st = self.static
         clip_n = count_params(self.clip)
         peft_n = peft_num_params(st.peft_cfg, st.spec)
@@ -483,7 +493,7 @@ class TrainTask:
 
     def _labels(self, labels) -> torch.Tensor:
         dt = torch.float32 if self.static.multilabel else torch.long
-        return torch.as_tensor(np.asarray(labels)).to(self.device, dt)
+        return torch.as_tensor(labels).to(self.device, dt)
 
     def _score(self, labels_np: np.ndarray, probs: np.ndarray) -> float:
         try:
@@ -503,7 +513,7 @@ class TrainTask:
         logits = torch.cat([one_chunk(bundle, bn_state, self.prepack(images_u8[s:s + self.eval_chunk]))
                             for s in range(0, n, self.eval_chunk)])
         probs = _softmax(logits.cpu().numpy())
-        return self._score(np.asarray(labels), probs), probs
+        return self._score(to_numpy(labels), probs), probs
 
     # -- training ------------------------------------------------------------
 
@@ -516,17 +526,20 @@ class TrainTask:
         Trial t's PEFT parameters and head come from a CPU generator seeded
         ``seed * 1_000_003 + 2 t``, its epoch orders and dropout seeds from
         one seeded ``+ 1``.  Returns per-trial dicts {"best_score", "last_score",
-        "best_logits"}; ``last_bundle`` and ``last_state`` then hold the
-        last trial's trained bundle and state."""
+        "best_logits"}; ``last_trainable``, ``last_bundle`` and ``last_state``
+        then hold the last trial's trainable partition, trained bundle and
+        state."""
         n_train = len(train_labels)
         n_val = len(val_labels)
         n_epochs = end_epoch - begin_epoch
         results = [{"best_score": 0.0, "last_score": 0.0, "best_logits": None} for _ in hparams]
         if n_epochs <= 0:
+            self.last_trainable, _, _ = self.init_bundle(
+                torch.Generator().manual_seed(seed * 1_000_003 + 2 * (len(hparams) - 1)))
             return results
         images, labels = self.prepack(train_images), self._labels(train_labels)
         val = self.prepack(val_images)
-        labels_np = np.asarray(val_labels)
+        labels_np = to_numpy(val_labels)
         schedule = list(self.config.TRAIN.SCHEDULE or [])
         fit_eval = self._fit_eval_fn(n_train, n_epochs, n_val)
         for t, (lr, wd) in enumerate(hparams):
@@ -556,5 +569,6 @@ class TrainTask:
             if log_every:
                 logging.info("=> trial %d: %d epochs in %.2fs | best %.3f", t, n_epochs, run_s,
                              res["best_score"])
+            self.last_trainable = trainable
             self.last_bundle, self.last_state = combine(trainable, frozen), state
         return results

@@ -6,6 +6,7 @@ name (the tests do); no entry point picks it by itself when CUDA is absent.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -34,6 +35,11 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_numpy(x) -> np.ndarray:
+    """A numpy copy of an array, or of a tensor on any device."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def compute_dtype(name: str) -> torch.dtype:

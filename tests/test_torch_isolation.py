@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the reference package
-(nor scikit-learn or PyYAML, which the card's installation lacks, at import
-time), its kernel modules import without nvcc, and its entry points do not
-pick the CPU by themselves."""
+(nor scikit-learn, PyYAML, regex or PIL, which the card's installation
+lacks, at import time), it reads and writes its config and tokenizes with
+all four of them blocked, its kernel modules import without nvcc, and its
+entry points do not pick the CPU by themselves."""
 
 import ast
 import os
@@ -19,7 +20,8 @@ from pevit_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "pevit_tpu")
-NOT_AT_IMPORT = FORBIDDEN + ("sklearn", "yaml")  # the config imports yaml inside its YAML reader
+NOT_AT_IMPORT = FORBIDDEN + ("sklearn", "yaml", "regex", "PIL")  # PIL only inside image decoders
+MISSING_ON_THE_CARD = ("yaml", "regex", "PIL", "sklearn")
 
 
 def _port_modules():
@@ -50,6 +52,28 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_config_and_tokenizer_work_without_the_cards_missing_packages():
+    """With PyYAML, regex, PIL and scikit-learn blocked, as on the card:
+    every module imports, the model YAML is read, the config dumps and
+    reads back, and a prompt tokenizes."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {MISSING_ON_THE_CARD!r}: sys.modules[name] = None\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "from pevit_tpu_torch.config import get_default_config\n"
+        "from pevit_tpu_torch.config.yaml_subset import load\n"
+        "from pevit_tpu_torch.data.tokenizer import tokenize\n"
+        "cfg = get_default_config()\n"
+        "cfg.merge_from_file('resources/model/vitb32_CLIP.yaml')\n"
+        "assert cfg.MODEL.SPEC.TEXT.WIDTH == 512 and load(cfg.dump())['TRAIN']['END_EPOCH'] == 10\n"
+        "print(tokenize('a photo of a cat')[0, :7].tolist())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[49406, 320, 1125, 539, 320, 2368, 49407]"
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py"] + [

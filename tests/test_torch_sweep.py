@@ -1,0 +1,228 @@
+"""The port's sweep and ``run_method`` against pevit_tpu/train/sweep.py,
+driven by the fake task of tests/test_sweep_semantics.py:
+
+* ``hyperparameter_sweep_lr`` picks the same (lr, wd) as the JAX sweep and
+  asks the task for the same chunks of jobs, on the 8 score surfaces;
+* a trial failing with anything but a device error scores 0.0; a device
+  error (the card out of memory, a kernel that fails to build, refuses its
+  inputs or fails to launch, an accelerator error, a plain RuntimeError of
+  a CUDA error) raises, on a chunk of 8 and on a chunk of 1, and is never
+  halved; an nvcc failure inside a chunk aborts the whole sweep;
+* the score cache replays a finished sweep without training and resumes a
+  cut one, and its fingerprint follows the reference's invalidation rules,
+  for arrays and tensors alike;
+* ``run_method`` hands the task the same final run as JAX's ``run_method``
+  (merged train+val or not, the patch-camelyon regeneration), with tensors
+  on the port's side.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pevit_tpu.config import get_default_config as jax_defaults
+from pevit_tpu.train import sweep as jsweep
+from pevit_tpu_torch.config import get_default_config
+from pevit_tpu_torch.ops import _build
+from pevit_tpu_torch.ops._build import KernelBuildError, KernelInputError, KernelLaunchError
+from pevit_tpu_torch.ops.fused_mlp import _check_aligned
+from pevit_tpu_torch.train import sweep as psweep
+from pevit_tpu_torch.train.sweep_cache import SweepCache, open_sweep_cache, sweep_fingerprint
+
+from .test_sweep_semantics import FakeTask
+
+
+def _surface(seed):
+    rng = np.random.default_rng(seed)
+    lr_star, wd_star = 10 ** rng.uniform(-6, -1), 10 ** rng.uniform(-6, 6)
+
+    def score_fn(lr, wd):
+        d = (np.log10(lr / lr_star)) ** 2 + 0.1 * (np.log10(wd / wd_star)) ** 2
+        return float(100 * np.exp(-d / 4))
+
+    return score_fn
+
+
+def _cfg(make, **tpu):
+    cfg = make()
+    cfg.defrost()
+    for k, v in tpu.items():
+        cfg.TPU[k] = v
+    return cfg
+
+
+@pytest.mark.parametrize("wd_search_left", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_sweep_picks_and_asks_as_jax(seed, wd_search_left):
+    score_fn = _surface(seed)
+    tasks = {}
+    picks = {}
+    for name, make, mod in (("jax", jax_defaults, jsweep), ("port", get_default_config, psweep)):
+        cfg = _cfg(make, SWEEP_PARALLEL_TRIALS=8)
+        cfg.TRAIN.WD_SEARCH_LEFT = wd_search_left
+        tasks[name] = FakeTask(cfg, score_fn)
+        picks[name] = mod.hyperparameter_sweep_lr(tasks[name], (None,) * 4, cfg)
+    assert picks["port"] == picks["jax"]
+    assert tasks["port"].calls == tasks["jax"].calls
+    assert 42 <= sum(len(c) for c in tasks["port"].calls) <= 90
+
+
+def test_non_device_error_scores_zero():
+    class BoomTask(FakeTask):
+        def train_trials(self, hparams, *a, **k):
+            self.calls.append(list(hparams))
+            raise RuntimeError("boom")
+
+    task = BoomTask(get_default_config(), lambda lr, wd: 1.0)
+    assert psweep._run_stage(task, [(0.1, 1.0), (0.2, 2.0)], (None,) * 4, 1, 0, 8) == [0.0, 0.0]
+
+
+def _device_errors():
+    errors = [torch.cuda.OutOfMemoryError("CUDA out of memory"), KernelLaunchError("launch"),
+              KernelBuildError("nvcc failed"), KernelInputError("unaligned bf16 rows"),
+              RuntimeError("CUDA error: an illegal memory access was encountered")]
+    if hasattr(torch, "AcceleratorError"):
+        errors.append(torch.AcceleratorError("CUDA error: an illegal memory access"))
+    return errors
+
+
+@pytest.mark.parametrize("width", [8, 1])
+@pytest.mark.parametrize("error", _device_errors(), ids=lambda e: type(e).__name__)
+def test_device_error_raises_and_is_never_halved(width, error):
+    class DeviceTask(FakeTask):
+        def train_trials(self, hparams, *a, **k):
+            self.calls.append(list(hparams))
+            raise error
+
+    task = DeviceTask(get_default_config(), lambda lr, wd: 1.0)
+    jobs = [(float(i), float(i) / 10) for i in range(width)]
+    with pytest.raises(type(error)):
+        psweep._run_stage(task, jobs, (None,) * 4, end_epoch=1, seed=0, max_parallel=8)
+    assert task.calls == [jobs]
+
+
+def test_kernel_build_failure_aborts_the_sweep(tmp_path, monkeypatch):
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\necho 'error: this nvcc always fails'\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(nvcc.parents[1]))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    kernel = _build.Kernel("attention_fwd", "attention_fwd.cu", [], replaces="")
+
+    class BuildingTask(FakeTask):
+        def train_trials(self, hparams, *a, **k):
+            self.calls.append(list(hparams))
+            kernel.launch()  # builds the library first, with the failing nvcc
+
+    cfg = _cfg(get_default_config, SWEEP_PARALLEL_TRIALS=8)
+    task = BuildingTask(cfg, lambda lr, wd: 1.0)
+    with pytest.raises(KernelBuildError, match="always fails"):
+        psweep.hyperparameter_sweep_lr(task, (None,) * 4, cfg)
+    assert len(task.calls) == 1 and len(task.calls[0]) == 8 and kernel.launches == 0
+
+
+def test_kernel_wrappers_refuse_inputs_with_kernel_input_error():
+    x = torch.zeros(65, dtype=torch.bfloat16)
+    _check_aligned("fused MLP forward", x[:64])
+    with pytest.raises(KernelInputError, match="16-byte"):
+        _check_aligned("fused MLP forward", x[1:])
+    assert psweep.is_device_error(KernelInputError("x"))
+    assert not psweep.is_device_error(RuntimeError("boom"))
+    assert not psweep.is_device_error(ValueError("CUDA error: not a RuntimeError"))
+
+
+def _data(seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 255, (16, 8, 8, 3), dtype=np.uint8), rng.integers(0, 4, 16).astype(np.int32),
+            rng.integers(0, 255, (4, 8, 8, 3), dtype=np.uint8), rng.integers(0, 4, 4).astype(np.int32))
+
+
+def test_cache_replays_and_resumes(tmp_path):
+    cfg = _cfg(get_default_config, SWEEP_CACHE_DIR=str(tmp_path / "cache"), SWEEP_PARALLEL_TRIALS=8)
+    score_fn = _surface(5)
+    first = FakeTask(cfg, score_fn)
+    got = psweep.hyperparameter_sweep_lr(first, _data(), cfg)
+    n_first = sum(len(c) for c in first.calls)
+
+    replay = FakeTask(cfg, lambda lr, wd: 1.0 / 0.0)  # any training call fails the test
+    assert psweep.hyperparameter_sweep_lr(replay, _data(), cfg) == got and replay.calls == []
+
+    (cache_file,) = list((tmp_path / "cache").iterdir())
+    lines = cache_file.read_text().splitlines()
+    cache_file.write_text("\n".join(lines[: len(lines) // 2]) + '\n{"lr": "1e-3", "wd"')
+    resumed = FakeTask(cfg, score_fn)
+    assert psweep.hyperparameter_sweep_lr(resumed, _data(), cfg) == got
+    assert 0 < sum(len(c) for c in resumed.calls) < n_first
+
+
+def test_fingerprint_invalidation_and_placement():
+    cfg = get_default_config()
+    data = _data()
+    base = sweep_fingerprint(cfg, data, end_epoch=10, seed=0)
+    assert sweep_fingerprint(cfg, tuple(torch.from_numpy(a) for a in data), 10, 0) == base
+    assert sweep_fingerprint(cfg, data, 10, 1) != base
+    assert sweep_fingerprint(cfg, data, 11, 0) != base
+    assert sweep_fingerprint(cfg, _data(seed=5), 10, 0) != base
+    changed = cfg.clone()
+    changed.TRAIN.BATCH_SIZE_PER_GPU += 1
+    assert sweep_fingerprint(changed, data, 10, 0) != base
+    moved = cfg.clone()
+    moved.OUTPUT_DIR, moved.TPU.CHECKPOINT_DIR, moved.TPU.SWEEP_CACHE_DIR = "/else", "/ck", "/c"
+    assert sweep_fingerprint(moved, data, 10, 0) == base
+    assert open_sweep_cache(cfg, data, 10, 0) is None  # 'auto' unresolved: no cache
+
+
+def test_cache_keys_are_exact(tmp_path):
+    c = SweepCache(str(tmp_path), "fp")
+    c.put(1e-3, 0.5, 42.0)
+    again = SweepCache(str(tmp_path), "fp")
+    assert again.get(1e-3, 0.5) == 42.0 and again.get(1e-3, 0.5000001) is None and len(again) == 1
+
+
+class RecordingTask(FakeTask):
+    """Records what the final run is handed; satisfies both run_methods."""
+
+    def train_trials(self, hparams, *a, **k):
+        self.calls.append((list(hparams), [np.asarray(x) for x in a], dict(k)))
+        self._last_state = ({"w": np.zeros((1, 3), np.float32)},)
+        self.last_trainable = {"w": None}
+        n = len(a[3])
+        return [{"best_score": 50.0, "last_score": 40.0,
+                 "best_logits": np.full((n, 4), 0.25, np.float32)}]
+
+    def model_info(self, trainable):
+        return {"n_trainable_params": 3}
+
+
+@pytest.mark.parametrize("case", ["merge", "no_merge", "patch_camelyon"])
+def test_run_method_hands_the_same_final_run(case):
+    data = _data(1) + _data(2)[2:]
+    calls = {}
+    for name, make, mod, wrap in (("jax", jax_defaults, jsweep, np.asarray),
+                                  ("port", get_default_config, psweep, torch.from_numpy)):
+        cfg = _cfg(make)
+        cfg.DATASET.MERGE_TRAIN_VAL_FINAL_RUN = case != "no_merge"
+        cfg.TRAIN.END_EPOCH, cfg.TRAIN.EXTRA_FINAL_TRAIN_EPOCH, cfg.TRAIN.BEGIN_EPOCH = 3, 4, 1
+        if case == "patch_camelyon":
+            cfg.DATASET.DATASET, cfg.DATASET.NUM_SAMPLES_PER_CLASS = "patch-camelyon", 10000
+        cfg.freeze()
+        task = RecordingTask(cfg, lambda lr, wd: 0.0)
+        arrays = tuple(wrap(x) for x in data)
+        score, info = mod.run_method(task, arrays, cfg, no_tuning=True, lr=0.01, l2=0.5, seed=3,
+                                     rebuild_data=lambda: tuple(wrap(x) for x in _data(7) + _data(8)[2:]))
+        calls[name] = (task.calls, score, info, cfg.DATASET.NUM_SAMPLES_PER_CLASS)
+    (jcalls, jscore, jinfo, jshots), (pcalls, pscore, pinfo, pshots) = calls["jax"], calls["port"]
+    assert len(pcalls) == len(jcalls) == 1
+    assert pcalls[0][0] == jcalls[0][0] and pcalls[0][2] == jcalls[0][2]
+    for g, w in zip(pcalls[0][1], jcalls[0][1]):
+        np.testing.assert_array_equal(g, w)
+    assert pscore == jscore and pshots == jshots
+    assert pinfo["best_lr"] == jinfo["best_lr"] and pinfo["best_l2_lambda"] == jinfo["best_l2_lambda"]
+    np.testing.assert_array_equal(pinfo["best_logits"], jinfo["best_logits"])
+
+
+def test_checkpoint_dir_raises():
+    cfg = _cfg(get_default_config, CHECKPOINT_DIR="/somewhere")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        psweep.run_method(RecordingTask(cfg, None), (None,) * 6, cfg, no_tuning=True, lr=0.1, l2=0.1)

@@ -1,12 +1,17 @@
 #!/usr/bin/env python
-"""Device profile of the PyTorch port's two hot loops on one CUDA card.
+"""Device profile of the PyTorch port's three hot loops on one CUDA card.
 
     python3 tools/profile_port_step.py
 
 The loops and models are those of ``chip_smoke.py``: a bf16 serving forward
-of the ViT-B/32 KAdaptation classifier at batch 256 (phase 4) and a bf16
+of the ViT-B/32 KAdaptation classifier at batch 256 (phase 4), a bf16
 KAdaptation train step at batch 128 with dropout 0.5 on H (phase 5), with
-random weights from seed 0.  For each loop it prints one JSON line:
+random weights from seed 0, and one trial of the command's sweep (phase 6):
+the task and splits that ``kronecker_adaptation_clip`` builds from
+``chip_smoke.command_argv`` (5-shot synthetic cifar-10, ``vitb32_CLIP.yaml``,
+the head from text features), trained by ``TrainTask.train_trials`` for
+END_EPOCH epochs of one 40-image step and one 10-image eval chunk each, as
+the sweep trains every trial.  For each loop it prints one JSON line:
 
 * ``wall_ms``: host clock around ``reps`` synchronised iterations, per
   iteration, without the profiler;
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -85,6 +91,45 @@ def device_profile(name: str, fn, reps: int, top: int = 12) -> dict:
             "top": [[n[:90], c / reps, ms / reps] for n, (c, ms) in ranked]}
 
 
+def command_task(tmp: Path, device: str = "cuda"):
+    """The command's task, splits and config, built as
+    ``run_training_command`` builds them from ``chip_smoke.command_argv``."""
+    import argparse
+
+    from pevit_tpu_torch.ckpt import load_clip
+    from pevit_tpu_torch.commands._common import (EXP_PREFIX, add_common_args,
+                                                  apply_shared_dataset_tweaks, load_device_data,
+                                                  setup_config)
+    from pevit_tpu_torch.core.clip import CLIPSpec
+    from pevit_tpu_torch.evaluation import extract_text_features
+    from pevit_tpu_torch.peft import PeftConfig
+    from pevit_tpu_torch.train import TaskStatic, TrainTask
+
+    args = add_common_args(argparse.ArgumentParser()).parse_args(cs.command_argv(tmp))
+    config = setup_config(args)
+    apply_shared_dataset_tweaks(config, EXP_PREFIX["kadaptation"])
+    data = load_device_data(config, device)
+    clip, spec = load_clip(config.MODEL.NAME, checkpoint_path=config.MODEL.PRETRAINED,
+                           seed=args.fix_seed, spec_hint=CLIPSpec.from_config(config),
+                           device=device)
+    static = TaskStatic.from_config(config, spec, PeftConfig(method="kadaptation"))
+    task = TrainTask(config, static, clip, device=device,
+                     text_init_weights=extract_text_features(config, clip, spec))
+    return task, data, config
+
+
+def sweep_trial(task, data, config):
+    """One sweep trial (the first coarse point of the first learning rate),
+    as ``train.sweep`` trains it."""
+    from pevit_tpu_torch.train.sweep import wd_grid
+
+    grid, init_idx = wd_grid(config)
+    train_x, train_y, val_x, val_y = data[:4]
+    return lambda: task.train_trials([(1e-6, grid[init_idx[0]])], train_x, train_y, val_x,
+                                     val_y, end_epoch=config.TRAIN.END_EPOCH,
+                                     begin_epoch=config.TRAIN.BEGIN_EPOCH)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port_step: CUDA is not available; this script runs on a CUDA card",
@@ -126,6 +171,15 @@ def main() -> int:
 
     prof = device_profile(f"train epoch of 3 steps, bf16, batch {st.batch_size}", three_steps,
                           reps=3)
+    print(json.dumps({**prof, "card": card}), flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="profile_port_step_") as tmp:
+        task, data, config = command_task(Path(tmp))
+        n_train, n_val = len(data[1]), len(data[3])
+        prof = device_profile(f"command sweep trial, {config.TPU.COMPUTE_DTYPE}: "
+                              f"{config.TRAIN.END_EPOCH} epochs of {n_train} train images "
+                              f"(batch {task.static.batch_size}) and {n_val} val images",
+                              sweep_trial(task, data, config), reps=3)
     print(json.dumps({**prof, "card": card}), flush=True)
     return 0
 
