@@ -55,23 +55,46 @@ on):
    sweep on, the head initialised from text features, ``vitb32_CLIP.yaml``
    at full width and depth: 224 px, 12 x 768 vision and 12 x 512 text
    layers, 10 sweep epochs and 50 final ones), random weights and the
-   synthetic cifar-10 split (no dataset or checkpoint is in the repo).
-   Checks: the JSON and TXT artifacts have the reference's schema;
-   ``predictions`` is (160, 10) with rows summing to 1; the sweep cache
-   holds 42 to 90 trials and the chosen (lr, wd) is the reference walk's
-   over those scores; K1, K2 and K3 launch exactly as often as the sweep's
-   and the final run's steps and eval chunks ask; the text features on the
-   card match the same tower's on the CPU within 1e-4 of their largest
-   value; a second run replays from the completion sidecar, with no launch,
-   in under a minute.  Times of the text features, the sweep (per trial),
-   the final run (train images/s) and the whole phase are printed.  Then
-   each kernel is held against its plain version, in the command's dtype,
-   at every batch the command gave it (each train-step size for all three,
-   each eval-chunk size for K1 and K2), and timed there;
-7. report: one ``{"kernels": [...]}`` line: launches from phase 6, the
-   other numbers at the phase-6 batch that launched the kernel most, every
-   phase-6 batch under ``by_shape``; then the ``{"ok": true, ...}`` line
-   last.
+   synthetic cifar-10 split (no dataset or checkpoint is in the repo), and
+   ``TPU.CHECKPOINT_DIR`` set.  Checks: the JSON and TXT artifacts have the
+   reference's schema; ``predictions`` is (160, 10) with rows summing to 1;
+   the sweep cache holds 42 to 90 trials and the chosen (lr, wd) is the
+   reference walk's over those scores; K1, K2 and K3 launch exactly as often
+   as the sweep's and the final run's steps and eval chunks ask; the saved
+   ``step_50.npz`` restores, bit for bit, the state the final run trained;
+   the text features on the card match the same tower's on the CPU within
+   1e-4 of their largest value; a second run replays from the completion
+   sidecar, with no launch, in under a minute.  Times of the text features,
+   the sweep (per trial), the final run (train images/s) and the whole
+   phase are printed.  Then each kernel is held against its plain version,
+   in the command's dtype, at every batch the command gave it (each
+   train-step size for all three, each eval-chunk size for K1 and K2), and
+   timed there;
+7. the other entry points, at full ViT-B/32 width and depth on synthetic
+   cifar-10: a seeded CLIP written as an OpenAI-layout checkpoint (a
+   ``torch.save`` pickle and the same inside ``{"state_dict": ...}``), each
+   read by ``load_clip`` onto the card bit for bit (load seconds and file
+   size printed); ``commands.zeroshot.main`` (K1 and K2 in fp32, 12 launches
+   per 256-image chunk; image features within 1e-4 of the plain path's on
+   the card; a second run replays the feature cache with no launch);
+   ``commands.linear_probe.main`` with ``--no-tuning True`` and with
+   ``--emulate-zeroshot True`` (K1 and K2 exactly as the steps and eval
+   chunks ask, K3 never; the emulation takes no train step);
+   ``commands.finetune.main`` with ``--no-tuning True`` and 2 + 1 epochs (a
+   cut for the time limit; K1 only; first-step gradients of the visual tower
+   kernel vs plain path, fp32 within 1e-3 of each leaf's largest |g|, bf16
+   cosine >= 0.99, except ln_post's bias, whose gradient the head's BN
+   cancels: rounding noise, held in fp32 within 1e-3 of the largest |g| of
+   the tower; the pretrained tower and the text tower unchanged bit for bit
+   after the run; trainable parameters = visual tower + head); each
+   kernel held against its plain version at every batch each of these paths
+   gave it; and the C++ resampler built with g++ on the card's host,
+   resizing a seeded batch of non-square images to 224 (images/s printed);
+8. report: one ``{"kernels": [...]}`` line: launches from phases 6 and 7,
+   summed and by path (each path's counts are zeroed just before it and read
+   just after), the other numbers at the batch that launched the kernel
+   most, every path's batches under ``by_shape``; then the ``{"ok": true,
+   ...}`` line last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
 """
@@ -557,8 +580,12 @@ def first_step_grads(task, images, labels) -> dict:
             for (n, p), g in zip(params.items(), grads)}
 
 
-def compare_grads(task, images, labels, dtype) -> dict:
-    """First-step gradients, kernel path against plain path."""
+def compare_grads(task, images, labels, dtype, vanishing: tuple = ()) -> dict:
+    """First-step gradients, kernel path against plain path.  ``vanishing``
+    names leaves whose gradient is zero in exact arithmetic, so that what
+    either path computes there is rounding noise: in fp32 each must stay
+    within 1e-3 of the largest |g| of the other leaves; in bf16 their size
+    is only reported."""
     got = first_step_grads(task, images, labels)
     with plain_path():
         want = first_step_grads(task, images, labels)
@@ -573,6 +600,8 @@ def compare_grads(task, images, labels, dtype) -> dict:
                 raise AssertionError(f"{n}: unused factor with a non-zero gradient")
             unused.append(n)
             continue
+        if n in vanishing:
+            continue
         if n.startswith("peft") and not g.any():
             raise AssertionError(f"{n}: zero gradient on the kernel path")
         if dtype == torch.float32:
@@ -586,10 +615,18 @@ def compare_grads(task, images, labels, dtype) -> dict:
         worst[n] = gap
     key = max if dtype == torch.float32 else min
     name = key(worst, key=worst.get)
-    return {"dtype": str(dtype).split(".")[-1], "leaves": len(worst),
-            "zero_by_quirk_1": len(unused),
-            ("max_rel_gap" if dtype == torch.float32 else "min_cosine"): worst[name],
-            "at": name}
+    out = {"dtype": str(dtype).split(".")[-1], "leaves": len(worst),
+           "zero_by_quirk_1": len(unused),
+           ("max_rel_gap" if dtype == torch.float32 else "min_cosine"): worst[name], "at": name}
+    if vanishing:
+        scale = max(want[n].abs().max().item() for n in worst)
+        sizes = {n: max(got[n].abs().max().item(), want[n].abs().max().item()) / scale
+                 for n in vanishing}
+        if dtype == torch.float32 and max(sizes.values()) > 1e-3:
+            raise AssertionError(f"fp32 grads that vanish in exact arithmetic: {sizes} of the "
+                                 "largest |g|, want <= 1e-3")
+        out["vanishing_rel_size"] = sizes
+    return out
 
 
 def compare_whole_run(task, data) -> dict:
@@ -679,16 +716,20 @@ def reference_walk(score, config) -> tuple:
 
 @contextlib.contextmanager
 def timed_command(times: dict):
-    """Time the command's text features, sweep and ``run_method`` by
-    wrapping them where the command looks them up; keeps the text features
-    and the tower they came from."""
+    """Time a command's text features, image features, sweep and
+    ``run_method`` by wrapping them where the commands look them up; keeps
+    the arguments and results of all but the sweep."""
     import pevit_tpu_torch.evaluation as evaluation
     import pevit_tpu_torch.train as train
     from pevit_tpu_torch.train import sweep
 
-    saved = evaluation.extract_text_features, sweep.hyperparameter_sweep_lr, train.run_method
+    wrapped = [(evaluation, "extract_text_features", "text_features", True),
+               (evaluation, "extract_image_features", "image_features", True),
+               (sweep, "hyperparameter_sweep_lr", "sweep", False),
+               (train, "run_method", "run_method", True)]
+    saved = [getattr(module, attr) for module, attr, _, _ in wrapped]
 
-    def wrap(name, fn, keep=False):
+    def wrap(name, fn, keep):
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -699,13 +740,13 @@ def timed_command(times: dict):
             return out
         return timed
 
-    evaluation.extract_text_features = wrap("text_features", saved[0], keep=True)
-    sweep.hyperparameter_sweep_lr = wrap("sweep", saved[1])
-    train.run_method = wrap("run_method", saved[2], keep=True)
+    for (module, attr, name, keep), fn in zip(wrapped, saved):
+        setattr(module, attr, wrap(name, fn, keep))
     try:
         yield
     finally:
-        evaluation.extract_text_features, sweep.hyperparameter_sweep_lr, train.run_method = saved
+        for (module, attr, _, _), fn in zip(wrapped, saved):
+            setattr(module, attr, fn)
 
 
 def check_text_features_on_cpu(call) -> dict:
@@ -729,7 +770,7 @@ def command_batches(task, data, trials: int) -> tuple:
     final run END_EPOCH + EXTRA_FINAL_TRAIN_EPOCH epochs on train + val,
     evaluated on the test split; full batches plus a natural tail (one of a
     single image skipped), eval chunks of ``task.eval_chunk`` plus a natural
-    remainder."""
+    remainder.  An emulated zero-shot run takes no train step."""
     config = task.config
     n_train, n_val, n_test = (len(data[i]) for i in (1, 3, 5))
     sweep_e = config.TRAIN.END_EPOCH
@@ -745,53 +786,88 @@ def command_batches(task, data, trials: int) -> tuple:
     add(train, n_train + n_val, task.static.batch_size, final_e, 2)
     add(evals, n_val, task.eval_chunk, trials * sweep_e, 1)
     add(evals, n_test, task.eval_chunk, final_e, 1)
+    if task.static.emulate_zero_shot:
+        train = collections.Counter()
     return +train, +evals
 
 
-def expected_launches(train, evals, layers: int) -> dict:
-    """K1 and K2 run once a block in every train step and eval chunk, K3
-    once a block in every train step."""
-    steps, chunks = sum(train.values()), sum(evals.values())
-    return {"attention_fwd": layers * (steps + chunks), "fused_mlp_fwd": layers * (steps + chunks),
-            "fused_mlp_bwd": layers * steps}
+def path_batches(task, data, trials: int) -> dict:
+    """What one run of a training command gave the kernels: its batches
+    (``command_batches``), dtype and widths, and which kernels it routes
+    through: K2 wherever the fused MLP is on (all but full_finetune), K3
+    where a gradient also flows through it (all but the linear probe, which
+    trains the head only)."""
+    st = task.static
+    vision = st.spec.vision
+    train, evals = command_batches(task, data, trials)
+    return {"dtype": st.compute_dtype, "train": train, "evals": evals, "layers": vision.layers,
+            "width": vision.width, "tokens": vision.seq_len, "fused_mlp": st.use_fused_mlp,
+            "fused_mlp_bwd": st.use_fused_mlp and st.peft_cfg.method != "linear_probe"}
 
 
-def command_kernel_rows(gen, shapes: dict) -> dict:
-    """Every kernel against its plain version at each batch the command gave
-    it (phase 6's train steps and eval chunks), in the command's dtype, with
-    the launches the command made at that batch."""
-    train, evals, layers = shapes["train"], shapes["evals"], shapes["layers"]
-    dtype, tokens, width = getattr(torch, shapes["dtype"]), shapes["tokens"], shapes["width"]
+def expected_launches(batches: dict) -> dict:
+    """K1 runs once a block in every train step and eval chunk, K2 too where
+    the path takes the fused MLP, K3 once a block in every train step where
+    a gradient flows through it."""
+    steps, chunks = sum(batches["train"].values()), sum(batches["evals"].values())
+    layers = batches["layers"]
+    return {"attention_fwd": layers * (steps + chunks),
+            "fused_mlp_fwd": layers * (steps + chunks) if batches["fused_mlp"] else 0,
+            "fused_mlp_bwd": layers * steps if batches["fused_mlp_bwd"] else 0}
+
+
+def path_kernel_rows(gen, path: str, batches: dict) -> dict:
+    """Every kernel of a path against its plain version at each batch the
+    path gave it (train steps and eval chunks), in the path's dtype, with the
+    launches the path made at that batch."""
+    train, evals, layers = batches["train"], batches["evals"], batches["layers"]
+    dtype, tokens, width = getattr(torch, batches["dtype"]), batches["tokens"], batches["width"]
     rows = {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
     for b in sorted(set(train) | set(evals)):
-        n = {"images": b, "launches": layers * (train[b] + evals[b])}
+        n = {"path": path, "images": b, "launches": layers * (train[b] + evals[b])}
         rows["attention_fwd"].append({**check_attention(gen, dtype, tokens, b), **n})
-        rows["fused_mlp_fwd"].append({**check_fused_mlp(gen, dtype, width, b * tokens), **n})
-    for b in sorted(train):
-        n = {"images": b, "launches": layers * train[b]}
-        rows["fused_mlp_bwd"].append({**check_fused_mlp_bwd(gen, dtype, width, b * tokens), **n})
+        if batches["fused_mlp"]:
+            rows["fused_mlp_fwd"].append({**check_fused_mlp(gen, dtype, width, b * tokens), **n})
+    if batches["fused_mlp_bwd"]:
+        for b in sorted(train):
+            n = {"path": path, "images": b, "launches": layers * train[b]}
+            rows["fused_mlp_bwd"].append({**check_fused_mlp_bwd(gen, dtype, width, b * tokens),
+                                          **n})
     return rows
 
 
-def kernel_report(kernels, launches: dict, command_table: dict) -> list:
-    """The ``kernels`` line: launches from the command's run; the other
-    numbers at the command's batch that launched the kernel most (the larger
-    batch on a tie); every batch of the command under ``by_shape``."""
+def kernel_report(kernels, launches: dict, table: dict) -> list:
+    """The ``kernels`` line: launches summed over the paths of phases 6 and 7
+    (each read around its own run); the other numbers at the batch that
+    launched the kernel most (the larger batch on a tie); every path's
+    batches under ``by_shape``."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = []
     for k in kernels:
-        rows_ = command_table[k.name]
+        rows_ = table[k.name]
+        total = sum(path[k.name] for path in launches.values())
         main_row = max(rows_, key=lambda r: (r["launches"], r["images"]))
-        if sum(r["launches"] for r in rows_) != launches[k.name]:
-            raise AssertionError(f"{k.name}: the command's batches do not add up to its launches")
+        if sum(r["launches"] for r in rows_) != total:
+            raise AssertionError(f"{k.name}: the paths' batches do not add up to its launches")
         report.append({"name": k.name, "route": "cuda",
                        "source": str(k.source.relative_to(REPO)),
-                       "replaces": k.replaces, "launches": launches[k.name],
+                       "replaces": k.replaces, "launches": total,
+                       "launches_by_path": {p: n[k.name] for p, n in launches.items()},
                        **{key: main_row[key] for key in keys}, "shape": main_row["shape"],
                        "dtype": main_row["dtype"],
-                       "by_shape": [{key: r[key] for key in ("images", "shape", "launches") + keys}
+                       "by_shape": [{key: r[key] for key in ("path", "images", "dtype", "shape",
+                                                              "launches") + keys}
                                     for r in rows_]})
     return report
+
+
+def reset_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
 
 
 def run_command(kernels) -> dict:
@@ -799,19 +875,21 @@ def run_command(kernels) -> dict:
     from pevit_tpu_torch.commands import kronecker_adaptation_clip
     from pevit_tpu_torch.config import get_default_config
 
+    from pevit_tpu_torch.ckpt import restore_trainable
+    from pevit_tpu_torch.train import trainable_params
+
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cmd_") as tmp:
         tmp = Path(tmp)
-        argv = command_argv(tmp)
+        argv = command_argv(tmp) + ["TPU.CHECKPOINT_DIR", str(tmp / "ckpt")]
         times = {}
-        for k in kernels:
-            k.launches = 0
+        reset_launches(kernels)
         t0 = time.perf_counter()
         with timed_command(times):
             best, info = kronecker_adaptation_clip.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
+        launches = read_launches(kernels)
 
         folder = tmp / "out" / "predictions" / "finetuning_5"
         artifact = json.loads((folder / "seed0_cifar-10.json").read_text())
@@ -834,44 +912,339 @@ def run_command(kernels) -> dict:
 
         (task, data, config), _ = times["run_method_call"]
         trials = len(records)  # each trained once, replays aside
-        vision = task.static.spec.vision
-        train, evals = command_batches(task, data, trials)
-        want_launches = expected_launches(train, evals, vision.layers)
+        batches = path_batches(task, data, trials)
+        want_launches = expected_launches(batches)
         if launches != want_launches:
             raise AssertionError(f"command launches {launches}, want {want_launches} for "
                                  f"{trials} trials and the final run")
-        shapes = {"train": train, "evals": evals, "layers": vision.layers,
-                  "dtype": task.static.compute_dtype, "width": vision.width,
-                  "tokens": (vision.input_resolution // vision.patch_size) ** 2 + 1}
+
+        # TPU.CHECKPOINT_DIR: the final run's trained state, restored bit for bit
+        epochs = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
+        saved = sorted(f.name for f in (tmp / "ckpt").iterdir())
+        restored = restore_trainable(str(tmp / "ckpt"), task.last_bundle)
+        trained = trainable_params(task.last_trainable)
+        if saved != [f"step_{epochs}.npz"] or restored.keys() != trained.keys() or not all(
+                torch.equal(restored[n], trained[n]) for n in trained):
+            raise AssertionError(f"TPU.CHECKPOINT_DIR holds {saved}; restored state differs "
+                                 "from the final run's")
 
         text = check_text_features_on_cpu(times["text_features_call"])
 
-        for k in kernels:
-            k.launches = 0
+        reset_launches(kernels)
         t1 = time.perf_counter()
         best2, info2 = kronecker_adaptation_clip.main(argv)
         replay_s = time.perf_counter() - t1
-        replay_launches = {k.name: k.launches for k in kernels}
+        replay_launches = read_launches(kernels)
         if best2 != best or any(replay_launches.values()) or replay_s > 60:
             raise AssertionError(f"replay: best {best2} vs {best}, launches {replay_launches}, "
                                  f"{replay_s:.1f} s")
-        root = logging.getLogger()  # the command's log handlers write into ``tmp``
-        for h in root.handlers[:]:
-            h.close()
-            root.removeHandler(h)
+        close_command_logs()
     final_s = times["run_method"] - times["sweep"]
-    final_images = (len(data[1]) + len(data[3])) * (config.TRAIN.END_EPOCH
-                                                    + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH)
+    final_images = (len(data[1]) + len(data[3])) * epochs
     return {"best_acc": best, "best_lr": info["best_lr"], "best_wd": info["best_l2_lambda"],
             "n_params": info["n_params"], "n_trainable_params": info["n_trainable_params"],
             "trials": trials, "distinct_trials": len(scores), "launches": launches,
-            "train_step_images": dict(train), "eval_chunk_images": dict(evals),
-            "text_features": text, "shapes": shapes, "seconds": {
+            "train_step_images": dict(batches["train"]),
+            "eval_chunk_images": dict(batches["evals"]), "text_features": text,
+            "checkpoint": {"file": saved[0], "leaves": len(trained), "restored": "bit-equal"},
+            "batches": batches, "seconds": {
                 "command": seconds, "text_features": times["text_features"],
                 "sweep": times["sweep"], "sweep_per_trial": times["sweep"] / trials,
                 "final_run": final_s, "replay": replay_s,
                 "phase": time.perf_counter() - t_phase},
             "final_train_images_per_s": final_images / final_s}
+
+
+def close_command_logs() -> None:
+    """Close the log handlers a command opened (they write into its output
+    directory, which is about to go)."""
+    root = logging.getLogger()
+    for h in root.handlers[:]:
+        h.close()
+        root.removeHandler(h)
+
+
+# ---------------------------------------------------------------------------
+# 7. the other entry points
+# ---------------------------------------------------------------------------
+
+CKPT_SEED = 1
+ZEROSHOT_CHUNK = 256  # extract_image_features' chunk, the tail zero-padded to it
+# cut for the time limit: the finetune command trains 2 + 1 epochs, not 10 + 40
+FINETUNE_EPOCHS = ["TRAIN.END_EPOCH", "2", "TRAIN.EXTRA_FINAL_TRAIN_EPOCH", "1"]
+NATIVE_BATCH = (64, 375, 500, 3)  # non-square photos, resized to 224
+
+
+def write_checkpoints(tmp: Path) -> tuple:
+    """The seeded ViT-B/32 CLIP (both towers, on the CPU) and two OpenAI-layout
+    checkpoints of it: a ``torch.save`` pickle of the state dict, and the
+    same inside ``{"state_dict": ...}``."""
+    from pevit_tpu_torch.ckpt import clip_to_state_dict
+    from pevit_tpu_torch.core import CLIPSpec, init_clip_params
+
+    src = init_clip_params(torch.Generator().manual_seed(CKPT_SEED), CLIPSpec.vit_b32(),
+                           device="cpu")
+    sd = clip_to_state_dict(src)
+    paths = {"pickle": tmp / "ViT-B-32.pt", "state_dict": tmp / "ViT-B-32_wrapped.pt"}
+    torch.save(sd, paths["pickle"])
+    torch.save({"state_dict": sd, "epoch": 0}, paths["state_dict"])
+    return src, paths
+
+
+def same_tensors(module, src, what: str) -> None:
+    """Every tensor of ``module`` equals ``src``'s bit for bit."""
+    got, want = module.state_dict(), src.state_dict()
+    bad = [k for k, t in want.items() if k not in got or not torch.equal(got[k].cpu(), t)]
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"{what}: {len(bad)} of {len(want)} tensors differ from the "
+                             f"checkpoint's, e.g. {bad[:3]}")
+
+
+def check_checkpoint_loads(src, paths: dict) -> dict:
+    """``load_clip`` onto the card from each checkpoint: bit-exact, timed."""
+    from pevit_tpu_torch.ckpt import load_clip
+    from pevit_tpu_torch.core import CLIPSpec
+
+    out = {}
+    for layout, path in paths.items():
+        t0 = time.perf_counter()
+        clip, spec = load_clip("ViT-B/32", checkpoint_path=str(path), device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if spec != CLIPSpec.vit_b32() or clip.visual.proj.device.type != "cuda":
+            raise AssertionError(f"{layout}: loaded {spec} on {clip.visual.proj.device}")
+        same_tensors(clip, src, f"load_clip from a {layout} checkpoint")
+        out[layout] = {"load_s": seconds, "file_bytes": path.stat().st_size,
+                       "tensors": len(src.state_dict())}
+        del clip
+    return out
+
+
+def entry_argv(tmp: Path, ckpt: Path, *options) -> list:
+    """A command's arguments on synthetic cifar-10 with the published
+    ViT-B/32 model file and the checkpoint; outputs in ``tmp``."""
+    return ["--ds", str(REPO / "resources/datasets/cifar10.yaml"),
+            "--model", str(REPO / "resources/model/vitb32_CLIP.yaml"), *options,
+            "MODEL.PRETRAINED", str(ckpt), "DATASET.ALLOW_SYNTHETIC", "True",
+            "DATASET.ROOT", str(tmp / "data"), "OUTPUT_DIR", str(tmp / "out")]
+
+
+def check_predictions(path: Path, n: int, classes: int = 10) -> None:
+    artifact = json.loads(path.read_text())
+    preds = np.asarray(artifact["predictions"][0])
+    if list(artifact) != ARTIFACT_KEYS or preds.shape != (n, classes) or not np.allclose(
+            preds.sum(-1), 1.0, atol=1e-4):
+        raise AssertionError(f"{path.name}: keys {list(artifact)}, predictions {preds.shape}")
+
+
+def run_zeroshot(kernels, tmp: Path, ckpt: Path) -> dict:
+    """The zero-shot command: float32 image features through K1's and K2's
+    fp32 bodies in chunks of 256, held to the plain path on the card; then a
+    replay from the feature cache, which launches nothing."""
+    from pevit_tpu_torch.commands import zeroshot
+    from pevit_tpu_torch.evaluation import extract_image_features
+
+    argv = entry_argv(tmp, ckpt)
+    times = {}
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with timed_command(times):
+        result = zeroshot.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    (config, clip, spec, images), _ = times["image_features_call"]
+    # the features as the command cached them (its evaluator normalises the
+    # returned array in place, as the reference's does)
+    feats = np.load(zeroshot.feature_paths(config)[0])
+    n = len(images)
+    batches = {"dtype": "float32", "train": collections.Counter(),
+               "evals": collections.Counter({ZEROSHOT_CHUNK: -(-n // ZEROSHOT_CHUNK)}),
+               "layers": spec.vision.layers, "width": spec.vision.width,
+               "tokens": spec.vision.seq_len, "fused_mlp": True, "fused_mlp_bwd": False}
+    if launches != expected_launches(batches):
+        raise AssertionError(f"zero-shot launches {launches}, want {expected_launches(batches)}")
+    check_predictions(tmp / "out" / "predictions" / zeroshot_exp_name(config) / "seed0_cifar-10.json",
+                      n)
+
+    with plain_path():
+        plain = extract_image_features(config, clip, spec, images)
+    err, scale = float(np.abs(feats - plain).max()), float(np.abs(plain).max())
+    if feats.shape != plain.shape or not err <= 1e-4 * scale:
+        raise AssertionError(f"zero-shot image features kernel vs plain path: {err} > 1e-4 * {scale}")
+    t1 = time.perf_counter()
+    extract_image_features(config, clip, spec, images)
+    warm_s = time.perf_counter() - t1
+
+    reset_launches(kernels)
+    replay = zeroshot.main(argv)
+    replay_launches = read_launches(kernels)
+    if replay != result or any(replay_launches.values()):
+        raise AssertionError(f"zero-shot replay: {replay} vs {result}, launches {replay_launches}")
+    close_command_logs()
+    return {"result": result, "images": n, "launches": launches,
+            "features": {"max_abs_err_vs_plain": err, "max_abs": scale},
+            "seconds": {"command": seconds, "image_features": times["image_features"],
+                        "text_features": times["text_features"]},
+            "feature_images_per_s": n / times["image_features"],
+            "feature_images_per_s_warm": n / warm_s, "batches": batches}
+
+
+def zeroshot_exp_name(config) -> str:
+    k = config.KNOWLEDGE
+    return (f"zeroshot_eval_wiki_{k.WIKITIONARY.USE_DEFINITION}_wnh_{k.WORDNET.USE_HIERARCHY}"
+            f"_wnd_{k.WORDNET.USE_DEFINITION}_gpt3_{k.GPT3.USE_GPT3}")
+
+
+def run_training_entry(kernels, module, tmp: Path, ckpt: Path, folder: str, *options) -> tuple:
+    """One run of a training command with ``--no-tuning True``: exact
+    launches for its steps and eval chunks, and the predictions artifact.
+    Returns (summary, task, data, batches)."""
+    argv = entry_argv(tmp, ckpt, "--no-tuning", "True", *options)
+    times = {}
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with timed_command(times):
+        best, info = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    (task, data, config), _ = times["run_method_call"]
+    batches = path_batches(task, data, trials=0)
+    if launches != expected_launches(batches):
+        raise AssertionError(f"{folder}: launches {launches}, want {expected_launches(batches)}")
+    n_test = len(data[5])
+    check_predictions(tmp / "out" / "predictions" / folder / "seed0_cifar-10.json", n_test)
+    epochs = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
+    steps = sum(batches["train"].values())
+    summary = {"best_acc": best, "n_trainable_params": info["n_trainable_params"],
+               "n_params": info["n_params"], "epochs": epochs, "train_steps": steps,
+               "launches": launches, "train_step_images": dict(batches["train"]),
+               "eval_chunk_images": dict(batches["evals"]),
+               "seconds": {"command": seconds, "run_method": times["run_method"]}}
+    if steps:
+        images = (len(data[1]) + len(data[3])) * epochs
+        summary["train_images_per_s"] = images / times["run_method"]
+    return summary, task, data, batches
+
+
+def run_linear_probe(kernels, tmp: Path, ckpt: Path) -> tuple:
+    """The linear probe, trained (``--no-tuning True``) and as an emulated
+    zero-shot run (``--emulate-zeroshot True``), which takes no train step:
+    K1 and K2 launch for every step and eval chunk, K3 never."""
+    from pevit_tpu_torch.commands import linear_probe
+
+    out, paths = {}, {}
+    for name, folder, options in (("linear_probe", "linear_probe_5",
+                                   ("DATASET.NUM_SAMPLES_PER_CLASS", "5")),
+                                  ("emulated_zero_shot", "linear_probe_full",
+                                   ("--emulate-zeroshot", "True"))):
+        summary, task, _, batches = run_training_entry(kernels, linear_probe, tmp / name, ckpt,
+                                                       folder, *options)
+        if name == "emulated_zero_shot" and (task.last_state.loss is not None
+                                             or summary["train_steps"]):
+            raise AssertionError("the emulated zero-shot run took a train step")
+        out[name], paths[name] = summary, batches
+        close_command_logs()
+    return out, paths
+
+
+def run_finetune(kernels, tmp: Path, ckpt: Path, src) -> tuple:
+    """Full fine-tuning (``--no-tuning True``, 3 epochs): K1 launches for
+    every step and eval chunk, K2 and K3 never; first-step gradients of the
+    visual tower, kernel vs plain path, in bf16 and fp32; the text tower and
+    the pretrained tower unchanged after the run; the trainable count the
+    visual tower plus the head."""
+    from pevit_tpu_torch.commands import finetune
+
+    summary, task, data, batches = run_training_entry(
+        kernels, finetune, tmp, ckpt, "finetuning_5", "--lr", "1e-5", "--l2", "0.0001",
+        "DATASET.NUM_SAMPLES_PER_CLASS", "5", *FINETUNE_EPOCHS)
+    same_tensors(task.clip, src, "the pretrained tower after the finetune run")
+    trained = task.last_bundle["clip"]
+    if trained.text is not task.clip.text or torch.equal(trained.visual.proj, task.clip.visual.proj):
+        raise AssertionError("the finetune run trained no copy of the visual tower")
+    st = task.static
+    want_n = (sum(p.numel() for p in task.clip.visual.parameters())
+              + st.head_dim * st.num_classes + st.num_classes)
+    if summary["n_trainable_params"] != want_n:
+        raise AssertionError(f"n_trainable_params {summary['n_trainable_params']}, want {want_n}")
+    images, labels = data[0][:TRAIN_BATCH], data[1][:TRAIN_BATCH]
+    summary["first_step_grads"] = []
+    # the train-mode BN of the head subtracts the batch mean of the features,
+    # which cancels ln_post's bias: it shifts every feature by one vector
+    vanishing = ("clip.visual.ln_post.bias",) if st.use_bn else ()
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        variant = copy.copy(task)
+        variant.static = dataclasses.replace(st, compute_dtype=dtype_name)
+        summary["first_step_grads"].append(compare_grads(variant, images, labels, dtype,
+                                                         vanishing))
+    close_command_logs()
+    return summary, batches
+
+
+def native_resize(rng) -> dict:
+    """The C++ resampler built with g++ on the card's host; a seeded batch of
+    non-square images resized to 224, batched and one at a time."""
+    from pevit_tpu_torch import native
+    from pevit_tpu_torch.data.transforms import resize_center_crop
+
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    imgs = rng.integers(0, 256, NATIVE_BATCH, dtype=np.uint8)
+    native.native_resize_center_crop_batch(imgs[:2], 224)  # load the library
+    t0 = time.perf_counter()
+    out = native.native_resize_center_crop_batch(imgs, 224)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = np.stack([resize_center_crop(im.transpose(1, 0, 2), 224) for im in imgs])
+    single_s = time.perf_counter() - t0
+    if out.shape != (len(imgs), 224, 224, 3) or one.shape != out.shape:
+        raise AssertionError(f"native resize shapes {out.shape}, {one.shape}")
+    if not np.array_equal(out[3], native.native_resize_center_crop(imgs[3], 224)):
+        raise AssertionError("native resize: the batch and the one-image call differ")
+    return {"build_s": build_s, "images": len(imgs), "landscape": list(NATIVE_BATCH[1:3]),
+            "images_per_s_batch": len(imgs) / batch_s,
+            "images_per_s_one_at_a_time_portrait": len(imgs) / single_s}
+
+
+def run_entry_points(kernels, gen, card: str) -> tuple:
+    """Phase 7; returns the launches and kernel rows of its paths."""
+    launches, table = {}, {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+
+    def rows(path, batches):
+        for name, rows_ in path_kernel_rows(gen, path, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        src, paths = write_checkpoints(tmp)
+        write_s = time.perf_counter() - t0
+        loads = check_checkpoint_loads(src, paths)
+        print(f"checkpoint: written in {write_s:.2f} s; {json.dumps(loads)} [{card}]", flush=True)
+        ckpt = paths["pickle"]
+
+        zs = run_zeroshot(kernels, tmp / "zeroshot", ckpt)
+        batches = zs.pop("batches")
+        launches["zeroshot"] = zs["launches"]
+        print(f"command zeroshot: {json.dumps(zs)} [{card}]", flush=True)
+        rows("zeroshot", batches)
+
+        probes, probe_batches = run_linear_probe(kernels, tmp, ckpt)
+        for name, summary in probes.items():
+            launches[name] = summary["launches"]
+            print(f"command {name}: {json.dumps(summary)} [{card}]", flush=True)
+            rows(name, probe_batches[name])
+
+        ft, batches = run_finetune(kernels, tmp / "finetune", ckpt, src)
+        launches["finetune"] = ft["launches"]
+        print(f"command finetune: {json.dumps(ft)} [{card}]", flush=True)
+        rows("finetune", batches)
+    return launches, table
 
 
 def main() -> int:
@@ -978,15 +1351,24 @@ def main() -> int:
 
     # 6. the command, then every kernel at the batches it gave each one
     command = run_command(KERNELS)
-    shapes = command.pop("shapes")
+    batches = command.pop("batches")
     print(f"command kronecker_adaptation_clip: {json.dumps(command)} [{card}]", flush=True)
-    command_table = command_kernel_rows(gen, shapes)
+    command_table = path_kernel_rows(gen, "command", batches)
     for name, rows_ in command_table.items():
         for r in rows_:
             print(f"command kernel {name} {json.dumps(r)} [{card}]", flush=True)
 
-    # 7. report
-    report = kernel_report(KERNELS, command["launches"], command_table)
+    # 7. the other entry points: checkpoint, zero-shot, linear probe,
+    # finetune, native resize
+    t0 = time.perf_counter()
+    launches, entry_table = run_entry_points(KERNELS, gen, card)
+    print(f"native resize: {json.dumps(native_resize(rng))} [{card}]", flush=True)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 8. report
+    launches = {"command": command["launches"], **launches}
+    table = {name: command_table[name] + entry_table[name] for name in command_table}
+    report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -160,6 +160,46 @@ def to_jax(bundle: dict, bn_state: dict):
     return out, bn
 
 
+def _reference_path(path: tuple, prefixes: tuple) -> tuple:
+    """A port parameter path inside a module -> the reference's leaf path
+    (a stacked prefix's layer index dropped)."""
+    stacked = _stacked_prefix(path, prefixes)
+    return path if stacked is None else stacked + path[len(stacked) + 1:]
+
+
+def _fill(tree: dict, values: dict) -> None:
+    for key, val in values.items():
+        if isinstance(val, dict):
+            _fill(tree[key], val)
+        else:
+            tree[key] = val
+
+
+def trainable_to_jax(bundle: dict) -> dict:
+    """The reference's trainable partition of a bundle (``{"clip", "peft",
+    "head"}`` of modules or None): every module's tree in the reference's
+    layout, the parameters that require a gradient as numpy (layers
+    restacked) and every other leaf None; a None module stays None."""
+    out = {}
+    for top, module in bundle.items():
+        if module is None:
+            out[top] = None
+            continue
+        prefixes = _STACKED.get(top, ())
+        named = dict(module.named_parameters())
+        tree: dict = {}
+        for name in named:
+            path = _reference_path(tuple(name.split(".")), prefixes)
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = None
+        _fill(tree, _from_state_dict({n: p for n, p in named.items() if p.requires_grad},
+                                     prefixes))
+        out[top] = tree
+    return out
+
+
 def _tree_to_port(tree: dict, dev) -> dict:
     """A reference tree over the bundle (``{"clip", "peft", "head"}``, None
     at frozen leaves) -> ``{dotted name: tensor}``, layers unstacked."""

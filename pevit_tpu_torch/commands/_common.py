@@ -10,11 +10,11 @@ exact ``best acc is:...`` strings that ``read_results.py`` and
 ``read_txt.py`` parse, and the completion sidecar that replays a finished
 job instead of training it again.
 
-One option is the port's own: ``--device`` (default ``cuda``; ``cpu`` runs
-the command on the CPU, as the tests do).  Not ported yet, and raising with
-their ROADMAP item: ``--submit-predictions`` (the leaderboard submission),
-a backbone other than a CLIP ViT, and reading a checkpoint or saving the
-trained state (``TPU.CHECKPOINT_DIR``).
+The linear probe adds ``--emulate-zeroshot``; ``--submit-predictions``
+validates the submission (the reference posts nothing either).  One option
+is the port's own: ``--device`` (default ``cuda``; ``cpu`` runs the command
+on the CPU, as the tests do).  Not ported yet, and raising with its ROADMAP
+item: a backbone other than a CLIP ViT.
 """
 
 from __future__ import annotations
@@ -34,16 +34,20 @@ from ..utils import create_logger, dist as comm, log_config
 from ..utils.device import resolve_device
 
 # the reference's exp_name prefix of each command
-# (commands/kronecker_adaptation_clip.py:113)
-EXP_PREFIX = {"kadaptation": "finetuning"}
+# (commands/kronecker_adaptation_clip.py:113, finetune.py:68, linear_probe.py:79)
+EXP_PREFIX = {"kadaptation": "finetuning", "linear_probe": "linear_probe",
+              "full_finetune": "finetuning"}
 
 
-def add_common_args(parser):
+def add_common_args(parser, *, probe: bool = False):
     parser.add_argument("--ds", required=False, help="Evaluation dataset configure file name.", type=str)
     parser.add_argument("--model", required=True, help="Evaluation model configure file name", type=str)
     parser.add_argument("--submit-predictions", help="submit predictions and model info to leaderboard.", default=False, action="store_true")
     parser.add_argument("--submit-by", help="Person who submits the results.", type=str)
     parser.add_argument("--no-tuning", help="No hyperparameter-tuning.", default=False, type=lambda x: str(x).lower() == "true")
+    if probe:
+        # a string, as in the reference: any value given turns it on
+        parser.add_argument("--emulate-zeroshot", help="Emulate zero shot learning.", default=False, type=str)
     parser.add_argument("--l2", help="(Inverse) L2 regularization strength. Only used with --no-tuning True.", default=0.316, type=float)
     parser.add_argument("--lr", help="Learning rate. Only used with --no-tuning True.", default=0.001, type=float)
     parser.add_argument("--run", help="Run id", default=1, type=int)
@@ -232,17 +236,25 @@ def load_device_data(config, device=None):
     return prep(train) + prep(val) + prep(test)
 
 
-def run_training_command(method: str, *, description: str, argv=None):
+def run_training_command(method: str, *, description: str, probe: bool = False, argv=None):
     """The shared main() of the training commands; returns (best_acc,
     model_info)."""
     parser = argparse.ArgumentParser(description=description)
-    add_common_args(parser)
+    add_common_args(parser, probe=probe)
     args = parser.parse_args(argv)
-    if args.submit_predictions:
-        raise NotImplementedError("--submit-predictions is not ported yet (ROADMAP §1, "
-                                  "linear probe, finetune, zero-shot and submission)")
     device = resolve_device(args.device)
     config = setup_config(args)
+
+    if probe and getattr(args, "emulate_zeroshot", False):
+        # the head from text features, evaluated without a train step
+        # (linear_probe.py:69-76)
+        args.no_tuning = True
+        config.defrost()
+        config.TRAIN.END_EPOCH = 1
+        config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH = 0
+        config.DATASET.NUM_SAMPLES_PER_CLASS = 0
+        config.TRAIN.EMULATE_ZERO_SHOT = True
+        config.freeze()
 
     name = config.MODEL.NAME
     if not name.startswith(("ViT-B", "ViT-L")):
@@ -279,6 +291,7 @@ def run_training_command(method: str, *, description: str, argv=None):
                 "skipping training. Delete %s to force a re-run.",
                 job_fp, _completion_path(config, exp_name),
             )
+            _maybe_submit(args, config, model_info)
             logging.info("=> Finished: best %s = %.3f", config.TEST.METRIC or "accuracy", best_acc)
             return best_acc, model_info
 
@@ -310,5 +323,25 @@ def run_training_command(method: str, *, description: str, argv=None):
         dump_artifacts(config, exp_name, best_acc, model_info, txt=True)
         if job_fp is not None:
             mark_job_complete(config, exp_name, job_fp, best_acc, model_info)
+    _maybe_submit(args, config, model_info)
     logging.info("=> Finished: best %s = %.3f", config.TEST.METRIC or "accuracy", best_acc)
     return best_acc, model_info
+
+
+def _maybe_submit(args, config, model_info):
+    """Validate the submission under --submit-predictions; nothing is sent."""
+    if not args.submit_predictions:
+        return
+    from .prediction_submission import submit_predictions
+
+    submission = {
+        "model_name": config.MODEL.NAME,
+        "dataset_name": config.DATASET.DATASET,
+        "n_shot": config.DATASET.NUM_SAMPLES_PER_CLASS,
+        "rnd_seeds": [config.DATASET.RANDOM_SEED_SAMPLING],
+        "predictions": [model_info["best_logits"].tolist()]
+        if model_info.get("best_logits") is not None
+        else [],
+        "num_trainable_params": model_info.get("n_trainable_params"),
+    }
+    submit_predictions(submission, args.submit_by, config)

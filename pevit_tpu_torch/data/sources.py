@@ -195,7 +195,7 @@ def _load_cifar(root: Path, split: str, image_size: int) -> Optional[ArrayDatase
         ys = d[b"fine_labels"]
     else:
         return None
-    logging.info("Resizing %d CIFAR images to %d (PIL bicubic)...", len(x), image_size)
+    logging.info("Resizing %d CIFAR images to %d (bicubic, native)...", len(x), image_size)
     images = preprocess_batch(list(x), image_size)
     return ArrayDataset(images, np.asarray(ys, np.int64))
 

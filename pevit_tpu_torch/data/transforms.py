@@ -3,10 +3,12 @@ CLIP's per-channel normalisation constants (RGB, on [0, 1] pixels).
 
 Counterpart of ``pevit_tpu/data/transforms.py``: the reference pipeline
 (feature.py:534-549) is Resize(224, bicubic) -> CenterCrop(224) -> ToTensor
--> Normalize; resize and crop run on the host with PIL, the output stays
-uint8, and the normalisation runs on the card.  PIL is imported inside the
-resize functions, since the card's Python lacks it; the reference's C++
-resampler fast path is not ported, so every resize goes through PIL.
+-> Normalize; resize and crop run on the host, the output stays uint8, and
+the normalisation runs on the card.  An RGB uint8 array goes through the
+C++ PIL-compatible resampler (``pevit_tpu_torch.native``), where the
+reference takes it; everything else goes through PIL, imported inside the
+functions, since the card's Python lacks it.  Unlike the reference, a
+native build that fails raises instead of falling back to PIL.
 """
 
 from __future__ import annotations
@@ -17,8 +19,14 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
-def resize_center_crop(img, size: int = 224) -> np.ndarray:
-    """torchvision Resize(size) + CenterCrop(size); returns uint8 HWC."""
+def resize_center_crop(img, size: int = 224, *, use_native: bool = True) -> np.ndarray:
+    """torchvision Resize(size) + CenterCrop(size); returns uint8 HWC.  An
+    (H, W, 3) uint8 array takes the native resampler unless ``use_native``
+    is False."""
+    if use_native and isinstance(img, np.ndarray) and img.ndim == 3 and img.shape[2] == 3:
+        from ..native import native_resize_center_crop
+
+        return native_resize_center_crop(img, size)
     from PIL import Image
 
     if isinstance(img, np.ndarray):

@@ -184,10 +184,8 @@ def run_method(task, data, config, *, no_tuning: bool, lr: float, l2: float, see
 
     ``data`` is (train_x, train_y, val_x, val_y, test_x, test_y), numpy
     arrays or tensors; ``rebuild_data()`` regenerates it under the current
-    config (the patch-camelyon restore below)."""
-    if config.TPU.CHECKPOINT_DIR:
-        raise NotImplementedError("TPU.CHECKPOINT_DIR: saving the trained state is not ported "
-                                  "yet (ROADMAP §1, checkpoint I/O)")
+    config (the patch-camelyon restore below).  With TPU.CHECKPOINT_DIR the
+    final run's trained state is saved there as ``step_{epochs}.npz``."""
     train_x, train_y, val_x, val_y, test_x, test_y = data
 
     if no_tuning:
@@ -230,6 +228,10 @@ def run_method(task, data, config, *, no_tuning: bool, lr: float, l2: float, see
     model_info = task.model_info(task.last_trainable)
     model_info["best_lr"] = float(best_lr)
     model_info["best_l2_lambda"] = float(best_wd)
+    if config.TPU.CHECKPOINT_DIR:
+        from ..ckpt import save_trainable
+
+        save_trainable(config.TPU.CHECKPOINT_DIR, task.last_bundle, step=end_epoch)
     model_info["best_logits"] = res["best_logits"]
     logging.info("=> Learning rate %s, L2 lambda %s: Best score: Acc@1 %.3f",
                  best_lr, best_wd, res["best_score"])

@@ -28,6 +28,7 @@ kernel is the MLP's route for every method whose MLP weights are frozen.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import time
@@ -179,8 +180,9 @@ def _resolve_optimizer(config) -> tuple:
 def trainable_pred(static: TaskStatic):
     """Trainability of a parameter path (see partition.py): the head (its
     logit scale only with TRAIN.TRAINABLE_LOGIT_SCALE), the PEFT parameters
-    the method's filter selects, and the visual tower only under
-    full_finetune."""
+    the method's filter selects, and under full_finetune the visual tower
+    only: the text tower and CLIP's logit scale stay frozen
+    (kadaptation_clip.py:104-116)."""
     method = static.peft_cfg.method
     peft_filter = peft_trainable_filter(static.peft_cfg)
 
@@ -193,7 +195,8 @@ def trainable_pred(static: TaskStatic):
         if top == "peft":
             return method in PEFT_METHODS and peft_filter(path[1:])
         if top == "clip":
-            return method == "full_finetune" and not (len(path) > 1 and path[1] == "logit_scale")
+            return method == "full_finetune" and not (len(path) > 1
+                                                      and path[1] in ("text", "logit_scale"))
         return False
 
     return pred
@@ -438,9 +441,20 @@ class TrainTask:
                          text_init_weights=text_weights,
                          logit_scale_init=self.config.TRAIN.LOGIT_SCALE_INIT,
                          backbone_logit_scale=self.clip.logit_scale.item(), device=self.device)
-        bundle = {"clip": self.clip, "peft": peft, "head": head}
+        bundle = {"clip": self._trial_clip(), "peft": peft, "head": head}
         trainable, frozen = partition(bundle, trainable_pred(st))
         return trainable, frozen, init_bn_state(st.head_dim, device=self.device)
+
+    def _trial_clip(self):
+        """The CLIP a trial's bundle holds: the task's own, except under
+        full_finetune, where the optimiser updates the visual tower in place,
+        so each trial trains a copy of it (sharing the frozen text tower and
+        logit scale) and every trial starts from the pretrained tower, as the
+        reference's trials start from its immutable parameters."""
+        if self.static.peft_cfg.method != "full_finetune":
+            return self.clip
+        shared = (self.clip.text, self.clip.logit_scale)
+        return copy.deepcopy(self.clip, {id(m): m for m in shared})
 
     def max_parallel_trials(self) -> int:
         """The sweep's trial chunk: TPU.SWEEP_PARALLEL_TRIALS (one card; the
@@ -498,7 +512,7 @@ class TrainTask:
     def _score(self, labels_np: np.ndarray, probs: np.ndarray) -> float:
         try:
             score = 100.0 * self.metric(labels_np, probs)
-        except ValueError:  # scores a metric cannot take (NaN logits)
+        except Exception:  # noqa: BLE001 - the reference scores any metric error 0
             return 0.0
         return float(score) if np.isfinite(score) else 0.0
 
@@ -534,8 +548,9 @@ class TrainTask:
         n_epochs = end_epoch - begin_epoch
         results = [{"best_score": 0.0, "last_score": 0.0, "best_logits": None} for _ in hparams]
         if n_epochs <= 0:
-            self.last_trainable, _, _ = self.init_bundle(
+            trainable, frozen, _ = self.init_bundle(
                 torch.Generator().manual_seed(seed * 1_000_003 + 2 * (len(hparams) - 1)))
+            self.last_trainable, self.last_bundle = trainable, combine(trainable, frozen)
             return results
         images, labels = self.prepack(train_images), self._labels(train_labels)
         val = self.prepack(val_images)

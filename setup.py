@@ -5,7 +5,8 @@ setup(
     version="0.1.0",
     description="TPU-native parameter-efficient model adaptation for Vision Transformers (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests", "tools")),
-    package_data={"pevit_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"pevit_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
+                  "pevit_tpu_torch.native": ["image_ops.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pyyaml", "regex", "scikit-learn", "pillow"],
     entry_points={

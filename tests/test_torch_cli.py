@@ -11,6 +11,9 @@ spec (vision width 64 x 2 layers, text width 64 x 2 layers x 8 heads,
   JSON and TXT artifacts, which ``read_txt.py``'s pattern reads, and a
   second run replays from the completion sidecar without loading a model;
 * the parts not ported yet raise.
+
+The linear-probe, finetune, zero-shot and submission commands are held to
+the reference in tests/test_torch_commands.py.
 """
 
 import json
@@ -155,14 +158,25 @@ def test_whole_run_writes_the_reference_artifacts_and_replays(tmp_path, monkeypa
 
 @pytest.mark.parametrize("case", ["submit", "backbone", "checkpoint"])
 def test_unported_parts_raise(tmp_path, monkeypatch, case):
+    """What the port does not run raises before any training: a backbone
+    other than a CLIP ViT and a ResNet CLIP checkpoint (ROADMAP §1,
+    auxiliary backbones); ``--submit-predictions`` without ``--submit-by``
+    fails the reference's assertion."""
     monkeypatch.chdir(REPO)
-    ckpt = tmp_path / "ViT-B-32.pt"
-    ckpt.write_bytes(b"")
-    options, overrides, match = {
-        "submit": (("--submit-predictions", "--submit-by", "me"), (), "submit"),
-        "backbone": ((), ("MODEL.NAME", "mae_vitb16"), "backbones"),
-        # a checkpoint that exists raises instead of loading random weights
-        "checkpoint": ((), ("MODEL.PRETRAINED", str(ckpt)), "checkpoint"),
+    ckpt = tmp_path / "RN50.pt"
+    torch.save({"logit_scale": torch.tensor(1.0),
+                "visual.layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1)}, ckpt)
+    options, overrides, error = {
+        "submit": (("--submit-predictions",), (), AssertionError),
+        "backbone": ((), ("MODEL.NAME", "mae_vitb16"), NotImplementedError),
+        "checkpoint": ((), ("MODEL.PRETRAINED", str(ckpt)), NotImplementedError),
     }[case]
-    with pytest.raises(NotImplementedError, match=match):
+
+    def no_training(*a, **k):
+        raise RuntimeError("nothing may train")
+
+    monkeypatch.setattr(pevit_tpu_torch.train, "run_method", no_training)
+    with pytest.raises(error) as info:
         port_cli.main(_argv(tmp_path, *overrides, device=CPU + options))
+    if error is NotImplementedError:
+        assert "auxiliary backbones" in str(info.value)

@@ -13,7 +13,7 @@ driven by the fake task of tests/test_sweep_semantics.py:
   for arrays and tensors alike;
 * ``run_method`` hands the task the same final run as JAX's ``run_method``
   (merged train+val or not, the patch-camelyon regeneration), with tensors
-  on the port's side.
+  on the port's side, and saves the trained state under TPU.CHECKPOINT_DIR.
 """
 
 import numpy as np
@@ -222,7 +222,26 @@ def test_run_method_hands_the_same_final_run(case):
     np.testing.assert_array_equal(pinfo["best_logits"], jinfo["best_logits"])
 
 
-def test_checkpoint_dir_raises():
-    cfg = _cfg(get_default_config, CHECKPOINT_DIR="/somewhere")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        psweep.run_method(RecordingTask(cfg, None), (None,) * 6, cfg, no_tuning=True, lr=0.1, l2=0.1)
+def test_checkpoint_dir_raises(tmp_path):
+    """TPU.CHECKPOINT_DIR saves the final run's trained state as
+    ``step_{END_EPOCH + EXTRA_FINAL_TRAIN_EPOCH}.npz``; only an Orbax
+    checkpoint directory, which the port cannot read, raises."""
+    from pevit_tpu_torch.ckpt import restore_trainable
+    from pevit_tpu_torch.train import Head
+
+    class SavingTask(RecordingTask):
+        def train_trials(self, *a, **k):
+            out = super().train_trials(*a, **k)
+            self.last_bundle = {"clip": None, "peft": None, "head": Head(4, 3)}
+            return out
+
+    cfg = _cfg(get_default_config, CHECKPOINT_DIR=str(tmp_path))
+    cfg.TRAIN.END_EPOCH, cfg.TRAIN.EXTRA_FINAL_TRAIN_EPOCH = 3, 4
+    task = SavingTask(cfg, None)
+    psweep.run_method(task, _data(1) + _data(2)[2:], cfg, no_tuning=True, lr=0.1, l2=0.1)
+    assert [f.name for f in tmp_path.iterdir()] == ["step_7.npz"]
+    got = restore_trainable(str(tmp_path), task.last_bundle)
+    assert sorted(got) == ["head.linear.bias", "head.linear.kernel", "head.logit_scale"]
+    (tmp_path / "step_8").mkdir()
+    with pytest.raises(NotImplementedError, match="Orbax"):
+        restore_trainable(str(tmp_path), task.last_bundle)

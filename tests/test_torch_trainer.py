@@ -13,7 +13,10 @@ NON-ZERO KAdaptation factors, K = 4 classes, dropout 0:
   on the NHWC path (TPU.PARITY_FP32) and on the pre-patchified uint8 path
   with the normalisation folded into the patch embedding;
 * smaller cases: a size-1 tail is skipped; TrainTask.evaluate and
-  train_trials' selection (strict >, best-epoch probabilities) match.
+  train_trials' selection (strict >, best-epoch probabilities) match;
+* faults found against the reference, each run through both packages: a
+  metric that raises scores 0.0; full_finetune trains the visual tower only;
+  every full_finetune trial starts from the pretrained tower.
 """
 
 import dataclasses
@@ -71,9 +74,10 @@ PORT_TINY = port_clip.CLIPSpec(
 )
 
 
-def _cfg(make, *, parity=True, fused=True, **train):
+def _cfg(make, *, parity=True, fused=True, metric="", **train):
     cfg = make()
     cfg.defrost()
+    cfg.TEST.METRIC = metric
     cfg.DATASET.NUM_CLASSES = K
     cfg.TRAIN.BATCH_SIZE_PER_GPU = B
     cfg.TPU.PARITY_FP32 = parity
@@ -310,3 +314,99 @@ def test_train_trials_runs_on_the_cpu_when_asked(clip_params):
     assert torch.isfinite(state.loss) and state.opt.momentum_buf["peft.layers.0.b"].any()
     info = task.model_info(partition(task.last_bundle, trainable_pred(static))[0])
     assert info["n_trainable_params"] == sum(p.numel() for p in state.params.values())
+
+
+# ---------------------------------------------------------------------------
+# faults of the port against the reference
+# ---------------------------------------------------------------------------
+
+def _method_tasks(clip_params, method, *, text_weights=None, **cfg_kw):
+    """A JAX and a port TrainTask for ``method`` on the same tower."""
+    jcfg = _cfg(jax_defaults, **cfg_kw)
+    jstatic = jt.TaskStatic.from_config(jcfg, TINY, PeftConfig(method=method, kadapt_dropout_p=0.0))
+    jtask = jt.TrainTask(jcfg, jstatic, clip_params, text_init_weights=text_weights)
+    pcfg = _cfg(get_default_config, **cfg_kw)
+    pstatic = TaskStatic.from_config(pcfg, PORT_TINY,
+                                     PortPeftConfig(method=method, kadapt_dropout_p=0.0))
+    clip = bridge.clip_from_jax(jax.tree.map(np.asarray, clip_params), PORT_TINY, device="cpu")
+    ptask = TrainTask(pcfg, pstatic, clip, text_init_weights=text_weights, device="cpu")
+    return jtask, ptask
+
+
+def test_a_metric_that_raises_scores_zero_as_in_the_reference(clip_params):
+    """Fault a: an unknown TEST.METRIC leaves the metric None; the reference
+    scores every epoch 0.0 and finishes, the port raised TypeError."""
+    jtask, ptask = _method_tasks(clip_params, "kadaptation", metric="no_such_metric")
+    images, labels = _data(12, seed=10)
+    val, val_labels = _data(5, seed=11)
+    kw = dict(end_epoch=1, keep_logits=True)
+    want = jtask.train_trials([(LR, WD)], images, labels, val, val_labels, **kw)
+    got = ptask.train_trials([(LR, WD)], images, labels, val, val_labels, **kw)
+    assert jtask.metric is None and ptask.metric is None
+    for g, w in zip(got, want):
+        assert g["best_score"] == w["best_score"] == 0.0
+        assert g["last_score"] == w["last_score"] == 0.0
+        assert g["best_logits"].shape == np.asarray(w["best_logits"]).shape == (5, K)
+
+
+def test_full_finetune_trains_the_visual_tower_only(clip_params):
+    """Fault b: the port marked the text tower trainable under full_finetune."""
+    jtask, ptask = _method_tasks(clip_params, "full_finetune")
+    jtrainable = jtask.init_bundle(jax.random.PRNGKey(0))[0]
+    ptrainable = ptask.init_bundle(torch.Generator().manual_seed(0))[0]
+    want = _flat(jax.tree.map(np.asarray, jtrainable))
+    got = _flat(bridge._tree_to_jax(trainable_params(ptrainable)))
+    assert got.keys() == want.keys()
+    assert any(k.startswith("clip.visual.") for k in got)
+    assert not any(k.startswith(("clip.text.", "clip.logit_scale")) for k in got)
+    info = ptask.model_info(ptrainable)
+    assert info == jtask.model_info(jtrainable)
+    visual_n = sum(p.numel() for p in ptask.clip.visual.parameters())
+    assert info["n_trainable_params"] == visual_n + (PORT_TINY.embed_dim + 1) * K
+
+
+def test_full_finetune_trials_start_from_the_pretrained_tower(clip_params, monkeypatch):
+    """Fault c: the port's trials shared one tower, which the optimiser
+    trains in place, so trial 2 started from trial 1's trained tower.  Two
+    trials in both packages, fp32, dropout 0, the head from fixed text
+    weights, one full step an epoch (the order then only permutes the
+    batch): trial 2's per-epoch val logits agree at 1e-5, and the task's
+    tower and text tower are untouched."""
+    text_weights = np.random.default_rng(12).standard_normal((PORT_TINY.embed_dim, K)) * 0.1
+    text_weights = text_weights.astype(np.float32)
+    jtask, ptask = _method_tasks(clip_params, "full_finetune", text_weights=text_weights)
+    images, labels = _data(B, seed=13)
+    val, val_labels = _data(6, seed=14)
+    seen = {"jax": [], "port": []}
+
+    def spy(task, name):
+        build = task._fit_eval_fn
+
+        def wrapped(*a, **k):
+            fit_eval = build(*a, **k)
+
+            def run(*args, **kw):
+                out = fit_eval(*args, **kw)
+                seen[name].append(np.asarray(out[1]))
+                return out
+            return run
+        monkeypatch.setattr(task, "_fit_eval_fn", wrapped)
+
+    spy(jtask, "jax")
+    spy(ptask, "port")
+    before = {n: p.detach().clone() for n, p in ptask.clip.named_parameters()}
+    hp = [(LR, WD), (LR, WD)]
+    jtask.train_trials(hp, images, labels, val, val_labels, end_epoch=EPOCHS)
+    ptask.train_trials(hp, images, labels, val, val_labels, end_epoch=EPOCHS)
+    (want,) = seen["jax"]  # (trials, epochs, n_val, K): one vmapped call
+    assert len(seen["port"]) == 2  # one call per trial
+    for t in range(2):
+        for e in range(EPOCHS):
+            _close(seen["port"][t][e], want[t, e], f"trial {t} epoch {e} val logits")
+    # the same (lr, wd) from the same start: the two trials agree (their
+    # epoch orders differ, so only up to float32 summation order)
+    _close(seen["port"][1], seen["port"][0], "trial 1 vs trial 0")
+    assert all(torch.equal(p, before[n]) for n, p in ptask.clip.named_parameters())
+    trained = ptask.last_bundle["clip"]
+    assert trained is not ptask.clip and trained.text is ptask.clip.text
+    assert not torch.equal(trained.visual.proj, ptask.clip.visual.proj)
