@@ -90,7 +90,28 @@ on):
    kernel held against its plain version at every batch each of these paths
    gave it; and the C++ resampler built with g++ on the card's host,
    resizing a seeded batch of non-square images to 224 (images/s printed);
-8. report: one ``{"kernels": [...]}`` line: launches from phases 6 and 7,
+8. the baselines, LoRA, the bottleneck adapter and Compacter, each on
+   phase 4's frozen ViT-B/32 tower with seeded non-zero factors (LoRA's B
+   is zero at init): the launches of one bf16 train step at batch 128 and
+   of one batch-256 forward (LoRA K1 / K2 / K3 = 12 / 12 / 12 and
+   12 / 12 / 0, the adapter and Compacter 12 / 0 / 0: their hook needs the
+   bare MLP output, so their blocks never take the fused MLP); first-step
+   gradients, kernel vs plain path, as phase 5's, bf16 with the head's
+   BatchNorm off (with it on, reported only: see ``baseline_checks``;
+   Compacter's frozen rule takes none on either path); a batch-256 bf16
+   serving forward of a classifier
+   fitted to that batch (one class per image: the scramble makes a row's
+   features depend on its batch), top-1 agreement with the plain path
+   >= 99%.
+   Then each one's command in phase 6's output directory with its script's
+   flags: ``lora_clip`` with the sweep (its own cache file beside phase 6's,
+   which stays as it was, 42 to 90 trials, every one trained, and the
+   reference walk's (lr, wd)), ``adapter_clip`` and ``compacter_clip`` the
+   final run only (a cut for the time limit); exact launches for their
+   steps and chunks, the artifacts, ``n_trainable_params`` equal to the
+   JAX package's count, Compacter's rule unchanged bit for bit; each kernel
+   held against its plain version at every batch each path gave it;
+9. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 8,
    summed and by path (each path's counts are zeroed just before it and read
    just after), the other numbers at the batch that launched the kernel
    most, every path's batches under ``by_shape``; then the ``{"ok": true,
@@ -105,6 +126,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import importlib
 import io
 import json
 import logging
@@ -322,20 +344,51 @@ def seed_factors(peft, gen, scale: float = 0.5) -> None:
             layer.b.copy_(torch.randn(layer.b.shape, generator=gen) * 0.02)
 
 
-def build_classifier(seed: int):
+# phase 8's seeded noise: LoRA's B factors (zero at init, which makes every
+# A gradient zero too), and every per-layer leaf of the adapter and Compacter
+# but Compacter's glorot factors (LayerNorms the identity and biases zero at
+# init), added to their init
+LORA_B_SCALE, ADAPTER_NOISE = 0.01, 0.05
+
+
+def seed_baseline(peft, gen, method: str) -> None:
+    """Non-zero LoRA B factors, or seeded noise on the adapter's and
+    Compacter's per-layer leaves, in place, drawn from ``gen`` (a CPU
+    generator)."""
+    with torch.no_grad():
+        for layer in peft.layers:
+            for name, p in layer.named_parameters():
+                if method == "lora":
+                    if name in ("q_b", "v_b"):
+                        p.copy_(torch.randn(p.shape, generator=gen) * LORA_B_SCALE)
+                elif method == "adapter" or "_w_" not in name:
+                    p.add_((torch.randn(p.shape, generator=gen) * ADAPTER_NOISE).to(p.device))
+
+
+def seed_peft(peft, gen, method: str, scale: float = 0.5) -> None:
+    """KAdaptation's factors at ``scale`` (``seed_factors``), or a
+    baseline's seeding (``seed_baseline``)."""
+    if method == "kadaptation":
+        seed_factors(peft, gen, scale)
+    else:
+        seed_baseline(peft, gen, method)
+
+
+def build_classifier(seed: int, method: str = "kadaptation", num_classes: int = 100):
     from pevit_tpu_torch.core import CLIPSpec, init_clip_params
     from pevit_tpu_torch.data import CLIP_MEAN, CLIP_STD
     from pevit_tpu_torch.peft import PeftConfig, init_peft
     from pevit_tpu_torch.train import init_bn_state, init_head, partition, trainable_pred
-    from pevit_tpu_torch.train.trainer import TaskStatic
+    from pevit_tpu_torch.train.trainer import UNFUSED_MLP_METHODS, TaskStatic
 
     gen = torch.Generator().manual_seed(seed)
     spec = CLIPSpec.vit_b32()
-    cfg = PeftConfig(method="kadaptation")
-    static = TaskStatic(spec=spec, peft_cfg=cfg, num_classes=100)
+    cfg = PeftConfig(method=method)
+    static = TaskStatic(spec=spec, peft_cfg=cfg, num_classes=num_classes,
+                        use_fused_mlp=method not in UNFUSED_MLP_METHODS)
     clip = init_clip_params(gen, spec, device="cuda")
     peft = init_peft(gen, cfg, spec, device="cuda")
-    seed_factors(peft, gen)
+    seed_peft(peft, gen, method)
     head = init_head(gen, static.head_dim, static.num_classes, device="cuda")
     bn = init_bn_state(static.head_dim, device="cuda")
     bn["mean"] = (torch.randn(static.head_dim, generator=gen) * 0.1).cuda()
@@ -475,9 +528,10 @@ TRAIN_LR, TRAIN_WD, TRAIN_EPOCHS = 1e-3, 1e-4, 2
 TRAIN_FACTOR_SCALE = 0.1
 
 
-def make_task(clip, dtype_name: str, dropout_p: float):
-    """A ViT-B/32 KAdaptation task through the config entry points, on the
-    given frozen tower, whose bundles carry seeded non-zero factors."""
+def make_task(clip, dtype_name: str, dropout_p: float, method: str = "kadaptation"):
+    """A ViT-B/32 task of ``method`` (KAdaptation unless given) through the
+    config entry points, on the given frozen tower, whose bundles carry
+    seeded non-zero factors (``seed_peft``)."""
     from pevit_tpu_torch.config import get_default_config
     from pevit_tpu_torch.core import CLIPSpec
     from pevit_tpu_torch.peft import PeftConfig
@@ -490,7 +544,7 @@ def make_task(clip, dtype_name: str, dropout_p: float):
     cfg.TPU.COMPUTE_DTYPE = dtype_name
     cfg.freeze()
     static = TaskStatic.from_config(cfg, CLIPSpec.vit_b32(),
-                                    PeftConfig(method="kadaptation", kadapt_dropout_p=dropout_p))
+                                    PeftConfig(method=method, kadapt_dropout_p=dropout_p))
     task = TrainTask(cfg, static, clip, device="cuda")
     init = task.init_bundle
 
@@ -498,7 +552,7 @@ def make_task(clip, dtype_name: str, dropout_p: float):
         trainable, frozen, bn = init(gen)
         # tamer than serving's 0.5: a sharper attention would let float32
         # rounding differences between the two paths grow over the run
-        seed_factors(trainable["peft"], gen, scale=TRAIN_FACTOR_SCALE)
+        seed_peft(trainable["peft"], gen, method, scale=TRAIN_FACTOR_SCALE)
         return trainable, frozen, bn
 
     task.init_bundle = init_bundle
@@ -676,12 +730,14 @@ TXT_LINE = re.compile(r"best acc is:([0-9.eE+-]+), num_params is:(\S+?), "
                       r"n_trainable_params is:([0-9.eE+-]+), backbone_params is:(\S+?)\.")
 
 
-def command_argv(tmp: Path) -> list:
+def command_argv(tmp: Path, no_tuning: str = "False", lr: str = "0.0", l2: str = "0.0") -> list:
     """scripts/kadapter_clip.sh's flags for cifar-10, seed 0, with random
-    weights and the synthetic split in ``tmp``."""
+    weights and the synthetic split in ``tmp`` (the other PEFT scripts
+    differ only in the command); ``no_tuning``, ``lr`` and ``l2`` are the
+    script's configuration section."""
     return ["--ds", str(REPO / "resources/datasets/cifar10.yaml"),
             "--model", str(REPO / "resources/model/vitb32_CLIP.yaml"),
-            "--no-tuning", "False", "--lr", "0.0", "--l2", "0.0",
+            "--no-tuning", no_tuning, "--lr", lr, "--l2", l2,
             "DATASET.NUM_SAMPLES_PER_CLASS", "5", "DATASET.RANDOM_SEED_SAMPLING", "0",
             "TRAIN.INIT_HEAD_WITH_TEXT_ENCODER", "True", "MODEL.PRETRAINED", "random",
             "DATASET.ALLOW_SYNTHETIC", "True", "DATASET.ROOT", str(tmp / "data"),
@@ -794,9 +850,9 @@ def command_batches(task, data, trials: int) -> tuple:
 def path_batches(task, data, trials: int) -> dict:
     """What one run of a training command gave the kernels: its batches
     (``command_batches``), dtype and widths, and which kernels it routes
-    through: K2 wherever the fused MLP is on (all but full_finetune), K3
-    where a gradient also flows through it (all but the linear probe, which
-    trains the head only)."""
+    through: K2 wherever the fused MLP is on (all but full_finetune, the
+    adapter and Compacter), K3 where a gradient also flows through it (all
+    but the linear probe, which trains the head only)."""
     st = task.static
     vision = st.spec.vision
     train, evals = command_batches(task, data, trials)
@@ -837,7 +893,7 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
 
 
 def kernel_report(kernels, launches: dict, table: dict) -> list:
-    """The ``kernels`` line: launches summed over the paths of phases 6 and 7
+    """The ``kernels`` line: launches summed over the paths of phases 6 to 8
     (each read around its own run); the other numbers at the batch that
     launched the kernel most (the larger batch on a tie); every path's
     batches under ``by_shape``."""
@@ -870,75 +926,89 @@ def read_launches(kernels) -> dict:
     return {k.name: k.launches for k in kernels}
 
 
-def run_command(kernels) -> dict:
-    """Phase 6: the KAdaptation command end to end, then once more to replay."""
-    from pevit_tpu_torch.commands import kronecker_adaptation_clip
+def check_command_artifacts(tmp: Path) -> None:
+    """The PEFT commands' JSON and TXT artifacts in ``tmp/out``: the
+    reference's schema, predictions (160, 10) with rows summing to 1."""
+    folder = tmp / "out" / "predictions" / "finetuning_5"
+    artifact = json.loads((folder / "seed0_cifar-10.json").read_text())
+    line = TXT_LINE.search((folder / "seed0_cifar-10.txt").read_text())
+    if list(artifact) != ARTIFACT_KEYS or line is None:
+        raise AssertionError(f"artifacts off the reference schema: {list(artifact)}, {line}")
+    preds = np.asarray(artifact["predictions"][0])
+    if preds.shape != (160, 10) or not np.allclose(preds.sum(-1), 1.0, atol=1e-4):
+        raise AssertionError(f"predictions {preds.shape}, row sums {preds.sum(-1)[:4]}")
+
+
+def check_sweep(cache: Path, info: dict) -> list:
+    """A sweep's cache file: 42 to 90 distinct trials, and the (lr, wd) the
+    command chose is the reference walk's over their scores.  Returns the
+    file's records."""
     from pevit_tpu_torch.config import get_default_config
+
+    records = [json.loads(x) for x in cache.read_text().splitlines()]
+    scores = {(r["lr"], r["wd"]): r["score"] for r in records}
+    if not 42 <= len(scores) <= 90:
+        raise AssertionError(f"{len(scores)} distinct sweep trials, want 42 to 90")
+    want = reference_walk(lambda lr, wd: scores[(repr(lr), repr(wd))], get_default_config())
+    if (info["best_lr"], info["best_l2_lambda"]) != want:
+        raise AssertionError(f"sweep chose {info['best_lr']}, {info['best_l2_lambda']}; "
+                             f"the reference walk over its scores chooses {want}")
+    return records
+
+
+def run_command(kernels, tmp: Path) -> dict:
+    """Phase 6: the KAdaptation command end to end, then once more to
+    replay; its outputs stay in ``tmp`` for phase 8."""
+    from pevit_tpu_torch.commands import kronecker_adaptation_clip
 
     from pevit_tpu_torch.ckpt import restore_trainable
     from pevit_tpu_torch.train import trainable_params
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cmd_") as tmp:
-        tmp = Path(tmp)
-        argv = command_argv(tmp) + ["TPU.CHECKPOINT_DIR", str(tmp / "ckpt")]
-        times = {}
-        reset_launches(kernels)
-        t0 = time.perf_counter()
-        with timed_command(times):
-            best, info = kronecker_adaptation_clip.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_launches(kernels)
+    argv = command_argv(tmp) + ["TPU.CHECKPOINT_DIR", str(tmp / "ckpt")]
+    times = {}
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with timed_command(times):
+        best, info = kronecker_adaptation_clip.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
 
-        folder = tmp / "out" / "predictions" / "finetuning_5"
-        artifact = json.loads((folder / "seed0_cifar-10.json").read_text())
-        line = TXT_LINE.search((folder / "seed0_cifar-10.txt").read_text())
-        if list(artifact) != ARTIFACT_KEYS or line is None:
-            raise AssertionError(f"artifacts off the reference schema: {list(artifact)}, {line}")
-        preds = np.asarray(artifact["predictions"][0])
-        if preds.shape != (160, 10) or not np.allclose(preds.sum(-1), 1.0, atol=1e-4):
-            raise AssertionError(f"predictions {preds.shape}, row sums {preds.sum(-1)[:4]}")
+    check_command_artifacts(tmp)
+    (cache,) = (tmp / "out" / "cifar-10" / "sweep_cache").iterdir()
+    records = check_sweep(cache, info)
+    scores = {(r["lr"], r["wd"]) for r in records}
 
-        (cache,) = (tmp / "out" / "cifar-10" / "sweep_cache").iterdir()
-        records = [json.loads(x) for x in cache.read_text().splitlines()]
-        scores = {(r["lr"], r["wd"]): r["score"] for r in records}
-        if not 42 <= len(scores) <= 90:
-            raise AssertionError(f"{len(scores)} distinct sweep trials, want 42 to 90")
-        want = reference_walk(lambda lr, wd: scores[(repr(lr), repr(wd))], get_default_config())
-        if (info["best_lr"], info["best_l2_lambda"]) != want:
-            raise AssertionError(f"sweep chose {info['best_lr']}, {info['best_l2_lambda']}; "
-                                 f"the reference walk over its scores chooses {want}")
+    (task, data, config), _ = times["run_method_call"]
+    trials = len(records)  # each trained once, replays aside
+    batches = path_batches(task, data, trials)
+    want_launches = expected_launches(batches)
+    if launches != want_launches:
+        raise AssertionError(f"command launches {launches}, want {want_launches} for "
+                             f"{trials} trials and the final run")
 
-        (task, data, config), _ = times["run_method_call"]
-        trials = len(records)  # each trained once, replays aside
-        batches = path_batches(task, data, trials)
-        want_launches = expected_launches(batches)
-        if launches != want_launches:
-            raise AssertionError(f"command launches {launches}, want {want_launches} for "
-                                 f"{trials} trials and the final run")
+    # TPU.CHECKPOINT_DIR: the final run's trained state, restored bit for bit
+    epochs = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
+    saved = sorted(f.name for f in (tmp / "ckpt").iterdir())
+    restored = restore_trainable(str(tmp / "ckpt"), task.last_bundle)
+    trained = trainable_params(task.last_trainable)
+    if saved != [f"step_{epochs}.npz"] or restored.keys() != trained.keys() or not all(
+            torch.equal(restored[n], trained[n]) for n in trained):
+        raise AssertionError(f"TPU.CHECKPOINT_DIR holds {saved}; restored state differs "
+                             "from the final run's")
 
-        # TPU.CHECKPOINT_DIR: the final run's trained state, restored bit for bit
-        epochs = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
-        saved = sorted(f.name for f in (tmp / "ckpt").iterdir())
-        restored = restore_trainable(str(tmp / "ckpt"), task.last_bundle)
-        trained = trainable_params(task.last_trainable)
-        if saved != [f"step_{epochs}.npz"] or restored.keys() != trained.keys() or not all(
-                torch.equal(restored[n], trained[n]) for n in trained):
-            raise AssertionError(f"TPU.CHECKPOINT_DIR holds {saved}; restored state differs "
-                                 "from the final run's")
+    text = check_text_features_on_cpu(times["text_features_call"])
 
-        text = check_text_features_on_cpu(times["text_features_call"])
-
-        reset_launches(kernels)
-        t1 = time.perf_counter()
-        best2, info2 = kronecker_adaptation_clip.main(argv)
-        replay_s = time.perf_counter() - t1
-        replay_launches = read_launches(kernels)
-        if best2 != best or any(replay_launches.values()) or replay_s > 60:
-            raise AssertionError(f"replay: best {best2} vs {best}, launches {replay_launches}, "
-                                 f"{replay_s:.1f} s")
-        close_command_logs()
+    reset_launches(kernels)
+    t1 = time.perf_counter()
+    best2, info2 = kronecker_adaptation_clip.main(argv)
+    replay_s = time.perf_counter() - t1
+    replay_launches = read_launches(kernels)
+    if best2 != best or any(replay_launches.values()) or replay_s > 60:
+        raise AssertionError(f"replay: best {best2} vs {best}, launches {replay_launches}, "
+                             f"{replay_s:.1f} s")
+    close_command_logs()
     final_s = times["run_method"] - times["sweep"]
     final_images = (len(data[1]) + len(data[3])) * epochs
     return {"best_acc": best, "best_lr": info["best_lr"], "best_wd": info["best_l2_lambda"],
@@ -1247,6 +1317,197 @@ def run_entry_points(kernels, gen, card: str) -> tuple:
     return launches, table
 
 
+# ---------------------------------------------------------------------------
+# 8. the baselines
+# ---------------------------------------------------------------------------
+
+BASELINES = ("lora", "adapter", "compacter")
+# each method's trainable PEFT count at ViT-B/32 as the JAX package gives it
+# (pevit_tpu.peft.base.peft_num_params; Compacter's 64-element shared rule is
+# frozen), which tests/test_torch_peft_methods.py holds the port to
+JAX_PEFT_TRAINABLE = {"lora": 147_456, "adapter": 1_208_064, "compacter": 48_448 - 64}
+# the adapter's and Compacter's commands run the final run only (no sweep,
+# for the time limit), at a learning rate and weight decay of the sweep's grid
+BASELINE_FINAL = {"no_tuning": "True", "lr": "0.001", "l2": "0.0001"}
+
+
+def path_launch_want(static) -> dict:
+    """K1 / K2 / K3 launches of one train step and of one eval chunk or
+    forward of a task's tower, one of each a block: K2 and K3 only where the
+    blocks take the fused MLP (of the baselines, LoRA), K3 only in a train
+    step."""
+    layers = static.spec.vision.layers
+    fused = layers if static.use_fused_mlp else 0
+    return {"step": {"attention_fwd": layers, "fused_mlp_fwd": fused, "fused_mlp_bwd": fused},
+            "forward": {"attention_fwd": layers, "fused_mlp_fwd": fused, "fused_mlp_bwd": 0}}
+
+
+def check_launches(kernels, what: str, want: dict, fn):
+    """Run ``fn`` with the counts zeroed and hold its launches to ``want``."""
+    reset_launches(kernels)
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_launches(kernels)
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return out
+
+
+def worst_cosine(task, images, labels) -> dict:
+    """The leaf whose first-step gradient is least aligned between the
+    kernel path and the plain path, and its cosine (reported, not held)."""
+    got = first_step_grads(task, images, labels)
+    with plain_path():
+        want = first_step_grads(task, images, labels)
+    cos = {n: torch.nn.functional.cosine_similarity(g.flatten(), want[n].flatten(), dim=0).item()
+           for n, g in got.items()}
+    at = min(cos, key=cos.get)
+    return {"min_cosine": cos[at], "at": at}
+
+
+def baseline_checks(kernels, method: str, clip, images, labels, serve_images) -> dict:
+    """One baseline on the frozen ViT-B/32 tower: the launches of a train
+    step and of a forward; first-step gradients, kernel vs plain path, bf16
+    and fp32; a bf16 serving forward of ``serve_images`` against the plain
+    path, its head fitted to those images' fp32 features, one class each.
+
+    The bf16 gradients are held with the head's BatchNorm off (and reported
+    with it on).  In train mode it divides each feature by its spread over
+    the batch, which for random images through a random tower is small
+    beside the feature itself, so a one-ulp difference in any block's
+    attention output (the kernel and its plain version sum in different
+    orders) moves the adapters' smaller gradients by up to a few percent,
+    on either path alike: the adapter's worst cosine with it on was 0.98994
+    on an H100 (80GB HBM3, 700 W) while every fp32 leaf agreed within 1e-3.
+    The fp32 gradients are held with it on.
+
+    The head is fitted to the served batch itself because LoRA's raw-reshape
+    scramble makes a row's features depend on the rows around it: a head
+    fitted to 100 prototypes in a batch of 100, as phase 4's, does not fit
+    them in a batch of 256, and the top-1 comparison would test near-ties
+    (agreement 0.988 for LoRA on the same H100), not the kernels."""
+    from pevit_tpu_torch.serve import make_serving_fn
+    from pevit_tpu_torch.train import trainable_params
+
+    out = {"first_step_grads": []}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        task = make_task(clip, dtype_name, 0.0, method)
+        if task.static.use_fused_mlp is not (method == "lora"):
+            raise AssertionError(f"{method}: use_fused_mlp {task.static.use_fused_mlp}")
+        want = path_launch_want(task.static)
+        trainable, frozen, _ = task.init_bundle(torch.Generator().manual_seed(7))
+        names = set(trainable_params(trainable))
+        if method == "compacter" and ("peft.shared.phm_rule" in names
+                                      or frozen["peft"].shared.phm_rule.requires_grad):
+            raise AssertionError("Compacter's phm_rule takes a gradient")
+        if dtype == torch.bfloat16:
+            check_launches(kernels, f"{method} train step", want["step"],
+                           lambda: first_step_grads(task, images, labels))
+            out["bf16_with_bn"] = worst_cosine(task, images, labels)
+            task.static = dataclasses.replace(task.static, use_bn=False)
+        out["first_step_grads"].append({**compare_grads(task, images, labels, dtype),
+                                        "use_bn": task.static.use_bn})
+
+    n = len(serve_images)
+    static, trainable, frozen, bn, preproc = build_classifier(seed=0, method=method,
+                                                              num_classes=n)
+    fit_prototype_head(static, trainable, frozen, bn, preproc, serve_images)
+    serve = make_serving_fn(static, trainable, frozen, bn, preproc, device="cuda")
+    batch = torch.from_numpy(serve_images).cuda()
+    check_launches(kernels, f"{method} forward", want["forward"], lambda: serve(batch))
+    out["serving"] = compare_plain(serve, batch, torch.arange(n).cuda(), torch.bfloat16)
+    return out
+
+
+def run_baseline_command(kernels, method: str, tmp: Path) -> tuple:
+    """One baseline's command in phase 6's output directory, with its
+    script's flags: LoRA with the sweep, the adapter and Compacter the final
+    run only.  Exact launches from the steps and chunks it ran, the
+    artifacts, the trainable count, and (LoRA) a sweep of its own, every
+    trial trained; (Compacter) the frozen rule unchanged bit for bit.
+    Returns (summary, batches)."""
+    module = importlib.import_module(f"pevit_tpu_torch.commands.{method}_clip")
+    cache_dir = tmp / "out" / "cifar-10" / "sweep_cache"
+    before = {f: f.read_text() for f in cache_dir.iterdir()}
+    options = {} if method == "lora" else BASELINE_FINAL
+    times = {}
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with timed_command(times):
+        best, info = module.main(command_argv(tmp, **options))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    check_command_artifacts(tmp)
+    (task, data, config), _ = times["run_method_call"]
+    trials = 0
+    if method == "lora":
+        # the repair: LoRA's sweep opens a cache file of its own beside
+        # KAdaptation's (left as it was) and trains each of its trials,
+        # which the launches below count
+        after = set(cache_dir.iterdir())
+        if len(after) != 2 or any(f.read_text() != text for f, text in before.items()):
+            raise AssertionError(f"sweep caches {sorted(f.name for f in after)}: want phase 6's, "
+                                 "unchanged, and LoRA's own")
+        (own,) = after - set(before)
+        trials = len(check_sweep(own, info))
+    elif len(list(cache_dir.iterdir())) != len(before):
+        raise AssertionError(f"{method}: a run without the sweep wrote a sweep cache")
+    batches = path_batches(task, data, trials)
+    want = expected_launches(batches)
+    if launches != want:
+        raise AssertionError(f"{method} command launches {launches}, want {want} for {trials} "
+                             "sweep trials and the final run")
+    head = task.static.head_dim * task.static.num_classes + task.static.num_classes
+    if info["n_trainable_params"] != JAX_PEFT_TRAINABLE[method] + head:
+        raise AssertionError(f"{method}: n_trainable_params {info['n_trainable_params']}, the "
+                             f"JAX package counts {JAX_PEFT_TRAINABLE[method]} + {head}")
+    if method == "compacter":
+        # the final run is trial 0 of seed 0: the same generator redraws its rule
+        rule = task.init_bundle(torch.Generator().manual_seed(0))[1]["peft"].shared.phm_rule
+        if not torch.equal(task.last_bundle["peft"].shared.phm_rule, rule):
+            raise AssertionError("Compacter's phm_rule changed in training")
+    close_command_logs()
+    epochs = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
+    final_s = times["run_method"] - times.get("sweep", 0.0)
+    summary = {"best_acc": best, "best_lr": info["best_lr"], "best_wd": info["best_l2_lambda"],
+               "n_trainable_params": info["n_trainable_params"], "n_params": info["n_params"],
+               "sweep_trials": trials, "launches": launches,
+               "train_step_images": dict(batches["train"]),
+               "eval_chunk_images": dict(batches["evals"]),
+               "seconds": {"command": seconds, "text_features": times["text_features"],
+                           "final_run": final_s},
+               "final_train_images_per_s": (len(data[1]) + len(data[3])) * epochs / final_s}
+    if trials:
+        summary["seconds"].update(sweep=times["sweep"], sweep_per_trial=times["sweep"] / trials)
+    return summary, batches
+
+
+def run_baselines(kernels, gen, card: str, tmp: Path, clip, train_batch) -> tuple:
+    """Phase 8; returns the launches and kernel rows of the baselines'
+    command paths."""
+    from pevit_tpu_torch.core import CLIPSpec
+
+    launches, table = {}, {k.name: [] for k in kernels}
+    res = CLIPSpec.vit_b32().vision.input_resolution
+    # a serving batch of distinct seeded images, one class each
+    serve_images = np.random.default_rng(8).integers(0, 256, (SERVE_BATCH, res, res, 3),
+                                                     dtype=np.uint8)
+    for method in BASELINES:
+        t0 = time.perf_counter()
+        checks = baseline_checks(kernels, method, clip, *train_batch, serve_images)
+        print(f"{method}: {json.dumps(checks)} [{card}]", flush=True)
+        summary, batches = run_baseline_command(kernels, method, tmp)
+        launches[method] = summary["launches"]
+        summary["seconds"]["method"] = time.perf_counter() - t0
+        print(f"command {method}_clip: {json.dumps(summary)} [{card}]", flush=True)
+        for name, rows_ in path_kernel_rows(gen, method, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{method} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    return launches, table
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a CUDA card",
@@ -1349,25 +1610,33 @@ def main() -> int:
     run32 = compare_whole_run(make_task(clip, "float32", 0.0), data)
     print(f"whole-run val logits kernel vs plain path: {json.dumps(run32)} [{card}]", flush=True)
 
-    # 6. the command, then every kernel at the batches it gave each one
-    command = run_command(KERNELS)
-    batches = command.pop("batches")
-    print(f"command kronecker_adaptation_clip: {json.dumps(command)} [{card}]", flush=True)
-    command_table = path_kernel_rows(gen, "command", batches)
-    for name, rows_ in command_table.items():
-        for r in rows_:
-            print(f"command kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cmd_") as cmd_tmp:
+        # 6. the command, then every kernel at the batches it gave each one
+        command = run_command(KERNELS, Path(cmd_tmp))
+        batches = command.pop("batches")
+        print(f"command kronecker_adaptation_clip: {json.dumps(command)} [{card}]", flush=True)
+        command_table = path_kernel_rows(gen, "command", batches)
+        for name, rows_ in command_table.items():
+            for r in rows_:
+                print(f"command kernel {name} {json.dumps(r)} [{card}]", flush=True)
 
-    # 7. the other entry points: checkpoint, zero-shot, linear probe,
-    # finetune, native resize
-    t0 = time.perf_counter()
-    launches, entry_table = run_entry_points(KERNELS, gen, card)
-    print(f"native resize: {json.dumps(native_resize(rng))} [{card}]", flush=True)
-    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+        # 7. the other entry points: checkpoint, zero-shot, linear probe,
+        # finetune, native resize
+        t0 = time.perf_counter()
+        launches, entry_table = run_entry_points(KERNELS, gen, card)
+        print(f"native resize: {json.dumps(native_resize(rng))} [{card}]", flush=True)
+        print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8. report
-    launches = {"command": command["launches"], **launches}
-    table = {name: command_table[name] + entry_table[name] for name in command_table}
+        # 8. the baselines, their commands into phase 6's output directory
+        t0 = time.perf_counter()
+        base_launches, base_table = run_baselines(KERNELS, gen, card, Path(cmd_tmp), clip,
+                                                  (batch_x, batch_y))
+        print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 9. report
+    launches = {"command": command["launches"], **launches, **base_launches}
+    table = {name: command_table[name] + entry_table[name] + base_table[name]
+             for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))

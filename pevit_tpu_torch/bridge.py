@@ -28,8 +28,7 @@ import numpy as np
 import torch
 
 from .core.clip import CLIP, CLIPSpec
-from .peft.base import PeftConfig, require_ported
-from .peft.kadaptation import KAdaptation
+from .peft.base import MODULE_CLASSES, PeftConfig
 from .train.head import Head
 from .train.optim import AdamState, RmspropState, SgdState
 from .utils.device import resolve_device
@@ -135,8 +134,7 @@ def from_jax(bundle_np: dict, bn_state_np: dict, spec: CLIPSpec, peft_cfg: PeftC
 
     peft = None
     if peft_cfg.has_peft_params:
-        require_ported(peft_cfg)
-        peft = KAdaptation(spec.vision.layers, spec.vision.width)
+        peft = MODULE_CLASSES[peft_cfg.method](spec.vision.layers, spec.vision.width)
         _load(peft, _to_state_dict(_flatten(bundle_np["peft"]), _STACKED["peft"]), "peft")
 
     kernel = np.asarray(bundle_np["head"]["linear"]["kernel"])
@@ -150,11 +148,17 @@ def from_jax(bundle_np: dict, bn_state_np: dict, spec: CLIPSpec, peft_cfg: PeftC
     return bundle, bn
 
 
+def _peft_tree(tree: dict) -> dict:
+    """A PEFT tree in the reference's layout: ``"shared"`` is None for a
+    method that shares nothing (LoRA, the adapter)."""
+    return {"shared": tree.get("shared"), **tree}
+
+
 def to_jax(bundle: dict, bn_state: dict):
     """The port's bundle and BN state -> the reference's layout as numpy."""
     out = {"clip": _from_state_dict(bundle["clip"].state_dict(), _STACKED["clip"]),
            "peft": None if bundle.get("peft") is None
-           else _from_state_dict(bundle["peft"].state_dict(), _STACKED["peft"]),
+           else _peft_tree(_from_state_dict(bundle["peft"].state_dict(), _STACKED["peft"])),
            "head": _from_state_dict(bundle["head"].state_dict(), ())}
     bn = {k: v.detach().cpu().numpy() for k, v in bn_state.items()}
     return out, bn
@@ -196,7 +200,7 @@ def trainable_to_jax(bundle: dict) -> dict:
             node[path[-1]] = None
         _fill(tree, _from_state_dict({n: p for n, p in named.items() if p.requires_grad},
                                      prefixes))
-        out[top] = tree
+        out[top] = _peft_tree(tree) if top == "peft" else tree
     return out
 
 

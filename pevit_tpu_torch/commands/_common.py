@@ -33,9 +33,11 @@ from ..config import get_default_config, update_config
 from ..utils import create_logger, dist as comm, log_config
 from ..utils.device import resolve_device
 
-# the reference's exp_name prefix of each command
-# (commands/kronecker_adaptation_clip.py:113, finetune.py:68, linear_probe.py:79)
-EXP_PREFIX = {"kadaptation": "finetuning", "linear_probe": "linear_probe",
+# the reference's exp_name prefix of each command; every PEFT command shares
+# 'finetuning' (commands/kronecker_adaptation_clip.py:113, lora_clip.py:68,
+# adapter_clip.py:69, compacter_clip.py:112, finetune.py:68; linear_probe.py:79)
+EXP_PREFIX = {"kadaptation": "finetuning", "lora": "finetuning", "adapter": "finetuning",
+              "compacter": "finetuning", "linear_probe": "linear_probe",
               "full_finetune": "finetuning"}
 
 
@@ -161,12 +163,13 @@ def _completion_path(config, exp_name: str) -> str:
 
 def job_fingerprint(config, data, method: str, args) -> str:
     """Content key of one job: config, data, method and the command line's
-    hyperparameters, on ``sweep_fingerprint``'s invalidation rules."""
+    hyperparameters, on ``sweep_fingerprint``'s invalidation rules (which
+    hash the method)."""
     from ..train.sweep_cache import sweep_fingerprint
 
     seed = args.fix_seed if args.fix_seed != -1 else 0
-    base = sweep_fingerprint(config, data, config.TRAIN.END_EPOCH, seed)
-    extra = f"method={method};no_tuning={args.no_tuning};lr={args.lr};l2={args.l2}"
+    base = sweep_fingerprint(config, data, config.TRAIN.END_EPOCH, seed, method)
+    extra = f"no_tuning={args.no_tuning};lr={args.lr};l2={args.l2}"
     return hashlib.sha256(f"{base};{extra}".encode()).hexdigest()[:24]
 
 

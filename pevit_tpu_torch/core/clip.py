@@ -117,11 +117,13 @@ class BlockHooks:
     """Per-layer PEFT callbacks.
 
     ``attn_delta(shared, layer, generator, x) -> (q_delta, v_delta)`` with
-    (B, H, N, hd) outputs; ``shared`` and ``layer`` are the PEFT module's
-    shared part and this layer's part.
+    (B, H, N, hd) outputs; ``mlp_post(shared, layer, generator, m) -> m'``
+    on the bare MLP output.  ``shared`` and ``layer`` are the PEFT module's
+    shared part (None where a method shares nothing) and this layer's part.
     """
 
     attn_delta: Optional[Callable] = None
+    mlp_post: Optional[Callable] = None
 
 
 class VisionTransformer(nn.Module):
@@ -240,7 +242,8 @@ def encode_image(
     Returns (B, embed_dim), or (B, width) when ``apply_proj`` is False (the
     projection folded into the classifier head).  ``peft`` holds the PEFT
     parameters (``.shared`` and per-layer ``.layers``) that ``hooks`` use;
-    ``use_fused_mlp`` picks each block's MLP route.
+    ``use_fused_mlp`` picks each block's MLP route where no ``mlp_post``
+    hook needs the bare MLP output.
     """
     v = spec.vision
     vp = clip.visual
@@ -264,11 +267,13 @@ def encode_image(
     x = layer_norm(x, vp.ln_pre.scale, vp.ln_pre.bias)
 
     for i, blk in enumerate(vp.blocks):
-        delta_fn = None
+        delta_fn = post_fn = None
         if hooks is not None and hooks.attn_delta is not None:
             delta_fn = partial(hooks.attn_delta, peft.shared, peft.layers[i], generator)
+        if hooks is not None and hooks.mlp_post is not None:
+            post_fn = partial(hooks.mlp_post, peft.shared, peft.layers[i], generator)
         x = residual_attention_block(blk, x, n_head=v.heads, qv_delta_fn=delta_fn,
-                                     use_fused_mlp=use_fused_mlp)
+                                     mlp_post_fn=post_fn, use_fused_mlp=use_fused_mlp)
 
     x = layer_norm(x[:, 0, :], vp.ln_post.scale, vp.ln_post.bias)
     if not apply_proj:

@@ -87,6 +87,13 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """The BERT/GPT tanh-approximate GELU of Compacter's adapters, written
+    out as the reference writes it (``pevit_tpu/core/layers.py:117-120``) so
+    that it rounds the same way."""
+    return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * torch.pow(x, 3))))
+
+
 def linear(x: torch.Tensor, p: Dense) -> torch.Tensor:
     """``x @ W + b`` with W and b cast to x's dtype."""
     return x @ p.kernel.to(x.dtype) + p.bias.to(x.dtype)
@@ -146,21 +153,29 @@ def multi_head_attention(p: Attention, x: torch.Tensor, *, n_head: int,
 def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_head: int,
                              mask: Optional[torch.Tensor] = None,
                              qv_delta_fn: Optional[DeltaFn] = None,
+                             mlp_post_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                              use_fused_mlp: bool = True,
                              ln_eps: float = 1e-5) -> torch.Tensor:
     """One CLIP block: x + attn(LN1(x)), then LN2 -> c_fc -> QuickGELU ->
     c_proj -> + residual, with ``ln_eps`` for both LayerNorms and an
     additive attention ``mask`` or none.
 
+    ``mlp_post_fn`` (the bottleneck adapter's and Compacter's hook) takes
+    the bare MLP output ``m`` and returns what is added to the residual in
+    its place, ``x + mlp_post_fn(m)``.
+
     ``use_fused_mlp`` routes the MLP half through the fused residual MLP,
     whose backward gives dx only: valid only while the MLP and LN2 weights
-    are frozen (it raises otherwise).  Off, the block takes the unfused
-    ``layer_norm`` + ``mlp`` path, differentiable in every weight.  GEMM
-    weights are cast to the compute dtype; the LN parameters stay float32."""
+    are frozen (it raises otherwise), and never taken with ``mlp_post_fn``,
+    which needs ``m`` that the fused kernel never writes.  Otherwise the
+    block takes the unfused ``layer_norm`` + ``mlp`` path, differentiable in
+    every weight.  GEMM weights are cast to the compute dtype; the LN
+    parameters stay float32."""
     h = layer_norm(x, p.ln_1.scale, p.ln_1.bias, eps=ln_eps)
     x = x + multi_head_attention(p.attn, h, n_head=n_head, mask=mask, qv_delta_fn=qv_delta_fn)
-    if not use_fused_mlp:
-        return x + mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps))
+    if not use_fused_mlp or mlp_post_fn is not None:
+        m = mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps))
+        return x + (m if mlp_post_fn is None else mlp_post_fn(m))
     dt = x.dtype
     return fused_mlp_residual(
         x, p.ln_2.scale, p.ln_2.bias,

@@ -1,8 +1,10 @@
 """PEFT registry (counterpart of ``pevit_tpu/peft/base.py``).
 
-The port carries KAdaptation and the methods without PEFT parameters
-(linear_probe, full_finetune, zeroshot); LoRA, adapter and Compacter are
-known names whose hooks come with a later slice.
+Methods: kadaptation, lora, adapter and compacter carry PEFT parameters in
+the visual tower; linear_probe, full_finetune and zeroshot carry none.  A
+method contributes an ``init_params(generator, n_layers, width)`` module
+with ``shared`` (None where nothing is shared) and per-layer ``layers``,
+``BlockHooks`` callbacks and a trainability rule.
 """
 
 from __future__ import annotations
@@ -14,11 +16,18 @@ from typing import Optional
 import torch
 
 from ..core.clip import BlockHooks, CLIPSpec
+from . import adapter as _adapter
+from . import compacter as _compacter
 from . import kadaptation as _kadaptation
+from . import lora as _lora
 
 PEFT_METHODS = ("kadaptation", "lora", "adapter", "compacter")
 ALL_METHODS = PEFT_METHODS + ("linear_probe", "full_finetune", "zeroshot")
-_PORTED = ("kadaptation",)
+_MODULES = {"kadaptation": _kadaptation, "lora": _lora, "adapter": _adapter,
+            "compacter": _compacter}
+# the parameter module of each method, as ``bridge.from_jax`` builds it
+MODULE_CLASSES = {"kadaptation": _kadaptation.KAdaptation, "lora": _lora.LoRA,
+                  "adapter": _adapter.Adapter, "compacter": _compacter.Compacter}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,31 +45,30 @@ class PeftConfig:
         return self.method in PEFT_METHODS
 
 
-def require_ported(cfg: PeftConfig) -> None:
-    if cfg.has_peft_params and cfg.method not in _PORTED:
-        raise NotImplementedError(f"PEFT method {cfg.method!r} is not ported yet")
-
-
 def init_peft(generator: torch.Generator, cfg: PeftConfig, spec: CLIPSpec, *, device=None):
     """The PEFT parameter module for the visual tower, or None."""
     if not cfg.has_peft_params:
         return None
-    require_ported(cfg)
-    return _kadaptation.init_params(generator, spec.vision.layers, spec.vision.width,
-                                    device=device)
+    return _MODULES[cfg.method].init_params(generator, spec.vision.layers, spec.vision.width,
+                                            device=device)
 
 
 def make_hooks(cfg: PeftConfig, spec: CLIPSpec, train: bool) -> Optional[BlockHooks]:
     """The per-block callbacks for the visual tower, or None."""
-    require_ported(cfg)
+    n_head = spec.vision.heads
     if cfg.method == "kadaptation":
         return BlockHooks(attn_delta=partial(
             _kadaptation.attn_delta,
-            n_head=spec.vision.heads,
+            n_head=n_head,
             train=train,
             reference_compat=cfg.reference_compat,
             dropout_p=cfg.kadapt_dropout_p,
         ))
+    if cfg.method == "lora":
+        return BlockHooks(attn_delta=partial(_lora.attn_delta, n_head=n_head, train=train,
+                                             reference_compat=cfg.reference_compat))
+    if cfg.method in ("adapter", "compacter"):
+        return BlockHooks(mlp_post=partial(_MODULES[cfg.method].mlp_post, train=train))
     return None
 
 
@@ -68,8 +76,7 @@ def peft_num_params(cfg: PeftConfig, spec: CLIPSpec) -> int:
     """Parameter count of the method's PEFT module (0 for no-PEFT methods)."""
     if not cfg.has_peft_params:
         return 0
-    require_ported(cfg)
-    return _kadaptation.num_params(spec.vision.layers, spec.vision.width)
+    return _MODULES[cfg.method].num_params(spec.vision.layers, spec.vision.width)
 
 
 def peft_trainable_filter(cfg: PeftConfig):

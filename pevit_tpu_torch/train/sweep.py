@@ -127,7 +127,7 @@ def hyperparameter_sweep_lr(task, data, config, *, seed: int = 0):
 
     from .sweep_cache import open_sweep_cache
 
-    cache = open_sweep_cache(config, data, end_epoch, seed)
+    cache = open_sweep_cache(config, data, end_epoch, seed, task.static.peft_cfg.method)
 
     peak_idx = {lr: -1 for lr in lrs}
     peak_score = {lr: 0.0 for lr in lrs}

@@ -3,8 +3,9 @@ crash.
 
 Counterpart of ``pevit_tpu/train/sweep_cache.py``: every finished trial's
 score is appended to a JSONL file keyed by a fingerprint of (config, data
-digest, epochs, seed), so that a re-run replays the finished trials and
-trains only the rest; selection is recomputed from the scores, never cached.
+digest, epochs, seed, PEFT method), so that a re-run replays the finished
+trials and trains only the rest; selection is recomputed from the scores,
+never cached.
 
 The fingerprint follows the reference's rules: it covers the config's dump
 with the pure-output paths blanked, the split shapes and dtypes, every label
@@ -12,6 +13,14 @@ and a strided pixel sample of the images, whether they lie in numpy or in a
 tensor on any device, and ``SEMANTICS_VERSION``.  It is built on the port's
 own config dump, so it is not the reference's fingerprint, and a cache
 written by one package is never read by the other.
+
+The method is hashed on its own because no config key names it: every
+command resolves ``TPU.SWEEP_CACHE_DIR: auto`` to the same
+``<OUTPUT_DIR>/<dataset>/sweep_cache``, so two methods run with the same
+flags into one output directory would otherwise share a file, and the
+second would replay the first's scores without training.  The reference
+keys by config only (``pevit_tpu/train/sweep_cache.py:83``), though its
+docstring means a change of method to change the key (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -33,7 +42,9 @@ _VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CAC
 # and job fingerprint.  Bump it on any change that can alter trial scores,
 # best-epoch selection or final accuracies under an unchanged config and
 # data.  History:
-#   1  the port's first sweep and command
+#   1  the port's first sweep and command.  Later the fingerprint also
+#      hashed the PEFT method, which changes every key by itself, so the
+#      version stayed: a key, not a change of what a trial scores.
 SEMANTICS_VERSION = 1
 
 
@@ -63,7 +74,7 @@ def data_fingerprint(data) -> str:
     return h.hexdigest()
 
 
-def sweep_fingerprint(config, data, end_epoch: int, seed: int) -> str:
+def sweep_fingerprint(config, data, end_epoch: int, seed: int, method: str) -> str:
     cfg = config.clone()
     cfg.defrost()
     for path in _VOLATILE_KEYS:
@@ -74,7 +85,7 @@ def sweep_fingerprint(config, data, end_epoch: int, seed: int) -> str:
     h = hashlib.sha256()
     h.update(f"semantics={SEMANTICS_VERSION};".encode())
     h.update(cfg.dump().encode())
-    h.update(f"end_epoch={end_epoch};seed={seed};".encode())
+    h.update(f"end_epoch={end_epoch};seed={seed};method={method};".encode())
     h.update(data_fingerprint(data).encode())
     return h.hexdigest()[:24]
 
@@ -123,11 +134,12 @@ class SweepCache:
             os.fsync(f.fileno())
 
 
-def open_sweep_cache(config, data, end_epoch: int, seed: int) -> Optional[SweepCache]:
-    """The cache when ``TPU.SWEEP_CACHE_DIR`` names a directory, else None
-    (``auto`` is resolved to ``<run output dir>/sweep_cache`` by the
-    command; a library caller that never resolved it gets no cache)."""
+def open_sweep_cache(config, data, end_epoch: int, seed: int, method: str) -> Optional[SweepCache]:
+    """The cache of ``method``'s sweep when ``TPU.SWEEP_CACHE_DIR`` names a
+    directory, else None (``auto`` is resolved to ``<run output
+    dir>/sweep_cache`` by the command; a library caller that never resolved
+    it gets no cache)."""
     directory = str(config.TPU.get("SWEEP_CACHE_DIR", "") or "")
     if not directory or directory == "auto":
         return None
-    return SweepCache(directory, sweep_fingerprint(config, data, end_epoch, seed))
+    return SweepCache(directory, sweep_fingerprint(config, data, end_epoch, seed, method))

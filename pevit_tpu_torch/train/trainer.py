@@ -23,7 +23,8 @@ runs eagerly, one trial after another, on one card; the math is the same:
 
 TPU-side knobs of the config's ``TPU`` node are read and ignored, see
 ``IGNORED_TPU_KNOBS``.  ``TPU.FUSED_MLP`` is not read: on the card the fused
-kernel is the MLP's route for every method whose MLP weights are frozen.
+kernel is the MLP's route for every method whose MLP weights are frozen and
+whose blocks need no bare MLP output (``UNFUSED_MLP_METHODS`` are the rest).
 """
 
 from __future__ import annotations
@@ -75,6 +76,12 @@ IGNORED_TPU_KNOBS = {
 }
 
 
+# the methods whose blocks take the unfused MLP: full_finetune trains the
+# MLP weights, and the adapter and Compacter hook the bare MLP output, which
+# the fused kernel never writes
+UNFUSED_MLP_METHODS = ("full_finetune", "adapter", "compacter")
+
+
 @dataclasses.dataclass(frozen=True)
 class TaskStatic:
     """Static task configuration."""
@@ -90,7 +97,8 @@ class TaskStatic:
     multilabel: bool = False
     compute_dtype: str = "bfloat16"
     # the fused residual MLP (its backward gives dx only): every method
-    # whose MLP weights are frozen, i.e. all but full_finetune
+    # whose MLP weights are frozen and whose blocks need no bare MLP output,
+    # i.e. all but full_finetune, the adapter and Compacter
     use_fused_mlp: bool = True
     optimizer: str = "sgd"
     momentum: float = 0.9
@@ -135,7 +143,7 @@ class TaskStatic:
             trainable_logit_scale=config.TRAIN.TRAINABLE_LOGIT_SCALE,
             multilabel=config.DATASET.DATASET in MULTILABEL_DATASETS,
             compute_dtype="float32" if (parity or config.MODEL.CLIP_FP32) else config.TPU.COMPUTE_DTYPE,
-            use_fused_mlp=peft_cfg.method != "full_finetune",
+            use_fused_mlp=peft_cfg.method not in UNFUSED_MLP_METHODS,
             optimizer=opt_name,
             momentum=opt_momentum,
             nesterov=opt_nesterov,

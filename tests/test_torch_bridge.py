@@ -47,7 +47,9 @@ def bnhd_layout():
 
 def jax_bundle(seed: int = 0, method: str = "kadaptation"):
     """(bundle, bn_state) as numpy, built by the JAX package, with seeded
-    non-zero KAdaptation factors and random BN running statistics."""
+    non-zero KAdaptation factors (for another PEFT method, every per-layer
+    leaf moved off its init by seeded noise) and random BN running
+    statistics."""
     cfg = PeftConfig(method=method)
     bundle = {
         "clip": init_clip_params(jax.random.PRNGKey(seed), TINY),
@@ -56,11 +58,16 @@ def jax_bundle(seed: int = 0, method: str = "kadaptation"):
     }
     bundle = jax.tree.map(lambda a: np.array(a), bundle)
     rng = np.random.default_rng(seed)
-    if bundle["peft"] is not None:
+    if method == "kadaptation":
         layers = bundle["peft"]["layers"]
         for name in ("q_left", "q_right", "v_left", "v_right"):
             layers[name] = rng.standard_normal(layers[name].shape).astype(np.float32)
         layers["b"] = (0.1 * rng.standard_normal(layers["b"].shape)).astype(np.float32)
+    elif bundle["peft"] is not None:
+        layers = bundle["peft"]["layers"]
+        for name in sorted(layers):
+            noise = 0.05 * rng.standard_normal(layers[name].shape)
+            layers[name] = (layers[name] + noise).astype(np.float32)
     bn = {"mean": (0.1 * rng.standard_normal(TINY.embed_dim)).astype(np.float32),
           "var": rng.uniform(0.5, 2.0, TINY.embed_dim).astype(np.float32)}
     return bundle, bn

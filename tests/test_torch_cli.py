@@ -1,21 +1,24 @@
-"""The KAdaptation command against pevit_tpu.commands, on the CPU, at a tiny
-spec (vision width 64 x 2 layers, text width 64 x 2 layers x 8 heads,
-32-px images, synthetic cifar-10, 5 shots):
+"""The PEFT commands (KAdaptation, LoRA, the adapter, Compacter) against
+pevit_tpu.commands, on the CPU, at a tiny spec (vision width 64 x 2
+layers, text width 64 x 2 layers x 8 heads, 32-px images, synthetic
+cifar-10, 5 shots):
 
-* both commands run on one argument list with ``load_clip`` and
+* both packages' command runs on one argument list with ``load_clip`` and
   ``run_method`` replaced, by attribute, in both packages; the config, the
   splits and the text-feature head init that reach ``run_method`` agree
   (the weights at 1e-5), as do the artifacts written from one result;
 * ``TrainTask.model_info`` equals the JAX task's, the text tower counted;
-* one whole port run with the sweep on (END_EPOCH 1) writes the reference's
-  JSON and TXT artifacts, which ``read_txt.py``'s pattern reads, and a
-  second run replays from the completion sidecar without loading a model;
+* one whole port run of each with the sweep on (END_EPOCH 1) writes the
+  reference's JSON and TXT artifacts, which ``read_txt.py``'s pattern reads,
+  and a second run replays from the completion sidecar without loading a
+  model;
 * the parts not ported yet raise.
 
 The linear-probe, finetune, zero-shot and submission commands are held to
 the reference in tests/test_torch_commands.py.
 """
 
+import importlib
 import json
 from pathlib import Path
 
@@ -71,11 +74,20 @@ def _artifacts(tmp_path):
 
 
 CPU = ("--device", "cpu")
+BASELINES = ("lora_clip", "adapter_clip", "compacter_clip")
+
+
+def _clis(name):
+    """(JAX command module, port command module) of one baseline."""
+    return (importlib.import_module(f"pevit_tpu.commands.{name}"),
+            importlib.import_module(f"pevit_tpu_torch.commands.{name}"))
 RESULT_INFO = {"n_trainable_params": 1234, "n_params": 5678, "n_visual_params": 910,
                "n_backbone_params": 1112}
 
 
-def test_both_commands_hand_run_method_the_same_inputs(tmp_path, monkeypatch):
+def _same_inputs(tmp_path, monkeypatch, jax_cli, port_cli):
+    """Both packages' command on one argument list, up to ``run_method``;
+    returns (JAX task, port task)."""
     monkeypatch.chdir(REPO)  # knowledge and metadata paths are relative
     seen = {}
 
@@ -117,20 +129,44 @@ def test_both_commands_hand_run_method_the_same_inputs(tmp_path, monkeypatch):
     want, got = np.asarray(jtask.text_init_weights), ptask.text_init_weights
     assert got.shape == want.shape == (512, 10)
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert ptask.static.peft_cfg.method == jtask.static.peft_cfg.method
+    assert ptask.eval_chunk == jtask.eval_chunk
+    return jtask, ptask
 
-    # repair: the port's counts include the text tower, as the reference's do
+
+def _model_info(jtask, ptask):
+    """Both tasks' ``model_info`` on a freshly drawn trainable partition."""
     jtrainable = jtask.init_bundle(jax.random.PRNGKey(0))[0]
     ptrainable = ptask.init_bundle(torch.Generator().manual_seed(0))[0]
-    info = ptask.model_info(ptrainable)
-    assert info == jtask.model_info(jtrainable)
+    return ptask.model_info(ptrainable), jtask.model_info(jtrainable)
+
+
+def test_both_commands_hand_run_method_the_same_inputs(tmp_path, monkeypatch):
+    jtask, ptask = _same_inputs(tmp_path, monkeypatch, jax_cli, port_cli)
+    # repair: the port's counts include the text tower, as the reference's do
+    info, want = _model_info(jtask, ptask)
+    assert info == want
     text_n = sum(p.numel() for p in ptask.clip.text.parameters())
     assert text_n > 3_000_000 and info["n_backbone_params"] > text_n
 
 
-def test_whole_run_writes_the_reference_artifacts_and_replays(tmp_path, monkeypatch):
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_commands_hand_run_method_the_same_inputs(tmp_path, monkeypatch, name):
+    """LoRA, the adapter and Compacter: the same inputs reach ``run_method``
+    in both packages, and ``model_info`` is JAX's (Compacter's frozen rule
+    counted in the backbone only)."""
+    jtask, ptask = _same_inputs(tmp_path, monkeypatch, *_clis(name))
+    assert ptask.static.use_fused_mlp is (name == "lora_clip")
+    info, want = _model_info(jtask, ptask)
+    assert info == want
+    assert info["n_backbone_params"] - info["n_visual_params"] == sum(
+        p.numel() for p in ptask.clip.text.parameters()) + 1
+
+
+def _whole_run(tmp_path, monkeypatch, cli):
     monkeypatch.chdir(REPO)
     argv = _argv(tmp_path, device=CPU)
-    best, info = port_cli.main(argv)
+    best, info = cli.main(argv)
     data, txt = _artifacts(tmp_path)
     assert list(data) == SCHEMA
     assert data["model_name"] == "ViT-B/32" and data["dataset_name"] == "cifar-10"
@@ -151,9 +187,24 @@ def test_whole_run_writes_the_reference_artifacts_and_replays(tmp_path, monkeypa
         raise AssertionError("a finished job must replay, not load a model")
 
     monkeypatch.setattr(pevit_tpu_torch.ckpt, "load_clip", no_model)
-    best2, info2 = port_cli.main(argv)
+    best2, info2 = cli.main(argv)
     assert best2 == best and {k: info2[k] for k in RESULT_INFO} == {k: info[k] for k in RESULT_INFO}
     np.testing.assert_allclose(info2["best_logits"], preds)
+    return info
+
+
+def test_whole_run_writes_the_reference_artifacts_and_replays(tmp_path, monkeypatch):
+    _whole_run(tmp_path, monkeypatch, port_cli)
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_commands_write_the_reference_artifacts_and_replay(tmp_path, monkeypatch, name):
+    info = _whole_run(tmp_path, monkeypatch, _clis(name)[1])
+    # Compacter's 64-element rule stays frozen: one layer of 64-wide tower
+    # has 2 x 64 LN + 4 x (16 + 16) + 64 down + 4 x (16 + 16) + 64 up
+    n_peft = {"lora": 2 * 4 * 64 * 4, "adapter": 2 * (2 * 64 + 64 * 64 + 64 + 64 * 64 + 64),
+              "compacter": 2 * (2 * 64 + 128 + 64 + 128 + 64)}[name.removesuffix("_clip")]
+    assert info["n_trainable_params"] == n_peft + 512 * 10 + 10  # + the head
 
 
 @pytest.mark.parametrize("case", ["submit", "backbone", "checkpoint"])

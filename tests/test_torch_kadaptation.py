@@ -123,8 +123,25 @@ def test_dropout_on_h_is_train_only_and_seeded():
 
 
 def test_unported_methods_raise():
-    with pytest.raises(NotImplementedError, match="lora"):
-        make_hooks(PeftConfig(method="lora"), PORT_TINY, train=False)
-    assert make_hooks(PeftConfig(method="linear_probe"), PORT_TINY, train=False) is None
-    with pytest.raises(ValueError):
+    """Every PEFT method builds its hooks (LoRA a q/v delta, the adapter and
+    Compacter a hook on the MLP output, as the reference's ``make_hooks``);
+    the methods without PEFT parameters get none; only a name that no
+    package knows raises."""
+    from pevit_tpu.peft import PeftConfig as JaxPeftConfig
+    from pevit_tpu.peft.base import make_hooks as jax_make_hooks
+
+    from .test_torch_bridge import TINY
+
+    for method in ("kadaptation", "lora", "adapter", "compacter"):
+        for train in (False, True):
+            got = make_hooks(PeftConfig(method=method), PORT_TINY, train=train)
+            want = jax_make_hooks(JaxPeftConfig(method=method), TINY, train=train)
+            assert (got.attn_delta is None, got.mlp_post is None) == (
+                want.attn_delta is None, want.mlp_post is None), method
+            hook = got.attn_delta or got.mlp_post
+            assert hook.keywords["train"] is train
+    for method in ("linear_probe", "full_finetune", "zeroshot"):
+        assert make_hooks(PeftConfig(method=method), PORT_TINY, train=False) is None
+        assert init_peft(torch.Generator(), PeftConfig(method=method), PORT_TINY) is None
+    with pytest.raises(ValueError, match="nope"):
         PeftConfig(method="nope")

@@ -10,11 +10,17 @@ driven by the fake task of tests/test_sweep_semantics.py:
   halved; an nvcc failure inside a chunk aborts the whole sweep;
 * the score cache replays a finished sweep without training and resumes a
   cut one, and its fingerprint follows the reference's invalidation rules,
-  for arrays and tensors alike;
+  for arrays and tensors alike, and also hashes the PEFT method: two
+  commands run into one output directory keep their own sweeps;
 * ``run_method`` hands the task the same final run as JAX's ``run_method``
   (merged train+val or not, the patch-camelyon regeneration), with tensors
   on the port's side, and saves the trained state under TPU.CHECKPOINT_DIR.
 """
+
+import collections
+import inspect
+import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,10 +32,18 @@ from pevit_tpu_torch.config import get_default_config
 from pevit_tpu_torch.ops import _build
 from pevit_tpu_torch.ops._build import KernelBuildError, KernelInputError, KernelLaunchError
 from pevit_tpu_torch.ops.fused_mlp import _check_aligned
+from pevit_tpu_torch.peft.base import PeftConfig
 from pevit_tpu_torch.train import sweep as psweep
 from pevit_tpu_torch.train.sweep_cache import SweepCache, open_sweep_cache, sweep_fingerprint
 
-from .test_sweep_semantics import FakeTask
+from .test_sweep_semantics import FakeTask as _FakeTask
+
+
+class FakeTask(_FakeTask):
+    """The JAX sweep tests' fake task, with the PEFT method that keys the
+    port's score cache."""
+
+    static = SimpleNamespace(peft_cfg=PeftConfig(method="kadaptation"))
 
 
 def _surface(seed):
@@ -159,18 +173,20 @@ def test_cache_replays_and_resumes(tmp_path):
 def test_fingerprint_invalidation_and_placement():
     cfg = get_default_config()
     data = _data()
-    base = sweep_fingerprint(cfg, data, end_epoch=10, seed=0)
-    assert sweep_fingerprint(cfg, tuple(torch.from_numpy(a) for a in data), 10, 0) == base
-    assert sweep_fingerprint(cfg, data, 10, 1) != base
-    assert sweep_fingerprint(cfg, data, 11, 0) != base
-    assert sweep_fingerprint(cfg, _data(seed=5), 10, 0) != base
+    base = sweep_fingerprint(cfg, data, end_epoch=10, seed=0, method="kadaptation")
+    fp = lambda c, d, e, s, m="kadaptation": sweep_fingerprint(c, d, e, s, m)
+    assert fp(cfg, tuple(torch.from_numpy(a) for a in data), 10, 0) == base
+    assert fp(cfg, data, 10, 1) != base
+    assert fp(cfg, data, 11, 0) != base
+    assert fp(cfg, _data(seed=5), 10, 0) != base
+    assert fp(cfg, data, 10, 0, "lora") != base
     changed = cfg.clone()
     changed.TRAIN.BATCH_SIZE_PER_GPU += 1
-    assert sweep_fingerprint(changed, data, 10, 0) != base
+    assert fp(changed, data, 10, 0) != base
     moved = cfg.clone()
     moved.OUTPUT_DIR, moved.TPU.CHECKPOINT_DIR, moved.TPU.SWEEP_CACHE_DIR = "/else", "/ck", "/c"
-    assert sweep_fingerprint(moved, data, 10, 0) == base
-    assert open_sweep_cache(cfg, data, 10, 0) is None  # 'auto' unresolved: no cache
+    assert fp(moved, data, 10, 0) == base
+    assert open_sweep_cache(cfg, data, 10, 0, "kadaptation") is None  # 'auto' unresolved
 
 
 def test_cache_keys_are_exact(tmp_path):
@@ -245,3 +261,56 @@ def test_checkpoint_dir_raises(tmp_path):
     (tmp_path / "step_8").mkdir()
     with pytest.raises(NotImplementedError, match="Orbax"):
         restore_trainable(str(tmp_path), task.last_bundle)
+
+
+def test_two_methods_in_one_output_dir_train_their_own_sweeps(tmp_path, monkeypatch):
+    """Repair: the sweep cache was keyed by config, data, epochs and seed,
+    and no config key names the method, so LoRA run after KAdaptation with
+    the same flags into one OUTPUT_DIR (as scripts/*.sh run them) opened
+    KAdaptation's file, replayed its scores and trained no sweep trial.
+    Now each command writes its own file and LoRA trains every trial.  The
+    JAX package keeps the old key: its ``sweep_fingerprint`` takes no method
+    and gives both jobs one key (ROADMAP §3, standing divergences)."""
+    import pevit_tpu.train
+    from pevit_tpu.commands import kronecker_adaptation_clip as jax_kadapt
+    from pevit_tpu.commands import lora_clip as jax_lora
+    from pevit_tpu.train.sweep_cache import sweep_fingerprint as jax_fingerprint
+    from pevit_tpu_torch.commands import kronecker_adaptation_clip, lora_clip
+    from pevit_tpu_torch.train import TrainTask
+
+    from .test_torch_cli import CPU, REPO, RESULT_INFO, _argv
+
+    monkeypatch.chdir(REPO)
+    trained = collections.Counter()
+    train_trials = TrainTask.train_trials
+
+    def counting(self, hparams, *a, **k):
+        trained[self.static.peft_cfg.method] += len(hparams)
+        return train_trials(self, hparams, *a, **k)
+
+    monkeypatch.setattr(TrainTask, "train_trials", counting)
+    cache_dir = tmp_path / "out" / "cifar-10" / "sweep_cache"
+    kronecker_adaptation_clip.main(_argv(tmp_path, device=CPU))
+    (kadapt_file,) = cache_dir.iterdir()
+    lora_clip.main(_argv(tmp_path, device=CPU))
+    files = set(cache_dir.iterdir())
+    assert len(files) == 2 and kadapt_file in files
+    (lora_file,) = files - {kadapt_file}
+    lora_trials = {(r["lr"], r["wd"]) for r in map(json.loads, lora_file.read_text().splitlines())}
+    assert 42 <= len(lora_trials) <= 90
+    assert trained["lora"] == len(lora_trials) + 1  # every sweep trial, then the final run
+
+    seen = {}
+
+    def capture(name):
+        def run_method(task, data, config, **kw):
+            seen[name] = jax_fingerprint(config, data[:4], config.TRAIN.END_EPOCH, kw["seed"])
+            return 0.0, {**RESULT_INFO, "best_logits": None}
+        return run_method
+
+    assert "method" not in inspect.signature(jax_fingerprint).parameters
+    (tmp_path / "jax").mkdir()
+    for name, cli in (("kadaptation", jax_kadapt), ("lora", jax_lora)):
+        monkeypatch.setattr(pevit_tpu.train, "run_method", capture(name))
+        cli.main(_argv(tmp_path / "jax"))
+    assert seen["kadaptation"] == seen["lora"]

@@ -1,22 +1,30 @@
 """The training slice against pevit_tpu/train/trainer.py, fp32, on a tiny
 ViT (width 128, 2 heads, 2 layers, 64 px, patch 32, so N = 5) with seeded
-NON-ZERO KAdaptation factors, K = 4 classes, dropout 0:
+NON-ZERO KAdaptation factors (or LoRA's B, the adapters' leaves; see
+``_seed_peft``), K = 4 classes, dropout 0:
 
 * one step: the loss and the gradient of every trainable leaf against
   jax.value_and_grad of the reference's loss, with the reference's fused
-  MLP (Pallas kernels in interpret mode) off and on;
+  MLP (Pallas kernels in interpret mode) off and on for KAdaptation and
+  LoRA, and for the adapter and Compacter, whose blocks take the unfused
+  MLP on both sides;
 * a whole run: build_fit_eval_fn on both stacks, two epochs of 20 images in
   batches of 8 (a natural tail of 4), eval of 70 images after each epoch
   (a chunk of 64 and a natural remainder of 6), the port replaying the JAX
   shuffle through its injectable order; the per-epoch val logits and the
   trained trainables are compared relative to their largest magnitude.  Run
   on the NHWC path (TPU.PARITY_FP32) and on the pre-patchified uint8 path
-  with the normalisation folded into the patch embedding;
+  with the normalisation folded into the patch embedding (KAdaptation), and
+  on the latter for LoRA, the adapter and Compacter;
 * smaller cases: a size-1 tail is skipped; TrainTask.evaluate and
   train_trials' selection (strict >, best-epoch probabilities) match;
 * faults found against the reference, each run through both packages: a
   metric that raises scores 0.0; full_finetune trains the visual tower only;
-  every full_finetune trial starts from the pretrained tower.
+  every full_finetune trial starts from the pretrained tower;
+* what the baselines train: Compacter's shared rule stays frozen (no
+  gradient or optimiser state, unchanged by training) and each trial draws
+  its own; LoRA and the adapter train their whole PEFT tree; ``model_info``
+  equals JAX's.
 """
 
 import dataclasses
@@ -61,6 +69,17 @@ TOL = 1e-5
 # grow to ~1e-4 of the logits within two epochs (the parameters still agree
 # to ~5e-6); at 0.1 both stay near 1e-6.
 FACTOR = 0.1
+# Scale of LoRA's seeded B factors: the delta is (x @ A) @ B * 32 with A
+# ~ N(0, 0.02), so this gives a q delta of the size KAdaptation's FACTOR does.
+LORA_B = 0.03
+# LoRA's delta is scaled by 32, so at LR its fp32 training is chaotic: the
+# two stacks' one-step gap (2e-5 of a factor) grows to 5% of the val logits
+# within three steps.  At 1e-3 both stay near 5e-6 and every leaf still
+# moves by a few percent.
+WHOLE_RUN_LR = {"lora": 1e-3}
+# Noise added to every per-layer adapter leaf: at its N(0, 0.02) init the
+# adapter's LayerNorm gets so little gradient that two epochs barely move it.
+ADAPTER_NOISE = 0.1
 TINY = CLIPSpec(
     embed_dim=32,
     vision=VisionSpec(input_resolution=RES, patch_size=32, width=128, layers=2, heads=2,
@@ -100,24 +119,42 @@ def clip_params():
     return init_clip_params(jax.random.PRNGKey(0), TINY)
 
 
-def _jax_task(clip_params, *, parity=True, fused=True, **train):
+def _seed_peft(layers: dict, method: str) -> None:
+    """Seeded non-zero PEFT parameters, in place: KAdaptation's factors and
+    LoRA's B are zero at init, so their gradients (and LoRA's A's) would be
+    exactly zero; the adapters' LayerNorms and biases move off their init."""
+    rng = np.random.default_rng(3)
+    noise = lambda name, scale: jnp.asarray(scale * rng.standard_normal(layers[name].shape),
+                                            jnp.float32)
+    if method == "kadaptation":
+        for name in ("q_left", "q_right", "v_left", "v_right"):  # non-zero: q grads live
+            layers[name] = noise(name, FACTOR)
+        layers["b"] = noise("b", 0.05)
+    elif method == "lora":
+        for name in ("q_b", "v_b"):
+            layers[name] = noise(name, LORA_B)
+    elif method == "adapter":
+        for name in sorted(layers):
+            layers[name] = layers[name] + noise(name, ADAPTER_NOISE)
+    else:  # Compacter's factors are glorot-uniform at init, already live
+        for name in sorted(layers):
+            if name.startswith("norm") or name.endswith("_b"):
+                layers[name] = layers[name] + noise(name, 0.05)
+
+
+def _jax_task(clip_params, *, parity=True, fused=True, method="kadaptation", **train):
     cfg = _cfg(jax_defaults, parity=parity, fused=fused, **train)
-    static = jt.TaskStatic.from_config(cfg, TINY, PeftConfig(method="kadaptation",
-                                                             kadapt_dropout_p=0.0))
+    static = jt.TaskStatic.from_config(cfg, TINY, PeftConfig(method=method, kadapt_dropout_p=0.0))
     task = jt.TrainTask(cfg, static, clip_params)
     trainable, frozen, bn = task.init_bundle(jax.random.PRNGKey(1))
-    rng = np.random.default_rng(3)
-    layers = trainable["peft"]["layers"]
-    for name in ("q_left", "q_right", "v_left", "v_right"):  # non-zero: q grads live
-        layers[name] = jnp.asarray(FACTOR * rng.standard_normal(layers[name].shape), jnp.float32)
-    layers["b"] = jnp.asarray(0.05 * rng.standard_normal(layers["b"].shape), jnp.float32)
+    _seed_peft(trainable["peft"]["layers"], method)
     return task, static, trainable, frozen, bn
 
 
-def _port_side(trainable, frozen, bn, *, parity=True, **train):
+def _port_side(trainable, frozen, bn, *, parity=True, method="kadaptation", **train):
     """The port's task on the same parameters as the JAX side."""
     cfg = _cfg(get_default_config, parity=parity, **train)
-    peft_cfg = PortPeftConfig(method="kadaptation", kadapt_dropout_p=0.0)
+    peft_cfg = PortPeftConfig(method=method, kadapt_dropout_p=0.0)
     static = TaskStatic.from_config(cfg, PORT_TINY, peft_cfg)
     bundle_np = jax.tree.map(np.asarray, jcombine(trainable, frozen))
     bundle, bn_t = bridge.from_jax(bundle_np, jax.tree.map(np.asarray, bn), PORT_TINY, peft_cfg,
@@ -153,9 +190,19 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_one_step_loss_and_grads_match(clip_params, fused):
-    task, static, trainable, frozen, bn = _jax_task(clip_params, fused=fused)
+# KAdaptation's cases keep their first ids; the adapter and Compacter take
+# the unfused MLP on both sides whatever TPU.FUSED_MLP says, so they run once
+ONE_STEP_CASES = [pytest.param("kadaptation", False, id="False"),
+                  pytest.param("kadaptation", True, id="True"),
+                  pytest.param("lora", False, id="lora-False"),
+                  pytest.param("lora", True, id="lora-True"),
+                  pytest.param("adapter", True, id="adapter"),
+                  pytest.param("compacter", True, id="compacter")]
+
+
+@pytest.mark.parametrize("method,fused", ONE_STEP_CASES)
+def test_one_step_loss_and_grads_match(clip_params, method, fused):
+    task, static, trainable, frozen, bn = _jax_task(clip_params, fused=fused, method=method)
     images, labels = _data(B, seed=1)
     ones = jnp.ones((B,), jnp.float32)
 
@@ -166,8 +213,9 @@ def test_one_step_loss_and_grads_match(clip_params, fused):
         return jt._loss(static, logits, jnp.asarray(labels), ones)
 
     want_loss, want_grads = jax.value_and_grad(loss_fn)(trainable)
-    ptask, pstatic, bundle, bn_t, params = _port_side(trainable, frozen, bn)
-    assert pstatic.use_fused_mlp and pstatic.compute_dtype == "float32"
+    ptask, pstatic, bundle, bn_t, params = _port_side(trainable, frozen, bn, method=method)
+    assert pstatic.use_fused_mlp is (method in ("kadaptation", "lora"))
+    assert pstatic.compute_dtype == "float32"
     valid = torch.ones(B)
     logits, _ = model_forward(pstatic, bundle, bn_t, torch.from_numpy(images), ptask.preproc,
                               train=True, mask=valid)
@@ -187,9 +235,18 @@ def test_one_step_loss_and_grads_match(clip_params, fused):
             _close(got[name], want[name], f"grad {name}")
 
 
-@pytest.mark.parametrize("parity", [True, False], ids=["nhwc", "prepack"])
-def test_whole_run_matches(clip_params, parity):
-    task, static, trainable, frozen, bn = _jax_task(clip_params, parity=parity)
+# KAdaptation on both input paths (their first ids); the baselines on the
+# pre-patchified path that their commands take
+WHOLE_RUN_CASES = [pytest.param("kadaptation", True, id="nhwc"),
+                   pytest.param("kadaptation", False, id="prepack"),
+                   pytest.param("lora", False, id="lora-prepack"),
+                   pytest.param("adapter", False, id="adapter-prepack"),
+                   pytest.param("compacter", False, id="compacter-prepack")]
+
+
+@pytest.mark.parametrize("method,parity", WHOLE_RUN_CASES)
+def test_whole_run_matches(clip_params, method, parity):
+    task, static, trainable, frozen, bn = _jax_task(clip_params, parity=parity, method=method)
     assert task.use_prepack is (not parity)
     images, labels = _data(N_TRAIN, seed=2)
     val, _ = _data(N_VAL, seed=3)
@@ -198,11 +255,13 @@ def test_whole_run_matches(clip_params, parity):
     opt_init, _ = jo.make_optimizer(static.optimizer, momentum=static.momentum,
                                     nesterov=static.nesterov)
     key = jax.random.PRNGKey(2)
+    lr = WHOLE_RUN_LR.get(method, LR)
     state, want_logits = fit_eval(frozen, task.prepack(images), jnp.asarray(labels),
                                   task.prepack(val), (trainable, opt_init(trainable), bn, key),
-                                  jnp.full((EPOCHS,), LR, jnp.float32), jnp.float32(WD))
+                                  jnp.full((EPOCHS,), lr, jnp.float32), jnp.float32(WD))
 
-    ptask, pstatic, bundle, bn_t, params = _port_side(trainable, frozen, bn, parity=parity)
+    ptask, pstatic, bundle, bn_t, params = _port_side(trainable, frozen, bn, parity=parity,
+                                                      method=method)
     packed = ptask.prepack(images)
     assert packed.dim() == (4 if parity else 3) and packed.dtype == torch.uint8
     p_init, _ = make_optimizer(pstatic.optimizer, momentum=pstatic.momentum,
@@ -210,7 +269,7 @@ def test_whole_run_matches(clip_params, parity):
     fe = build_fit_eval_fn(pstatic, N_TRAIN, EPOCHS, ptask.preproc, eval_chunk=64, n_val=N_VAL)
     pstate = TrainState(params, p_init(params), bn_t, torch.Generator().manual_seed(0))
     pstate, logits = fe(bundle, packed, torch.from_numpy(labels).long(), ptask.prepack(val),
-                        pstate, [LR] * EPOCHS, WD, orders=_jax_perms(key, N_TRAIN, EPOCHS))
+                        pstate, [lr] * EPOCHS, WD, orders=_jax_perms(key, N_TRAIN, EPOCHS))
     assert logits.shape == (EPOCHS, N_VAL, K) and torch.isfinite(pstate.loss)
     # the second epoch moved the logits by far more than the tolerance
     assert (logits[1] - logits[0]).abs().max() > 100 * TOL * logits.abs().max()
@@ -410,3 +469,47 @@ def test_full_finetune_trials_start_from_the_pretrained_tower(clip_params, monke
     trained = ptask.last_bundle["clip"]
     assert trained is not ptask.clip and trained.text is ptask.clip.text
     assert not torch.equal(trained.visual.proj, ptask.clip.visual.proj)
+
+
+# ---------------------------------------------------------------------------
+# what each baseline trains
+# ---------------------------------------------------------------------------
+
+def test_compacter_rule_is_frozen_and_redrawn_per_trial(clip_params):
+    """Compacter's shared phm_rule is never trained (the reference's name
+    filter leaves it at its init): no gradient, no optimiser state, the same
+    after training; each trial draws its own, as each of the reference's
+    trials rebuilds its model; counted in the backbone, not the trainables,
+    as JAX counts it."""
+    jtask, ptask = _method_tasks(clip_params, "compacter")
+    images, labels = _data(12, seed=15)
+    val, val_labels = _data(5, seed=16)
+    rule = lambda t: ptask.init_bundle(torch.Generator().manual_seed(2 * t))[1]["peft"] \
+        .shared.phm_rule.detach().clone()
+    before = [rule(t) for t in range(2)]
+    assert not torch.equal(before[0], before[1])
+    ptask.train_trials([(LR, WD), (LR, WD)], images, labels, val, val_labels, end_epoch=2)
+    peft = ptask.last_bundle["peft"]
+    assert not peft.shared.phm_rule.requires_grad
+    assert torch.equal(peft.shared.phm_rule, before[1])
+    state = ptask.last_state
+    assert "peft.shared.phm_rule" not in state.params
+    assert not any("phm_rule" in n for n in state.opt.momentum_buf)
+    assert state.opt.momentum_buf["peft.layers.0.down_w_left"].any()
+    jtrainable = jtask.init_bundle(jax.random.PRNGKey(0))[0]
+    ptrainable = ptask.init_bundle(torch.Generator().manual_seed(0))[0]
+    info = ptask.model_info(ptrainable)
+    assert info == jtask.model_info(jtrainable)
+    n_peft = sum(p.numel() for p in peft.parameters())
+    assert info["n_trainable_params"] == n_peft - 64 + (PORT_TINY.embed_dim + 1) * K
+
+
+@pytest.mark.parametrize("method", ["lora", "adapter"])
+def test_lora_and_adapter_train_their_whole_peft_tree(clip_params, method):
+    jtask, ptask = _method_tasks(clip_params, method)
+    trainable, frozen, _ = ptask.init_bundle(torch.Generator().manual_seed(0))
+    names = set(trainable_params(trainable))
+    peft = {f"peft.{n}" for n, _ in trainable["peft"].named_parameters()}
+    assert peft and peft <= names and trainable["peft"].shared is None
+    assert frozen["peft"] is None
+    assert ptask.model_info(trainable) == jtask.model_info(jtask.init_bundle(jax.random.PRNGKey(0))[0])

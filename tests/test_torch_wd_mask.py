@@ -5,7 +5,9 @@ trainable tree, so a per-layer KAdaptation bias ``peft.layers.b`` of shape
 and counts the stacked layer axis back (``bridge.stacked_layer_axes``).
 
 * the port's ``TrainTask._wd_mask()`` equals the JAX trainer's mask leaf for
-  leaf, each layer's tensor taking its stacked leaf's value;
+  leaf, each layer's tensor taking its stacked leaf's value, for the
+  KAdaptation, adapter and Compacter trees (their per-layer biases are
+  (L, n) in the reference, so they are decayed);
 * ``build_wd_mask`` on a tree with stacked visual blocks, unstacked through
   the bridge, equals the reference's mask on the stacked tree;
 * one SGD step with wd > 0 and non-zero ``b`` gives the reference's
@@ -41,23 +43,43 @@ def _unstacked(name: str) -> str:
     ("peft.layers.0.b", 1), ("peft.layers.11.q_left", 1), ("clip.visual.blocks.3.ln_1.scale", 1),
     ("peft.layers.b", 0), ("clip.visual.ln_post.scale", 0), ("clip.visual.blocks", 0),
     ("head.linear.bias", 0), ("peft.shared.phm_rule1_left", 0), ("clip.logit_scale", 0),
+    ("peft.layers.2.down_bias", 1), ("peft.layers.0.up_b", 1), ("peft.shared.phm_rule", 0),
 ])
 def test_stacked_layer_axes(name, axes):
     assert bridge.stacked_layer_axes(name) == axes
 
 
-def test_task_mask_matches_reference(clip_params):  # noqa: F811
-    task, _, trainable, frozen, bn = _jax_task(clip_params, **TIMM)
+def _task_masks(clip_params, method):
+    """(port mask, reference mask) of one task under the timm filter."""
+    task, _, trainable, frozen, bn = _jax_task(clip_params, method=method, **TIMM)
     assert task.static.timm_filter
     want = _flat(task._wd_mask())
-    ptask, pstatic, _, _, params = _port_side(trainable, frozen, bn, **TIMM)
+    ptask, pstatic, _, _, params = _port_side(trainable, frozen, bn, method=method, **TIMM)
     assert pstatic.timm_filter
     got = ptask._wd_mask()
     assert set(got) == set(params)
     assert {_unstacked(n) for n in got} == set(want)
     for n, m in got.items():
         assert m == float(want[_unstacked(n)]), n
+    return got
+
+
+def test_task_mask_matches_reference(clip_params):  # noqa: F811
+    got = _task_masks(clip_params, "kadaptation")
     assert got["peft.layers.0.b"] == 1.0  # (L, C) in the reference: decayed
+
+
+@pytest.mark.parametrize("method,biases", [("adapter", ("down_bias", "up_bias")),
+                                          ("compacter", ("down_b", "up_b"))])
+def test_adapter_trees_mask_matches_reference(clip_params, method, biases):  # noqa: F811
+    """The adapter's and Compacter's per-layer biases and LayerNorms are
+    (L, n) in the reference, so timm decays them; the head's bias is not;
+    Compacter's frozen rule has no entry."""
+    got = _task_masks(clip_params, method)
+    for name in biases + ("norm_scale", "norm_bias"):
+        assert got[f"peft.layers.1.{name}"] == 1.0, name
+    assert got["head.linear.bias"] == 0.0
+    assert not any("shared" in n for n in got)
 
 
 def test_build_wd_mask_on_stacked_blocks_matches():
