@@ -111,11 +111,30 @@ on):
    steps and chunks, the artifacts, ``n_trainable_params`` equal to the
    JAX package's count, Compacter's rule unchanged bit for bit; each kernel
    held against its plain version at every batch each path gave it;
-9. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 8,
+9. the deployment path, on phase 4's tower with the head fitted to a
+   served batch of 256 (phase 8's): ``serve_daemon`` started as a
+   subprocess from phase 6's config and ``TPU.CHECKPOINT_DIR`` (exact
+   padding); ``export_classifier`` in bf16 baked and weights-as-args, each
+   fp and int8, traced on the card, and an fp32 baked one traced on the
+   CPU, each saved as ``.pt2`` and loaded in one fresh ``python``
+   subprocess that imports only the port, run on the card at batches 1, 8,
+   37 and 256: logits equal to the in-process ``make_serving_fn`` at the
+   same batch (bf16: top-1 agreement 1.0 and within 1e-3 of the largest
+   logit; fp32 within 1e-5), 12 launches of K1 and K2 a call and none of
+   K3 (the CPU-traced artifact launches them on the card); artifact MB;
+   int8 against fp: the bundle's byte ratio > 3 and, on the reference
+   test's construction at batch 256, top-1 agreement >= 15/16 and max
+   relative logit error < 0.06; the daemon's ``/healthz`` and two answers
+   to 37 images, equal to the in-process serving fn of the same config and
+   trained state, then a clean SIGINT stop; the FLOP ledger of a batch-256
+   serving forward and a batch-128 train step and the serving MFU of phase
+   4's images/s; ``tools.serve_bench`` on the two program-only artifacts
+   (fp, int8); each kernel held against its plain version at each batch;
+10. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 9,
    summed and by path (each path's counts are zeroed just before it and read
-   just after), the other numbers at the batch that launched the kernel
-   most, every path's batches under ``by_shape``; then the ``{"ok": true,
-   ...}`` line last.
+   just after; phase 9's are the fresh process's, reported by it), the
+   other numbers at the batch that launched the kernel most, every path's
+   batches under ``by_shape``; then the ``{"ok": true, ...}`` line last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
 """
@@ -143,9 +162,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SERVE_BATCH = 256
 TRAIN_BATCH = 128
 # phase 5's ragged batches: 500 train images = 3 x 128 + a natural tail of
@@ -204,9 +220,22 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def card_peaks():
+    """This card's published peaks, from the port's one table
+    (``pevit_tpu_torch.utils.flops.CHIP_SPECS``); a card it lacks fails."""
+    from pevit_tpu_torch.utils.flops import chip_peaks
+
+    peaks = chip_peaks(torch.cuda.get_device_name(0))
+    if peaks.hbm_gb_s is None:
+        raise RuntimeError(f"no published peaks for {torch.cuda.get_device_name(0)}")
+    return peaks
+
+
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    peaks = card_peaks()
+    tflops = peaks.bf16_tflops if dtype == torch.bfloat16 else peaks.fp32_tflops
+    t_bytes = n_bytes / (peaks.hbm_gb_s * 1e9) * 1e3
+    t_ops = n_ops / (tflops * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -893,7 +922,7 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
 
 
 def kernel_report(kernels, launches: dict, table: dict) -> list:
-    """The ``kernels`` line: launches summed over the paths of phases 6 to 8
+    """The ``kernels`` line: launches summed over the paths of phases 6 to 9
     (each read around its own run); the other numbers at the batch that
     launched the kernel most (the larger batch on a tie); every path's
     batches under ``by_shape``."""
@@ -1508,6 +1537,319 @@ def run_baselines(kernels, gen, card: str, tmp: Path, clip, train_batch) -> tupl
     return launches, table
 
 
+# ---------------------------------------------------------------------------
+# 9. the deployment path
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCHES = (1, 8, 37, 256)
+# the artifacts a deployment exports: name -> (bake_weights, quantize), bf16
+EXPORT_MODES = {"baked-fp": (True, False), "baked-int8": (True, True),
+                "args-fp": (False, False), "args-int8": (False, True)}
+DAEMON_IMAGES = 37
+# loads each artifact in a fresh interpreter that imports only the port, runs
+# it on the card at each batch and prints the launches of every call
+ARTIFACT_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+from pevit_tpu_torch.ops import KERNELS
+from pevit_tpu_torch.serve import exported_callable, load_exported
+job = json.loads(sys.argv[1])
+images = np.load(job["images"])
+out, launches, load_s = {}, {}, {}
+for name, art in job["artifacts"].items():
+    t0 = time.perf_counter()
+    weights = torch.load(art["weights"], weights_only=True) if art["weights"] else None
+    call = exported_callable(load_exported(art["path"]), weights, device="cuda")
+    torch.cuda.synchronize()
+    load_s[name] = time.perf_counter() - t0
+    for b in job["batches"]:
+        for k in KERNELS:
+            k.launches = 0
+        logits = call(images[:b])
+        torch.cuda.synchronize()
+        launches[f"{name}/{b}"] = {k.name: k.launches for k in KERNELS}
+        out[f"{name}/{b}"] = logits.float().cpu().numpy()
+np.savez(job["out"], **out)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pevit_tpu"))
+print(json.dumps({"launches": launches, "load_s": load_s, "leaked": leaked}))
+"""
+
+
+def python_child(*args, timeout: int = 600) -> subprocess.CompletedProcess:
+    """``python3`` on ``args`` from the repository root, its output captured;
+    raises on a non-zero exit with the child's error output."""
+    proc = subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{args[:3]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def export_artifacts(static, trainable, frozen, bn, preproc, tmp: Path, images) -> dict:
+    """Phase 9's artifacts: the four bf16 ones, traced on the card, and an
+    fp32 baked one traced on the CPU from a CPU copy of the bundle; each
+    saved as ``.pt2`` (a weights-as-args one with its ``serving_weights``).
+    Returns the child's job."""
+    from pevit_tpu_torch.serve import export_classifier, save_exported, serving_weights
+    from pevit_tpu_torch.train import combine
+
+    res = static.spec.vision.input_resolution
+    job = {"images": str(tmp / "images.npy"), "out": str(tmp / "logits.npz"),
+           "batches": list(EXPORT_BATCHES), "artifacts": {}, "seconds": {}}
+    np.save(tmp / "images.npy", images)
+    for name, (bake, quantize) in EXPORT_MODES.items():
+        t0 = time.perf_counter()
+        ep = export_classifier(static, trainable, frozen, bn, preproc, image_size=res,
+                               bake_weights=bake, quantize=quantize, device="cuda")
+        save_exported(ep, tmp / f"{name}.pt2")
+        weights = None
+        if not bake:
+            weights = str(tmp / f"{name}.weights.pt")
+            torch.save(serving_weights(trainable, frozen, bn, quantize=quantize), weights)
+        job["artifacts"][name] = {"path": str(tmp / f"{name}.pt2"), "weights": weights}
+        job["seconds"][name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = {k: None if m is None else copy.deepcopy(m).cpu()
+           for k, m in combine(trainable, frozen).items()}
+    ep = export_classifier(dataclasses.replace(static, compute_dtype="float32"), cpu,
+                           {k: None for k in cpu}, {k: v.cpu() for k, v in bn.items()}, preproc,
+                           image_size=res, device="cpu")
+    save_exported(ep, tmp / "cpu-fp32.pt2")
+    job["artifacts"]["cpu-fp32"] = {"path": str(tmp / "cpu-fp32.pt2"), "weights": None}
+    job["seconds"]["cpu-fp32"] = time.perf_counter() - t0
+    job["mb"] = {name: (tmp / f"{name}.pt2").stat().st_size / 1e6 for name in job["artifacts"]}
+    return job
+
+
+def check_artifacts(job: dict, layers: int, serve, serve_q, serve32) -> dict:
+    """The child's logits against the in-process serving fns at the same
+    batch (bf16: top-1 agreement 1.0 and within phase 4's bound; fp32
+    within 1e-5 of the largest logit) and its launches: one of K1 and of K2
+    a block and a call, none of K3.  Returns the calls and launches of each
+    path."""
+    t0 = time.perf_counter()
+    proc = python_child("-c", ARTIFACT_CHILD, json.dumps(job))
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["leaked"]:
+        raise AssertionError(f"the artifact child imported {child['leaked']}")
+    images = np.load(job["images"])
+    checks = []
+    calls = {"exported": collections.Counter(), "exported_fp32": collections.Counter()}
+    launches = {path: collections.Counter() for path in calls}
+    with np.load(job["out"]) as z:
+        for key in z.files:
+            got = z[key]
+            name, b = key.split("/")
+            b = int(b)
+            want = {"baked-int8": serve_q, "args-int8": serve_q, "cpu-fp32": serve32}.get(
+                name, serve)(images[:b]).float().cpu().numpy()
+            err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            top1 = float((got.argmax(1) == want.argmax(1)).mean())
+            fp32 = name == "cpu-fp32"
+            if got.shape != want.shape or not np.isfinite(got).all() or (
+                    err > 1e-5 * scale if fp32 else (top1 < 1.0 or err > 1e-3 * scale)):
+                raise AssertionError(f"{key}: artifact vs in-process max err {err} at scale "
+                                     f"{scale}, top-1 agreement {top1}")
+            call = child["launches"][key]
+            if call != {"attention_fwd": layers, "fused_mlp_fwd": layers, "fused_mlp_bwd": 0}:
+                raise AssertionError(f"{key}: launches {call}, want {layers} / {layers} / 0")
+            path = "exported_fp32" if fp32 else "exported"
+            calls[path][b] += 1
+            launches[path].update(call)
+            checks.append({"artifact": name, "images": b, "max_abs_err": err,
+                           "max_abs_logit": scale, "top1_agreement": top1})
+    return {"checks": checks, "calls": calls, "load_s": child["load_s"],
+            "launches": {p: {k: n[k] for k in ("attention_fwd", "fused_mlp_fwd", "fused_mlp_bwd")}
+                         for p, n in launches.items()},
+            "child_s": time.perf_counter() - t0}
+
+
+def exported_path_batches(calls: collections.Counter, dtype: str) -> dict:
+    """The exported serving path as ``path_kernel_rows`` reads a command's:
+    every call a forward (an eval chunk) of K1 and K2."""
+    from pevit_tpu_torch.core import CLIPSpec
+
+    vision = CLIPSpec.vit_b32().vision
+    return {"dtype": dtype, "train": collections.Counter(), "evals": calls,
+            "layers": vision.layers, "width": vision.width, "tokens": vision.seq_len,
+            "fused_mlp": True, "fused_mlp_bwd": False}
+
+
+# the daemon's config: phase 6's YAMLs and random weights of its seed
+DAEMON_YAMLS = (REPO / "resources/datasets/cifar10.yaml", REPO / "resources/model/vitb32_CLIP.yaml")
+DAEMON_OPTS = ["MODEL.PRETRAINED", "random"]
+
+
+def start_daemon(tmp: Path):
+    """``python -m pevit_tpu_torch.serve_daemon`` from phase 6's config and
+    trained state (``TPU.CHECKPOINT_DIR``), exact padding, on a free port."""
+    ds, model = DAEMON_YAMLS
+    argv = ["-m", "pevit_tpu_torch.serve_daemon", "--ds", str(ds), "--model", str(model),
+            "--weights-from", str(tmp / "ckpt"), "--pad-policy", "exact", "--port", "0",
+            *DAEMON_OPTS]
+    return subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def query_daemon(proc, tmp: Path, images) -> dict:
+    """Phase 9, step 4: wait for the daemon's line, ask /healthz, POST the
+    images twice (cold, then warm), hold the logits to the in-process
+    serving fn of the same config and trained state, then stop the daemon
+    with SIGINT."""
+    import signal
+
+    from pevit_tpu_torch.serve import make_serving_fn
+    from pevit_tpu_torch.serve_daemon import config_from
+    from pevit_tpu_torch.serving_loader import build_task, restore_into
+
+    t0 = time.perf_counter()
+    lines = []
+    for line in proc.stdout:
+        lines.append(line)
+        m = re.search(r"serving on (http://\S+) ", line)
+        if m:
+            url = m.group(1)
+            break
+    else:
+        raise RuntimeError(f"the daemon exited {proc.wait()}:\n{''.join(lines)[-4000:]}")
+    wait_s = time.perf_counter() - t0
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    answers, ms = [], []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        answers.append(post_npy(url, images))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    proc.send_signal(signal.SIGINT)
+    rc = proc.wait(timeout=60)
+    if rc != 0:
+        raise RuntimeError(f"the daemon stopped with {rc}")
+    config = config_from(*map(str, DAEMON_YAMLS), DAEMON_OPTS)
+    task, static, trainable, frozen, bn = build_task(config, "kadaptation", 0, "cuda")
+    restore_into(str(tmp / "ckpt"), trainable)
+    serve = make_serving_fn(static, trainable, frozen, bn, task.preproc, device="cuda")
+    want = serve(images).float().cpu().numpy()
+    size = static.spec.vision.input_resolution
+    if health != {"status": "ok", "image_size": size} or not all(
+            np.array_equal(got, want) for got in answers):
+        raise AssertionError(f"daemon: health {health}, logits max diff "
+                             f"{[float(np.abs(got - want).max()) for got in answers]} from the "
+                             "in-process serving fn")
+    return {"health": health, "images": len(images), "logits": list(want.shape),
+            "ready_s_after_the_exports": wait_s, "cold_request_ms": ms[0],
+            "warm_request_ms": ms[1], "equal_to_in_process": True}
+
+
+def run_serve_bench(artifact: str, num_classes: int, *options) -> list:
+    """``python -m pevit_tpu_torch.tools.serve_bench`` briefly on a
+    program-only artifact, its weights rebuilt from the daemon's model YAML
+    (random weights, the PEFT factors at their zero init, as the reference's
+    tool benches, so that the daemon arm's coalesced batches give the batch
+    arms' logits); returns its JSON lines."""
+    proc = python_child("-m", "pevit_tpu_torch.tools.serve_bench", "--artifact", artifact,
+                        "--model", str(DAEMON_YAMLS[1]), "--images", "2048", "--reps", "2",
+                        "--depths", "2,3", "--clients", "4", *options, *DAEMON_OPTS,
+                        "DATASET.NUM_CLASSES", str(num_classes))
+    return [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+
+
+def flop_ledger(serve, serve_batch, clip, train_batch, serving_ips: float, peaks) -> dict:
+    """FLOPs of a bf16 serving forward at batch 256 and of a KAdaptation
+    train step at batch 128 (forward and backward), by the port's ledger;
+    the serving MFU of phase 4's images/s against the bf16 peak."""
+    from pevit_tpu_torch.utils.flops import step_flops
+
+    fwd = step_flops(serve, serve_batch)
+    task = make_task(clip, "bfloat16", dropout_p=0.5)
+    step = step_flops(first_step_grads, task, *train_batch)
+    per_image = fwd / len(serve_batch)
+    return {"serving_forward_flop": fwd, "serving_gflop_per_image": per_image / 1e9,
+            "train_step_flop": step, "train_gflop_per_image": step / len(train_batch[1]) / 1e9,
+            "serving_images_per_s_phase4": serving_ips,
+            "serving_mfu_bf16": per_image * serving_ips / (peaks.bf16_tflops * 1e12)}
+
+
+def run_deployment(kernels, gen, card: str, tmp: Path, serving_ips: float, train_batch) -> tuple:
+    """Phase 9; returns the launches and kernel rows of the exported path."""
+    from pevit_tpu_torch.quant import tree_nbytes
+    from pevit_tpu_torch.serve import make_serving_fn, serving_weights
+    from pevit_tpu_torch.tools.quant_agreement import measure
+
+    t_phase = time.perf_counter()
+    steps, t_step = {}, [t_phase]
+
+    def step_done(name):
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    daemon = start_daemon(tmp)
+    try:
+        # phase 4's tower, the head fitted to the served batch (phase 8's)
+        static, trainable, frozen, bn, preproc = build_classifier(seed=0,
+                                                                  num_classes=SERVE_BATCH)
+        res = static.spec.vision.input_resolution
+        images = np.random.default_rng(8).integers(0, 256, (SERVE_BATCH, res, res, 3),
+                                                   dtype=np.uint8)
+        fit_prototype_head(static, trainable, frozen, bn, preproc, images)
+        job = export_artifacts(static, trainable, frozen, bn, preproc, tmp / "artifacts", images)
+        print(f"exported {json.dumps({k: job[k] for k in ('mb', 'seconds')})} [{card}]",
+              flush=True)
+        step_done("classifier_and_exports")
+        serve = make_serving_fn(static, trainable, frozen, bn, preproc, device="cuda")
+        serve_q = make_serving_fn(static, trainable, frozen, bn, preproc, quantize=True,
+                                  device="cuda")
+        serve32 = make_serving_fn(dataclasses.replace(static, compute_dtype="float32"),
+                                  trainable, frozen, bn, preproc, device="cuda")
+        art = check_artifacts(job, static.spec.vision.layers, serve, serve_q, serve32)
+        print(f"artifacts in a fresh process vs in-process: {json.dumps(art)} [{card}]",
+              flush=True)
+        step_done("fresh_process")
+        daemon_out = query_daemon(daemon, tmp, images[:DAEMON_IMAGES])
+        print(f"serve_daemon from phase 6's checkpoint: {json.dumps(daemon_out)} [{card}]",
+              flush=True)
+        step_done("daemon")
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+
+    ratio = (tree_nbytes(serving_weights(trainable, frozen, bn)["bundle"])
+             / tree_nbytes(serving_weights(trainable, frozen, bn, quantize=True)["bundle"]))
+    agreement = measure("b32", SERVE_BATCH, SERVE_BATCH, "", torch.device("cuda"))
+    if ratio <= 3.0 or agreement["top1_agreement"] < 15 / 16 or \
+            agreement["max_rel_logit_err"] >= 0.06:
+        raise AssertionError(f"int8: bundle ratio {ratio}, {agreement}")
+    print(f"int8 vs fp: {json.dumps({'bundle_bytes_ratio': ratio, **agreement})} [{card}]",
+          flush=True)
+    step_done("int8_vs_fp")
+
+    ledger = flop_ledger(serve, torch.from_numpy(images).cuda(), frozen["clip"], train_batch,
+                         serving_ips, card_peaks())
+    print(f"FLOP ledger: {json.dumps(ledger)} [{card}]", flush=True)
+    step_done("flop_ledger")
+
+    for name, options in (("args-fp", ()), ("args-int8", ("--quantize",))):
+        for rec in run_serve_bench(job["artifacts"][name]["path"], static.num_classes, *options):
+            print(f"serve_bench {name}: {json.dumps(rec)} [{card}]", flush=True)
+    step_done("serve_bench")
+
+    launches, table = {}, {k.name: [] for k in kernels}
+    for path, dtype in (("exported", "bfloat16"), ("exported_fp32", "float32")):
+        batches = exported_path_batches(art["calls"][path], dtype)
+        launches[path] = art["launches"][path]
+        if launches[path] != expected_launches(batches):
+            raise AssertionError(f"{path}: launches {launches[path]} for calls "
+                                 f"{dict(art['calls'][path])}")
+        for name, rows_ in path_kernel_rows(gen, path, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    step_done("kernel_rows")
+    print(f"phase 9 seconds by step: {json.dumps(steps)}", flush=True)
+    return launches, table, time.perf_counter() - t_phase
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a CUDA card",
@@ -1633,10 +1975,17 @@ def main() -> int:
                                                   (batch_x, batch_y))
         print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 9. report
-    launches = {"command": command["launches"], **launches, **base_launches}
+        # 9. the deployment path: exported and int8 artifacts, the daemon
+        # from phase 6's checkpoint, the serving benchmark, the FLOP ledger
+        (Path(cmd_tmp) / "artifacts").mkdir()
+        deploy_launches, deploy_table, seconds = run_deployment(
+            KERNELS, gen, card, Path(cmd_tmp), pipe.throughput, (batch_x, batch_y))
+        print(f"phase 9: {seconds:.1f} s", flush=True)
+
+    # 10. report
+    launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
-             for name in command_table}
+             + deploy_table[name] for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))

@@ -12,6 +12,12 @@ reference's paths, so the mapping only unstacks and restacks the layer axis:
   clip.text.blocks.<path>[i]    <->  clip.text.blocks.<i>.<path>
   peft.layers.<name>[i]         <->  peft.layers.<i>.<name>
 
+A serving weight bundle (``serve.serving_weights``: ``{"bundle", "bn_state"}``)
+maps the same way, int8 leaves included: the reference's stacked
+``{"_q8": (L, ...), "scale": (L, 1, out)}`` is one ``{"_q8", "scale"}`` a
+layer in the port, its scale ``(1, out)``, or the shared ``(out,)`` row of a
+stacked ``(L, out)`` leaf, which the reference scales over its layer axis.
+
 The optimiser state (``SgdState``, ``AdamState``, ``RmspropState``) maps the
 same way: the reference's state holds trees shaped like its trainable tree
 (None at frozen leaves), the port's holds ``{dotted name: tensor}`` dicts
@@ -223,6 +229,107 @@ def _tree_to_jax(named: dict) -> dict:
         top, rest = name.split(".", 1)
         by_top.setdefault(top, {})[rest] = t
     return {top: _from_state_dict(sd, _STACKED.get(top, ())) for top, sd in by_top.items()}
+
+
+def _flatten_leaves(tree, prefix: tuple = ()) -> dict:
+    """Like ``_flatten``, with the reference's int8 leaves ``{"_q8",
+    "scale"}`` kept whole."""
+    from .quant import QUANT_KEY
+
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict) and QUANT_KEY not in val:
+            out.update(_flatten_leaves(val, prefix + (key,)))
+        elif val is not None:
+            out[prefix + (key,)] = val
+    return out
+
+
+def _layer_slice(leaf, i: int, dev):
+    """Layer ``i`` of a stacked leaf, as a tensor or an int8 leaf."""
+    if not isinstance(leaf, dict):
+        return torch.from_numpy(np.array(leaf[i])).to(dev)
+    q8, scale = np.asarray(leaf["_q8"]), np.asarray(leaf["scale"])
+    row = scale[0] if q8.ndim == 2 else scale[i]  # a stacked (L, out) leaf shares its scale row
+    return {"_q8": torch.from_numpy(np.array(q8[i])).to(dev),
+            "scale": torch.from_numpy(np.array(row)).to(dev)}
+
+
+def _whole(leaf, dev):
+    if isinstance(leaf, dict):
+        return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in leaf.items()}
+    return torch.from_numpy(np.array(leaf)).to(dev)
+
+
+def serving_weights_from_jax(weights_np: dict, *, device=None) -> dict:
+    """The reference's ``serving_weights`` tree as numpy (``{"bundle":
+    {"clip", "peft", "head"}, "bn_state"}``, int8 leaves included) -> the
+    port's ``serve.serving_weights`` dict on ``device``, layers unstacked."""
+    dev = resolve_device(device)
+    bundle = {}
+    for top, sub in weights_np["bundle"].items():
+        if sub is None:
+            continue
+        prefixes = _STACKED.get(top, ())
+        for path, leaf in _flatten_leaves(sub).items():
+            stacked = _stacked_prefix(path, prefixes)
+            if stacked is None:
+                bundle[".".join((top,) + path)] = _whole(leaf, dev)
+                continue
+            k = len(stacked)
+            n_layers = np.asarray(leaf["_q8"] if isinstance(leaf, dict) else leaf).shape[0]
+            for i in range(n_layers):
+                name = ".".join((top,) + stacked + (str(i),) + path[k:])
+                bundle[name] = _layer_slice(leaf, i, dev)
+    bn = {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+          for k, v in weights_np["bn_state"].items()}
+    return {"bundle": bundle, "bn_state": bn}
+
+
+def _stack_layers(leaves: list):
+    if not isinstance(leaves[0], dict):
+        return np.stack([t.detach().cpu().numpy() for t in leaves])
+    q8 = np.stack([q["_q8"].cpu().numpy() for q in leaves])
+    if q8.ndim == 2:
+        scale = leaves[0]["scale"].cpu().numpy()[None]
+    else:
+        scale = np.stack([q["scale"].cpu().numpy() for q in leaves])
+    return {"_q8": q8, "scale": scale}
+
+
+def serving_weights_to_jax(weights: dict) -> dict:
+    """The port's ``serve.serving_weights`` dict -> the reference's tree as
+    numpy, layers restacked (LoRA's and the adapter's ``peft`` get the
+    reference's ``"shared": None``, a bundle with no PEFT module ``"peft":
+    None``)."""
+    to_np = lambda t: ({k: v.cpu().numpy() for k, v in t.items()} if isinstance(t, dict)
+                       else t.detach().cpu().numpy())
+    layers: dict = {}
+    tree: dict = {}
+    for name, leaf in weights["bundle"].items():
+        top, rest = name.split(".", 1)
+        path = tuple(rest.split("."))
+        stacked = _stacked_prefix(path, _STACKED.get(top, ()))
+        if stacked is not None and stacked_layer_axes(name):
+            k = len(stacked)
+            layers.setdefault((top, stacked + path[k + 1:]), {})[int(path[k])] = leaf
+            continue
+        node = tree.setdefault(top, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = to_np(leaf)
+    for (top, path), per_layer in layers.items():
+        node = tree.setdefault(top, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _stack_layers([per_layer[i] for i in range(len(per_layer))])
+    if "peft" in tree:
+        tree["peft"] = _peft_tree(tree["peft"])
+    elif "head" in tree:  # a whole bundle of a method with no PEFT module
+        tree["peft"] = None
+    bn = {k: v.detach().cpu().numpy() for k, v in weights["bn_state"].items()}
+    order = [k for k in ("clip", "peft", "head") if k in tree]
+    return {"bundle": {k: tree[k] for k in order}, "bn_state": bn}
 
 
 def opt_state_from_jax(state_np, *, device=None):

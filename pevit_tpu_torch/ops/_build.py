@@ -146,6 +146,17 @@ def build_all(kernels) -> dict:
     return {name: log for name, log in logs.items() if builds[name] is not None}
 
 
+def device_kind(op: str, *tensors) -> str:
+    """``"cuda"`` or ``"cpu"``, the one device type of ``tensors``, as an
+    operator chooses its kernel or its plain version when it runs; raises
+    on mixed devices or any other device."""
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1 or not kinds <= {"cuda", "cpu"}:
+        raise ValueError(f"{op} runs on CUDA or CPU tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    return kinds.pop()
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a raw pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream

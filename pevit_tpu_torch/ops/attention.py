@@ -6,11 +6,18 @@ by 1/sqrt(hd) and with any PEFT delta added; logits and softmax run in
 float32; the probabilities are rounded to v's type before the product with
 v, which accumulates in float32; the output has the input's type.
 
-``attention_core`` is what the tower calls, an autograd Function.  On a CUDA
-tensor its forward launches the hand-written kernel (``csrc/attention_fwd.cu``)
-or raises; on a CPU tensor it runs the plain version.  There is no fallback
-between the two.  Its backward is plain PyTorch on both devices
-(:func:`attention_bwd_ref`), as the reference's backward is plain XLA.
+The forward is the registered operator ``pevit_tpu_torch::attention_fwd``,
+which chooses by its tensors' device when it runs: on CUDA it launches the
+hand-written kernel (``csrc/attention_fwd.cu``) or raises; on the CPU it
+runs the plain version; any other device raises.  There is no fallback
+between the two, and because the choice is made inside the operator, a
+``torch.export`` graph holds the operator node and runs the kernel on
+whichever device it is given.  The backward is the operator
+``pevit_tpu_torch::attention_bwd``, plain PyTorch on both devices
+(:func:`attention_bwd_ref`), as the reference's backward is plain XLA; an
+autograd Function joins the two (``attention_core``).
+Both operators have fake versions for tracing and FLOP formulas for
+``torch.utils.flop_counter`` that count the reference's products.
 """
 
 from __future__ import annotations
@@ -18,8 +25,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from ._build import Kernel, KernelInputError, stream_ptr
+from ._build import Kernel, KernelInputError, device_kind, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,26 +104,68 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+@torch.library.custom_op("pevit_tpu_torch::attention_fwd", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, hd) -> contiguous (B, N, H, hd): the kernel on CUDA
+    tensors, :func:`attention_ref` on CPU tensors."""
+    if device_kind("attention_fwd", q, k, v) == "cuda":
+        return attention_fwd(q, k, v)
+    t = lambda x: x.transpose(1, 2)
+    return t(attention_ref(t(q), t(k), t(v))).contiguous()
+
+
+@_attention_op.register_fake
+def _(q, k, v):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("pevit_tpu_torch::attention_bwd", mutates_args=())
+def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by :func:`attention_bwd_ref` on either device."""
+    device_kind("attention_bwd", q, k, v, g)
+    return attention_bwd_ref(q, k, v, g)
+
+
+@_attention_bwd_op.register_fake
+def _(q, k, v, g):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
 class _AttentionCore(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or :func:`attention_ref` (CPU).  Saves only
-    q, k and v, as the reference's custom VJP does; the backward recomputes
-    the probabilities in plain PyTorch (:func:`attention_bwd_ref`), as the
-    reference runs its backward in plain XLA.  Gradients come back in the
-    inputs' (B, N, H, hd) layout, and autograd routes them into whatever
-    views q, k and v are (k and v are strided views of the packed qkv
-    projection)."""
+    """Forward: the operator ``attention_fwd``.  Saves only q, k and v, as
+    the reference's custom VJP does; the backward is the operator
+    ``attention_bwd``, which recomputes the probabilities in plain PyTorch,
+    as the reference runs its backward in plain XLA.  Gradients come back
+    in the inputs' (B, N, H, hd) layout, and autograd routes them into
+    whatever views q, k and v are (k and v are strided views of the packed
+    qkv projection).  ``torch.export`` traces through the forward, so an
+    exported graph holds the operator node."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        if q.is_cuda:
-            return attention_fwd(q, k, v)
-        t = lambda x: x.transpose(1, 2)
-        return t(attention_ref(t(q), t(k), t(v)))
+        return torch.ops.pevit_tpu_torch.attention_fwd(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
-        return attention_bwd_ref(*ctx.saved_tensors, g)
+        return torch.ops.pevit_tpu_torch.attention_bwd(*ctx.saved_tensors, g)
+
+
+@register_flop_formula(torch.ops.pevit_tpu_torch.attention_fwd)
+def _attention_fwd_flops(q_shape, k_shape, v_shape, *, out_shape=None, **kwargs) -> int:
+    """q·kᵀ and p·v, 2·B·H·N²·hd each, as the reference's plain path."""
+    B, N, H, hd = q_shape
+    return 4 * B * H * N * N * hd
+
+
+@register_flop_formula(torch.ops.pevit_tpu_torch.attention_bwd)
+def _attention_bwd_flops(q_shape, k_shape, v_shape, g_shape, *, out_shape=None, **kwargs) -> int:
+    """The four products of the reference's autodiff (dv = pᵀg, dp = g vᵀ,
+    dq = ds k, dk = dsᵀq), not :func:`attention_bwd_ref`'s recompute of the
+    logits."""
+    B, N, H, hd = q_shape
+    return 8 * B * H * N * N * hd
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -123,7 +173,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     differentiable in q, k and v.
 
     CUDA tensors go through the kernel (which raises on what it does not
-    take); CPU tensors through :func:`attention_ref`."""
-    if not q.is_cuda and q.device.type != "cpu":
+    take); CPU tensors through :func:`attention_ref`.  Tensors on any
+    other device raise here, before the operator, whose fake version
+    would otherwise answer for the meta device."""
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"attention_core runs on CUDA or CPU tensors, got {q.device}")
     return _AttentionCore.apply(q, k, v)

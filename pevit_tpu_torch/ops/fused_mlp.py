@@ -10,21 +10,29 @@ to x in x's type.  The backward recomputes the chain from x and gives the
 gradient of x only (see :func:`fused_mlp_bwd_ref` for its rounding points).
 ``eps`` is an argument here (the reference kernels fix it at 1e-5).
 
-``fused_mlp_residual`` is an autograd Function: on CUDA tensors its forward
-launches ``csrc/fused_mlp_fwd.cu`` and its backward ``csrc/fused_mlp_bwd.cu``
-(or raises); on CPU tensors both run the plain versions.  Frozen-weight
-contract: the reference's VJP returns zeros for the LayerNorm parameters and
-the MLP weights and biases; here the backward raises if any of them requires
-a gradient, so a weight meant to train can never get a silent None.
+``fused_mlp_residual`` is an autograd Function over two registered
+operators: ``pevit_tpu_torch::fused_mlp_fwd`` and, for its backward,
+``pevit_tpu_torch::fused_mlp_bwd``.  Each chooses by its tensors' device
+when it runs: on CUDA the forward launches ``csrc/fused_mlp_fwd.cu`` and the
+backward ``csrc/fused_mlp_bwd.cu`` (or raises); on the CPU both run the
+plain versions; any other device raises.  So a ``torch.export`` graph holds
+the operator node and runs the kernel on whichever device it is given.
+Both operators have fake versions for tracing and FLOP formulas that count
+the reference's plain products.  Frozen-weight contract: the reference's
+VJP returns zeros for the LayerNorm parameters and the MLP weights and
+biases; here the backward raises if any of them requires a gradient, so a
+weight meant to train can never get a silent None.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from ._build import Kernel, KernelInputError, stream_ptr
+from ._build import Kernel, KernelInputError, device_kind, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -182,17 +190,49 @@ def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     return dx
 
 
+@torch.library.custom_op("pevit_tpu_torch::fused_mlp_fwd", mutates_args=())
+def _fused_mlp_fwd_op(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                      wfc: torch.Tensor, bfc: torch.Tensor, wproj: torch.Tensor,
+                      bproj: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, the plain version on CPU ones."""
+    args = (x, ln_scale, ln_bias, wfc, bfc, wproj, bproj)
+    fwd = fused_mlp_fwd if device_kind("fused_mlp_fwd", *args) == "cuda" else fused_mlp_residual_ref
+    return fwd(*args, eps)
+
+
+@_fused_mlp_fwd_op.register_fake
+def _(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("pevit_tpu_torch::fused_mlp_bwd", mutates_args=())
+def _fused_mlp_bwd_op(dy: torch.Tensor, x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, wfc: torch.Tensor, bfc: torch.Tensor,
+                      wproj: torch.Tensor, eps: float) -> torch.Tensor:
+    """dx by the backward kernel on CUDA tensors, by :func:`fused_mlp_bwd_ref`
+    on CPU ones."""
+    args = (dy, x, ln_scale, ln_bias, wfc, bfc, wproj)
+    bwd = fused_mlp_bwd if device_kind("fused_mlp_bwd", *args) == "cuda" else fused_mlp_bwd_ref
+    return bwd(*args, eps)
+
+
+@_fused_mlp_bwd_op.register_fake
+def _(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps):
+    return torch.empty_like(x)
+
+
 class _FusedMlpResidual(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU).  Saves x and
-    the weights the backward reads (of the activations, x only).  Backward:
-    dx by the kernel (CUDA) or :func:`fused_mlp_bwd_ref` (CPU)."""
+    """Forward: the operator ``fused_mlp_fwd``.  Saves x and the weights the
+    backward reads (of the activations, x only).  Backward: dx by the
+    operator ``fused_mlp_bwd``.  ``torch.export`` traces through the
+    forward, so an exported graph holds the operator node."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, ln_scale, ln_bias, wfc, bfc, wproj)
-        fwd = fused_mlp_fwd if x.is_cuda else fused_mlp_residual_ref
-        return fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps)
+        return torch.ops.pevit_tpu_torch.fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj,
+                                                       bproj, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -202,14 +242,33 @@ class _FusedMlpResidual(torch.autograd.Function):
                 f"fused_mlp_residual gives the gradient of x only, but {wanted} require grad; "
                 "freeze them (requires_grad_(False)) or take the unfused route")
         x, *weights = ctx.saved_tensors
-        dy = dy.contiguous()
-        bwd = fused_mlp_bwd if dy.is_cuda else fused_mlp_bwd_ref
-        return (bwd(dy, x, *weights, ctx.eps),) + (None,) * 7
+        dx = torch.ops.pevit_tpu_torch.fused_mlp_bwd(dy.contiguous(), x, *weights, ctx.eps)
+        return (dx,) + (None,) * 7
+
+
+@register_flop_formula(torch.ops.pevit_tpu_torch.fused_mlp_fwd)
+def _fused_mlp_fwd_flops(x_shape, ln_scale_shape, ln_bias_shape, wfc_shape, *args,
+                         out_shape=None, **kwargs) -> int:
+    """x·Wfc and g·Wproj, 2·R·C·F each, as the reference's plain MLP."""
+    C, F = wfc_shape
+    return 4 * math.prod(x_shape[:-1]) * C * F
+
+
+@register_flop_formula(torch.ops.pevit_tpu_torch.fused_mlp_bwd)
+def _fused_mlp_bwd_flops(dy_shape, x_shape, ln_scale_shape, ln_bias_shape, wfc_shape, *args,
+                         out_shape=None, **kwargs) -> int:
+    """The two dx products the reference's autodiff runs with the weights
+    frozen (dg = dy·Wprojᵀ, du = dh·Wfcᵀ), 2·R·C·F each; the kernel's
+    recompute of u is not counted."""
+    C, F = wfc_shape
+    return 4 * math.prod(x_shape[:-1]) * C * F
 
 
 def fused_mlp_residual(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-5):
     """x: (B, N, C) -> x + MLP(LN(x)), differentiable in x only.  The
-    kernels on CUDA tensors, the plain versions on CPU tensors."""
-    if not x.is_cuda and x.device.type != "cpu":
+    kernels on CUDA tensors, the plain versions on CPU tensors; any other
+    device raises here, before the operator, whose fake version would
+    otherwise answer for the meta device."""
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_mlp_residual runs on CUDA or CPU tensors, got {x.device}")
-    return _FusedMlpResidual.apply(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps)
+    return _FusedMlpResidual.apply(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, float(eps))

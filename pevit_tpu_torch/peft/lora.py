@@ -71,9 +71,11 @@ def attn_delta(shared, layer: LoRALayer, generator, x: torch.Tensor, *, n_head: 
     dq = _low_rank(x, layer.q_a, layer.q_b) * SCALE
     dv = _low_rank(x, layer.v_a, layer.v_b) * SCALE
     if reference_compat:
-        # quirk 4: the reference computes in (N, B, C) and raw-reshapes
-        dq = dq.permute(1, 0, 2).reshape(B, n_head, N, hd)
-        dv = dv.permute(1, 0, 2).reshape(B, n_head, N, hd)
+        # quirk 4: the reference computes in (N, B, C) and raw-reshapes;
+        # the copy is made explicit so that the reshape is a view whatever
+        # the batch, which keeps a symbolic batch free of guards on export
+        dq = dq.permute(1, 0, 2).flatten().view(B, n_head, N, hd)
+        dv = dv.permute(1, 0, 2).flatten().view(B, n_head, N, hd)
     else:
         dq = dq.reshape(B, N, n_head, hd).transpose(1, 2)
         dv = dv.reshape(B, N, n_head, hd).transpose(1, 2)

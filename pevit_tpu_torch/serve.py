@@ -1,10 +1,22 @@
-"""Serving: the eval-mode classifier behind a batching host driver.
+"""Serving: the eval-mode classifier, its exported artifacts, and the
+batching host pipeline.
 
 Counterpart of ``pevit_tpu/serve.py``: ``make_serving_fn`` (uint8 images ->
-logits), ``InferencePipeline`` (bucketed batching with batches in flight)
-and ``MicroBatcher`` (cross-request coalescing on one worker thread).  The
-reference's StableHLO export has no counterpart yet (``torch.export`` comes
-later).
+logits, optionally from an int8 weight bundle), ``export_classifier`` (a
+``torch.export`` program with a symbolic batch, the weights baked in or
+passed as arguments), ``serving_weights`` (the bundle such a program takes),
+``save_exported`` / ``load_exported`` (``.pt2``), ``exported_callable``
+(an artifact as ``f(images_u8) -> logits`` on a device),
+``InferencePipeline`` (bucketed batching with batches in flight) and
+``MicroBatcher`` (cross-request coalescing on one worker thread).
+
+The hand-written kernels are registered operators that choose by device
+when they run (``ops``), so an exported graph holds their nodes and an
+artifact exported on the CPU launches the kernels on the card.  Not ported,
+and raising with their ROADMAP item: a device mesh (``mesh``, ROADMAP §1
+item 5), an auxiliary backbone's forward (``forward_fn``, item 3), and
+``platforms``, which has no meaning here (the artifact picks its device when
+it runs; ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -16,34 +28,281 @@ from collections import deque
 
 import numpy as np
 import torch
+from torch import nn
 
-from .train.partition import combine
+from . import ops as _ops  # noqa: F401  (registers the operators an artifact calls)
+from .core.clip import VisionTransformer
+from .peft.base import MODULE_CLASSES
+from .quant import dequantize_tree, quantize_tree
+from .train.head import Head
+from .train.partition import combine, named_parameters
 from .train.trainer import model_forward
 from .utils.device import resolve_device
 
-__all__ = ["make_serving_fn", "InferencePipeline", "MicroBatcher"]
+__all__ = ["make_serving_fn", "export_classifier", "serving_weights", "save_exported",
+           "load_exported", "exported_callable", "InferencePipeline", "MicroBatcher"]
 
 
-def make_serving_fn(static, trainable, frozen, bn_state, preproc, *, device=None):
+def _refuse_unported(*, forward_fn=None, mesh=None, platforms=None) -> None:
+    if forward_fn is not None:
+        raise NotImplementedError("forward_fn (an auxiliary backbone's forward) is not ported "
+                                  "(ROADMAP §1 item 3, auxiliary backbones)")
+    if mesh is not None:
+        raise NotImplementedError("a data-parallel serving program over a device mesh is not "
+                                  "ported (ROADMAP §1 item 5, parallel)")
+    if platforms is not None:
+        raise NotImplementedError("platforms has no counterpart: an exported program picks "
+                                  "its device when it runs (ROADMAP §3)")
+
+
+class _Tower(nn.Module):
+    """The modules the eval forward reads, named as in the bundle: the
+    visual tower under ``clip.visual``, the PEFT module and the head.  No
+    text tower, so a baked artifact carries none."""
+
+    def __init__(self, static, visual: nn.Module, peft, head: nn.Module):
+        super().__init__()
+        self.static = static
+        self.clip = nn.Module()
+        self.clip.visual = visual
+        self.peft = peft
+        self.head = head
+
+    def forward(self, images_u8, bn_mean, bn_var, pre_mean, pre_std):
+        bundle = {"clip": self.clip, "peft": self.peft, "head": self.head}
+        logits, _ = model_forward(self.static, bundle, {"mean": bn_mean, "var": bn_var},
+                                  images_u8, {"mean": pre_mean, "std": pre_std}, train=False)
+        return logits
+
+
+def _skeleton(static) -> _Tower:
+    """A ``_Tower`` on the meta device (structure, no weights), run with
+    weights handed in by ``torch.func.functional_call``."""
+    v = static.spec.vision
+    with torch.device("meta"):
+        peft = (MODULE_CLASSES[static.peft_cfg.method](v.layers, v.width)
+                if static.peft_cfg.has_peft_params else None)
+        return _Tower(static, VisionTransformer(v), peft, Head(static.head_dim, static.num_classes))
+
+
+def _buffer_name(name: str) -> str:
+    if "__" in name:
+        raise ValueError(f"parameter name {name!r} holds '__'")
+    return name.replace(".", "__")
+
+
+class ServingModule(nn.Module):
+    """``forward(images_u8) -> logits`` with the weights inside: what
+    :func:`make_serving_fn` runs and a baked artifact exports.
+
+    In floating point it holds the bundle's own visual tower, PEFT module and
+    head.  With ``quantize`` it holds the same weights as :func:`quantize_tree`
+    leaves (int8 values and float32 scales, as buffers) and dequantizes them
+    inside every call, as the reference's quantized ``serve`` does.  The BN
+    statistics and ``preproc`` are buffers either way."""
+
+    def __init__(self, static, bundle: dict, bn_state: dict, preproc: dict, *,
+                 quantize: bool = False):
+        super().__init__()
+        for name, t in (("bn_mean", bn_state["mean"]), ("bn_var", bn_state["var"]),
+                        ("pre_mean", preproc["mean"]), ("pre_std", preproc["std"])):
+            self.register_buffer(name, torch.as_tensor(t).detach())
+        tower = _Tower(static, bundle["clip"].visual, bundle["peft"], bundle["head"])
+        if not quantize:
+            self.tower, self._skeleton, self._leaves = tower, None, None
+            return
+        self.tower = None
+        self._skeleton = (_skeleton(static),)  # a tuple: not a submodule, nothing lifted
+        self._leaves = {}
+        for name, leaf in quantize_tree(dict(tower.named_parameters())).items():
+            parts = leaf.items() if isinstance(leaf, dict) else ((None, leaf),)
+            for part, t in parts:
+                buf = _buffer_name(name) + ("" if part is None else "__" + part)
+                self.register_buffer(buf, t)
+                self._leaves.setdefault(name, {})[part] = buf
+
+    def _weights(self) -> dict:
+        """The quantized tower as :func:`quantize_tree` gives it."""
+        return {name: getattr(self, parts[None]) if None in parts
+                else {part: getattr(self, buf) for part, buf in parts.items()}
+                for name, parts in self._leaves.items()}
+
+    def forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+        stats = (self.bn_mean, self.bn_var, self.pre_mean, self.pre_std)
+        if self.tower is not None:
+            return self.tower(images_u8, *stats)
+        return torch.func.functional_call(self._skeleton[0], dequantize_tree(self._weights()),
+                                          (images_u8, *stats))
+
+
+class ServingArgsModule(nn.Module):
+    """``forward(weights, images_u8) -> logits`` with the weights passed in,
+    as :func:`serving_weights` gives them (int8 leaves dequantized inside
+    the call when ``quantize``): what a weights-as-args artifact exports.
+    Holds only ``preproc``."""
+
+    def __init__(self, static, preproc: dict, *, quantize: bool = False):
+        super().__init__()
+        for name in ("mean", "std"):
+            self.register_buffer(f"pre_{name}", torch.as_tensor(preproc[name]).detach())
+        self.quantize = quantize
+        self._skeleton = (_skeleton(static),)
+        self._names = [n for n, _ in self._skeleton[0].named_parameters()]
+
+    def forward(self, weights: dict, images_u8: torch.Tensor) -> torch.Tensor:
+        bundle = {n: weights["bundle"][n] for n in self._names}  # the text tower is not read
+        if self.quantize:
+            bundle = dequantize_tree(bundle)
+        bn = weights["bn_state"]
+        return torch.func.functional_call(self._skeleton[0], bundle,
+                                          (images_u8, bn["mean"], bn["var"], self.pre_mean,
+                                           self.pre_std))
+
+
+def _on_device(bundle: dict, dev) -> dict:
+    return {k: (None if m is None else m.to(dev)) for k, m in bundle.items()}
+
+
+def make_serving_fn(static, trainable, frozen, bn_state, preproc, forward_fn=None, *,
+                    quantize: bool = False, device=None):
     """(B, H, W, 3) uint8 -> (B, K) float32 logits on ``device``, eval mode.
 
-    The bundle's modules, ``bn_state`` and ``preproc`` move to ``device``
-    (``None`` -> CUDA, raising where there is none).  The returned function
-    takes a uint8 tensor or array and enters ``torch.inference_mode`` inside
-    each call, so it holds in whichever thread calls it.
+    The bundle's modules move to ``device`` (``None`` -> CUDA, raising where
+    there is none); ``bn_state`` and ``preproc`` are copied there.  With
+    ``quantize`` the tower's weights are stored as int8 on the device and
+    dequantized inside every call.  The returned function takes a uint8
+    tensor or array and enters ``torch.inference_mode`` inside each call,
+    so it holds in whichever thread calls it.
     """
+    _refuse_unported(forward_fn=forward_fn)
     dev = resolve_device(device)
-    bundle = {k: (None if m is None else m.to(dev)) for k, m in combine(trainable, frozen).items()}
-    bn = {k: t.to(dev) for k, t in bn_state.items()}
-    pre = {k: torch.as_tensor(t).to(dev) for k, t in preproc.items()}
+    module = ServingModule(static, _on_device(combine(trainable, frozen), dev), bn_state,
+                           preproc, quantize=quantize).to(dev)
 
     def serve(images_u8) -> torch.Tensor:
         with torch.inference_mode():
-            x = torch.as_tensor(images_u8).to(dev)
-            logits, _ = model_forward(static, bundle, bn, x, pre, train=False)
-        return logits
+            return module(torch.as_tensor(images_u8).to(dev))
 
     return serve
+
+
+def serving_weights(trainable, frozen, bn_state, *, quantize: bool = False) -> dict:
+    """The weight bundle a weights-as-args artifact takes first:
+    ``{"bundle": {dotted name: tensor}, "bn_state": {"mean", "var"}}`` over
+    the whole ``combine(trainable, frozen)`` bundle (both towers, as the
+    reference's), detached.  ``quantize`` must match the artifact's: it
+    stores the large leaves as int8 (:func:`quantize_tree`)."""
+    bundle = {n: p.detach() for n, p in named_parameters(combine(trainable, frozen)).items()}
+    if quantize:
+        bundle = quantize_tree(bundle)
+    return {"bundle": bundle, "bn_state": {k: v.detach() for k, v in bn_state.items()}}
+
+
+def _canonical(tree, dev):
+    """A weight tree on ``dev`` with its dict keys sorted: a program's input
+    spec records key order, so the export and every call use this one."""
+    if isinstance(tree, dict):
+        return {k: _canonical(tree[k], dev) for k in sorted(tree)}
+    return tree.to(dev)
+
+
+# the example batch of a symbolic-batch export: torch.export specialises
+# sizes 0 and 1, so the example takes 2 and the dimension is declared >= 1
+_EXAMPLE_BATCH = 2
+
+
+def export_classifier(static, trainable, frozen, bn_state, preproc, *, image_size: int = 224,
+                      dynamic_batch: bool = True, bake_weights: bool = True,
+                      quantize: bool = False, device=None, platforms=None, mesh=None,
+                      forward_fn=None) -> torch.export.ExportedProgram:
+    """The eval forward as a ``torch.export`` program: (b, S, S, 3) uint8 ->
+    (b, K) float32 logits, S = ``image_size``.
+
+    ``dynamic_batch`` exports a symbolic ``b`` (any batch from 1 up);
+    otherwise the batch is fixed at 1.  ``bake_weights`` picks the
+    deployment mode:
+
+    * True: the weights are program state, one self-contained artifact,
+      called as ``f(images)``.  It holds the visual tower, the PEFT module,
+      the head, the BN statistics and ``preproc``, and no text tower.
+    * False: the weights stay arguments, a program-only artifact called as
+      ``f(serving_weights(trainable, frozen, bn_state, quantize=...), images)``.
+
+    ``quantize`` stores the weights as int8 (in the program, or in the
+    bundle it takes) and dequantizes them inside every call.  The program is
+    traced on ``device`` (``None`` -> CUDA); :func:`exported_callable` runs
+    it on any device.
+    """
+    _refuse_unported(forward_fn=forward_fn, mesh=mesh, platforms=platforms)
+    dev = resolve_device(device)
+    batch = _EXAMPLE_BATCH if dynamic_batch else 1
+    example = torch.zeros((batch, image_size, image_size, 3), dtype=torch.uint8, device=dev)
+    images_dim = {0: torch.export.Dim("b", min=1)} if dynamic_batch else None
+    if bake_weights:
+        module = ServingModule(static, _on_device(combine(trainable, frozen), dev), bn_state,
+                               preproc, quantize=quantize)
+        args, shapes = (example,), {"images_u8": images_dim}
+    else:
+        module = ServingArgsModule(static, preproc, quantize=quantize)
+        weights = _canonical(serving_weights(trainable, frozen, bn_state, quantize=quantize), dev)
+        static_weights = torch.utils._pytree.tree_map(lambda _: None, weights)
+        args, shapes = (weights, example), {"weights": static_weights, "images_u8": images_dim}
+    with torch.no_grad():
+        ep = torch.export.export(module.to(dev), args,
+                                 dynamic_shapes=shapes if dynamic_batch else None, strict=False)
+    # the program keeps its example inputs, which would save a
+    # weights-as-args artifact with a copy of the weights
+    ep.example_inputs = None
+    return ep
+
+
+def is_baked(ep: torch.export.ExportedProgram) -> bool:
+    """True for a self-contained artifact (its one input is the images)."""
+    return len(ep.graph_signature.user_inputs) == 1
+
+
+def exported_image_size(ep: torch.export.ExportedProgram) -> int:
+    """S of the (b, S, S, 3) images an artifact takes."""
+    name = ep.graph_signature.user_inputs[-1]
+    node = next(n for n in ep.graph.nodes if n.op == "placeholder" and n.name == name)
+    return int(node.meta["val"].shape[1])
+
+
+def exported_callable(ep: torch.export.ExportedProgram, weights=None, *, device=None):
+    """An artifact as ``f(images_u8) -> (b, K) float32 logits`` on
+    ``device`` (``None`` -> CUDA), under ``torch.inference_mode``.
+
+    The program is moved to the device first, in place: its state, its
+    constants and the device its input checks name, so that an artifact
+    traced on the CPU runs on the card, where its operators launch the
+    kernels.  A weights-as-args artifact needs ``weights``
+    (:func:`serving_weights`, moved to the device here)."""
+    from torch.export.passes import move_to_device_pass
+
+    dev = resolve_device(device)
+    if is_baked(ep) != (weights is None):
+        raise ValueError("a baked artifact takes no weights; a weights-as-args one needs them")
+    module = move_to_device_pass(ep, dev).module()
+    if weights is not None:
+        weights = _canonical(weights, dev)
+
+    def call(images_u8) -> torch.Tensor:
+        with torch.inference_mode():
+            x = torch.as_tensor(images_u8).to(dev)
+            return module(x) if weights is None else module(weights, x)
+
+    return call
+
+
+def save_exported(ep: torch.export.ExportedProgram, path) -> None:
+    torch.export.save(ep, str(path))
+
+
+def load_exported(path) -> torch.export.ExportedProgram:
+    """The ``.pt2`` artifact at ``path``; run it with :func:`exported_callable`.
+    This module has imported ``pevit_tpu_torch.ops``, which registers the
+    operators the program calls."""
+    return torch.export.load(str(path))
 
 
 class InferencePipeline:

@@ -1,5 +1,5 @@
-"""HTTP serving front end (counterpart of ``tools/serve_daemon.py``'s
-``make_server``).
+"""HTTP serving daemon: an exported classifier behind a socket
+(counterpart of ``tools/serve_daemon.py``).
 
   POST /infer    body = .npy uint8 array (N, H, W, 3); response = .npy
                  float32 logits (N, K)
@@ -8,14 +8,26 @@
                  percentiles {count, mean_ms, p50_ms, p95_ms, p99_ms}
 
 Concurrent requests are coalesced by :class:`MicroBatcher` in front of an
-:class:`InferencePipeline`.  A command-line ``main`` (config and checkpoint
-loading) comes with the config port.
+:class:`InferencePipeline`.  ``main`` is the command line:
+
+    # serve an exported artifact
+    python -m pevit_tpu_torch.serve_daemon --artifact cifar10.pt2 --port 8000
+
+    # or deploy straight from a trained-state directory (program-only
+    # export at start-up)
+    python -m pevit_tpu_torch.serve_daemon --model resources/model/vitb32_CLIP.yaml \
+        --ds resources/datasets/cifar10.yaml --weights-from /ckpts/cifar10 --port 8000
+
+It takes the reference's flags, and ``--device`` (``cuda`` by default;
+``cpu`` serves on the CPU).  SIGINT or SIGTERM stops it cleanly.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
+import signal
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -90,3 +102,73 @@ def make_server(call_fn, image_size: int, *, device=None, host: str = "127.0.0.1
     srv.pipeline = pipe
     srv.batcher = batcher
     return srv
+
+
+def config_from(ds: str, model: str, opts) -> "object":
+    """The default config merged with the dataset YAML, then the model YAML,
+    then the ``KEY VALUE`` overrides, as the commands merge them."""
+    from .config import get_default_config, update_config
+
+    config = get_default_config()
+    for cfg_file in (ds, model):
+        if cfg_file:
+            update_config(config, argparse.Namespace(cfg=cfg_file, opts=opts))
+    return config
+
+
+def _raise_interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--artifact", default="", help=".pt2 artifact to serve")
+    ap.add_argument("--model", default="", help="model YAML (checkpoint-deploy mode, "
+                    "or to rebuild a program-only artifact's weight bundle)")
+    ap.add_argument("--ds", default="", help="dataset YAML (sets NUM_CLASSES)")
+    ap.add_argument("--method", default="kadaptation")
+    ap.add_argument("--weights-from", default="", help="directory with the trained state "
+                    "(step_N.npz)")
+    ap.add_argument("--quantize", action="store_true")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--max-batch", type=int, default=256)
+    ap.add_argument("--min-bucket", type=int, default=8)
+    ap.add_argument("--depth", type=int, default=2)
+    ap.add_argument("--pad-policy", choices=["bucket", "exact"], default="bucket",
+                    help="'exact' never pads ragged tails: training-equal numerics "
+                         "for composition-sensitive PEFT towers, one shape per "
+                         "distinct size (offline batch scoring, not public traffic)")
+    ap.add_argument("--window-ms", type=float, default=2.0,
+                    help="cross-request micro-batching window (0 disables waiting)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE config overrides")
+    args = ap.parse_args(argv)
+
+    from .serving_loader import load_serving_callable
+
+    config = config_from(args.ds, args.model, args.opts) if (args.model or args.ds) else None
+    call, image_size = load_serving_callable(
+        artifact=args.artifact, config=config, method=args.method,
+        weights_from=args.weights_from, quantize=args.quantize, seed=args.seed,
+        device=args.device)
+    srv = make_server(call, image_size, device=args.device, host=args.host, port=args.port,
+                      max_batch=args.max_batch, min_bucket=args.min_bucket, depth=args.depth,
+                      window_ms=args.window_ms, pad_policy=args.pad_policy)
+    signal.signal(signal.SIGTERM, _raise_interrupt)
+    print(f"serving on http://{args.host}:{srv.server_address[1]} "
+          f"(image_size={image_size}, max_batch={args.max_batch}, "
+          f"depth={args.depth})", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+        srv.batcher.close()
+
+
+if __name__ == "__main__":
+    main()
