@@ -130,11 +130,37 @@ on):
    serving forward and a batch-128 train step and the serving MFU of phase
    4's images/s; ``tools.serve_bench`` on the two program-only artifacts
    (fp, int8); each kernel held against its plain version at each batch;
-10. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 9,
+10. the auxiliary backbones, each from its shipped model YAML at full
+   width on synthetic cifar-10 with ``--no-tuning True`` and 2 + 1 epochs
+   (a cut for the time limit); every backbone runs in float32 (on images
+   normalised in the task's dtype), so its kernels run their fp32 bodies:
+   a timm-layout ViT-B/16 checkpoint written from seeded tensors, loaded by
+   ``get_model`` through TEST.MODEL_FILE bit for bit; ``linear_probe`` on
+   ``mae_vitb16`` (the probe's GLOBAL_POOL override; 12 K1 launches a
+   forward at N = 197, no K2: the erf-GELU blocks take the unfused MLP);
+   its classifier exported with the backbone's ``forward_fn`` and run in a
+   fresh process (logits within 1e-5 of the in-process forward, 12 K1 a
+   call); ``finetune`` on ``vit_base_patch16_224`` from the checkpoint,
+   with first-step gradients kernel vs plain path (fp32 within 1e-3 of
+   each leaf's largest |g|, bf16 cosine >= 0.99; the final LayerNorm's
+   bias, whose gradient the head's BN cancels, held as phase 7's ln_post);
+   one 64-image forward each of ViT-B/32, DeiT-B/16 and MoCo-v3 B/16
+   (features within 1e-4 of the plain path's, feature images/s);
+   ``linear_probe`` on ``vitb32_DeCLIP`` with the text-initialised head
+   (the DeCLIP tokenizer and text tower on the card within 1e-4 of a CPU
+   copy; 12 K1 and 12 K2 a forward on the frozen tower); FILIP's dense
+   features (feat_dim 49 x 256); one ``finetune`` step of ``vitb32_SLIP``
+   (K1 only: its MLP weights train, so K2 is off); an OpenAI-layout RN50
+   written from a seeded CLIP with live BatchNorm statistics, loaded bit
+   for bit, ``zeroshot`` and ``linear_probe`` on it with no kernel launch
+   (the attention pool is plain); each kernel held against its plain
+   version at every batch each path gave it;
+11. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 10,
    summed and by path (each path's counts are zeroed just before it and read
-   just after; phase 9's are the fresh process's, reported by it), the
-   other numbers at the batch that launched the kernel most, every path's
-   batches under ``by_shape``; then the ``{"ok": true, ...}`` line last.
+   just after; phase 9's and the exported MAE probe's are the fresh
+   process's, reported by it), the other numbers at the batch that launched
+   the kernel most, every path's batches under ``by_shape``; then the
+   ``{"ok": true, ...}`` line last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
 """
@@ -656,7 +682,8 @@ def first_step_grads(task, images, labels) -> dict:
     params = trainable_params(trainable)
     valid = torch.ones(len(labels), device="cuda")
     logits, _ = model_forward(task.static, combine(trainable, frozen), bn, task.prepack(images),
-                              task.preproc, train=True, mask=valid)
+                              task.preproc, train=True, mask=valid,
+                              forward_fn=getattr(task, "_forward_fn", None))
     loss = _loss(task.static, logits, torch.as_tensor(labels).cuda(), valid)
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return {n: (torch.zeros_like(p) if g is None else g).float()
@@ -922,7 +949,7 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
 
 
 def kernel_report(kernels, launches: dict, table: dict) -> list:
-    """The ``kernels`` line: launches summed over the paths of phases 6 to 9
+    """The ``kernels`` line: launches summed over the paths of phases 6 to 10
     (each read around its own run); the other numbers at the batch that
     launched the kernel most (the larger batch on a tie); every path's
     batches under ``by_shape``."""
@@ -1850,6 +1877,405 @@ def run_deployment(kernels, gen, card: str, tmp: Path, serving_ips: float, train
     return launches, table, time.perf_counter() - t_phase
 
 
+# ---------------------------------------------------------------------------
+# 10. the auxiliary backbones
+# ---------------------------------------------------------------------------
+
+AUX_SEED = 3
+# cut for the time limit: the aux commands train 2 + 1 epochs, not 10 + 40
+AUX_EPOCHS = ("2", "1")
+AUX_BATCH = 64  # each backbone's timed forward
+AUX_EXPORT_BATCHES = (1, 8, 37)
+# the first-step gradient that the head's train-mode BN cancels: the final
+# LayerNorm's bias shifts every feature by one vector
+VIT_VANISHING = ("clip.norm.bias",)
+
+
+def aux_argv(tmp: Path, model: str, *options, epochs=AUX_EPOCHS) -> list:
+    """A command's arguments on synthetic cifar-10 with a shipped model YAML
+    (random weights unless ``options`` name a checkpoint); outputs in
+    ``tmp``, the data in ``tmp``'s parent."""
+    return ["--ds", str(REPO / "resources/datasets/cifar10.yaml"),
+            "--model", str(REPO / "resources/model" / model), "--no-tuning", "True", *options,
+            "DATASET.NUM_SAMPLES_PER_CLASS", "5", "DATASET.ALLOW_SYNTHETIC", "True",
+            "DATASET.ROOT", str(tmp.parent / "data"), "OUTPUT_DIR", str(tmp / "out"),
+            "TRAIN.END_EPOCH", epochs[0], "TRAIN.EXTRA_FINAL_TRAIN_EPOCH", epochs[1]]
+
+
+def aux_config(model: str, *opts):
+    from pevit_tpu_torch.serve_daemon import config_from
+
+    return config_from(str(REPO / "resources/datasets/cifar10.yaml"),
+                       str(REPO / "resources/model" / model), list(opts))
+
+
+def aux_batches(task, data, tokens: int, fused_mlp: bool, layers: int = 12) -> dict:
+    """A command's batches over a backbone whose blocks are the CLIP blocks
+    (``layers`` of them; 0 for an RN tower, which launches no kernel): the
+    backbone runs in float32, so its kernels run their fp32 bodies; K2 only
+    where the blocks take the fused MLP (DeCLIP's frozen tower), K3 never
+    (no gradient crosses a fused MLP on these paths)."""
+    train, evals = command_batches(task, data, trials=0)
+    return {"dtype": "float32", "train": train, "evals": evals, "layers": layers, "width": 768,
+            "tokens": tokens, "fused_mlp": fused_mlp, "fused_mlp_bwd": False}
+
+
+def run_aux_command(kernels, module, argv: list, batches_of) -> tuple:
+    """One command run: exact launches for the batches ``batches_of(task,
+    data)`` gives, and the predictions artifact.  Returns (summary, task,
+    data, config, batches)."""
+    times = {}
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with timed_command(times):
+        best, info = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    (task, data, config), _ = times["run_method_call"]
+    batches = batches_of(task, data)
+    if launches != expected_launches(batches):
+        raise AssertionError(f"{config.MODEL.NAME} {module.__name__}: launches {launches}, "
+                             f"want {expected_launches(batches)}")
+    out = Path(config.OUTPUT_DIR) / "predictions"
+    (artifact,) = out.glob("*/seed0_cifar-10.json")
+    check_predictions(artifact, len(data[5]))
+    summary = {"best_acc": best, "n_trainable_params": info["n_trainable_params"],
+               "n_params": info["n_params"], "launches": launches,
+               "train_step_images": dict(batches["train"]),
+               "eval_chunk_images": dict(batches["evals"]),
+               "seconds": {"command": seconds, "run_method": times["run_method"]}}
+    close_command_logs()
+    return summary, task, data, config, batches
+
+
+def aux_forward(kernels, backbone, res: int, rng, *, tokens: int, fused: bool) -> tuple:
+    """One forward of ``backbone`` at AUX_BATCH on the card: its launches
+    (12 K1 a forward, and 12 K2 where ``fused``), features finite and
+    within 1e-4 of the plain path's, and feature images/s (median of 5
+    timed forwards after warm-up).  Returns (summary, batches)."""
+    x = torch.from_numpy(rng.standard_normal((AUX_BATCH, res, res, 3)).astype(np.float32)).cuda()
+    fwd = lambda: backbone.forward_features(backbone.params, x)
+    with torch.no_grad():
+        reset_launches(kernels)
+        got = fwd()
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        with plain_path():
+            want = fwd()
+        ms = time_ms(fwd, reps=5)
+    batches = {"dtype": "float32", "train": collections.Counter(),
+               "evals": collections.Counter({AUX_BATCH: 1}), "layers": 12, "width": 768,
+               "tokens": tokens, "fused_mlp": fused, "fused_mlp_bwd": False}
+    if launches != expected_launches(batches):
+        raise AssertionError(f"{backbone.name} forward: launches {launches}, "
+                             f"want {expected_launches(batches)}")
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if got.shape != (AUX_BATCH, backbone.feat_dim) or not torch.isfinite(got).all() \
+            or err > 1e-4 * scale:
+        raise AssertionError(f"{backbone.name} features {tuple(got.shape)}: kernel vs plain "
+                             f"{err} > 1e-4 * {scale}")
+    return ({"feat_dim": backbone.feat_dim, "launches": launches, "max_abs_err_vs_plain": err,
+             "max_abs": scale, "ms": ms, "feature_images_per_s": AUX_BATCH / ms * 1e3}, batches)
+
+
+def write_timm_checkpoint(path: Path):
+    """A timm-layout ViT-B/16 state dict from seeded tensors (N(0, 0.02)
+    weights, LayerNorms near the identity), saved with ``torch.save``.
+    Returns the reference tree that it must load as."""
+    from pevit_tpu_torch.models.vit import normalize_vit_state_dict, timm_state_dict_to_params
+
+    rng = np.random.default_rng(AUX_SEED)
+    r = lambda *s, std=0.02: (rng.standard_normal(s, dtype=np.float32) * std)
+    w, p, n = 768, 16, 197
+    sd = {"patch_embed.proj.weight": r(w, 3, p, p), "patch_embed.proj.bias": r(w),
+          "cls_token": r(1, 1, w), "pos_embed": r(1, n, w),
+          "norm.weight": 1 + r(w, std=0.1), "norm.bias": r(w)}
+    for i in range(12):
+        b = f"blocks.{i}"
+        sd.update({f"{b}.norm1.weight": 1 + r(w, std=0.1), f"{b}.norm1.bias": r(w),
+                   f"{b}.attn.qkv.weight": r(3 * w, w), f"{b}.attn.qkv.bias": r(3 * w),
+                   f"{b}.attn.proj.weight": r(w, w), f"{b}.attn.proj.bias": r(w),
+                   f"{b}.norm2.weight": 1 + r(w, std=0.1), f"{b}.norm2.bias": r(w),
+                   f"{b}.mlp.fc1.weight": r(4 * w, w), f"{b}.mlp.fc1.bias": r(4 * w),
+                   f"{b}.mlp.fc2.weight": r(w, 4 * w), f"{b}.mlp.fc2.bias": r(w)})
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return timm_state_dict_to_params(normalize_vit_state_dict(sd))[0]
+
+
+def same_tree(module, tree: dict, what: str) -> None:
+    """Every tensor of ``module`` equals ``tree``'s (the reference layout)
+    bit for bit."""
+    from pevit_tpu_torch.bridge import _flatten, module_to_jax
+
+    got, want = _flatten(module_to_jax(module)), _flatten(tree)
+    bad = [k for k in want if k not in got or not np.array_equal(got[k], want[k])]
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"{what}: {len(bad)} of {len(want)} leaves differ, e.g. {bad[:3]}")
+
+
+def aux_vit(kernels, gen, card: str, tmp: Path, rng) -> tuple:
+    """10a: the timm checkpoint through get_model; the MAE linear probe; the
+    ViT-B/16 finetune with first-step gradients; one forward of ViT-B/32,
+    DeiT-B/16 and MoCo-v3 B/16; the probe's classifier exported with
+    ``forward_fn`` and run in a fresh process."""
+    from pevit_tpu_torch.commands import finetune, linear_probe
+    from pevit_tpu_torch.models import get_model
+
+    out, paths = {}, {}
+    ckpt = tmp / "vit_base_patch16_224.pth"
+    t0 = time.perf_counter()
+    tree = write_timm_checkpoint(ckpt)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vit16 = get_model(aux_config("vit_base_patch16_224.yaml", "TEST.MODEL_FILE", str(ckpt)),
+                      device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same_tree(vit16.params, tree, "get_model from a timm checkpoint")
+    from pevit_tpu_torch.bridge import _flatten
+
+    out["timm_checkpoint"] = {"write_s": write_s, "load_s": load_s,
+                              "file_bytes": ckpt.stat().st_size, "leaves": len(_flatten(tree))}
+    out["vit_base_patch16_224"], paths["aux_forward_vit_b16"] = aux_forward(
+        kernels, vit16, 224, rng, tokens=197, fused=False)
+    del vit16
+
+    probe, task, data, config, paths["aux_mae_probe"] = run_aux_command(
+        kernels, linear_probe, aux_argv(tmp / "mae", "mae_vitb16.yaml", "--lr", "0.01", "--l2",
+                                        "0.0001"),
+        lambda t, d: aux_batches(t, d, 197, fused_mlp=False))
+    if config.MODEL.SPEC.GLOBAL_POOL is not False or task.backbone is None:
+        raise AssertionError("the MAE probe kept its global pool")
+    out["mae_linear_probe"] = probe
+    out["mae_export"], paths["aux_exported"] = aux_export(task, data, tmp)
+
+    ft, ftask, fdata, _, paths["aux_vit_finetune"] = run_aux_command(
+        kernels, finetune, aux_argv(tmp / "vit_ft", "vit_base_patch16_224.yaml", "--lr", "1e-5",
+                                    "--l2", "0.0001", "TEST.MODEL_FILE", str(ckpt)),
+        lambda t, d: aux_batches(t, d, 197, fused_mlp=False))
+    same_tree(ftask.clip, tree, "the pretrained ViT-B/16 after the finetune run")
+    images, labels = fdata[0][:AUX_BATCH], fdata[1][:AUX_BATCH]
+    ft["first_step_grads"] = []
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        variant = copy.copy(ftask)
+        variant.static = dataclasses.replace(ftask.static, compute_dtype=dtype_name)
+        ft["first_step_grads"].append(compare_grads(variant, images, labels, dtype,
+                                                    VIT_VANISHING))
+    out["vit_finetune"] = ft
+    del ftask, task
+
+    for name, model, tokens in (("vit_base_patch32_224", "vit_base_patch32_224.yaml", 50),
+                                ("deit_base_patch16_224", "deit_base_patch16_224.yaml", 197),
+                                ("mocov3_vitb16", "mocov3_vitb16.yaml", 197)):
+        backbone = get_model(aux_config(model), device="cuda")
+        out[name], paths[f"aux_forward_{name}"] = aux_forward(kernels, backbone, 224, rng,
+                                                              tokens=tokens, fused=False)
+    for name, summary in out.items():
+        print(f"aux {name}: {json.dumps(summary)} [{card}]", flush=True)
+    return paths
+
+
+def aux_export(task, data, tmp: Path) -> tuple:
+    """The MAE probe's classifier exported with its backbone's forward,
+    baked, and run in a fresh process that imports only the port: logits
+    within 1e-5 of the in-process serving forward, 12 K1 launches a call."""
+    from pevit_tpu_torch.serve import export_classifier, make_serving_fn, save_exported
+    from pevit_tpu_torch.train import partition, trainable_pred
+
+    trainable, frozen = partition(task.last_bundle, trainable_pred(task.static))
+    bn = task.last_state.bn
+    serve = make_serving_fn(task.static, trainable, frozen, bn, task.preproc,
+                            forward_fn=task._forward_fn, device="cuda")
+    t0 = time.perf_counter()
+    ep = export_classifier(task.static, trainable, frozen, bn, task.preproc, image_size=224,
+                           device="cuda", forward_fn=task._forward_fn)
+    save_exported(ep, tmp / "mae_probe.pt2")
+    export_s = time.perf_counter() - t0
+    images = data[4][:max(AUX_EXPORT_BATCHES)].cpu().numpy()
+    np.save(tmp / "mae_images.npy", images)
+    job = {"images": str(tmp / "mae_images.npy"), "out": str(tmp / "mae_logits.npz"),
+           "batches": list(AUX_EXPORT_BATCHES),
+           "artifacts": {"mae-probe": {"path": str(tmp / "mae_probe.pt2"), "weights": None}}}
+    child = json.loads(python_child("-c", ARTIFACT_CHILD, json.dumps(job)).stdout
+                       .strip().splitlines()[-1])
+    if child["leaked"]:
+        raise AssertionError(f"the artifact child imported {child['leaked']}")
+    checks, calls = [], collections.Counter()
+    with np.load(job["out"]) as z:
+        for b in AUX_EXPORT_BATCHES:
+            got, want = z[f"mae-probe/{b}"], serve(images[:b]).float().cpu().numpy()
+            err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            call = child["launches"][f"mae-probe/{b}"]
+            if got.shape != want.shape or err > 1e-5 * scale:
+                raise AssertionError(f"exported MAE probe at {b}: max err {err} at {scale}")
+            if call != {"attention_fwd": 12, "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}:
+                raise AssertionError(f"exported MAE probe at {b}: launches {call}")
+            calls[b] += 1
+            checks.append({"images": b, "max_abs_err": err, "max_abs_logit": scale})
+    batches = {"dtype": "float32", "train": collections.Counter(), "evals": calls, "layers": 12,
+               "width": 768, "tokens": 197, "fused_mlp": False, "fused_mlp_bwd": False}
+    return ({"export_s": export_s, "mb": (tmp / "mae_probe.pt2").stat().st_size / 1e6,
+             "load_s": child["load_s"], "checks": checks,
+             "launches": expected_launches(batches)}, batches)
+
+
+def aux_declip(kernels, gen, card: str, tmp: Path, rng) -> tuple:
+    """10b: the DeCLIP probe with the text-initialised head (text features
+    on the card against a CPU copy of the tower), FILIP's dense features,
+    and one finetune step of SLIP."""
+    from pevit_tpu_torch.commands import finetune, linear_probe
+    from pevit_tpu_torch.commands._common import backbone_text_features
+    from pevit_tpu_torch.models import get_model
+
+    out, paths = {}, {}
+    probe, task, _, config, paths["aux_declip_probe"] = run_aux_command(
+        kernels, linear_probe, aux_argv(tmp / "declip", "vitb32_DeCLIP.yaml", "--lr", "0.01",
+                                        "--l2", "0.0001", "TRAIN.INIT_HEAD_WITH_TEXT_ENCODER",
+                                        "True"),
+        lambda t, d: aux_batches(t, d, 50, fused_mlp=True))
+    card_w = task.text_init_weights
+    cpu = dataclasses.replace(task.backbone, params=copy.deepcopy(task.backbone.params).cpu())
+    cpu_w = backbone_text_features(config, cpu)
+    err, scale = float(np.abs(card_w - cpu_w).max()), float(np.abs(cpu_w).max())
+    if card_w.shape != (3072, 10) or err > 1e-4 * scale:
+        raise AssertionError(f"DeCLIP text head {card_w.shape}: card vs CPU {err} > 1e-4 * {scale}")
+    probe["text_head_card_vs_cpu"] = {"max_abs_err": err, "max_abs": scale}
+    out["declip_linear_probe"] = probe
+    out["vitb32_DeCLIP"], paths["aux_forward_declip"] = aux_forward(
+        kernels, task.backbone, 224, rng, tokens=50, fused=True)
+    del task, cpu
+
+    filip = get_model(aux_config("vitb32_FILIP.yaml"), device="cuda")
+    if filip.feat_dim != 49 * 256:
+        raise AssertionError(f"FILIP feat_dim {filip.feat_dim}, want 49 x 256")
+    out["vitb32_FILIP"], paths["aux_forward_filip"] = aux_forward(kernels, filip, 224, rng,
+                                                                  tokens=50, fused=True)
+    del filip
+
+    slip, stask, _, _, paths["aux_slip_finetune"] = run_aux_command(
+        kernels, finetune, aux_argv(tmp / "slip", "vitb32_SLIP.yaml", "--lr", "1e-5", "--l2",
+                                    "0.0001", epochs=("1", "0")),
+        lambda t, d: aux_batches(t, d, 50, fused_mlp=False))
+    if slip["launches"]["fused_mlp_fwd"] or sum(paths["aux_slip_finetune"]["train"].values()) != 1:
+        raise AssertionError(f"SLIP finetune: {slip['launches']}, steps "
+                             f"{paths['aux_slip_finetune']['train']}")
+    out["slip_finetune"] = slip
+    for name, summary in out.items():
+        print(f"aux {name}: {json.dumps(summary)} [{card}]", flush=True)
+    return paths
+
+
+def write_rn50_checkpoint(path: Path):
+    """A seeded RN50 CLIP (random BatchNorm running statistics) written as an
+    OpenAI-layout state dict; returns the CLIP, on the CPU."""
+    from pevit_tpu_torch.ckpt import clip_to_state_dict
+    from pevit_tpu_torch.core import CLIPSpec, init_clip_params
+    from pevit_tpu_torch.core.clip import TextSpec
+    from pevit_tpu_torch.core.resnet import RN_SPECS, BatchNorm
+
+    g = torch.Generator().manual_seed(AUX_SEED)
+    spec = CLIPSpec(embed_dim=1024, vision_rn=RN_SPECS["RN50"], text=TextSpec(output_dim=1024))
+    clip = init_clip_params(g, spec, device="cpu")
+    with torch.no_grad():
+        for m in clip.visual.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.copy_(0.1 * torch.randn(m.mean.shape, generator=g))
+                m.var.copy_(0.5 + torch.rand(m.var.shape, generator=g))
+    torch.save(clip_to_state_dict(clip), path)
+    return clip
+
+
+def aux_rn50(kernels, card: str, tmp: Path, rng) -> tuple:
+    """10c: an OpenAI-layout RN50 checkpoint loaded bit for bit, then
+    zero-shot and the linear probe on it: no kernel launches (the
+    attention pool is plain, as in the reference)."""
+    from pevit_tpu_torch.ckpt import load_clip
+    from pevit_tpu_torch.commands import linear_probe, zeroshot
+    from pevit_tpu_torch.core import encode_image
+
+    out, paths = {}, {}
+    ckpt = tmp / "RN50.pt"
+    t0 = time.perf_counter()
+    src = write_rn50_checkpoint(ckpt)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clip, spec = load_clip("RN50", checkpoint_path=str(ckpt), device="cuda")
+    torch.cuda.synchronize()
+    out["checkpoint"] = {"write_s": write_s, "load_s": time.perf_counter() - t0,
+                         "file_bytes": ckpt.stat().st_size}
+    same_tensors(clip, src, "load_clip from an RN50 checkpoint")
+    x = torch.from_numpy(rng.standard_normal((AUX_BATCH, 224, 224, 3)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        reset_launches(kernels)
+        feats = encode_image(clip, x, spec=spec)
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        ms = time_ms(lambda: encode_image(clip, x, spec=spec), reps=5)
+    cpu = encode_image(copy.deepcopy(clip).cpu(), x[:8].cpu(), spec=spec)
+    err, scale = (feats[:8].cpu() - cpu).abs().max().item(), cpu.abs().max().item()
+    if any(launches.values()) or feats.shape != (AUX_BATCH, 1024) or err > 1e-4 * scale:
+        raise AssertionError(f"RN50 forward: launches {launches}, {tuple(feats.shape)}, card vs "
+                             f"CPU {err} > 1e-4 * {scale}")
+    out["RN50"] = {"launches": launches, "max_abs_err_card_vs_cpu": err, "max_abs": scale,
+                   "ms": ms, "feature_images_per_s": AUX_BATCH / ms * 1e3}
+    del clip, src
+
+    argv = ["--ds", str(REPO / "resources/datasets/cifar10.yaml"),
+            "--model", str(REPO / "resources/model/vitb32_CLIP.yaml"), "MODEL.NAME", "RN50",
+            "MODEL.PRETRAINED", str(ckpt), "DATASET.ALLOW_SYNTHETIC", "True",
+            "DATASET.ROOT", str(tmp / "data"), "OUTPUT_DIR", str(tmp / "rn_zs" / "out")]
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    result = zeroshot.main(argv)
+    torch.cuda.synchronize()
+    zs_launches = read_launches(kernels)
+    if any(zs_launches.values()):
+        raise AssertionError(f"RN50 zero-shot launched {zs_launches}")
+    out["zeroshot"] = {"result": result, "launches": zs_launches,
+                       "seconds": time.perf_counter() - t0}
+    paths["aux_rn50_zeroshot"] = {"train": {}, "evals": {}, "layers": 0, "fused_mlp": False,
+                                  "fused_mlp_bwd": False}
+    close_command_logs()
+    out["linear_probe"], _, _, _, paths["aux_rn50_probe"] = run_aux_command(
+        kernels, linear_probe, aux_argv(tmp / "rn", "vitb32_CLIP.yaml", "--lr", "0.01", "--l2",
+                                        "0.0001", "MODEL.NAME", "RN50", "MODEL.PRETRAINED",
+                                        str(ckpt)),
+        lambda t, d: aux_batches(t, d, 0, fused_mlp=False, layers=0))
+    for name, summary in out.items():
+        print(f"aux RN50 {name}: {json.dumps(summary)} [{card}]", flush=True)
+    return paths
+
+
+def run_aux_backbones(kernels, gen, card: str) -> tuple:
+    """Phase 10; returns the launches and kernel rows of its paths."""
+    launches, table = {}, {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    rng = np.random.default_rng(AUX_SEED)
+    t_phase, steps = time.perf_counter(), {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aux_") as tmp:
+        tmp = Path(tmp)
+        paths = {}
+        for name, fn in (("vit", lambda: aux_vit(kernels, gen, card, tmp, rng)),
+                         ("declip", lambda: aux_declip(kernels, gen, card, tmp, rng)),
+                         ("rn50", lambda: aux_rn50(kernels, card, tmp, rng))):
+            t0 = time.perf_counter()
+            paths.update(fn())
+            steps[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path, batches in paths.items():
+        launches[path] = expected_launches(batches) if batches["layers"] else \
+            {k.name: 0 for k in kernels}
+        if not batches["layers"]:
+            continue
+        for name, rows_ in path_kernel_rows(gen, path, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    steps["kernel_rows"] = time.perf_counter() - t0
+    print(f"phase 10 seconds by step: {json.dumps(steps)}", flush=True)
+    return launches, table, time.perf_counter() - t_phase
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a CUDA card",
@@ -1982,10 +2408,15 @@ def main() -> int:
             KERNELS, gen, card, Path(cmd_tmp), pipe.throughput, (batch_x, batch_y))
         print(f"phase 9: {seconds:.1f} s", flush=True)
 
-    # 10. report
-    launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches}
+    # 10. the auxiliary backbones: the ViT family, the DeCLIP family, RN50
+    aux_launches, aux_table, seconds = run_aux_backbones(KERNELS, gen, card)
+    print(f"phase 10: {seconds:.1f} s", flush=True)
+
+    # 11. report
+    launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
+                **aux_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
-             + deploy_table[name] for name in command_table}
+             + deploy_table[name] + aux_table[name] for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))

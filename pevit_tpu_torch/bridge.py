@@ -10,7 +10,14 @@ reference's paths, so the mapping only unstacks and restacks the layer axis:
 
   clip.visual.blocks.<path>[i]  <->  clip.visual.blocks.<i>.<path>
   clip.text.blocks.<path>[i]    <->  clip.text.blocks.<i>.<path>
+  clip.blocks.<path>[i]         <->  clip.blocks.<i>.<path>
   peft.layers.<name>[i]         <->  peft.layers.<i>.<name>
+
+``clip`` is whatever backbone the bundle holds: the CLIP (its ViT or its
+ResNet visual tower), or an auxiliary backbone of ``models.factory`` (the
+generic ViT, whose blocks sit at the top of its tree, or a DeCLIP-family
+model).  A ResNet tower stacks nothing: its blocks are keyed ``"0"``,
+``"1"``, ... in both layouts.
 
 A serving weight bundle (``serve.serving_weights``: ``{"bundle", "bn_state"}``)
 maps the same way, int8 leaves included: the reference's stacked
@@ -40,7 +47,8 @@ from .train.optim import AdamState, RmspropState, SgdState
 from .utils.device import resolve_device
 
 # the prefixes under which the reference stacks layers on a leading axis
-_STACKED = {"clip": (("visual", "blocks"), ("text", "blocks")), "peft": (("layers",),)}
+_STACKED = {"clip": (("visual", "blocks"), ("text", "blocks"), ("blocks",)),
+            "peft": (("layers",),)}
 
 
 def _stacked_prefix(path: tuple, prefixes: tuple):
@@ -54,8 +62,8 @@ def _stacked_prefix(path: tuple, prefixes: tuple):
 def stacked_layer_axes(name: str) -> int:
     """Layer axes the reference stacks onto the leaf behind the port's
     dotted parameter ``name``: 1 for ``clip.visual.blocks.<i>.*``,
-    ``clip.text.blocks.<i>.*`` and ``peft.layers.<i>.*`` (one layer's slice
-    of a stacked leaf), else 0."""
+    ``clip.text.blocks.<i>.*``, ``clip.blocks.<i>.*`` and
+    ``peft.layers.<i>.*`` (one layer's slice of a stacked leaf), else 0."""
     top, _, rest = name.partition(".")
     path = tuple(rest.split("."))
     stacked = _stacked_prefix(path, _STACKED.get(top, ()))
@@ -122,21 +130,34 @@ def _load(module: torch.nn.Module, sd: dict, what: str) -> None:
     module.load_state_dict(sd)
 
 
+def module_from_jax(tree_np: dict, module: torch.nn.Module, *, device=None) -> torch.nn.Module:
+    """Load a backbone tree of the reference (a CLIP's, a generic ViT's, a
+    DeCLIP model's) as numpy into ``module``, whose parameters must be
+    exactly the tree's leaves; returns it on ``device``."""
+    _load(module, _to_state_dict(_flatten(tree_np), _STACKED["clip"]), type(module).__name__)
+    return module.to(resolve_device(device))
+
+
+def module_to_jax(module: torch.nn.Module) -> dict:
+    """A backbone module -> the reference's tree as numpy, layers restacked."""
+    return _from_state_dict(module.state_dict(), _STACKED["clip"])
+
+
 def clip_from_jax(clip_np: dict, spec: CLIPSpec, *, device=None) -> CLIP:
     """The reference's CLIP tree (``visual``, ``text``, ``logit_scale``) as
     numpy -> the port's ``CLIP`` on ``device``."""
-    clip = CLIP(spec)
-    _load(clip, _to_state_dict(_flatten(clip_np), _STACKED["clip"]), "clip")
-    return clip.to(resolve_device(device))
+    return module_from_jax(clip_np, CLIP(spec), device=device)
 
 
 def from_jax(bundle_np: dict, bn_state_np: dict, spec: CLIPSpec, peft_cfg: PeftConfig, *,
-             device=None):
+             device=None, backbone: torch.nn.Module = None):
     """Reference bundle ``{"clip", "peft", "head"}`` and BN state ``{"mean",
     "var"}`` as numpy -> (the port's bundle of modules, BN state tensors) on
-    ``device``."""
+    ``device``.  ``backbone`` is the module that ``bundle_np["clip"]`` loads
+    into, for an auxiliary backbone; the CLIP of ``spec`` otherwise."""
     dev = resolve_device(device)
-    clip = clip_from_jax(bundle_np["clip"], spec, device=dev)
+    clip = (clip_from_jax(bundle_np["clip"], spec, device=dev) if backbone is None
+            else module_from_jax(bundle_np["clip"], backbone, device=dev))
 
     peft = None
     if peft_cfg.has_peft_params:

@@ -1,6 +1,6 @@
 """OpenAI CLIP checkpoint -> the port's ``CLIP``.
 
-Counterpart of ``pevit_tpu/ckpt/torch_loader.py``, ViT branch.  A ``.pt``
+Counterpart of ``pevit_tpu/ckpt/torch_loader.py``, ViT and RN.  A ``.pt``
 file (a TorchScript archive, or a pickle with an optional ``state_dict`` /
 ``model`` wrapper) is read on the CPU, its architecture is inferred from the
 key shapes, and the weights are converted once into the reference's
@@ -9,11 +9,13 @@ kernel-convention tree:
 * Linear weights ``(out, in)`` transpose to ``(in, out)`` kernels;
 * the patchify conv ``(width, 3, p, p)`` flattens to the ``(p*p*3, width)``
   GEMM kernel that ``core.clip.patchify_images`` feeds;
-* per-layer block tensors stack on a leading layer axis.
+* per-layer block tensors stack on a leading layer axis;
+* a ResNet tower's convolutions ``(out, in, kh, kw)`` become HWIO kernels,
+  its BatchNorms ``{scale, bias, mean, var}``, its attention pool's
+  Linears ``(in, out)`` kernels.
 
 ``bridge.clip_from_jax`` then unstacks that tree into the port's ``CLIP``,
 so a checkpoint lands in the port bit for bit as it lands in the reference.
-ResNet checkpoints raise: the RN towers are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.clip import CLIP, CLIPSpec, TextSpec, VisionSpec, init_clip_params
+from ..core.resnet import RN_SPECS, ResNetSpec
 
 # canonical OpenAI checkpoint names accepted by MODEL.NAME (clip_load.py:30-41)
 MODEL_CKPT_NAMES = {
@@ -38,7 +41,6 @@ MODEL_CKPT_NAMES = {
     "RN50x16": "RN50x16.pt",
     "RN50x64": "RN50x64.pt",
 }
-_RN_UNPORTED = "ResNet CLIP towers are not ported (ROADMAP §1, auxiliary backbones)"
 
 
 def _text_spec_from_state_dict(sd: dict) -> TextSpec:
@@ -54,10 +56,28 @@ def _text_spec_from_state_dict(sd: dict) -> TextSpec:
 
 
 def infer_spec_from_state_dict(sd: dict) -> CLIPSpec:
-    """Architecture inference from checkpoint key shapes (model.py:1210-1233).
-    A ResNet checkpoint (no ``visual.proj``) raises NotImplementedError."""
+    """Architecture inference from checkpoint key shapes (model.py:1210-1233);
+    a checkpoint with no ``visual.proj`` is a ResNet."""
     if "visual.proj" not in sd:
-        raise NotImplementedError(_RN_UNPORTED)
+        # the RN branch (model.py:1221-1227): layer counts from block indices
+        counts = tuple(
+            len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}.")})
+            for b in (1, 2, 3, 4)
+        )
+        pos = sd["visual.attnpool.positional_embedding"].shape[0]
+        output_width = round((pos - 1) ** 0.5)
+        assert output_width ** 2 + 1 == pos
+        text = _text_spec_from_state_dict(sd)
+        return CLIPSpec(
+            embed_dim=text.output_dim,
+            text=text,
+            vision_rn=ResNetSpec(
+                input_resolution=output_width * 32,
+                width=sd["visual.layer1.0.conv1.weight"].shape[0],
+                layers=counts,
+                output_dim=sd["visual.attnpool.c_proj.weight"].shape[0],
+            ),
+        )
     vision_width = sd["visual.conv1.weight"].shape[0]
     vision_layers = len(
         [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]
@@ -106,6 +126,54 @@ def _stack_blocks(sd: dict, prefix: str, n_layers: int) -> dict:
     }
 
 
+def _rn_bn(sd: dict, prefix: str) -> dict:
+    return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"],
+            "mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]}
+
+
+def _rn_conv(sd: dict, key: str) -> np.ndarray:
+    return sd[key].transpose(2, 3, 1, 0)  # torch OIHW -> HWIO
+
+
+def _rn_visual_params(sd: dict, rn: ResNetSpec) -> dict:
+    """A ModifiedResNet state dict (model.py:94-125) -> the reference's tree."""
+    stem = {}
+    for i in (1, 2, 3):
+        stem[f"conv{i}"] = _rn_conv(sd, f"visual.conv{i}.weight")
+        stem[f"bn{i}"] = _rn_bn(sd, f"visual.bn{i}")
+    tree = {"stem": stem}
+    for li, n_blocks in enumerate(rn.layers, start=1):
+        layer = {}
+        for bi in range(n_blocks):
+            p = f"visual.layer{li}.{bi}"
+            block = {}
+            for i in (1, 2, 3):
+                block[f"conv{i}"] = _rn_conv(sd, f"{p}.conv{i}.weight")
+                block[f"bn{i}"] = _rn_bn(sd, f"{p}.bn{i}")
+            # the downsample Sequential: "-1" avgpool, "0" conv, "1" bn (model.py:33-39)
+            if f"{p}.downsample.0.weight" in sd:
+                block["downsample"] = {"conv": _rn_conv(sd, f"{p}.downsample.0.weight"),
+                                       "bn": _rn_bn(sd, f"{p}.downsample.1")}
+            layer[str(bi)] = block
+        tree[f"layer{li}"] = layer
+    lin = lambda prefix: {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
+    tree["attnpool"] = {
+        "positional_embedding": sd["visual.attnpool.positional_embedding"],
+        **{name: lin(f"visual.attnpool.{name}") for name in ("q_proj", "k_proj", "v_proj", "c_proj")},
+    }
+    return tree
+
+
+def _text_params(sd: dict, spec: CLIPSpec) -> dict:
+    return {
+        "token_embedding": sd["token_embedding.weight"],
+        "positional_embedding": sd["positional_embedding"],
+        "blocks": _stack_blocks(sd, "transformer.resblocks", spec.text.layers),
+        "ln_final": _ln(sd, "ln_final"),
+        "text_projection": sd["text_projection"],
+    }
+
+
 def state_dict_to_params(sd: dict) -> tuple:
     """A torch state dict (tensors or numpy) -> (the reference's CLIP tree as
     float32 numpy, spec)."""
@@ -113,6 +181,11 @@ def state_dict_to_params(sd: dict) -> tuple:
                         np.float32)
           for k, v in sd.items() if hasattr(v, "shape") or np.isscalar(v)}
     spec = infer_spec_from_state_dict(sd)
+    if spec.vision_rn is not None:
+        params = {"visual": _rn_visual_params(sd, spec.vision_rn),
+                  "text": _text_params(sd, spec),
+                  "logit_scale": sd["logit_scale"].reshape(())}
+        return params, spec
     v = spec.vision
     conv = sd["visual.conv1.weight"]  # (width, 3, p, p)
     patch_kernel = conv.transpose(2, 3, 1, 0).reshape(v.patch_size * v.patch_size * 3, v.width)
@@ -126,13 +199,7 @@ def state_dict_to_params(sd: dict) -> tuple:
             "ln_post": _ln(sd, "visual.ln_post"),
             "proj": sd["visual.proj"],
         },
-        "text": {
-            "token_embedding": sd["token_embedding.weight"],
-            "positional_embedding": sd["positional_embedding"],
-            "blocks": _stack_blocks(sd, "transformer.resblocks", spec.text.layers),
-            "ln_final": _ln(sd, "ln_final"),
-            "text_projection": sd["text_projection"],
-        },
+        "text": _text_params(sd, spec),
         "logit_scale": sd["logit_scale"].reshape(()),
     }
     return params, spec
@@ -141,27 +208,35 @@ def state_dict_to_params(sd: dict) -> tuple:
 def clip_to_state_dict(clip: CLIP) -> dict:
     """The inverse of :func:`state_dict_to_params`: the port's ``CLIP`` ->
     an OpenAI-layout state dict of float32 CPU tensors (``(out, in)`` Linear
-    weights, the patchify conv, ``transformer.resblocks.<i>`` blocks)."""
+    weights, the patchify conv or the ResNet's convolutions and
+    BatchNorms, ``transformer.resblocks.<i>`` blocks)."""
     cpu = lambda t: t.detach().float().cpu()
     vis, txt = clip.visual, clip.text
-    width = vis.class_embedding.shape[0]
-    p = round((vis.patch_embed.kernel.shape[0] // 3) ** 0.5)
     sd = {
-        "visual.class_embedding": cpu(vis.class_embedding),
-        "visual.positional_embedding": cpu(vis.positional_embedding),
-        "visual.proj": cpu(vis.proj),
-        "visual.conv1.weight": cpu(vis.patch_embed.kernel).reshape(p, p, 3, width)
-        .permute(3, 2, 0, 1).contiguous(),
         "token_embedding.weight": cpu(txt.token_embedding),
         "positional_embedding": cpu(txt.positional_embedding),
         "text_projection": cpu(txt.text_projection),
         "logit_scale": cpu(clip.logit_scale),
     }
-    for prefix, ln in (("visual.ln_pre", vis.ln_pre), ("visual.ln_post", vis.ln_post),
-                       ("ln_final", txt.ln_final)):
+    towers = [("transformer.resblocks", txt.blocks)]
+    lns = [("ln_final", txt.ln_final)]
+    if hasattr(vis, "stem"):
+        sd.update(_rn_to_state_dict(vis))
+    else:
+        width = vis.class_embedding.shape[0]
+        p = round((vis.patch_embed.kernel.shape[0] // 3) ** 0.5)
+        sd.update({
+            "visual.class_embedding": cpu(vis.class_embedding),
+            "visual.positional_embedding": cpu(vis.positional_embedding),
+            "visual.proj": cpu(vis.proj),
+            "visual.conv1.weight": cpu(vis.patch_embed.kernel).reshape(p, p, 3, width)
+            .permute(3, 2, 0, 1).contiguous(),
+        })
+        towers.append(("visual.transformer.resblocks", vis.blocks))
+        lns += [("visual.ln_pre", vis.ln_pre), ("visual.ln_post", vis.ln_post)]
+    for prefix, ln in lns:
         sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = cpu(ln.scale), cpu(ln.bias)
-    for prefix, blocks in (("visual.transformer.resblocks", vis.blocks),
-                           ("transformer.resblocks", txt.blocks)):
+    for prefix, blocks in towers:
         for i, blk in enumerate(blocks):
             b = f"{prefix}.{i}"
             sd[f"{b}.attn.in_proj_weight"] = cpu(blk.attn.in_proj.kernel).T.contiguous()
@@ -172,6 +247,44 @@ def clip_to_state_dict(clip: CLIP) -> dict:
                 sd[f"{b}.{name}.bias"] = cpu(dense.bias)
             for name, ln in (("ln_1", blk.ln_1), ("ln_2", blk.ln_2)):
                 sd[f"{b}.{name}.weight"], sd[f"{b}.{name}.bias"] = cpu(ln.scale), cpu(ln.bias)
+    return sd
+
+
+def _rn_to_state_dict(rn) -> dict:
+    """A port ``ModifiedResNet`` -> its ``visual.*`` keys in the OpenAI
+    layout (OIHW convolutions, BatchNorm2d keys, ``downsample.0`` / ``.1``)."""
+    cpu = lambda t: t.detach().float().cpu()
+    sd = {}
+
+    def conv(key, kernel):
+        sd[key] = cpu(kernel).permute(3, 2, 0, 1).contiguous()
+
+    def bn(prefix, p):
+        for name, t in (("weight", p.scale), ("bias", p.bias), ("running_mean", p.mean),
+                        ("running_var", p.var)):
+            sd[f"{prefix}.{name}"] = cpu(t)
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    for i in (1, 2, 3):
+        conv(f"visual.conv{i}.weight", getattr(rn.stem, f"conv{i}"))
+        bn(f"visual.bn{i}", getattr(rn.stem, f"bn{i}"))
+    li = 1
+    while hasattr(rn, f"layer{li}"):
+        for bi, block in getattr(rn, f"layer{li}").items():
+            p = f"visual.layer{li}.{bi}"
+            for i in (1, 2, 3):
+                conv(f"{p}.conv{i}.weight", getattr(block, f"conv{i}"))
+                bn(f"{p}.bn{i}", getattr(block, f"bn{i}"))
+            if hasattr(block, "downsample"):
+                conv(f"{p}.downsample.0.weight", block.downsample.conv)
+                bn(f"{p}.downsample.1", block.downsample.bn)
+        li += 1
+    pool = rn.attnpool
+    sd["visual.attnpool.positional_embedding"] = cpu(pool.positional_embedding)
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        dense = getattr(pool, name)
+        sd[f"visual.attnpool.{name}.weight"] = cpu(dense.kernel).T.contiguous()
+        sd[f"visual.attnpool.{name}.bias"] = cpu(dense.bias)
     return sd
 
 
@@ -200,8 +313,9 @@ def load_clip(model_name: str = "ViT-B/32", *, checkpoint_path: Optional[str] = 
     Resolution order, the reference's: ``"random"``, then an explicit
     ``checkpoint_path``, then the CLIP cache dir, then random weights (when
     ``allow_random``; logged loudly).  Random weights are drawn from a CPU
-    generator seeded ``seed``, for ``spec_hint`` or else the name's ViT
-    preset; a checkpoint's architecture comes from its keys."""
+    generator seeded ``seed``, for ``spec_hint`` or else the name's preset
+    (``RN_SPECS`` for the RN names); a checkpoint's architecture comes from
+    its keys."""
     from ..bridge import clip_from_jax
 
     def random():
@@ -209,8 +323,9 @@ def load_clip(model_name: str = "ViT-B/32", *, checkpoint_path: Optional[str] = 
                         model_name)
         if spec_hint is not None:
             spec = spec_hint
-        elif model_name.startswith("RN"):
-            raise NotImplementedError(_RN_UNPORTED)
+        elif model_name in RN_SPECS:
+            rn = RN_SPECS[model_name]
+            spec = CLIPSpec(embed_dim=rn.output_dim, vision_rn=rn)
         else:
             spec = CLIPSpec.vit_b16() if "16" in model_name else CLIPSpec.vit_b32()
         return init_clip_params(torch.Generator().manual_seed(seed), spec, device=device), spec

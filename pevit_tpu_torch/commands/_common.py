@@ -13,8 +13,12 @@ job instead of training it again.
 The linear probe adds ``--emulate-zeroshot``; ``--submit-predictions``
 validates the submission (the reference posts nothing either).  One option
 is the port's own: ``--device`` (default ``cuda``; ``cpu`` runs the command
-on the CPU, as the tests do).  Not ported yet, and raising with its ROADMAP
-item: a backbone other than a CLIP ViT.
+on the CPU, as the tests do).
+
+MODEL.NAME picks the backbone: a CLIP (``ViT-*`` or ``RN*``) through
+``load_clip``, anything else through ``models.get_model`` (linear probe and
+finetune only; the MAE linear probe turns its global pool off, as the
+reference's does).
 """
 
 from __future__ import annotations
@@ -239,6 +243,33 @@ def load_device_data(config, device=None):
     return prep(train) + prep(val) + prep(test)
 
 
+def backbone_text_features(config, backbone) -> np.ndarray:
+    """Zero-shot classifier weights (feat_dim, K) from an auxiliary
+    backbone's text tower, tokenized with its own tokenizer (the DeCLIP
+    family's shifted vocabulary) or CLIP's, truncating: each prompt's
+    feature normalised, averaged over the class's prompts and normalised
+    again, as ``extract_text_features`` does for a CLIP."""
+    from ..data.tokenizer import tokenize
+    from ..evaluation.text_features import build_prompts
+
+    texts, offsets = build_prompts(config)
+    length = config.MODEL.SPEC.TEXT.CONTEXT_LENGTH
+    if backbone.tokenize is not None:
+        toks = backbone.tokenize(texts, length)
+    else:
+        toks = tokenize(texts, length, truncate=True)
+    dev = next(backbone.params.parameters()).device
+    with torch.no_grad():
+        emb = backbone.encode_text(backbone.params, torch.from_numpy(toks).to(dev, torch.long))
+    emb = emb.float().cpu().numpy()
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True) + 1e-12
+    cols = []
+    for s, e in offsets:
+        m = emb[s:e].mean(0)
+        cols.append(m / (np.linalg.norm(m) + 1e-12))
+    return np.stack(cols, axis=1)
+
+
 def run_training_command(method: str, *, description: str, probe: bool = False, argv=None):
     """The shared main() of the training commands; returns (best_acc,
     model_info)."""
@@ -260,9 +291,11 @@ def run_training_command(method: str, *, description: str, probe: bool = False, 
         config.freeze()
 
     name = config.MODEL.NAME
-    if not name.startswith(("ViT-B", "ViT-L")):
-        raise NotImplementedError(f"MODEL.NAME={name!r}: only CLIP ViT backbones are ported "
-                                  "(ROADMAP §1, auxiliary backbones)")
+    is_clip = name.startswith(("ViT-B", "ViT-L", "RN"))
+    if not is_clip and method not in ("linear_probe", "full_finetune"):
+        raise ValueError(
+            f"PEFT method {method!r} requires a CLIP backbone; MODEL.NAME={name!r} "
+            "is only supported for linear_probe/finetune (reference parity)")
 
     exp_name = apply_shared_dataset_tweaks(config, EXP_PREFIX[method])
     final_output_dir = create_logger(config, exp_name)
@@ -298,21 +331,46 @@ def run_training_command(method: str, *, description: str, probe: bool = False, 
             logging.info("=> Finished: best %s = %.3f", config.TEST.METRIC or "accuracy", best_acc)
             return best_acc, model_info
 
-    # the launch scripts pass TEST.MODEL_FILE '.' as "no checkpoint"
-    model_file = config.TEST.MODEL_FILE if config.TEST.MODEL_FILE != "." else ""
-    clip, spec = load_clip(name, checkpoint_path=model_file or config.MODEL.PRETRAINED or None,
-                           seed=args.fix_seed, spec_hint=CLIPSpec.from_config(config),
-                           device=device)
+    backbone, feat_dim = None, 0
+    if is_clip:
+        from ..core.resnet import RN_SPECS
+
+        # the launch scripts pass TEST.MODEL_FILE '.' as "no checkpoint"
+        model_file = config.TEST.MODEL_FILE if config.TEST.MODEL_FILE != "." else ""
+        # an RN name carries its architecture (RN_SPECS or the checkpoint's
+        # keys); the config's spec describes a ViT and must not shadow it
+        clip, spec = load_clip(name, checkpoint_path=model_file or config.MODEL.PRETRAINED or None,
+                               seed=args.fix_seed,
+                               spec_hint=None if name in RN_SPECS else CLIPSpec.from_config(config),
+                               device=device)
+        if spec.vision_rn is not None and PeftConfig(method=method).has_peft_params:
+            # the reference raises this at the first forward
+            raise ValueError("PEFT hooks are ViT-only; RN towers load frozen (reference parity)")
+        text_encode = lambda: extract_text_features(config, clip, spec)
+    else:
+        if probe and name.startswith("mae_"):
+            # the MAE linear probe turns the global pool off (linear_probe.py:88-91)
+            config.defrost()
+            config.MODEL.SPEC.GLOBAL_POOL = False
+            config.freeze()
+        from ..models import get_model
+
+        backbone = get_model(config, device=device)
+        clip, spec, feat_dim = None, CLIPSpec.from_config(config), backbone.feat_dim
+        text_encode = None
+        if backbone.encode_text is not None:
+            text_encode = lambda: backbone_text_features(config, backbone)
 
     text_weights = None
-    if config.TRAIN.INIT_HEAD_WITH_TEXT_ENCODER:
+    if config.TRAIN.INIT_HEAD_WITH_TEXT_ENCODER and text_encode is not None:
         try:
-            text_weights = extract_text_features(config, clip, spec)
+            text_weights = text_encode()
         except ValueError as e:
             logging.warning("text head init unavailable (%s); using random head init", e)
 
-    static = TaskStatic.from_config(config, spec, PeftConfig(method=method))
-    task = TrainTask(config, static, clip, text_init_weights=text_weights, device=device)
+    static = TaskStatic.from_config(config, spec, PeftConfig(method=method), feat_dim=feat_dim)
+    task = TrainTask(config, static, clip, text_init_weights=text_weights, device=device,
+                     backbone=backbone)
 
     logging.info("Running %s. This may take several minutes to hours depending on the data size.", method)
     best_acc, model_info = run_method(

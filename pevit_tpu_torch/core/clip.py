@@ -27,6 +27,7 @@ from .layers import (
     layer_norm,
     residual_attention_block,
 )
+from .resnet import ModifiedResNet, ResNetSpec, encode_image_rn, init_resnet_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,9 @@ class CLIPSpec:
     embed_dim: int = 512
     vision: VisionSpec = dataclasses.field(default_factory=VisionSpec)
     text: TextSpec = dataclasses.field(default_factory=TextSpec)
+    # set for the RN towers (model.py:1213-1222): the visual tower is then
+    # the ModifiedResNet and ``vision`` is unused
+    vision_rn: Optional[ResNetSpec] = None
 
     @staticmethod
     def vit_b32() -> "CLIPSpec":
@@ -154,11 +158,13 @@ class TextTransformer(nn.Module):
 
 
 class CLIP(nn.Module):
-    """The CLIP parameters: the visual tower, the text tower and logit_scale."""
+    """The CLIP parameters: the visual tower (the ViT, or the ModifiedResNet
+    where ``spec.vision_rn`` is set), the text tower and logit_scale."""
 
     def __init__(self, spec: CLIPSpec):
         super().__init__()
-        self.visual = VisionTransformer(spec.vision)
+        self.visual = (VisionTransformer(spec.vision) if spec.vision_rn is None
+                       else ModifiedResNet(spec.vision_rn))
         self.text = TextTransformer(spec.text)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
@@ -185,6 +191,8 @@ def init_clip_params(generator: torch.Generator, spec: CLIPSpec, *, device=None)
     v, t = spec.vision, spec.text
     clip = CLIP(spec)
     vis, txt = clip.visual, clip.text
+    if spec.vision_rn is not None:
+        clip.visual = init_resnet_params(generator, spec.vision_rn)
 
     def drawer(gen: torch.Generator):
         def normal(p: nn.Parameter, std: float) -> None:
@@ -193,12 +201,13 @@ def init_clip_params(generator: torch.Generator, spec: CLIPSpec, *, device=None)
         return normal
 
     normal = drawer(generator)
-    scale = v.width ** -0.5
-    normal(vis.patch_embed.kernel, (3 * v.patch_size * v.patch_size) ** -0.5)
-    normal(vis.class_embedding, scale)
-    normal(vis.positional_embedding, scale)
-    _init_blocks(vis.blocks, v.width, normal)
-    normal(vis.proj, scale)
+    if spec.vision_rn is None:
+        scale = v.width ** -0.5
+        normal(vis.patch_embed.kernel, (3 * v.patch_size * v.patch_size) ** -0.5)
+        normal(vis.class_embedding, scale)
+        normal(vis.positional_embedding, scale)
+        _init_blocks(vis.blocks, v.width, normal)
+        normal(vis.proj, scale)
 
     normal = drawer(torch.Generator().manual_seed((generator.initial_seed() + 1) % 2 ** 63))
     normal(txt.token_embedding, 0.02)
@@ -230,6 +239,7 @@ def encode_image(
     use_fused_mlp: bool = True,
     apply_proj: bool = True,
     patch_fold: Optional[tuple] = None,
+    return_all_tokens: bool = False,
 ) -> torch.Tensor:
     """Visual tower forward.
 
@@ -243,8 +253,18 @@ def encode_image(
     projection folded into the classifier head).  ``peft`` holds the PEFT
     parameters (``.shared`` and per-layer ``.layers``) that ``hooks`` use;
     ``use_fused_mlp`` picks each block's MLP route where no ``mlp_post``
-    hook needs the bare MLP output.
+    hook needs the bare MLP output.  ``return_all_tokens`` returns the whole
+    (B, N, width) stream after the blocks, before ln_post (the DeCLIP
+    family's dense features).
+
+    An RN tower (``spec.vision_rn``) takes (B, H, W, 3) float images and no
+    PEFT hooks, and has no separate projection (it lives in the attention
+    pool), as in the reference (model.py:1076-1084).
     """
+    if spec.vision_rn is not None:
+        if hooks is not None and (hooks.attn_delta is not None or hooks.mlp_post is not None):
+            raise ValueError("PEFT hooks are ViT-only; RN towers load frozen (reference parity)")
+        return encode_image_rn(clip.visual, x, spec=spec.vision_rn, compute_dtype=compute_dtype)
     v = spec.vision
     vp = clip.visual
     B = x.shape[0]
@@ -275,6 +295,8 @@ def encode_image(
         x = residual_attention_block(blk, x, n_head=v.heads, qv_delta_fn=delta_fn,
                                      mlp_post_fn=post_fn, use_fused_mlp=use_fused_mlp)
 
+    if return_all_tokens:
+        return x
     x = layer_norm(x[:, 0, :], vp.ln_post.scale, vp.ln_post.bias)
     if not apply_proj:
         return x

@@ -94,14 +94,20 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * torch.pow(x, 3))))
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The erf GELU of timm's ViTs (the auxiliary backbones' activation;
+    ``pevit_tpu/core/layers.py:130``)."""
+    return torch.nn.functional.gelu(x, approximate="none")
+
+
 def linear(x: torch.Tensor, p: Dense) -> torch.Tensor:
     """``x @ W + b`` with W and b cast to x's dtype."""
     return x @ p.kernel.to(x.dtype) + p.bias.to(x.dtype)
 
 
-def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    """c_fc (C -> 4C) -> QuickGELU -> c_proj (4C -> C)."""
-    return linear(quick_gelu(linear(x, p.c_fc)), p.c_proj)
+def mlp(p: MLP, x: torch.Tensor, act: Optional[Callable] = None) -> torch.Tensor:
+    """c_fc (C -> 4C) -> ``act`` (QuickGELU when None) -> c_proj (4C -> C)."""
+    return linear((act or quick_gelu)(linear(x, p.c_fc)), p.c_proj)
 
 
 DeltaFn = Callable[[torch.Tensor], tuple]
@@ -155,6 +161,7 @@ def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_he
                              qv_delta_fn: Optional[DeltaFn] = None,
                              mlp_post_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                              use_fused_mlp: bool = True,
+                             act: Optional[Callable] = None,
                              ln_eps: float = 1e-5) -> torch.Tensor:
     """One CLIP block: x + attn(LN1(x)), then LN2 -> c_fc -> QuickGELU ->
     c_proj -> + residual, with ``ln_eps`` for both LayerNorms and an
@@ -170,11 +177,16 @@ def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_he
     which needs ``m`` that the fused kernel never writes.  Otherwise the
     block takes the unfused ``layer_norm`` + ``mlp`` path, differentiable in
     every weight.  GEMM weights are cast to the compute dtype; the LN
-    parameters stay float32."""
+    parameters stay float32.
+
+    ``act`` replaces QuickGELU (the timm ViTs pass :func:`gelu_exact`).  The
+    fused kernel computes QuickGELU only, so a block given ``act`` always
+    takes the unfused MLP, whatever ``use_fused_mlp`` says, as the
+    reference's block does (``pevit_tpu/core/layers.py:274``)."""
     h = layer_norm(x, p.ln_1.scale, p.ln_1.bias, eps=ln_eps)
     x = x + multi_head_attention(p.attn, h, n_head=n_head, mask=mask, qv_delta_fn=qv_delta_fn)
-    if not use_fused_mlp or mlp_post_fn is not None:
-        m = mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps))
+    if not use_fused_mlp or mlp_post_fn is not None or act is not None:
+        m = mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps), act=act)
         return x + (m if mlp_post_fn is None else mlp_post_fn(m))
     dt = x.dtype
     return fused_mlp_residual(

@@ -116,7 +116,11 @@ def _clean(text: str) -> str:
 
 
 class ClipTokenizer:
-    def __init__(self, bpe_path: str = _DEFAULT_BPE):
+    def __init__(self, bpe_path: str = _DEFAULT_BPE, mask_token: bool = False):
+        """``mask_token=True`` gives the DeCLIP family's vocabulary
+        (declip_model/utils/text_utils/simple_tokenizer.py:61-79):
+        ``<|mask|>`` inserted before sot/eot, which shifts their ids by one
+        (vocabulary 49409, sot 49407, eot 49408)."""
         self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         with gzip.open(bpe_path, "rt", encoding="utf-8") as f:
@@ -127,11 +131,15 @@ class ClipTokenizer:
         vocab = vocab + [v + "</w>" for v in vocab]
         for m in merges:
             vocab.append("".join(m))
+        if mask_token:
+            vocab.append("<|mask|>")
         vocab.extend(["<|startoftext|>", "<|endoftext|>"])
         self.encoder = dict(zip(vocab, range(len(vocab))))
         self.decoder = {v: k for k, v in self.encoder.items()}
         self.bpe_ranks = dict(zip(merges, range(len(merges))))
         self.cache = {"<|startoftext|>": "<|startoftext|>", "<|endoftext|>": "<|endoftext|>"}
+        if mask_token:
+            self.cache["<|mask|>"] = "<|mask|>"
 
     def bpe(self, token: str) -> str:
         if token in self.cache:
@@ -188,6 +196,29 @@ class ClipTokenizer:
 @lru_cache(maxsize=1)
 def get_tokenizer() -> ClipTokenizer:
     return ClipTokenizer()
+
+
+@lru_cache(maxsize=1)
+def get_declip_tokenizer() -> ClipTokenizer:
+    return ClipTokenizer(mask_token=True)
+
+
+def declip_tokenize(texts: Union[str, List[str]], context_length: int = 77) -> np.ndarray:
+    """The DeCLIP family's tokenize (declip_model/text_encoder/
+    text_transformer.py:144-180): the shifted vocabulary's ids, and a
+    silent truncation that keeps sot, the first ``context_length - 2`` body
+    tokens and eot.  (N, L) int32."""
+    if isinstance(texts, str):
+        texts = [texts]
+    tok = get_declip_tokenizer()
+    sot, eot = tok.encoder["<|startoftext|>"], tok.encoder["<|endoftext|>"]
+    result = np.zeros((len(texts), context_length), np.int32)
+    for i, text in enumerate(texts):
+        tokens = [sot] + tok.encode(text) + [eot]
+        if len(tokens) > context_length:
+            tokens = [tokens[0]] + tokens[1:context_length - 1] + [tokens[-1]]
+        result[i, :len(tokens)] = tokens
+    return result
 
 
 def tokenize(

@@ -25,7 +25,7 @@ def extract_image_features(config, clip: CLIP, spec: CLIPSpec, images_u8, *,
     float32 features, on the tower's device.  The last chunk is zero-padded
     to ``chunk`` images, as the reference pads it: the plain tower has no
     cross-row mixing, so a padded row cannot change a real row's feature."""
-    dev = clip.visual.proj.device
+    dev = clip.logit_scale.device
     mean = torch.as_tensor(np.asarray(config.INPUT.MEAN, np.float32), device=dev)
     std = torch.as_tensor(np.asarray(config.INPUT.STD, np.float32), device=dev)
     feats = []

@@ -12,15 +12,19 @@ passed as arguments), ``serving_weights`` (the bundle such a program takes),
 
 The hand-written kernels are registered operators that choose by device
 when they run (``ops``), so an exported graph holds their nodes and an
-artifact exported on the CPU launches the kernels on the card.  Not ported,
-and raising with their ROADMAP item: a device mesh (``mesh``, ROADMAP §1
-item 5), an auxiliary backbone's forward (``forward_fn``, item 3), and
-``platforms``, which has no meaning here (the artifact picks its device when
-it runs; ROADMAP §3).
+artifact exported on the CPU launches the kernels on the card.
+
+``forward_fn`` serves an auxiliary backbone (``models.factory``; the
+trainer's ``TrainTask._forward_fn``): the bundle's ``clip`` is then that
+backbone, and a served or exported tower holds all of it but a text tower.
+Not ported, and raising with their ROADMAP item: a device mesh (``mesh``,
+ROADMAP §1 item 5), and ``platforms``, which has no meaning here (the
+artifact picks its device when it runs; ROADMAP §3).
 """
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -31,7 +35,6 @@ import torch
 from torch import nn
 
 from . import ops as _ops  # noqa: F401  (registers the operators an artifact calls)
-from .core.clip import VisionTransformer
 from .peft.base import MODULE_CLASSES
 from .quant import dequantize_tree, quantize_tree
 from .train.head import Head
@@ -43,10 +46,7 @@ __all__ = ["make_serving_fn", "export_classifier", "serving_weights", "save_expo
            "load_exported", "exported_callable", "InferencePipeline", "MicroBatcher"]
 
 
-def _refuse_unported(*, forward_fn=None, mesh=None, platforms=None) -> None:
-    if forward_fn is not None:
-        raise NotImplementedError("forward_fn (an auxiliary backbone's forward) is not ported "
-                                  "(ROADMAP §1 item 3, auxiliary backbones)")
+def _refuse_unported(*, mesh=None, platforms=None) -> None:
     if mesh is not None:
         raise NotImplementedError("a data-parallel serving program over a device mesh is not "
                                   "ported (ROADMAP §1 item 5, parallel)")
@@ -55,34 +55,54 @@ def _refuse_unported(*, forward_fn=None, mesh=None, platforms=None) -> None:
                                   "its device when it runs (ROADMAP §3)")
 
 
+def _served_backbone(clip: nn.Module, forward_fn) -> nn.Module:
+    """What the eval forward reads of the bundle's ``clip``, named as in the
+    bundle: a CLIP's visual tower under ``visual``; or, with ``forward_fn``,
+    every child module and parameter of an auxiliary backbone but a
+    ``text`` tower."""
+    served = nn.Module()
+    if forward_fn is None:
+        served.visual = clip.visual
+        return served
+    for name, child in clip.named_children():
+        if name != "text":
+            served.add_module(name, child)
+    for name, p in clip.named_parameters(recurse=False):
+        served.register_parameter(name, p)
+    return served
+
+
 class _Tower(nn.Module):
     """The modules the eval forward reads, named as in the bundle: the
-    visual tower under ``clip.visual``, the PEFT module and the head.  No
-    text tower, so a baked artifact carries none."""
+    backbone's served part under ``clip`` (``_served_backbone``), the PEFT
+    module and the head.  No text tower, so a baked artifact carries none."""
 
-    def __init__(self, static, visual: nn.Module, peft, head: nn.Module):
+    def __init__(self, static, clip: nn.Module, peft, head: nn.Module, forward_fn=None):
         super().__init__()
         self.static = static
-        self.clip = nn.Module()
-        self.clip.visual = visual
+        self.clip = clip
         self.peft = peft
         self.head = head
+        self.forward_fn = forward_fn
 
     def forward(self, images_u8, bn_mean, bn_var, pre_mean, pre_std):
         bundle = {"clip": self.clip, "peft": self.peft, "head": self.head}
         logits, _ = model_forward(self.static, bundle, {"mean": bn_mean, "var": bn_var},
-                                  images_u8, {"mean": pre_mean, "std": pre_std}, train=False)
+                                  images_u8, {"mean": pre_mean, "std": pre_std}, train=False,
+                                  forward_fn=self.forward_fn)
         return logits
 
 
-def _skeleton(static) -> _Tower:
+def _skeleton(static, served: nn.Module, forward_fn=None) -> _Tower:
     """A ``_Tower`` on the meta device (structure, no weights), run with
-    weights handed in by ``torch.func.functional_call``."""
+    weights handed in by ``torch.func.functional_call``: the backbone's
+    ``served`` part (``_served_backbone``) copied there."""
     v = static.spec.vision
+    clip = copy.deepcopy(served).to("meta")
     with torch.device("meta"):
         peft = (MODULE_CLASSES[static.peft_cfg.method](v.layers, v.width)
                 if static.peft_cfg.has_peft_params else None)
-        return _Tower(static, VisionTransformer(v), peft, Head(static.head_dim, static.num_classes))
+        return _Tower(static, clip, peft, Head(static.head_dim, static.num_classes), forward_fn)
 
 
 def _buffer_name(name: str) -> str:
@@ -102,17 +122,19 @@ class ServingModule(nn.Module):
     statistics and ``preproc`` are buffers either way."""
 
     def __init__(self, static, bundle: dict, bn_state: dict, preproc: dict, *,
-                 quantize: bool = False):
+                 quantize: bool = False, forward_fn=None):
         super().__init__()
         for name, t in (("bn_mean", bn_state["mean"]), ("bn_var", bn_state["var"]),
                         ("pre_mean", preproc["mean"]), ("pre_std", preproc["std"])):
             self.register_buffer(name, torch.as_tensor(t).detach())
-        tower = _Tower(static, bundle["clip"].visual, bundle["peft"], bundle["head"])
+        served = _served_backbone(bundle["clip"], forward_fn)
+        tower = _Tower(static, served, bundle["peft"], bundle["head"], forward_fn)
         if not quantize:
             self.tower, self._skeleton, self._leaves = tower, None, None
             return
         self.tower = None
-        self._skeleton = (_skeleton(static),)  # a tuple: not a submodule, nothing lifted
+        # a tuple: not a submodule, nothing lifted
+        self._skeleton = (_skeleton(static, served, forward_fn),)
         self._leaves = {}
         for name, leaf in quantize_tree(dict(tower.named_parameters())).items():
             parts = leaf.items() if isinstance(leaf, dict) else ((None, leaf),)
@@ -141,12 +163,13 @@ class ServingArgsModule(nn.Module):
     the call when ``quantize``): what a weights-as-args artifact exports.
     Holds only ``preproc``."""
 
-    def __init__(self, static, preproc: dict, *, quantize: bool = False):
+    def __init__(self, static, preproc: dict, served: nn.Module, *, quantize: bool = False,
+                 forward_fn=None):
         super().__init__()
         for name in ("mean", "std"):
             self.register_buffer(f"pre_{name}", torch.as_tensor(preproc[name]).detach())
         self.quantize = quantize
-        self._skeleton = (_skeleton(static),)
+        self._skeleton = (_skeleton(static, served, forward_fn),)
         self._names = [n for n, _ in self._skeleton[0].named_parameters()]
 
     def forward(self, weights: dict, images_u8: torch.Tensor) -> torch.Tensor:
@@ -172,12 +195,13 @@ def make_serving_fn(static, trainable, frozen, bn_state, preproc, forward_fn=Non
     ``quantize`` the tower's weights are stored as int8 on the device and
     dequantized inside every call.  The returned function takes a uint8
     tensor or array and enters ``torch.inference_mode`` inside each call,
-    so it holds in whichever thread calls it.
+    so it holds in whichever thread calls it.  ``forward_fn`` (an auxiliary
+    backbone's forward, ``TrainTask._forward_fn``) replaces the CLIP visual
+    tower, as in ``model_forward``.
     """
-    _refuse_unported(forward_fn=forward_fn)
     dev = resolve_device(device)
     module = ServingModule(static, _on_device(combine(trainable, frozen), dev), bn_state,
-                           preproc, quantize=quantize).to(dev)
+                           preproc, quantize=quantize, forward_fn=forward_fn).to(dev)
 
     def serve(images_u8) -> torch.Tensor:
         with torch.inference_mode():
@@ -231,19 +255,22 @@ def export_classifier(static, trainable, frozen, bn_state, preproc, *, image_siz
     ``quantize`` stores the weights as int8 (in the program, or in the
     bundle it takes) and dequantizes them inside every call.  The program is
     traced on ``device`` (``None`` -> CUDA); :func:`exported_callable` runs
-    it on any device.
+    it on any device.  ``forward_fn`` exports an auxiliary backbone's
+    forward, as in :func:`make_serving_fn`.
     """
-    _refuse_unported(forward_fn=forward_fn, mesh=mesh, platforms=platforms)
+    _refuse_unported(mesh=mesh, platforms=platforms)
     dev = resolve_device(device)
     batch = _EXAMPLE_BATCH if dynamic_batch else 1
     example = torch.zeros((batch, image_size, image_size, 3), dtype=torch.uint8, device=dev)
     images_dim = {0: torch.export.Dim("b", min=1)} if dynamic_batch else None
+    bundle = _on_device(combine(trainable, frozen), dev)
     if bake_weights:
-        module = ServingModule(static, _on_device(combine(trainable, frozen), dev), bn_state,
-                               preproc, quantize=quantize)
+        module = ServingModule(static, bundle, bn_state, preproc, quantize=quantize,
+                               forward_fn=forward_fn)
         args, shapes = (example,), {"images_u8": images_dim}
     else:
-        module = ServingArgsModule(static, preproc, quantize=quantize)
+        module = ServingArgsModule(static, preproc, _served_backbone(bundle["clip"], forward_fn),
+                                   quantize=quantize, forward_fn=forward_fn)
         weights = _canonical(serving_weights(trainable, frozen, bn_state, quantize=quantize), dev)
         static_weights = torch.utils._pytree.tree_map(lambda _: None, weights)
         args, shapes = (weights, example), {"weights": static_weights, "images_u8": images_dim}

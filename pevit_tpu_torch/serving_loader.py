@@ -17,12 +17,18 @@ import torch
 __all__ = ["load_serving_callable"]
 
 
-def build_task(config, method: str, seed: int, device):
-    """The task the training commands build: the CLIP ViT from its
+def build_task(config, method: str, seed: int, device, *, backbones: bool = False):
+    """The task the training commands build: the CLIP (ViT or RN) from its
     checkpoint (or random weights from ``seed``), the text-feature head when
-    ``TRAIN.INIT_HEAD_WITH_TEXT_ENCODER``, and a fresh bundle from ``seed``."""
+    ``TRAIN.INIT_HEAD_WITH_TEXT_ENCODER``, and a fresh bundle from ``seed``.
+
+    ``backbones`` lets another MODEL.NAME through ``models.get_model`` for
+    the linear probe and finetune, with a random head (the export tool's
+    path, as the reference's tool builds it); otherwise such a name raises,
+    as the reference's serving loader builds CLIP towers only."""
     from .ckpt import load_clip
     from .core.clip import CLIPSpec
+    from .core.resnet import RN_SPECS
     from .evaluation import extract_text_features
     from .peft import PeftConfig
     from .train import TaskStatic, TrainTask
@@ -33,12 +39,32 @@ def build_task(config, method: str, seed: int, device):
             "was trained for, or override DATASET.NUM_CLASSES N — a serving "
             "classifier cannot be built without a class count")
     name = config.MODEL.NAME
-    if not name.startswith(("ViT-B", "ViT-L")):
-        raise NotImplementedError(f"MODEL.NAME={name!r}: only CLIP ViT backbones are ported "
-                                  "(ROADMAP §1, auxiliary backbones)")
+    if not name.startswith(("ViT-B", "ViT-L", "RN")):
+        if not backbones:
+            raise NotImplementedError(
+                f"MODEL.NAME={name!r}: the serving loader builds CLIP towers (ViT and RN), as "
+                "the reference's does; serve one of the auxiliary backbones through an "
+                "artifact of tools.export_model")
+        from .models import get_model
+        from .peft import PeftConfig
+        from .train import TaskStatic, TrainTask
+
+        backbone = get_model(config, device=device)  # an unported name raises here
+        if method not in ("linear_probe", "full_finetune"):
+            raise ValueError(f"PEFT method {method!r} requires a CLIP backbone")
+        if config.TRAIN.INIT_HEAD_WITH_TEXT_ENCODER:
+            print("WARNING: text head init for factory backbones is only wired "
+                  "through the training CLI; exporting a random-init head")
+        static = TaskStatic.from_config(config, CLIPSpec.from_config(config),
+                                        PeftConfig(method=method), feat_dim=backbone.feat_dim)
+        task = TrainTask(config, static, None, device=device, backbone=backbone)
+        trainable, frozen, bn_state = task.init_bundle(torch.Generator().manual_seed(seed))
+        return task, static, trainable, frozen, bn_state
     model_file = config.TEST.MODEL_FILE if config.TEST.MODEL_FILE != "." else ""
+    # an RN name carries its architecture; the config's spec describes a ViT
     clip, spec = load_clip(name, checkpoint_path=model_file or config.MODEL.PRETRAINED or None,
-                           seed=seed, spec_hint=CLIPSpec.from_config(config), device=device)
+                           seed=seed, device=device,
+                           spec_hint=None if name in RN_SPECS else CLIPSpec.from_config(config))
     # the text-initialised (zero-shot) head, as the export tool and the
     # training commands build it: a program-only artifact's bundle must be
     # rebuilt with the head init it was exported with

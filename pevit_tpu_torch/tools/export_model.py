@@ -17,7 +17,9 @@ The artifact replays with no model code:
     from pevit_tpu_torch.serve import exported_callable, load_exported
     logits = exported_callable(load_exported("cifar10_kadapt.pt2"))(images_u8)
 
-The reference's flags, and ``--device`` (``cuda`` by default; ``cpu``
+MODEL.NAME may name a CLIP (ViT or RN) or, for ``--method linear_probe``
+or ``full_finetune``, an auxiliary backbone of ``models.get_model``, whose
+forward the artifact then holds.  The reference's flags, and ``--device`` (``cuda`` by default; ``cpu``
 traces on the CPU; an artifact runs on whichever device it is given).
 ``--platforms`` and ``--mesh`` raise: neither has a counterpart yet.
 """
@@ -63,7 +65,8 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     config = config_from(args.ds, args.model, args.opts)
-    task, static, trainable, frozen, bn_state = build_task(config, args.method, args.seed, dev)
+    task, static, trainable, frozen, bn_state = build_task(config, args.method, args.seed, dev,
+                                                           backbones=True)
     ckpt_dir = args.ckpt_dir or config.TPU.CHECKPOINT_DIR
     if ckpt_dir:
         restore_into(ckpt_dir, trainable)
@@ -80,6 +83,7 @@ def main(argv=None):
         device=dev,
         platforms=[p for p in args.platforms.split(",") if p] or None,
         mesh=args.mesh or None,
+        forward_fn=task._forward_fn,
     )
     save_exported(exported, args.out)
     size_mb = Path(args.out).stat().st_size / 1e6

@@ -32,6 +32,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import math
 import time
 from typing import Any, NamedTuple, Optional
 
@@ -188,9 +189,10 @@ def _resolve_optimizer(config) -> tuple:
 def trainable_pred(static: TaskStatic):
     """Trainability of a parameter path (see partition.py): the head (its
     logit scale only with TRAIN.TRAINABLE_LOGIT_SCALE), the PEFT parameters
-    the method's filter selects, and under full_finetune the visual tower
-    only: the text tower and CLIP's logit scale stay frozen
-    (kadaptation_clip.py:104-116)."""
+    the method's filter selects, and under full_finetune the whole backbone
+    but a ``text`` subtree and ``logit_scale``: CLIP's visual tower
+    (kadaptation_clip.py:104-116), a generic ViT whole, a DeCLIP model's
+    visual tower and mapping heads."""
     method = static.peft_cfg.method
     peft_filter = peft_trainable_filter(static.peft_cfg)
 
@@ -230,6 +232,7 @@ def model_forward(
     train: bool,
     generator: Optional[torch.Generator] = None,
     mask: Optional[torch.Tensor] = None,
+    forward_fn=None,
 ):
     """uint8 images -> (logits float32, bn_state).
 
@@ -237,8 +240,25 @@ def model_forward(
     compute dtype (``x = u8 / 255``, then ``(x - mean) / std``), or
     (B, G*G, p*p*3) pre-patchified uint8 (:func:`patchify_images`), whose
     normalisation folds into the patch-embedding GEMM.  ``generator`` (on
-    the images' device) draws KAdaptation's train-time dropout."""
+    the images' device) draws KAdaptation's train-time dropout.
+
+    ``forward_fn(backbone, x, train, generator) -> feats`` replaces the CLIP
+    visual tower (an auxiliary backbone of ``models.factory``).  It gets the
+    images normalised in the compute dtype, as the reference's does
+    (``pevit_tpu/train/trainer.py:259-262``); the backbones then cast them
+    to float32, so under a bfloat16 task they run in float32 on
+    bfloat16-rounded images."""
     dt = static.dtype
+    if forward_fn is not None:
+        if images_u8.dim() != 4:
+            raise ValueError("an auxiliary backbone takes (B, H, W, 3) images, got "
+                             f"{tuple(images_u8.shape)}")
+        x = images_u8.to(dt) / torch.tensor(255.0, dtype=dt, device=images_u8.device)
+        x = (x - preproc["mean"].to(dt)) / preproc["std"].to(dt)
+        feats = forward_fn(bundle["clip"], x, train, generator)
+        return head_forward(bundle["head"], bn_state, feats.float(), train=train, mask=mask,
+                            use_bn=static.use_bn, normalize_feature=static.normalize_feature,
+                            apply_logit_scale=static.apply_logit_scale)
     kw = dict(spec=static.spec, peft=bundle.get("peft"),
               hooks=make_hooks(static.peft_cfg, static.spec, train=train), generator=generator,
               compute_dtype=dt, use_fused_mlp=static.use_fused_mlp,
@@ -295,13 +315,14 @@ class TrainState(NamedTuple):
 
 
 def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=None,
-                   wd_mask=None):
+                   wd_mask=None, forward_fn=None):
     """One training epoch.
 
     Returns ``epoch(bundle, images, labels, state, lr, wd, order=None) ->
     state``: ``order`` (the epoch's permutation of the train split) is drawn
     from ``state.generator`` unless given.  ``lr_scales`` (TRAIN.TWO_LR) and
-    ``wd_mask`` are per-parameter dicts."""
+    ``wd_mask`` are per-parameter dicts; ``forward_fn`` as in
+    :func:`model_forward`."""
     B = static.batch_size
     _, opt_update = make_optimizer(static.optimizer, momentum=static.momentum,
                                    nesterov=static.nesterov, lr_scales=lr_scales,
@@ -323,7 +344,8 @@ def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=No
             valid = torch.ones(idx.shape[0], device=images.device)
             with torch.enable_grad():
                 logits, new_bn = model_forward(static, bundle, bn_state, imgs, preproc,
-                                               train=True, generator=step_gen, mask=valid)
+                                               train=True, generator=step_gen, mask=valid,
+                                               forward_fn=forward_fn)
                 step_loss = _loss(static, logits, labs, valid)
                 grads = torch.autograd.grad(step_loss, [params[n] for n in names],
                                             allow_unused=True)
@@ -345,20 +367,22 @@ def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=No
     return epoch
 
 
-def build_eval_fn(static: TaskStatic, preproc: dict):
+def build_eval_fn(static: TaskStatic, preproc: dict, forward_fn=None):
     """``eval_chunk(bundle, bn_state, imgs) -> float32 logits`` in eval
     mode, without autograd."""
 
     def eval_chunk(bundle, bn_state, imgs):
         with torch.no_grad():
-            logits, _ = model_forward(static, bundle, bn_state, imgs, preproc, train=False)
+            logits, _ = model_forward(static, bundle, bn_state, imgs, preproc, train=False,
+                                      forward_fn=forward_fn)
         return logits.float()
 
     return eval_chunk
 
 
 def build_fit_eval_fn(static: TaskStatic, n_train: int, n_epochs: int, preproc: dict, *,
-                      eval_chunk: int, n_val: int, lr_scales=None, wd_mask=None):
+                      eval_chunk: int, n_val: int, lr_scales=None, wd_mask=None,
+                      forward_fn=None):
     """Train ``n_epochs`` and evaluate after every epoch.
 
     Returns ``fit_eval(bundle, images, labels, val_images, state, lr_table,
@@ -366,8 +390,8 @@ def build_fit_eval_fn(static: TaskStatic, n_train: int, n_epochs: int, preproc: 
     K) float32; ``orders[e]`` injects epoch e's order.  Eval runs in full
     chunks of ``eval_chunk`` and a natural-size remainder, never padded: the
     scramble makes a chunk's composition part of its logits."""
-    epoch = build_epoch_fn(static, n_train, preproc, lr_scales, wd_mask)
-    one_chunk = build_eval_fn(static, preproc)
+    epoch = build_epoch_fn(static, n_train, preproc, lr_scales, wd_mask, forward_fn)
+    one_chunk = build_eval_fn(static, preproc, forward_fn)
 
     def fit_eval(bundle, images, labels, val_images, state, lr_table, wd, orders=None):
         logits = []
@@ -393,13 +417,26 @@ def _softmax(logits: np.ndarray) -> np.ndarray:
 
 
 class TrainTask:
-    """Owns the frozen CLIP tower on the card and runs trainings of one
-    task, one trial after another."""
+    """Owns the frozen CLIP tower (or an auxiliary backbone) on the card and
+    runs trainings of one task, one trial after another.
+
+    ``backbone`` (a ``models.factory.Backbone``) replaces the CLIP: its
+    module is the bundle's ``clip`` and its forward the visual tower, on
+    the task's MLP route (the fused kernel unless the method trains the
+    MLP weights); ``clip`` is then ignored."""
 
     def __init__(self, config, static: TaskStatic, clip, *,
                  text_init_weights: Optional[np.ndarray] = None,
-                 eval_chunk: Optional[int] = None, device=None):
+                 eval_chunk: Optional[int] = None, device=None, backbone=None):
         self.device = resolve_device(device)
+        self.backbone = backbone
+        self._forward_fn = None
+        if backbone is not None:
+            clip = backbone.params
+            # no ported backbone is stochastic in training: train and eval
+            # run one forward
+            self._forward_fn = lambda p, x, train, generator=None: backbone.forward_features(
+                p, x, use_fused_mlp=static.use_fused_mlp)
         self.config = config
         self.static = static
         if eval_chunk is None:
@@ -421,8 +458,10 @@ class TrainTask:
     @property
     def use_prepack(self) -> bool:
         """The pre-patchified uint8 path, except under TPU.PARITY_FP32, which
-        keeps the reference's normalise-then-patchify order."""
-        return not self.static.highest_precision
+        keeps the reference's normalise-then-patchify order, and for
+        auxiliary backbones and RN towers, which take (B, H, W, 3) images."""
+        return (self._forward_fn is None and not self.static.highest_precision
+                and self.static.spec.vision_rn is None)
 
     def prepack(self, images) -> torch.Tensor:
         """Images to the card as uint8, pre-patchified when the fast path
@@ -439,7 +478,10 @@ class TrainTask:
         """(trainable, frozen, bn_state) for one trial; the PEFT parameters
         and then the head are drawn from ``generator`` (a CPU generator)."""
         st = self.static
-        peft = init_peft(generator, st.peft_cfg, st.spec, device=self.device)
+        peft = (init_peft(generator, st.peft_cfg, st.spec, device=self.device)
+                if self.backbone is None else None)
+        scale = getattr(self.clip, "logit_scale", None)
+        backbone_ls = math.log(1 / 0.07) if scale is None else scale.item()
         text_weights = self.text_init_weights
         if text_weights is not None and st.merge_encoder_head_proj:
             # the visual projection folds into the head: (width, K) = proj @ (E, K)
@@ -448,20 +490,21 @@ class TrainTask:
         head = init_head(generator, st.head_dim, st.num_classes,
                          text_init_weights=text_weights,
                          logit_scale_init=self.config.TRAIN.LOGIT_SCALE_INIT,
-                         backbone_logit_scale=self.clip.logit_scale.item(), device=self.device)
+                         backbone_logit_scale=backbone_ls, device=self.device)
         bundle = {"clip": self._trial_clip(), "peft": peft, "head": head}
         trainable, frozen = partition(bundle, trainable_pred(st))
         return trainable, frozen, init_bn_state(st.head_dim, device=self.device)
 
     def _trial_clip(self):
-        """The CLIP a trial's bundle holds: the task's own, except under
-        full_finetune, where the optimiser updates the visual tower in place,
-        so each trial trains a copy of it (sharing the frozen text tower and
-        logit scale) and every trial starts from the pretrained tower, as the
-        reference's trials start from its immutable parameters."""
+        """The backbone a trial's bundle holds: the task's own, except under
+        full_finetune, where the optimiser updates it in place, so each trial
+        trains a copy (sharing the frozen text tower and logit scale, where
+        the backbone has them) and every trial starts from the pretrained
+        weights, as the reference's trials start from its immutable
+        parameters."""
         if self.static.peft_cfg.method != "full_finetune":
             return self.clip
-        shared = (self.clip.text, self.clip.logit_scale)
+        shared = [getattr(self.clip, n) for n in ("text", "logit_scale") if hasattr(self.clip, n)]
         return copy.deepcopy(self.clip, {id(m): m for m in shared})
 
     def max_parallel_trials(self) -> int:
@@ -471,14 +514,16 @@ class TrainTask:
 
     def model_info(self, trainable) -> dict:
         """Parameter counts, as the reference's (kadaptation_clip.py:284-289):
-        the backbone is the whole CLIP (both towers and its logit scale)."""
+        the backbone is the whole CLIP (both towers and its logit scale), or
+        the whole auxiliary backbone, whose visual part is its ``visual``
+        subtree where it has one."""
         st = self.static
         clip_n = count_params(self.clip)
-        peft_n = peft_num_params(st.peft_cfg, st.spec)
+        peft_n = peft_num_params(st.peft_cfg, st.spec) if self.backbone is None else 0
         head_n = st.head_dim * st.num_classes + st.num_classes
         return {
             "n_trainable_params": count_params(trainable_params(trainable)),
-            "n_visual_params": count_params(self.clip.visual) + peft_n,
+            "n_visual_params": count_params(getattr(self.clip, "visual", self.clip)) + peft_n,
             "n_backbone_params": clip_n + peft_n,
             "n_params": clip_n + peft_n + head_n + 1,  # +1 classifier logit_scale
         }
@@ -511,7 +556,8 @@ class TrainTask:
     def _fit_eval_fn(self, n_train: int, n_epochs: int, n_val: int):
         return build_fit_eval_fn(self.static, n_train, n_epochs, self.preproc,
                                  eval_chunk=self.eval_chunk, n_val=n_val,
-                                 lr_scales=self._lr_scales(), wd_mask=self._wd_mask())
+                                 lr_scales=self._lr_scales(), wd_mask=self._wd_mask(),
+                                 forward_fn=self._forward_fn)
 
     def _labels(self, labels) -> torch.Tensor:
         dt = torch.float32 if self.static.multilabel else torch.long
@@ -530,7 +576,7 @@ class TrainTask:
         """One trial over a whole split in natural-size chunks; returns
         (score, probs)."""
         bundle = combine(trainable, frozen)
-        one_chunk = build_eval_fn(self.static, self.preproc)
+        one_chunk = build_eval_fn(self.static, self.preproc, self._forward_fn)
         n = len(labels)
         logits = torch.cat([one_chunk(bundle, bn_state, self.prepack(images_u8[s:s + self.eval_chunk]))
                             for s in range(0, n, self.eval_chunk)])

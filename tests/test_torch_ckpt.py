@@ -157,12 +157,17 @@ def test_clip_to_state_dict_inverts_the_loader(openai_sd, tmp_path):
 
 
 def test_a_resnet_checkpoint_raises(openai_sd):
+    """The RN towers are ported (tests/test_torch_resnet.py holds them to the
+    reference): a checkpoint without the ViT's ``visual.proj`` is read as a
+    ResNet, so one that lacks the ResNet's keys raises on the first missing
+    one, and ``load_clip("RN50")`` draws the RN50 preset."""
     rn = {k: v for k, v in openai_sd.items() if not k.startswith("visual.")}
     rn["visual.layer1.0.conv1.weight"] = np.zeros((64, 64, 1, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="auxiliary backbones"):
+    with pytest.raises(KeyError, match="visual.attnpool.positional_embedding"):
         state_dict_to_params(rn)
-    with pytest.raises(NotImplementedError, match="auxiliary backbones"):
-        load_clip("RN50", checkpoint_path="random", device="cpu")
+    clip, spec = load_clip("RN50", checkpoint_path="random", device="cpu")
+    assert spec.vision_rn is not None and spec.vision_rn.layers == (3, 4, 6, 3)
+    assert spec.embed_dim == clip.visual.attnpool.c_proj.kernel.shape[1] == 1024
 
 
 def test_resolution_order_is_the_reference_s(openai_sd, tmp_path):

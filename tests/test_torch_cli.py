@@ -209,18 +209,28 @@ def test_baseline_commands_write_the_reference_artifacts_and_replay(tmp_path, mo
 
 @pytest.mark.parametrize("case", ["submit", "backbone", "checkpoint"])
 def test_unported_parts_raise(tmp_path, monkeypatch, case):
-    """What the port does not run raises before any training: a backbone
-    other than a CLIP ViT and a ResNet CLIP checkpoint (ROADMAP §1,
-    auxiliary backbones); ``--submit-predictions`` without ``--submit-by``
-    fails the reference's assertion."""
+    """What the KAdaptation command refuses raises before any training, as
+    the reference refuses it: an auxiliary backbone (``get_model``'s names
+    take the linear probe and finetune only) and a ResNet CLIP checkpoint
+    (PEFT hooks are ViT-only; the reference raises at the first forward);
+    ``--submit-predictions`` without ``--submit-by`` fails the reference's
+    assertion."""
+    from pevit_tpu_torch.ckpt import clip_to_state_dict
+    from pevit_tpu_torch.core import CLIPSpec as PortSpec, init_clip_params as port_init
+    from pevit_tpu_torch.core.clip import TextSpec as PortText
+    from pevit_tpu_torch.core.resnet import ResNetSpec
+
     monkeypatch.chdir(REPO)
     ckpt = tmp_path / "RN50.pt"
-    torch.save({"logit_scale": torch.tensor(1.0),
-                "visual.layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1)}, ckpt)
+    rn = PortSpec(embed_dim=32, vision_rn=ResNetSpec(32, 8, (1, 1, 1, 1), 32),
+                  text=PortText(context_length=8, vocab_size=64, width=32, heads=1, layers=1,
+                                output_dim=32))
+    torch.save(clip_to_state_dict(port_init(torch.Generator().manual_seed(0), rn, device="cpu")),
+               ckpt)
     options, overrides, error = {
         "submit": (("--submit-predictions",), (), AssertionError),
-        "backbone": ((), ("MODEL.NAME", "mae_vitb16"), NotImplementedError),
-        "checkpoint": ((), ("MODEL.PRETRAINED", str(ckpt)), NotImplementedError),
+        "backbone": ((), ("MODEL.NAME", "mae_vitb16"), ValueError),
+        "checkpoint": ((), ("MODEL.PRETRAINED", str(ckpt)), ValueError),
     }[case]
 
     def no_training(*a, **k):
@@ -229,5 +239,5 @@ def test_unported_parts_raise(tmp_path, monkeypatch, case):
     monkeypatch.setattr(pevit_tpu_torch.train, "run_method", no_training)
     with pytest.raises(error) as info:
         port_cli.main(_argv(tmp_path, *overrides, device=CPU + options))
-    if error is NotImplementedError:
-        assert "auxiliary backbones" in str(info.value)
+    if error is ValueError:
+        assert ("requires a CLIP backbone" if case == "backbone" else "ViT-only") in str(info.value)
