@@ -13,11 +13,25 @@ on):
 3. kernels: hold the attention and fused-MLP forward kernels against their
    plain PyTorch versions on the card at the serving path's shapes and
    dtypes (and at the training batch of 128; attention also at the eval
-   remainder of 8 images), and time kernel, plain version and, where one
+   remainder of 8 images; fp32 attention also at a ViT-B/16 backbone's
+   batch of 64 images, N = 197), and time kernel, plain version and, where one
    exists, the PyTorch library call computing the same function.  Each
    kernel has a bf16 and an fp32 body; the dtype picks it.  The fused-MLP
    forward (K2) rows carry ``gemm_ms``, its two products as ``torch.matmul``
-   calls, a yardstick the port never calls;
+   calls, a yardstick the port never calls.  K1's and K2's fp32 bodies run
+   three TF32 products on the tensor cores: every fp32 row of theirs, here
+   and in the later phases, reports its max abs error against a float64 run
+   of the plain version beside the plain fp32 version's (cuBLAS, TF32 off)
+   and a TF32 control's (the plain version with ``allow_tf32`` for that
+   call); the kernel's must be at most 4x the plain version's, and the
+   control's above that wherever cuBLAS takes TF32 at the row's shapes (at
+   every phase-3 row); and each one's bias, the mean error signed toward
+   the float64 result, relative to it: the kernel's at most 4x the plain
+   version's or half a float32 ulp, whichever is larger, so that a body
+   whose accumulation truncates toward zero fails even where its max
+   error passes.  fp32 rows carry both bounds, the FMA units' (ops /
+   67 TFLOP/s) and three TF32 products' (3 ops / 495), and ``bound_ms`` is
+   the lower (``bound_peak`` names it);
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
@@ -143,7 +157,10 @@ on):
    call); ``finetune`` on ``vit_base_patch16_224`` from the checkpoint,
    with first-step gradients kernel vs plain path (fp32 within 1e-3 of
    each leaf's largest |g|, bf16 cosine >= 0.99; the final LayerNorm's
-   bias, whose gradient the head's BN cancels, held as phase 7's ln_post);
+   bias, whose gradient the head's BN cancels, held as phase 7's ln_post
+   bias; its scale, which the BN divides out up to its eps, in fp32
+   within 1e-2 of its own largest |g|, 4x the gap that an attention in
+   float64 rounded to float32 gives it: ``tools/fp32_grad_witness.py``);
    one 64-image forward each of ViT-B/32, DeiT-B/16 and MoCo-v3 B/16
    (features within 1e-4 of the plain path's, feature images/s);
    ``linear_probe`` on ``vitb32_DeCLIP`` with the text-initialised head
@@ -257,12 +274,107 @@ def card_peaks():
     return peaks
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
+def _bound(n_bytes: float, n_ops: float, tflops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over ``tflops``."""
     peaks = card_peaks()
-    tflops = peaks.bf16_tflops if dtype == torch.bfloat16 else peaks.fp32_tflops
     t_bytes = n_bytes / (peaks.hbm_gb_s * 1e9) * 1e3
     t_ops = n_ops / (tflops * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_fields(n_bytes: float, n_ops: float, dtype) -> dict:
+    """The card's least time for the work, ``bound_ms`` / ``bound_by``, and
+    the peak it is read against, ``bound_peak``.  bf16: the tensor cores'
+    bf16 peak.  float32: the lower of two bounds, both given, the FMA units'
+    fp32 peak (ops / 67 TFLOP/s) and three TF32 products on the tensor
+    cores (3 ops / 495), as K1's and K2's fp32 bodies run them."""
+    peaks = card_peaks()
+    if dtype != torch.float32:
+        bms, by = _bound(n_bytes, n_ops, peaks.bf16_tflops)
+        return {"bound_ms": bms, "bound_by": by, "bound_peak": "bf16"}
+    both = {"tf32x3": _bound(n_bytes, 3 * n_ops, peaks.tf32_tflops),
+            "fma": _bound(n_bytes, n_ops, peaks.fp32_tflops)}
+    peak = min(both, key=lambda name: both[name][0])
+    return {"bound_ms": both[peak][0], "bound_by": both[peak][1], "bound_peak": peak,
+            "bound_fma_ms": both["fma"][0], "bound_tf32x3_ms": both["tf32x3"][0]}
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """PyTorch's float32 matrix products in TF32, for one call (the TF32
+    control of :func:`fp32_class`), then restored."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+FP32_CLASS_FACTOR = 4.0
+# half a float32 ulp, relative: the floor of the bias bound of fp32_class
+FP32_HALF_ULP = 2.0 ** -24
+
+
+def fp32_class(name: str, got, plain, plain64) -> dict:
+    """The float32-class check of a float32 body against a float64 run of
+    the plain version, beside the plain float32 version (cuBLAS, TF32 off):
+
+    * max abs error (``err_f64``): at most FP32_CLASS_FACTOR x the plain
+      version's.  The TF32 control (the plain version with TF32 products)
+      must exceed that bound, which shows that the check tells float32 from
+      TF32, wherever cuBLAS takes TF32 for the control's shapes
+      (``tf32_engaged``: its result differs from the plain float32 one); at
+      some small or odd shapes cuBLAS runs float32 kernels whatever
+      ``allow_tf32`` says, and the control is then the plain version itself.
+      Phase 3's rows must all have it engaged.
+    * bias (``bias_f64``): the mean error signed toward the reference,
+      sum((t - want) * want) / sum(want^2), negative where the results sit
+      toward zero, as a truncating accumulation leaves them.  Its size is
+      at most FP32_CLASS_FACTOR x the plain version's or half a float32 ulp
+      (FP32_HALF_ULP), whichever is larger: a correctly rounded sum reads
+      ~0, so a multiple of it alone would refuse any body that does not
+      round to nearest."""
+    want = plain64()
+    err = lambda t: (t.double() - want).abs().max().item()
+    bias = lambda t: ((t.double() - want) * want).sum().item() / want.square().sum().item()
+    base = plain()
+    with tf32_products():
+        control = plain()
+    row = {"err_f64": err(got), "plain_err_f64": err(base), "tf32_err_f64": err(control),
+           "tf32_engaged": not torch.equal(control, base),
+           "bias_f64": bias(got), "plain_bias_f64": bias(base), "tf32_bias_f64": bias(control)}
+    bound = FP32_CLASS_FACTOR * row["plain_err_f64"]
+    if not row["err_f64"] <= bound:
+        raise AssertionError(f"{name}: kernel error vs float64 {row['err_f64']} exceeds "
+                             f"{FP32_CLASS_FACTOR} x the plain float32 version's: {row}")
+    if row["tf32_engaged"] and not row["tf32_err_f64"] > bound:
+        raise AssertionError(f"{name}: the TF32 control's error vs float64 does not exceed "
+                             f"the bound, so the check cannot tell float32 from TF32: {row}")
+    bias_bound = max(FP32_CLASS_FACTOR * abs(row["plain_bias_f64"]), FP32_HALF_ULP)
+    if not abs(row["bias_f64"]) <= bias_bound:
+        raise AssertionError(f"{name}: kernel bias vs float64 {row['bias_f64']} exceeds "
+                             f"{bias_bound} (the larger of {FP32_CLASS_FACTOR} x the plain "
+                             f"float32 version's and half a float32 ulp): {row}")
+    return row
+
+
+def attention_f64(q, k, v):
+    """The plain attention in float64, on (B, N, H, hd)."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.double(), k.double())
+    return torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1), v.double())
+
+
+def fused_mlp_f64(x, ln_s, ln_b, wfc, bfc, wproj, bproj, eps: float = 1e-5):
+    """The plain fused residual MLP in float64."""
+    x64 = x.double()
+    mean = x64.mean(-1, keepdim=True)
+    var = (x64 - mean).square().mean(-1, keepdim=True)
+    u = (x64 - mean) * torch.rsqrt(var + eps) * ln_s.double() + ln_b.double()
+    h = u @ wfc.double() + bfc.double()
+    m = (h * torch.sigmoid(1.702 * h)) @ wproj.double() + bproj.double()
+    return x64 + m
 
 
 def check_close(name, got, want, rtol, atol) -> float:
@@ -289,14 +401,16 @@ def check_attention(gen, dtype, n, batch=SERVE_BATCH):
     torch.cuda.synchronize()
     rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
     err = check_close(f"attention_fwd N={n} {dtype}", got, want, rtol, atol)
+    accuracy = {}
+    if dtype == torch.float32:
+        accuracy = fp32_class(f"attention_fwd N={n}", got, plain, lambda: attention_f64(q, k, v))
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
     library = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
     esize = torch.finfo(dtype).bits // 8
-    bms, by = bound_ms(4 * B * H * n * hd * esize, 4 * B * H * n * n * hd, dtype)
     return {"shape": f"B*H={B}*{H} N={n} hd={hd}", "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err, "ms": time_ms(lambda: attention_fwd(q, k, v)),
+            "max_abs_err": err, **accuracy, "ms": time_ms(lambda: attention_fwd(q, k, v)),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library),
-            "bound_ms": bms, "bound_by": by}
+            **bound_fields(4 * B * H * n * hd * esize, 4 * B * H * n * n * hd, dtype)}
 
 
 def check_fused_mlp(gen, dtype, c, rows):
@@ -314,9 +428,12 @@ def check_fused_mlp(gen, dtype, c, rows):
     # fp32: the 3072/4096-long sums run in another order than cuBLAS's
     rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     err = check_close(f"fused_mlp_fwd C={c} {dtype}", got, want, rtol, atol)
+    accuracy = {}
+    if dtype == torch.float32:
+        accuracy = fp32_class(f"fused_mlp_fwd R={rows} C={c}", got,
+                              lambda: fused_mlp_residual_ref(*args), lambda: fused_mlp_f64(*args))
     esize = torch.finfo(dtype).bits // 8
     n_bytes = (2 * rows * c + 2 * c * f + f + c) * esize + 2 * c * 4
-    bms, by = bound_ms(n_bytes, 4 * rows * c * f, dtype)
     # a yardstick only: K2's two products as torch.matmul calls on operands
     # of the same shapes and dtype (no one PyTorch call computes K2), drawn
     # from the default generator so that the later checks' draws from
@@ -325,10 +442,10 @@ def check_fused_mlp(gen, dtype, c, rows):
     g = torch.randn(rows, f, device="cuda").to(dtype)
     gemms = lambda: (u @ wfc, g @ wproj)
     return {"shape": f"R={rows} C={c} F={f}", "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err, "ms": time_ms(lambda: fused_mlp_fwd(*args), reps=5),
+            "max_abs_err": err, **accuracy, "ms": time_ms(lambda: fused_mlp_fwd(*args), reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_residual_ref(*args), reps=5),
-            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5), "bound_ms": bms,
-            "bound_by": by}
+            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5),
+            **bound_fields(n_bytes, 4 * rows * c * f, dtype)}
 
 
 def check_fused_mlp_bwd(gen, dtype, c, rows):
@@ -358,15 +475,14 @@ def check_fused_mlp_bwd(gen, dtype, c, rows):
                                                   got, auto, rtol, atol)
     esize = torch.finfo(dtype).bits // 8
     n_bytes = (3 * rows * c + 2 * c * f + f) * esize + 2 * c * 4
-    bms, by = bound_ms(n_bytes, 6 * rows * c * f, dtype)  # the three GEMMs it runs
     # a yardstick only: K3's three products as torch.matmul calls on operands
     # of the same shapes and dtype (no one PyTorch call computes K3)
     u, dh = r(rows, c).to(dtype), r(rows, f).to(dtype)
     gemms = lambda: (u @ wfc, dy @ wproj.T, dh @ wfc.T)
     return {**row, "ms": time_ms(lambda: fused_mlp_bwd(*args), reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_bwd_ref(*args), reps=5),
-            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5), "bound_ms": bms,
-            "bound_by": by}
+            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5),
+            **bound_fields(n_bytes, 6 * rows * c * f, dtype)}  # the three GEMMs it runs
 
 
 def time_attention_bwd(gen, dtype, n, batch):
@@ -377,10 +493,9 @@ def time_attention_bwd(gen, dtype, n, batch):
     q, k, v, g = (torch.randn(batch, n, H, hd, device="cuda", generator=gen).to(dtype)
                   for _ in range(4))
     esize = torch.finfo(dtype).bits // 8
-    bms, by = bound_ms(7 * batch * n * H * hd * esize, 10 * batch * H * n * n * hd, dtype)
     return {"shape": f"B*H={batch}*{H} N={n} hd={hd}", "dtype": str(dtype).split(".")[-1],
-            "plain_ms": time_ms(lambda: attention_bwd_ref(q, k, v, g)), "bound_ms": bms,
-            "bound_by": by}
+            "plain_ms": time_ms(lambda: attention_bwd_ref(q, k, v, g)),
+            **bound_fields(7 * batch * n * H * hd * esize, 10 * batch * H * n * n * hd, dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -690,12 +805,14 @@ def first_step_grads(task, images, labels) -> dict:
             for (n, p), g in zip(params.items(), grads)}
 
 
-def compare_grads(task, images, labels, dtype, vanishing: tuple = ()) -> dict:
+def compare_grads(task, images, labels, dtype, vanishing: tuple = (),
+                  fp32_limits: dict | None = None) -> dict:
     """First-step gradients, kernel path against plain path.  ``vanishing``
     names leaves whose gradient is zero in exact arithmetic, so that what
     either path computes there is rounding noise: in fp32 each must stay
     within 1e-3 of the largest |g| of the other leaves; in bf16 their size
-    is only reported."""
+    is only reported.  ``fp32_limits`` gives a leaf its own fp32 limit on
+    its own size in place of 1e-3."""
     got = first_step_grads(task, images, labels)
     with plain_path():
         want = first_step_grads(task, images, labels)
@@ -716,8 +833,9 @@ def compare_grads(task, images, labels, dtype, vanishing: tuple = ()) -> dict:
             raise AssertionError(f"{n}: zero gradient on the kernel path")
         if dtype == torch.float32:
             gap = ((g - w).abs().max() / w.abs().max()).item()
-            if gap > 1e-3:
-                raise AssertionError(f"fp32 grad of {n}: kernel vs plain gap {gap} > 1e-3")
+            limit = (fp32_limits or {}).get(n, 1e-3)
+            if gap > limit:
+                raise AssertionError(f"fp32 grad of {n}: kernel vs plain gap {gap} > {limit}")
         else:
             gap = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
             if gap < 0.99:
@@ -953,7 +1071,7 @@ def kernel_report(kernels, launches: dict, table: dict) -> list:
     (each read around its own run); the other numbers at the batch that
     launched the kernel most (the larger batch on a tie); every path's
     batches under ``by_shape``."""
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_peak", "library_ms")
     report = []
     for k in kernels:
         rows_ = table[k.name]
@@ -1886,9 +2004,16 @@ AUX_SEED = 3
 AUX_EPOCHS = ("2", "1")
 AUX_BATCH = 64  # each backbone's timed forward
 AUX_EXPORT_BATCHES = (1, 8, 37)
-# the first-step gradient that the head's train-mode BN cancels: the final
-# LayerNorm's bias shifts every feature by one vector
+# the first-step gradients that the head's train-mode BN cancels: the final
+# LayerNorm's bias shifts every feature by one vector, which the BN takes
+# out, so what either path computes for it is rounding noise
 VIT_VANISHING = ("clip.norm.bias",)
+# ... and its scale multiplies each feature by one factor, which the BN
+# divides out up to its eps (1e-5): that gradient is about 1e-5 of the
+# tower's largest and mostly rounding, so an attention computed in float64
+# and rounded to float32 moves it 2.5e-3 of its own size against cuBLAS's
+# (tools/fp32_grad_witness.py); it is held to 4x that reading
+VIT_FP32_LIMITS = {"clip.norm.scale": 1e-2}
 
 
 def aux_argv(tmp: Path, model: str, *options, epochs=AUX_EPOCHS) -> list:
@@ -2061,7 +2186,7 @@ def aux_vit(kernels, gen, card: str, tmp: Path, rng) -> tuple:
         variant = copy.copy(ftask)
         variant.static = dataclasses.replace(ftask.static, compute_dtype=dtype_name)
         ft["first_step_grads"].append(compare_grads(variant, images, labels, dtype,
-                                                    VIT_VANISHING))
+                                                    VIT_VANISHING, VIT_FP32_LIMITS))
     out["vit_finetune"] = ft
     del ftask, task
 
@@ -2311,6 +2436,8 @@ def main() -> int:
             table["fused_mlp_fwd"].append(check_fused_mlp(gen, dtype, c, rows))
     for batch in (TRAIN_BATCH, EVAL_REMAINDER):
         table["attention_fwd"].append(check_attention(gen, torch.bfloat16, 50, batch))
+    # a ViT-B/16 backbone's 64-image fp32 forward (phase 10)
+    table["attention_fwd"].append(check_attention(gen, torch.float32, 197, AUX_BATCH))
     table["fused_mlp_fwd"].append(check_fused_mlp(gen, torch.bfloat16, 768, TRAIN_BATCH * 50))
 
     # 3b. the fused-MLP backward, and the attention core's plain backward
@@ -2324,6 +2451,10 @@ def main() -> int:
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    idle = [r["shape"] for name in ("attention_fwd", "fused_mlp_fwd") for r in table[name]
+            if r["dtype"] == "float32" and not r["tf32_engaged"]]
+    if idle:
+        raise AssertionError(f"the TF32 control ran in float32 at phase 3's rows {idle}")
     attn_bwd = time_attention_bwd(gen, torch.bfloat16, 50, TRAIN_BATCH)
     print(f"plain attention_bwd_ref {json.dumps(attn_bwd)} [{card}]", flush=True)
 

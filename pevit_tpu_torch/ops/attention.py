@@ -53,12 +53,21 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     return torch.einsum("bhnm,bhmd->bhnd", probs, v)
 
 
+def rows_aligned(offset: int, strides, itemsize: int) -> bool:
+    """Whether the kernel can copy a (B, N, H, 64) operand's rows in 16-byte
+    chunks: its address ``offset`` (in bytes) and its batch, token and head
+    strides ``strides`` (in elements of ``itemsize`` bytes) all multiples of
+    16 bytes.  Both bodies require it."""
+    return offset % 16 == 0 and all(st * itemsize % 16 == 0 for st in strides)
+
+
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on (B, N, H, 64) CUDA tensors, which may be strided
-    views (e.g. of a packed qkv projection) with unit stride inside a head.
-    The dtype picks the kernel's body: bfloat16 runs on the tensor cores and
-    needs 16-byte aligned rows, float32 on the FMA units.  Returns a
-    contiguous (B, N, H, 64) tensor."""
+    views (e.g. of a packed qkv projection) with unit stride inside a head
+    and rows that :func:`rows_aligned` accepts.  The dtype picks the
+    kernel's body; both run on the tensor cores, float32 by a three-product
+    TF32 split that keeps float32 accuracy.  Returns a contiguous
+    (B, N, H, 64) tensor."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise KernelInputError("attention_fwd takes CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -76,10 +85,10 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         raise KernelInputError(f"attention kernel takes 1 <= N <= {MAX_SEQ}, got {N}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise KernelInputError("attention kernel needs unit stride along head_dim")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
-                                         for t in (q, k, v)):
-        raise KernelInputError("the bfloat16 attention kernel copies 16-byte rows: q, k, v need "
-                               "16-byte aligned base pointers and strides that are multiples of 8")
+    if not all(rows_aligned(t.data_ptr(), t.stride()[:3], t.element_size()) for t in (q, k, v)):
+        raise KernelInputError("the attention kernel copies rows in 16-byte chunks: q, k, v need "
+                               "16-byte aligned base pointers and batch, token and head strides "
+                               "that are multiples of 16 bytes")
     out = torch.empty((B, N, H, hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -13,13 +13,16 @@
 // q, k, v and out per head, i.e. ~N/elem_bytes operations per byte: 25 at
 // N = 50 in bf16, far below the ~295 the card needs to be compute-bound.  So
 // the bound is memory traffic (each of q, k, v, out read or written once).
-// Both bodies take one block per (batch, head), read the head's rows of q,
-// k and v from device memory exactly once into shared memory, and take q, k
-// and v with (batch, token, head) strides, so the wrapper passes (B, N, H, hd)
-// views of the packed qkv projection without copies.  The dtype picks the
-// body; neither falls back to the other.
+// In float32 the three TF32 products of each product (below) make the
+// operations bound about as large as the bytes bound at N = 197.  Both
+// bodies stage rows of q, k and v in shared memory by 16-byte copies, and
+// take q, k and v with (batch, token, head) strides, so the wrapper passes
+// (B, N, H, hd) views of the packed qkv projection without copies.  The
+// dtype picks the body; neither falls back to the other.
 //
-// bfloat16 body (tensor cores).  Bytes bound the kernel, so the design aims
+// bfloat16 body (tensor cores): one block per (batch, head), which reads
+// the head's rows of q, k and v exactly once.  Bytes bound the kernel, so
+// the design aims
 // to keep the arithmetic off the critical path and the loads wide:
 //   * staging: q, k and v rows (128 contiguous bytes each) go to shared
 //     memory by 16-byte cp.async, with the 16-byte chunks of a row XOR-
@@ -41,20 +44,48 @@
 // pass over K suffices (no second pass that recomputes S).  The key count
 // is rounded up to one of four instantiations (NP = 64, 128, 208, 272).
 //
-// float32 body (FMA units): tensor cores would need TF32 and lose float32
-// parity, so it stays the simple exact-order version: a warp owns one query
-// row at a time, lanes split the keys for the logits (K rows padded by one
-// 4-byte word so that 32 lanes reading 32 keys hit 32 banks), the row's
-// probabilities go through shared memory, and lanes split the 64 output
-// columns for the product with V.
-//
-// Above 48 KB of dynamic shared memory the launcher raises the kernel's
-// limit with cudaFuncSetAttribute first.
+// float32 body (tensor cores, 3xTF32: tf32x3.cuh).  TF32 mma.sync m16n8k8
+// with each product split in three, so it stays float32-class (not TF32:
+// see tf32x3.cuh).  The split triples the products and adds the splits and
+// the rounded adds of the partial sums, so instruction throughput and
+// latency bound the body, not bytes; it is built for warps in flight:
+//   * grid: one block per (batch, head, tile of 64 query rows), 4 warps, a
+//     warp per 16 query rows; a warp whose rows all lie past N only takes
+//     part in the block's copies and barriers;
+//   * q: the block's rows staged by 16-byte cp.async, then each warp's
+//     fragments split once into registers (64 of them);
+//   * keys in chunks of 32 through two shared-memory buffers (K rows, then V
+//     rows, 16-byte cp.async, a row stride of 68 floats so that the 32 lanes
+//     of a 32-bit fragment load hit 32 banks; rows past N zero): the copies
+//     of chunk c + 1 overlap the products of chunk c;
+//   * per chunk: S = Q K^T, 8-key tiles that hold no key below N skipped
+//     and padded columns set to -inf; an online softmax in float32 with
+//     quad shuffles (running row max m, sum l, the output rescaled by
+//     exp(m_old - m_new)); O += P V;
+//   * P V: a lane's S accumulators hold keys 2t and 2t + 1 of each 8-key
+//     step, where the A fragment wants keys t and t + 4.  Nothing is
+//     shuffled: A's k-index t stands for key 2t and t + 4 for key 2t + 1,
+//     and V's B fragment rows are loaded in that same order; the sum over
+//     the keys does not depend on it;
+//   * output: O / l, stored as 8-byte pairs.  The reference normalises p
+//     before the product because it rounds p to v's type there; in float32
+//     that rounding is the identity, so dividing once at the end differs
+//     only in float32 rounding.
+// One kernel takes every N, in 34 KB of shared memory and registers for two
+// blocks an SM (three would leave ptxas too few, and it spills).  Keeping
+// the whole (16 x N) S tile in registers, as the bf16 body does, would take
+// over 200 registers at N = 197 on top of the split's, and keys in chunks
+// spend them on q's fragments instead, split once.
+
+// Above 48 KB of dynamic shared memory the bf16 launcher raises the
+// kernel's limit with cudaFuncSetAttribute first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -63,97 +94,7 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 
 // ---------------------------------------------------------------------------
-// float32 body
-// ---------------------------------------------------------------------------
-
-// K row stride in elements: one extra 4-byte word per row (bank spread).
-constexpr int KS32 = HD + 1;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-size_t smem_bytes_f32(int n) {
-  return (size_t)n * KS32 * sizeof(float)        // K
-         + (size_t)n * HD * sizeof(float)        // V
-         + (size_t)WARPS * n * sizeof(float)     // probabilities, one row per warp
-         + (size_t)WARPS * HD * sizeof(float);   // the query row, one per warp
-}
-
-__global__ void __launch_bounds__(THREADS)
-attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int H, int N,
-                  long long qsb, long long qsn, long long qsh,
-                  long long ksb, long long ksn, long long ksh,
-                  long long vsb, long long vsn, long long vsh) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + (size_t)N * KS32;
-  float* p_s = v_s + (size_t)N * HD;
-  float* q_s = p_s + WARPS * N;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const float* qh = q + b * qsb + h * qsh;
-  const float* kh = k + b * ksb + h * ksh;
-  const float* vh = v + b * vsb + h * vsh;
-
-  for (int e = threadIdx.x; e < N * HD; e += THREADS) {
-    const int j = e / HD, d = e % HD;
-    k_s[j * KS32 + d] = kh[j * ksn + d];
-    v_s[j * HD + d] = vh[j * vsn + d];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* p = p_s + warp * N;
-  float* qr = q_s + warp * HD;
-  for (int row = warp; row < N; row += WARPS) {
-    qr[lane] = qh[row * qsn + lane];
-    qr[lane + 32] = qh[row * qsn + lane + 32];
-    __syncwarp();
-
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) {
-      const float* kr = k_s + j * KS32;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) s = fmaf(qr[d], kr[d], s);
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(p[j] - mx);
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < N; j += 32) p[j] = p[j] / sum;
-    __syncwarp();
-
-    float a0 = 0.f, a1 = 0.f;
-    const int d0 = 2 * lane;
-    for (int j = 0; j < N; ++j) {
-      const float pj = p[j];
-      a0 = fmaf(pj, v_s[j * HD + d0], a0);
-      a1 = fmaf(pj, v_s[j * HD + d0 + 1], a1);
-    }
-    float* o = out + (((size_t)b * N + row) * H + h) * HD;
-    o[d0] = a0;
-    o[d0 + 1] = a1;
-    __syncwarp();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 body (tensor cores)
+// bfloat16 body (tensor cores); its copy and quad helpers serve both bodies
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
@@ -336,6 +277,186 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 body (tensor cores, 3xTF32)
+// ---------------------------------------------------------------------------
+
+constexpr int LD32 = HD + 4;         // row stride of the float32 tiles, floats
+constexpr int QROWS = WARPS * 16;    // query rows per block
+constexpr int KC = 32;               // keys per chunk
+constexpr int BUF32 = 2 * KC * LD32; // floats of one chunk buffer: K rows, then V rows
+static_assert(QROWS * LD32 <= BUF32, "the q tile is staged in the second chunk buffer");
+
+// two chunk buffers; the q tile is staged in the second before its first use
+constexpr size_t SMEM_F32 = (size_t)2 * BUF32 * sizeof(float);
+
+// rows [r0, r0 + rows) of one head into a (rows x LD32) float32 tile; rows
+// at or past N are zero
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, long long sn, int r0,
+                                               int rows, int N) {
+  for (int e = threadIdx.x; e < rows * (HD / 4); e += THREADS) {
+    const int r = e >> 4, c = e & 15;
+    float* d = dst + r * LD32 + c * 4;
+    if (r0 + r < N)
+      cp_async16(smem_u32(d), src + (r0 + r) * sn + c * 4);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// o += P V over one 8-key step whose P accumulators are p: a lane holds
+// keys 2t and 2t + 1 of the step, which A's k-indices t and t + 4 stand
+// for, and V's B fragment rows are read in that order from vr (key 2t of
+// the step, column g)
+__device__ __forceinline__ void pv_step(float (&o)[HD / 8][4], const float (&p)[4],
+                                        const float* vr) {
+  uint32_t a_hi[4], a_lo[4];
+  split_tf32(p[0], a_hi[0], a_lo[0]);  // row g,     key 2t
+  split_tf32(p[2], a_hi[1], a_lo[1]);  // row g + 8, key 2t
+  split_tf32(p[1], a_hi[2], a_lo[2]);  // row g,     key 2t + 1
+  split_tf32(p[3], a_hi[3], a_lo[3]);  // row g + 8, key 2t + 1
+#pragma unroll
+  for (int dn = 0; dn < HD / 8; ++dn) {
+    uint32_t b_hi[2], b_lo[2];
+    split_tf32(vr[8 * dn], b_hi[0], b_lo[0]);         // key 2t, column 8 dn + g
+    split_tf32(vr[LD32 + 8 * dn], b_hi[1], b_lo[1]);  // key 2t + 1
+    mma_tf32x3(o[dn], a_hi, a_lo, b_hi, b_lo);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out, int H, int N,
+                  int q_tiles, long long qsb, long long qsn, long long qsh,
+                  long long ksb, long long ksn, long long ksh,
+                  long long vsb, long long vsn, long long vsh) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* buf = reinterpret_cast<float*>(smem);
+
+  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int r0 = qt * QROWS;
+  const float* kh = k + b * ksb + h * ksh;
+  const float* vh = v + b * vsb + h * vsh;
+  const int chunks = (N + KC - 1) / KC;
+  auto stage_chunk = [&](int c) {
+    float* dst = buf + (c & 1) * BUF32;
+    stage_rows_f32(dst, kh, ksn, c * KC, KC, N);
+    stage_rows_f32(dst + KC * LD32, vh, vsn, c * KC, KC, N);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage_rows_f32(buf + BUF32, q + b * qsb + h * qsh, qsn, r0, QROWS, N);
+  stage_chunk(0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool active = r0 + warp * 16 < N;  // uniform across the warp
+
+  // the warp's q fragments, split once: k-step kk of 8 along hd
+  uint32_t q_hi[HD / 8][4], q_lo[HD / 8][4];
+  {
+    const float* qw = buf + BUF32 + (warp * 16 + g) * LD32 + t;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      split_tf32(qw[8 * kk], q_hi[kk][0], q_lo[kk][0]);
+      split_tf32(qw[8 * LD32 + 8 * kk], q_hi[kk][1], q_lo[kk][1]);
+      split_tf32(qw[8 * kk + 4], q_hi[kk][2], q_lo[kk][2]);
+      split_tf32(qw[8 * LD32 + 8 * kk + 4], q_hi[kk][3], q_lo[kk][3]);
+    }
+  }
+
+  // online softmax over chunks of KC keys: m the running row max, l the
+  // lane's part of the row sum of exp(s - m), o the unnormalised output
+  float o[HD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < HD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    if (c > 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // chunk c has landed, and every warp is done with chunk c - 1 (or q)
+    __syncthreads();
+    if (c + 1 < chunks) stage_chunk(c + 1);  // into the buffer chunk c - 1 (or q) held
+    if (!active) continue;
+    const float* kc = buf + (c & 1) * BUF32;
+    const float* vc = kc + KC * LD32;
+    const int nt = min(KC / 8, (N - c * KC + 7) / 8);  // 8-key tiles holding a key < N
+
+    // S = Q K^T over the chunk; tile j holds keys 8j..8j+7 of the chunk, a
+    // lane rows g and g + 8, columns 2t and 2t + 1
+    float s[KC / 8][4];
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if (j >= nt) continue;
+      const float* kw = kc + (8 * j + g) * LD32 + t;
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(kw[8 * kk], b_hi[0], b_lo[0]);
+        split_tf32(kw[8 * kk + 4], b_hi[1], b_lo[1]);
+        mma_tf32x3(s[j], q_hi[kk], q_lo[kk], b_hi, b_lo);
+      }
+    }
+
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j) {
+      const int col = c * KC + 8 * j + 2 * t;
+      if (col >= N) s[j][0] = s[j][2] = -INFINITY;
+      if (col + 1 >= N) s[j][1] = s[j][3] = -INFINITY;
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    // every chunk holds a key < N, so the new maxima are finite
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);  // 0 on the first chunk
+    m0 = n0;
+    m1 = n1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      o[dn][0] *= a0;
+      o[dn][1] *= a0;
+      o[dn][2] *= a1;
+      o[dn][3] *= a1;
+    }
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j) {
+      s[j][0] = expf(s[j][0] - n0);
+      s[j][1] = expf(s[j][1] - n0);
+      s[j][2] = expf(s[j][2] - n1);
+      s[j][3] = expf(s[j][3] - n1);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+
+    // O += P V
+    const float* vw = vc + 2 * t * LD32 + g;
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j)
+      if (j < nt) pv_step(o, s[j], vw + 8 * j * LD32);
+  }
+  if (!active) return;
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int row0 = r0 + warp * 16 + g, row1 = row0 + 8;
+#pragma unroll
+  for (int dn = 0; dn < HD / 8; ++dn) {
+    const int col = 8 * dn + 2 * t;
+    if (row0 < N)
+      *reinterpret_cast<float2*>(out + (((size_t)b * N + row0) * H + h) * HD + col) =
+          make_float2(o[dn][0] / l0, o[dn][1] / l0);
+    if (row1 < N)
+      *reinterpret_cast<float2*>(out + (((size_t)b * N + row1) * H + h) * HD + col) =
+          make_float2(o[dn][2] / l1, o[dn][3] / l1);
+  }
+}
+
 template <int KT>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
                 long long qsb, long long qsn, long long qsh, long long ksb, long long ksn,
@@ -354,13 +475,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
                long long qsb, long long qsn, long long qsh, long long ksb, long long ksn,
                long long ksh, long long vsb, long long vsn, long long vsh, cudaStream_t stream) {
-  const size_t smem = smem_bytes_f32(N);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_f32,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_fwd_f32<<<B * H, THREADS, smem, stream>>>(
+  const int q_tiles = (N + QROWS - 1) / QROWS;
+  attention_fwd_f32<<<B * H * q_tiles, THREADS, SMEM_F32, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh);
+      static_cast<float*>(out), H, N, q_tiles, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh);
   return (int)cudaGetLastError();
 }
 
@@ -370,21 +488,23 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v: (B, N, H, 64) with the given
 // element strides for batch, token and head (unit stride inside a head);
-// out: contiguous (B, N, H, 64); 1 <= N <= 257.  bfloat16 also needs every
-// base pointer 16-byte aligned and every stride a multiple of 8 elements.
-// Returns the CUDA error code (0 = launched).
+// out: contiguous (B, N, H, 64); 1 <= N <= 257.  Both bodies copy 16-byte
+// chunks of rows, so every base pointer must be 16-byte aligned and every
+// stride a multiple of 16 bytes (8 bf16 or 4 float32 elements).  Returns the
+// CUDA error code (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype,
                              int B, int H, int N, long long qsb, long long qsn, long long qsh,
                              long long ksb, long long ksn, long long ksh, long long vsb,
                              long long vsn, long long vsh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || N > 257) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const long long chunk = dtype == 0 ? 4 : 8;  // elements in 16 bytes
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) ||
+      ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & (chunk - 1)))
+    return (int)cudaErrorMisalignedAddress;
   if (dtype == 0)
     return launch_f32(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) ||
-      ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & 7))
-    return (int)cudaErrorMisalignedAddress;
   const int kt = (N + 15) / 16;
   if (kt <= 4)
     return launch_bf16<4>(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);

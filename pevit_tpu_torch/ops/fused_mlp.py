@@ -126,30 +126,28 @@ def _check(name, x, weights: dict) -> tuple:
 
 def fwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
     """Scratch of one forward launch, laid out as ``csrc/fused_mlp_fwd.cu``
-    carves it.  float32: none.  bfloat16: u (R x C) and g (R x F) in bf16."""
-    if dtype == torch.float32:
-        return 0
-    return (R * C + R * F) * 2
+    carves it: u (R x C) and then g (R x F), in x's dtype (float32 or
+    bf16)."""
+    return (R * C + R * F) * (4 if dtype == torch.float32 else 2)
 
 
 def _check_aligned(name, *tensors):
     if any(t.data_ptr() % 16 for t in tensors):
-        raise KernelInputError(f"the bfloat16 {name} copies 16-byte chunks: its activations "
-                               "and both weight matrices need 16-byte aligned base pointers")
+        raise KernelInputError(f"the {name} copies 16-byte chunks: both weight matrices, and "
+                               "in bfloat16 its activations, need 16-byte aligned base pointers")
 
 
 def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-5):
     """The forward CUDA kernel.  x: contiguous (..., C) in float32 or
     bfloat16; wfc (C, F), bfc (F,), wproj (F, C), bproj (C,) in x's dtype;
     ln scale and bias float32 (C,).  C in ``WIDTHS``, F a multiple of 128.
-    The dtype picks the kernel's body: bfloat16 runs its GEMMs on the
-    tensor cores and needs 16-byte aligned x, wfc and wproj; float32 runs on
-    the FMA units.  The scratch (:func:`fwd_workspace_bytes`) is allocated
-    here."""
+    The dtype picks the kernel's body; both run their GEMMs on the tensor
+    cores, float32 by a three-product TF32 split that keeps float32
+    accuracy, and both need 16-byte aligned wfc and wproj (bfloat16 x too).
+    The scratch (:func:`fwd_workspace_bytes`) is allocated here."""
     weights = dict(zip(_WEIGHTS, (ln_scale, ln_bias, wfc, bfc, wproj, bproj)))
     R, C, F = _check("fused_mlp_fwd", x, weights)
-    if x.dtype == torch.bfloat16:
-        _check_aligned("fused MLP forward", x, wfc, wproj)
+    _check_aligned("fused MLP forward", wfc, wproj, *((x,) if x.dtype == torch.bfloat16 else ()))
     y = torch.empty_like(x)
     work = torch.empty(fwd_workspace_bytes(x.dtype, R, C, F), dtype=torch.uint8, device=x.device)
     KERNEL.launch(x.data_ptr(), *(t.data_ptr() for t in weights.values()), work.data_ptr(),

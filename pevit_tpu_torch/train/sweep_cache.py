@@ -45,7 +45,11 @@ _VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CAC
 #   1  the port's first sweep and command.  Later the fingerprint also
 #      hashed the PEFT method, which changes every key by itself, so the
 #      version stayed: a key, not a change of what a trial scores.
-SEMANTICS_VERSION = 1
+#   2  the attention and fused-MLP kernels' float32 bodies moved to the
+#      tensor cores (a three-product TF32 split): float32 sums in another
+#      order, so the auxiliary backbones' probe and finetune trials and
+#      every float32 sweep score differently in the last bits.
+SEMANTICS_VERSION = 2
 
 
 def _dtype_name(arr) -> str:

@@ -29,18 +29,23 @@ def step_flops(fn, *args) -> int:
 
 
 class Peaks(NamedTuple):
-    """A card's published rates: device memory GB/s and dense TFLOP/s."""
+    """A card's published rates: device memory GB/s and dense TFLOP/s.
+    ``fp32_tflops`` is float32 on the FMA units; ``tf32_tflops`` is TF32 on
+    the tensor cores, which a float32 product split in three TF32 products
+    (the kernels' float32 bodies) runs at a third of."""
 
     hbm_gb_s: Optional[float]
     bf16_tflops: Optional[float]
     fp32_tflops: Optional[float]
+    tf32_tflops: Optional[float]
 
 
 # by a substring of torch.cuda.get_device_name(); NVIDIA's data sheet, H100
 # SXM (whose name is "NVIDIA H100 80GB HBM3"), dense, at its 700 W limit:
-# 3.35 TB/s, 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32 outside them
+# 3.35 TB/s, 989 TFLOP/s bf16 and 495 TF32 on the tensor cores, 67 TFLOP/s
+# fp32 outside them
 CHIP_SPECS = {
-    "h100 80gb hbm3": Peaks(3350.0, 989.0, 67.0),
+    "h100 80gb hbm3": Peaks(3350.0, 989.0, 67.0, 495.0),
 }
 
 
@@ -51,4 +56,4 @@ def chip_peaks(kind: str) -> Peaks:
     for sub, peaks in CHIP_SPECS.items():
         if sub in k:
             return peaks
-    return Peaks(None, None, None)
+    return Peaks(None, None, None, None)

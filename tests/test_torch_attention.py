@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pevit_tpu.ops import attention as ja
 from pevit_tpu_torch.ops import attention as ta
@@ -64,3 +65,132 @@ def test_core_refuses_other_devices():
     q = torch.zeros(1, 5, 2, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ta.attention_core(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's layout requirement, held to every caller's views
+# ---------------------------------------------------------------------------
+
+# (offset in bytes, (batch, token, head) strides in elements, itemsize, ok):
+# the k and v views of a packed (B, 50, 3 * 768) qkv projection, and breaks
+PACKED = (50 * 2304, 2304, 64)
+
+
+@pytest.mark.parametrize("offset,strides,itemsize,ok", [
+    (0, PACKED, 4, True), (768 * 4, PACKED, 4, True), (1536 * 2, PACKED, 2, True),
+    (0, (50 * 768, 768, 64), 2, True), (4, PACKED, 4, False), (8, PACKED, 2, False),
+    (0, (50 * 2306, 2306, 64), 4, False), (0, (50 * 2300, 2300, 64), 2, False),
+    (0, (50 * 2300, 2300, 64), 4, True), (0, (2304, 2304, 66), 4, False),
+])
+def test_rows_aligned(offset, strides, itemsize, ok):
+    assert ta.rows_aligned(offset, strides, itemsize) is ok
+
+
+class _OperatorSpy(TorchDispatchMode):
+    """The operands each of the port's kernel operators receives, as the
+    operator receives them (views and all)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._schema.name.startswith("pevit_tpu_torch::"):
+            self.calls.append((func._schema.name.split("::")[1], args))
+        return func(*args, **(kwargs or {}))
+
+
+def _tiny_serving_task(dtype: str):
+    from pevit_tpu_torch.core import clip as pc
+    from pevit_tpu_torch.peft import PeftConfig, init_peft
+    from pevit_tpu_torch.train import init_bn_state, init_head, partition, trainable_pred
+    from pevit_tpu_torch.train.trainer import TaskStatic
+
+    gen = torch.Generator().manual_seed(0)
+    spec = pc.CLIPSpec(embed_dim=32,
+                       vision=pc.VisionSpec(input_resolution=64, patch_size=16, width=128,
+                                            layers=2, heads=2, output_dim=32),
+                       text=pc.TextSpec(context_length=8, vocab_size=64, width=32, heads=2,
+                                        layers=1, output_dim=32))
+    cfg = PeftConfig(method="kadaptation")
+    static = TaskStatic(spec=spec, peft_cfg=cfg, num_classes=5, compute_dtype=dtype)
+    peft = init_peft(gen, cfg, spec, device="cpu")
+    for layer in peft.layers:  # live factors: the q and v deltas are added
+        for name in ("q_left", "q_right", "v_left", "v_right"):
+            getattr(layer, name).data.normal_(generator=gen)
+    bundle = {"clip": pc.init_clip_params(gen, spec, device="cpu"), "peft": peft,
+              "head": init_head(gen, static.head_dim, static.num_classes, device="cpu")}
+    trainable, frozen = partition(bundle, trainable_pred(static))
+    preproc = {"mean": torch.tensor([0.5, 0.4, 0.3]), "std": torch.tensor([0.2, 0.3, 0.25])}
+    return static, trainable, frozen, init_bn_state(static.head_dim, device="cpu"), preproc
+
+
+def _serving_forward(dtype):
+    from pevit_tpu_torch.serve import make_serving_fn
+
+    serve = make_serving_fn(*_tiny_serving_task(dtype), device="cpu")
+    images = np.random.default_rng(0).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    return lambda: serve(images)
+
+
+def _exported_forward():
+    from pevit_tpu_torch.serve import export_classifier, exported_callable
+
+    program = export_classifier(*_tiny_serving_task("float32"), image_size=64, device="cpu")
+    call = exported_callable(program, None, device="cpu")
+    images = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8))
+    return lambda: call(images)
+
+
+def _timm_vit_forward():
+    from pevit_tpu_torch.models import vit as pv
+
+    spec = pv.ViTSpec(input_resolution=32, patch_size=16, width=128, layers=2, heads=2)
+    vit = pv.init_vit_params(torch.Generator().manual_seed(2), spec, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 32, 32, 3), np.float32))
+    return lambda: pv.vit_forward_features(vit, x, spec=spec)
+
+
+def _declip_tower_forward():
+    from pevit_tpu_torch.core import clip as pc
+    from pevit_tpu_torch.models import declip as pd
+
+    spec = pd.DeclipSpec(embed_dim=16,
+                         vision=pc.VisionSpec(input_resolution=64, patch_size=32, width=128,
+                                              layers=2, heads=2, output_dim=16),
+                         text=pc.TextSpec(context_length=8, vocab_size=64, width=32, heads=2,
+                                          layers=1, output_dim=16))
+    model = pd.init_declip_params(torch.Generator().manual_seed(3), spec, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 64, 64, 3), np.float32))
+    return lambda: pd.encode_image(model, x, spec=spec, use_fused_mlp=True)
+
+
+CALLERS = {"clip_block_fp32": lambda: _serving_forward("float32"),
+           "clip_block_bf16": lambda: _serving_forward("bfloat16"),
+           "timm_vit": _timm_vit_forward, "declip_tower": _declip_tower_forward,
+           "exported_fp32": _exported_forward}
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_every_caller_hands_the_kernels_aligned_rows(caller):
+    """Run on the CPU, a path hands the operators the same views it hands
+    them on the card: each attention call's q, k and v must pass
+    :func:`rows_aligned` (the kernel raises otherwise), and each fused-MLP
+    call's weight matrices must be 16-byte aligned."""
+    forward = CALLERS[caller]()
+    with torch.no_grad(), _OperatorSpy() as spy:
+        forward()
+    attention = [args for name, args in spy.calls if name == "attention_fwd"]
+    assert len(attention) == 2, spy.calls  # one a block
+    # k is a strided view of the packed qkv projection, as the block leaves it
+    assert all(not k.is_contiguous() for q, k, v in attention)
+    for q, k, v in attention:
+        for t in (q, k, v):
+            assert t.shape[-1] == ta.HEAD_DIM and t.stride(-1) == 1
+            assert ta.rows_aligned(t.data_ptr(), t.stride()[:3], t.element_size()), \
+                (caller, t.shape, t.stride(), t.data_ptr() % 16)
+    mlp = [args for name, args in spy.calls if name == "fused_mlp_fwd"]
+    assert len(mlp) == (0 if caller == "timm_vit" else 2)
+    for x, ln_s, ln_b, wfc, bfc, wproj, bproj, eps in mlp:
+        assert wfc.data_ptr() % 16 == 0 and wproj.data_ptr() % 16 == 0

@@ -170,9 +170,11 @@ def test_b32_train_step_lands_in_the_references_range():
 
 
 def test_chip_peaks():
-    assert chip_peaks("NVIDIA H100 80GB HBM3") == (3350.0, 989.0, 67.0)
+    assert chip_peaks("NVIDIA H100 80GB HBM3") == (3350.0, 989.0, 67.0, 495.0)
     assert chip_peaks("NVIDIA H100 80GB HBM3").bf16_tflops == 989.0
+    # TF32 on the tensor cores, the float32 bodies' three-product split
+    assert chip_peaks("NVIDIA H100 80GB HBM3").tf32_tflops == 495.0
     # other cards, and the H100's other parts, are not in the table
     for kind in ("NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB", "TPU v5 lite"):
-        assert chip_peaks(kind) == (None, None, None)
+        assert chip_peaks(kind) == (None, None, None, None)
     assert all(k == k.lower() for k in CHIP_SPECS)

@@ -70,10 +70,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("R", [1, 400, 5800, 12800])
 @pytest.mark.parametrize("width", tf.WIDTHS)
 def test_fwd_workspace_bytes(R, width):
-    """float32 needs no scratch; bfloat16 carves u (R x C) and then g
-    (R x F), both bf16, and g's 16-byte loads need it to start aligned."""
+    """Both bodies carve u (R x C) and then g (R x F) in x's dtype, and g's
+    16-byte loads need it to start aligned."""
     F = 4 * width
-    assert tf.fwd_workspace_bytes(torch.float32, R, width, F) == 0
-    u, g = R * width * 2, R * F * 2
-    assert tf.fwd_workspace_bytes(torch.bfloat16, R, width, F) == u + g
-    assert u % 16 == 0
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        u, g = R * width * size, R * F * size
+        assert tf.fwd_workspace_bytes(dtype, R, width, F) == u + g
+        assert u % 16 == 0

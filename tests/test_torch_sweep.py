@@ -314,3 +314,15 @@ def test_two_methods_in_one_output_dir_train_their_own_sweeps(tmp_path, monkeypa
         monkeypatch.setattr(pevit_tpu.train, "run_method", capture(name))
         cli.main(_argv(tmp_path / "jax"))
     assert seen["kadaptation"] == seen["lora"]
+
+
+def test_semantics_version_keys_the_cache(monkeypatch):
+    """Version 2: the kernels' float32 bodies moved to the tensor cores, so
+    a cache written by version 1 (the FMA-unit bodies) must not replay."""
+    from pevit_tpu_torch.train import sweep_cache
+
+    assert sweep_cache.SEMANTICS_VERSION == 2
+    cfg, data = get_default_config(), _data()
+    now = sweep_fingerprint(cfg, data, 10, 0, "kadaptation")
+    monkeypatch.setattr(sweep_cache, "SEMANTICS_VERSION", 1)
+    assert sweep_fingerprint(cfg, data, 10, 0, "kadaptation") != now

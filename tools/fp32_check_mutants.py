@@ -1,0 +1,184 @@
+#!/usr/bin/env python
+"""Which broken float32 bodies ``chip_smoke.py``'s float32 checks refuse,
+on one CUDA card.
+
+    python3 tools/fp32_check_mutants.py
+
+K1's and K2's float32 bodies sum three TF32 products a k-step of 8 on the
+tensor cores, from zero, and add that partial sum to a float32 accumulator
+once, rounded (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``).  The tensor core
+truncates as it accumulates, so every variant below that lets more of the
+sum run on the tensor core, or truncates the add, leaves its results biased
+toward zero.  For the shipped sources and for each variant, built from a
+copy of the sources in a temporary directory (the checkout is not
+touched), it runs phase 3's float32 rows through ``chip_smoke``'s own
+checks (``check_attention``: N = 50, 197, 257 at batch 256 and N = 197 at
+batch 64; ``check_fused_mlp``: C = 768 and 1024 at R = 12800) and prints
+one JSON line a row: passed, or the check that refused it, with
+``fp32_class``'s readings.  Variants:
+
+* ``bigfirst``: the k-step's hi·hi product first, the small ones added to it;
+* ``rz``: the partial sum added to the accumulator rounding toward zero;
+* ``chain``: every product accumulated on the tensor core, no rounded add;
+* ``k1_pairs``: K1's k-steps two to a chain (six products) before the add;
+* ``k2_pairs``: the same in K2's GEMM core (``tf32x3_gemm.cuh``).
+
+A last line gives, for each variant, whether some row of the kernel it
+changes was refused.  It exits non-zero if the shipped bodies fail a row
+or a variant does not build.  The card's name and power limit are printed
+first.  It needs a CUDA card and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+CSRC = Path("pevit_tpu_torch/ops/csrc")
+
+_SPLIT = ("  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
+          "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n"
+          "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n")
+_ADD = "  for (int i = 0; i < 4; ++i) acc[i] += d[i];\n"
+
+# variant: (the kernel it changes, [(file, old text, new text), ...])
+VARIANTS = {
+    "bigfirst": ("both", [("tf32x3.cuh", _SPLIT,
+                           "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n"
+                           "  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
+                           "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n")]),
+    "rz": ("both", [("tf32x3.cuh", _ADD,
+                     "  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rz(acc[i], d[i]);\n")]),
+    "chain": ("both", [("tf32x3.cuh", _SPLIT, _SPLIT.replace("(d, ", "(acc, "))]),
+    "k1_pairs": ("attention_fwd", [
+        ("attention_fwd.cu",
+         "void pv_step(float (&o)[HD / 8][4], const float (&p)[4],\n"
+         "                                        const float* vr) {\n",
+         "void pv_step(float (&o)[HD / 8][4], const float (&p)[4],\n"
+         "                                        const float* vr, float (&pd)[HD / 8][4],\n"
+         "                                        bool first, bool last) {\n"),
+        ("attention_fwd.cu", "    mma_tf32x3(o[dn], a_hi, a_lo, b_hi, b_lo);\n",
+         "    if (first) pd[dn][0] = pd[dn][1] = pd[dn][2] = pd[dn][3] = 0.f;\n"
+         "    mma_tf32(pd[dn], a_lo, b_hi[0], b_hi[1]);\n"
+         "    mma_tf32(pd[dn], a_hi, b_lo[0], b_lo[1]);\n"
+         "    mma_tf32(pd[dn], a_hi, b_hi[0], b_hi[1]);\n"
+         "    if (last) for (int i = 0; i < 4; ++i) o[dn][i] += pd[dn][i];\n"),
+        ("attention_fwd.cu", "    const float* vw = vc + 2 * t * LD32 + g;\n",
+         "    const float* vw = vc + 2 * t * LD32 + g;\n    float pdv[HD / 8][4];\n"),
+        ("attention_fwd.cu", "      if (j < nt) pv_step(o, s[j], vw + 8 * j * LD32);\n",
+         "      if (j < nt) pv_step(o, s[j], vw + 8 * j * LD32, pdv, (j & 1) == 0,\n"
+         "                          (j & 1) == 1 || j + 1 == nt);\n"),
+        ("attention_fwd.cu", "      const float* kw = kc + (8 * j + g) * LD32 + t;\n",
+         "      const float* kw = kc + (8 * j + g) * LD32 + t;\n      float pd[4];\n"),
+        ("attention_fwd.cu", "        mma_tf32x3(s[j], q_hi[kk], q_lo[kk], b_hi, b_lo);\n",
+         "        if ((kk & 1) == 0) pd[0] = pd[1] = pd[2] = pd[3] = 0.f;\n"
+         "        mma_tf32(pd, q_lo[kk], b_hi[0], b_hi[1]);\n"
+         "        mma_tf32(pd, q_hi[kk], b_lo[0], b_lo[1]);\n"
+         "        mma_tf32(pd, q_hi[kk], b_hi[0], b_hi[1]);\n"
+         "        if (kk & 1) for (int i = 0; i < 4; ++i) s[j][i] += pd[i];\n"),
+    ]),
+    "k2_pairs": ("fused_mlp_fwd", [
+        ("tf32x3_gemm.cuh", "      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;\n",
+         "      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;\n"
+         "  float dd[X3_MT][X3_NT][4];\n"),
+        ("tf32x3_gemm.cuh",
+         "          mma_tf32x3(acc[mi][ni], a_hi[mi], a_lo[mi], b_hi, b_lo);\n",
+         "        {\n"
+         "          float (&d)[4] = dd[mi][ni];\n"
+         "          if ((kk & 1) == 0) d[0] = d[1] = d[2] = d[3] = 0.f;\n"
+         "          mma_tf32(d, a_lo[mi], b_hi[0], b_hi[1]);\n"
+         "          mma_tf32(d, a_hi[mi], b_lo[0], b_lo[1]);\n"
+         "          mma_tf32(d, a_hi[mi], b_hi[0], b_hi[1]);\n"
+         "          if (kk & 1) for (int j = 0; j < 4; ++j) acc[mi][ni][j] += d[j];\n"
+         "        }\n"),
+    ]),
+}
+
+
+def checkout_copy(dst: Path, variant: str) -> None:
+    """The package and ``chip_smoke.py`` under ``dst``, with ``variant``'s
+    edits made to the copy's kernel sources."""
+    shutil.copytree(REPO / "pevit_tpu_torch", dst / "pevit_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    shutil.copy(REPO / "chip_smoke.py", dst)
+    for name, old, new in VARIANTS.get(variant, (None, []))[1]:
+        path = dst / CSRC / name
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"{variant}: {name} no longer holds the text it edits once")
+        path.write_text(text.replace(old, new))
+
+
+def rows() -> int:
+    """In a copy: phase 3's float32 rows through chip_smoke's checks."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from pevit_tpu_torch.ops import KERNELS, build_all
+
+    if not Path(cs.__file__).resolve().is_relative_to(Path.cwd().resolve()):
+        raise SystemExit(f"chip_smoke imported from {cs.__file__}, not the copy")
+    build_all(KERNELS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [("attention_fwd", lambda n=n: cs.check_attention(gen, torch.float32, n))
+             for n in (50, 197, 257)]
+    cases.append(("attention_fwd", lambda: cs.check_attention(gen, torch.float32, 197, 64)))
+    cases += [("fused_mlp_fwd", lambda c=c: cs.check_fused_mlp(gen, torch.float32, c, 12800))
+              for c in (768, 1024)]
+    keys = ("shape", "max_abs_err", "err_f64", "plain_err_f64", "tf32_err_f64", "bias_f64",
+            "plain_bias_f64", "tf32_bias_f64")
+    for kernel, case in cases:
+        try:
+            row = case()
+            out = {"kernel": kernel, "passed": True, **{k: row[k] for k in keys}}
+        except AssertionError as e:
+            out = {"kernel": kernel, "passed": False, "refused_by": str(e)}
+        print("ROW " + json.dumps(out), flush=True)
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fp32_check_mutants: CUDA is not available; this script runs on a CUDA card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    print(cs.card_line(), flush=True)
+    caught, ok = {}, True
+    for variant in ("shipped", *VARIANTS):
+        with tempfile.TemporaryDirectory() as tmp:
+            checkout_copy(Path(tmp), variant)
+            run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--rows"],
+                                 cwd=tmp, capture_output=True, text=True)
+        got = [json.loads(line[4:]) for line in run.stdout.splitlines()
+               if line.startswith("ROW ")]
+        if run.returncode != 0 or len(got) != 6:
+            print(f"{variant}: failed (rc {run.returncode})\n{run.stderr[-4000:]}", flush=True)
+            ok = False
+            continue
+        for row in got:
+            print(f"{variant} {json.dumps(row)}", flush=True)
+        if variant == "shipped":
+            ok &= all(r["passed"] for r in got)
+        else:
+            changed = VARIANTS[variant][0]
+            caught[variant] = any(not r["passed"] for r in got
+                                  if changed in ("both", r["kernel"]))
+    print(json.dumps({"shipped_passed": ok, "caught": caught}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(rows() if sys.argv[1:] == ["--rows"] else main())
