@@ -37,8 +37,11 @@ on):
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
    at R = 5800 and 400 (phase 5's natural tail and eval remainder), timed
    beside its bound and beside ``gemm_ms``, its three products as bf16 (or
-   fp32) ``torch.matmul`` calls; K2 in bf16 at R = 5800 and 400 too; and
-   the attention core's plain backward timed at N = 50, batch 128;
+   fp32) ``torch.matmul`` calls; its fp32 body runs three TF32 products on
+   the tensor cores as K1's and K2's do, and its fp32 rows go through the
+   same float32-class check against a float64 run of the plain backward;
+   K2 in bf16 at R = 5800 and 400 too; and the attention core's plain
+   backward timed at N = 50, batch 128;
 4. serving: a full-width ViT-B/32 KAdaptation classifier (random weights
    from a seed, non-zero adaptation factors, random BN statistics, a
    100-class head fitted to 100 seeded prototype images) behind
@@ -63,7 +66,9 @@ on):
    the forward uses non-zero and finite (the v factors, unused by quirk 1,
    exactly zero on both paths); a whole fp32 run on both paths, in the same
    order, gives per-epoch val logits within 1e-3 of the largest logit.
-   Train images/s at batch 128 are printed;
+   Train images/s at batch 128 are printed, bf16 and then fp32 (a
+   KAdaptation run with dropout 0, its launches checked as above), the
+   latter beside K3's share of a step (12 x its phase-3b fp32 ms);
 6. the command: ``kronecker_adaptation_clip.main`` in this process, with
    the flags of ``scripts/kadapter_clip.sh`` (5-shot cifar-10, the LR x WD
    sweep on, the head initialised from text features, ``vitb32_CLIP.yaml``
@@ -377,6 +382,20 @@ def fused_mlp_f64(x, ln_s, ln_b, wfc, bfc, wproj, bproj, eps: float = 1e-5):
     return x64 + m
 
 
+def fused_mlp_bwd_f64(dy, x, ln_s, ln_b, wfc, bfc, wproj, eps: float = 1e-5):
+    """The plain fused-MLP backward (dx) in float64."""
+    x64, scale = x.double(), ln_s.double()
+    mean = x64.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x64 - mean).square().mean(-1, keepdim=True) + eps)
+    xhat = (x64 - mean) * rstd
+    h = (xhat * scale + ln_b.double()) @ wfc.double() + bfc.double()
+    sig = torch.sigmoid(1.702 * h)
+    dh = (dy.double() @ wproj.double().T) * (sig * (1.0 + 1.702 * h * (1.0 - sig)))
+    dxhat = (dh @ wfc.double().T) * scale
+    mdx, mdxx = dxhat.mean(-1, keepdim=True), (dxhat * xhat).mean(-1, keepdim=True)
+    return (dxhat - mdx - xhat * mdxx) * rstd + dy.double()
+
+
 def check_close(name, got, want, rtol, atol) -> float:
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
@@ -450,7 +469,8 @@ def check_fused_mlp(gen, dtype, c, rows):
 
 def check_fused_mlp_bwd(gen, dtype, c, rows):
     """K3 against its plain backward (same rounding points) and, in fp32,
-    against torch autograd of the plain forward."""
+    against torch autograd of the plain forward and through
+    :func:`fp32_class` against a float64 run of the plain backward."""
     from pevit_tpu_torch.ops.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_ref,
                                                fused_mlp_residual_ref)
 
@@ -473,6 +493,9 @@ def check_fused_mlp_bwd(gen, dtype, c, rows):
         (auto,) = torch.autograd.grad(y, xg, dy)
         row["max_abs_err_autograd"] = check_close(f"fused_mlp_bwd C={c} vs autograd",
                                                   got, auto, rtol, atol)
+        row.update(fp32_class(f"fused_mlp_bwd R={rows} C={c}", got,
+                              lambda: fused_mlp_bwd_ref(*args),
+                              lambda: fused_mlp_bwd_f64(*args)))
     esize = torch.finfo(dtype).bits // 8
     n_bytes = (3 * rows * c + 2 * c * f + f) * esize + 2 * c * 4
     # a yardstick only: K3's three products as torch.matmul calls on operands
@@ -2451,7 +2474,7 @@ def main() -> int:
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)
-    idle = [r["shape"] for name in ("attention_fwd", "fused_mlp_fwd") for r in table[name]
+    idle = [r["shape"] for rows_ in table.values() for r in rows_
             if r["dtype"] == "float32" and not r["tf32_engaged"]]
     if idle:
         raise AssertionError(f"the TF32 control ran in float32 at phase 3's rows {idle}")
@@ -2501,6 +2524,17 @@ def main() -> int:
           flush=True)
     ips = train_throughput(task, data)
     print(f"train throughput bf16 batch {TRAIN_BATCH}: {ips} images/s [{card}]", flush=True)
+    # float32 training (TPU.PARITY_FP32, MODEL.CLIP_FP32): K3's fp32 body
+    # runs 12 times a step
+    task32 = make_task(clip, "float32", 0.0)
+    train32 = train_run(task32, data, KERNELS)
+    ips32 = train_throughput(task32, data)
+    k3_shape = f"R={TRAIN_BATCH * 50} C=768 F=3072"
+    k3_ms = next(r["ms"] for r in table["fused_mlp_bwd"]
+                 if r["dtype"] == "float32" and r["shape"] == k3_shape)
+    print(f"train throughput fp32 batch {TRAIN_BATCH}: {ips32} images/s (bf16 {ips}); a step "
+          f"{1e3 * TRAIN_BATCH / ips32} ms, K3's share 12 x {k3_ms} = {12 * k3_ms} ms; "
+          f"{json.dumps(train32)} [{card}]", flush=True)
     batch_x, batch_y = data[0][:TRAIN_BATCH], data[1][:TRAIN_BATCH]
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         gaps = compare_grads(make_task(clip, dtype_name, 0.0), batch_x, batch_y, dtype)

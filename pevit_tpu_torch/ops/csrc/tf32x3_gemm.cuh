@@ -1,17 +1,19 @@
 // The float32 GEMM main loop on Hopper's tensor cores (3xTF32, see
 // tf32x3.cuh), for the fused MLP's float32 bodies.
 //
-// A block of 8 warps owns X3_BM = 128 rows and X3_BN = 128 output columns
-// of C = A . B; the warps form a 4 x 2 grid, each owning 32 rows and 64
-// columns as 2 x 8 tiles of m16n8k8.  K advances X3_BK = 32 at
-// a time through a ring of X3_STAGES shared-memory stages filled by 16-byte
-// cp.async, so the copies of the next stages overlap this one's products.
-// A is row-major (R x K, K contiguous; rows past R are clamped on load and
-// never stored); B is row-major (K x N, N contiguous), a weight as it lies,
-// so no transposed copy is written.  Each operand element is split into its
+// A block of 8 warps owns X3_BM = 128 rows and 16 NT output columns of
+// C = A . B (NT = X3_NT = 8 unless a kernel asks for a narrower tile); the
+// warps form a 4 x 2 grid, each owning 32 rows and 8 NT columns as 2 x NT
+// tiles of m16n8k8.  K advances X3_BK = 32 at a time through a ring of
+// X3_STAGES shared-memory stages filled by 16-byte cp.async, so the copies
+// of the next stages overlap this one's products.  A is row-major (R x K, K
+// contiguous; rows past R are clamped on load and never stored); B is
+// row-major (K x N, N contiguous): the forward's weights as they lie, the
+// backward's transposed copies.  Each operand element is split into its
 // TF32 hi and lo parts in registers as its fragment is loaded from shared
 // memory (32-bit loads: A tiles are padded to a row stride of 36 floats and
-// B tiles to 136, so that the 32 lanes of a fragment load hit 32 banks).
+// B tiles to 16 NT + 8, so that the 32 lanes of a fragment load hit 32
+// banks).
 
 #pragma once
 
@@ -22,45 +24,58 @@ namespace {
 
 constexpr int X3_THREADS = 256;                  // 8 warps
 constexpr int X3_BM = 128;                       // rows per tile
-constexpr int X3_BN = 128;                       // output columns per tile
 constexpr int X3_BK = 32;                        // K per stage
 constexpr int X3_STAGES = 3;
 constexpr int X3_WM = 4;                         // warps along the rows
 constexpr int X3_WN = 8 / X3_WM;                 // warps along the columns
 constexpr int X3_MT = X3_BM / X3_WM / 16;        // m16 tiles a warp
-constexpr int X3_NT = X3_BN / X3_WN / 8;         // n8 tiles a warp
+constexpr int X3_NT = 8;                         // n8 tiles a warp, unless asked otherwise
+constexpr int X3_BN = X3_NT * X3_WN * 8;         // output columns per tile: 128
 constexpr int X3_LDA = X3_BK + 4;                // A tile row stride, floats
-constexpr int X3_LDB = X3_BN + 8;                // B tile row stride, floats
-constexpr int X3_STAGE = X3_BM * X3_LDA + X3_BK * X3_LDB;  // floats per stage
 
-// dynamic shared memory of a kernel running x3_gemm_mainloop: 105 KB
-constexpr size_t x3_gemm_smem_bytes() { return (size_t)X3_STAGES * X3_STAGE * sizeof(float); }
+// B tile row stride and floats per stage, for tiles of NT n8 tiles a warp
+template <int NT>
+__host__ __device__ constexpr int x3_ldb() { return NT * X3_WN * 8 + 8; }
+template <int NT>
+__host__ __device__ constexpr int x3_stage() { return X3_BM * X3_LDA + X3_BK * x3_ldb<NT>(); }
+
+// dynamic shared memory of a kernel running x3_gemm_mainloop: 105 KB at
+// NT = 8, 81 KB at NT = 4
+template <int NT = X3_NT>
+constexpr size_t x3_gemm_smem_bytes() {
+  return (size_t)X3_STAGES * x3_stage<NT>() * sizeof(float);
+}
 
 // Row and column, in the block's tile, of accumulator j of tile (mi, ni)
 __device__ __forceinline__ int x3_row(int mi, int j) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   return (warp / X3_WN) * (16 * X3_MT) + 16 * mi + (lane >> 2) + 8 * (j >> 1);
 }
+template <int NT = X3_NT>
 __device__ __forceinline__ int x3_col(int ni, int j) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return (warp % X3_WN) * (8 * X3_NT) + 8 * ni + 2 * (lane & 3) + (j & 1);
+  return (warp % X3_WN) * (8 * NT) + 8 * ni + 2 * (lane & 3) + (j & 1);
 }
 
-// acc[mi][ni] (this thread's part of the block's 128 x 128 tile, placed as
-// x3_row and x3_col say) = A[row0 .. row0 + 128, :K] . B[:K, n0 .. n0 +
-// 128]; K a multiple of X3_BK, every row of A and B 16-byte aligned, and
-// K x ldb below 2^31.
-__device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][X3_NT][4],
+// acc[mi][ni] (this thread's part of the block's 128 x 16 NT tile, placed
+// as x3_row and x3_col<NT> say) = A[row0 .. row0 + 128, :K] . B[:K, n0 ..
+// n0 + 16 NT]; K a multiple of X3_BK, every row of A and B 16-byte aligned,
+// and K x ldb below 2^31.  UNROLL k-steps of 8 are unrolled together.
+template <int NT, int UNROLL = 1>
+__device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][NT][4],
                                                  const float* __restrict__ a, long long lda,
                                                  const float* __restrict__ b, long long ldb,
                                                  int row0, int R, int n0, int K, float* smem) {
+  static_assert(NT == 4 || NT == 8, "tiles of 64 or 128 columns");
+  constexpr int BN = NT * X3_WN * 8, LDB = x3_ldb<NT>(), STAGE = x3_stage<NT>();
+  constexpr int B_SHIFT = NT == 8 ? 5 : 4;      // log2 of a B row's 16-byte chunks
   const int ksteps = K / X3_BK;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int warp = threadIdx.x >> 5, wm = warp / X3_WN, wn = warp % X3_WN;
 #pragma unroll
   for (int mi = 0; mi < X3_MT; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < X3_NT; ++ni)
+    for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
 
@@ -70,7 +85,7 @@ __device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][X3_NT][4],
   const float* b_tile = b + n0;
   const int rows = R - row0, lda32 = (int)lda, ldb32 = (int)ldb;
   auto load_stage = [&](int ks) {
-    float* sa = smem + (ks % X3_STAGES) * X3_STAGE;
+    float* sa = smem + (ks % X3_STAGES) * STAGE;
     float* sb = sa + X3_BM * X3_LDA;
     const int k0 = ks * X3_BK;
 #pragma unroll
@@ -81,10 +96,10 @@ __device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][X3_NT][4],
                  a_tile + (min(r, rows - 1) * lda32 + k0 + c * 4));
     }
 #pragma unroll
-    for (int i = 0; i < X3_BK * X3_BN / 4 / X3_THREADS; ++i) {  // 32 rows x 32 chunks
+    for (int i = 0; i < X3_BK * BN / 4 / X3_THREADS; ++i) {  // 32 rows x BN / 4 chunks
       const int e = threadIdx.x + i * X3_THREADS;
-      const int r = e >> 5, c = e & 31;
-      cp_async16(smem_u32(sb + r * X3_LDB + c * 4), b_tile + ((k0 + r) * ldb32 + c * 4));
+      const int r = e >> B_SHIFT, c = e & (BN / 4 - 1);
+      cp_async16(smem_u32(sb + r * LDB + c * 4), b_tile + ((k0 + r) * ldb32 + c * 4));
     }
   };
 #pragma unroll
@@ -98,12 +113,11 @@ __device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][X3_NT][4],
     if (ks + X3_STAGES - 1 < ksteps) load_stage(ks + X3_STAGES - 1);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-    const float* sa = smem + (ks % X3_STAGES) * X3_STAGE + (wm * 16 * X3_MT + g) * X3_LDA + t;
-    const float* sb = smem + (ks % X3_STAGES) * X3_STAGE + X3_BM * X3_LDA + t * X3_LDB +
-                      wn * 8 * X3_NT + g;
-    // not unrolled: fetching the next k-step's fragments early would take
-    // registers past the 128 that two blocks an SM allow
-#pragma unroll 1
+    const float* sa = smem + (ks % X3_STAGES) * STAGE + (wm * 16 * X3_MT + g) * X3_LDA + t;
+    const float* sb = smem + (ks % X3_STAGES) * STAGE + X3_BM * X3_LDA + t * LDB + wn * 8 * NT + g;
+    // UNROLL = 1 at NT = 8: fetching the next k-step's fragments early
+    // would take registers past the 128 that two blocks an SM allow
+#pragma unroll UNROLL
     for (int kk = 0; kk < X3_BK / 8; ++kk) {
       // the A fragments of every m-tile held, the B fragments split as used
       uint32_t a_hi[X3_MT][4], a_lo[X3_MT][4];
@@ -116,11 +130,11 @@ __device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][X3_NT][4],
         split_tf32(ap[8 * X3_LDA + 4], a_hi[mi][3], a_lo[mi][3]);
       }
 #pragma unroll
-      for (int ni = 0; ni < X3_NT; ++ni) {
-        const float* bp = sb + kk * 8 * X3_LDB + ni * 8;
+      for (int ni = 0; ni < NT; ++ni) {
+        const float* bp = sb + kk * 8 * LDB + ni * 8;
         uint32_t b_hi[2], b_lo[2];
         split_tf32(bp[0], b_hi[0], b_lo[0]);
-        split_tf32(bp[4 * X3_LDB], b_hi[1], b_lo[1]);
+        split_tf32(bp[4 * LDB], b_hi[1], b_lo[1]);
 #pragma unroll
         for (int mi = 0; mi < X3_MT; ++mi)
           mma_tf32x3(acc[mi][ni], a_hi[mi], a_lo[mi], b_hi, b_lo);

@@ -134,7 +134,8 @@ def fwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
 def _check_aligned(name, *tensors):
     if any(t.data_ptr() % 16 for t in tensors):
         raise KernelInputError(f"the {name} copies 16-byte chunks: both weight matrices, and "
-                               "in bfloat16 its activations, need 16-byte aligned base pointers")
+                               "its activations (the forward's in bfloat16 only), need 16-byte "
+                               "aligned base pointers")
 
 
 def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-5):
@@ -157,20 +158,22 @@ def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-
 
 def bwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
     """Scratch of one backward launch, laid out as ``csrc/fused_mlp_bwd.cu``
-    carves it.  float32: the transposed weights Wfc^T and Wproj^T.
+    carves it.  float32: Wfc^T, Wproj^T, u, dh and du, all float32, and
+    (mean, rstd) per row (~137 MB at R = 6400, C = 768, F = 3072).
     bfloat16: Wfc^T, u and dh (bf16), du (float32) and (mean, rstd) per row."""
     if dtype == torch.float32:
-        return 2 * C * F * 4
+        return (2 * C * F + 2 * R * C + R * F) * 4 + R * 8
     return (C * F + R * C + R * F) * 2 + R * C * 4 + R * 8
 
 
 def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     """The backward CUDA kernel: dx of the fused residual MLP.  dy and x:
     contiguous (..., C) of one shape and dtype; the weights as for
-    :func:`fused_mlp_fwd` (no bproj).  The dtype picks the kernel's body:
-    bfloat16 runs its GEMMs on the tensor cores and needs 16-byte aligned
-    dy, x, wfc and wproj; float32 runs on the FMA units.  The scratch
-    (:func:`bwd_workspace_bytes`) is allocated here."""
+    :func:`fused_mlp_fwd` (no bproj).  The dtype picks the kernel's body;
+    both run their GEMMs on the tensor cores, float32 by a three-product
+    TF32 split that keeps float32 accuracy, and both need 16-byte aligned
+    dy, x, wfc and wproj.  The scratch (:func:`bwd_workspace_bytes`) is
+    allocated here."""
     weights = dict(zip(_WEIGHTS[:5], (ln_scale, ln_bias, wfc, bfc, wproj)))
     R, C, F = _check("fused_mlp_bwd", x, weights)
     if not (dy.is_cuda and dy.device == x.device and dy.is_contiguous()):
@@ -178,8 +181,7 @@ def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise KernelInputError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
                                f"{tuple(x.shape)} {x.dtype}")
-    if x.dtype == torch.bfloat16:
-        _check_aligned("fused MLP backward", dy, x, wfc, wproj)
+    _check_aligned("fused MLP backward", dy, x, wfc, wproj)
     dx = torch.empty_like(x)
     work = torch.empty(bwd_workspace_bytes(x.dtype, R, C, F), dtype=torch.uint8, device=x.device)
     BWD_KERNEL.launch(dy.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in weights.values()),

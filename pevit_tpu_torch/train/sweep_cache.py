@@ -49,7 +49,11 @@ _VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CAC
 #      tensor cores (a three-product TF32 split): float32 sums in another
 #      order, so the auxiliary backbones' probe and finetune trials and
 #      every float32 sweep score differently in the last bits.
-SEMANTICS_VERSION = 2
+#   3  the fused-MLP backward kernel's float32 body moved to the tensor
+#      cores too (the same split): float32 KAdaptation and LoRA trials sum
+#      their MLP gradients in another order and score differently in the
+#      last bits.
+SEMANTICS_VERSION = 3
 
 
 def _dtype_name(arr) -> str:

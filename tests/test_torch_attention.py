@@ -100,7 +100,7 @@ class _OperatorSpy(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _tiny_serving_task(dtype: str):
+def _tiny_serving_task(dtype: str, method: str = "kadaptation"):
     from pevit_tpu_torch.core import clip as pc
     from pevit_tpu_torch.peft import PeftConfig, init_peft
     from pevit_tpu_torch.train import init_bn_state, init_head, partition, trainable_pred
@@ -112,11 +112,11 @@ def _tiny_serving_task(dtype: str):
                                             layers=2, heads=2, output_dim=32),
                        text=pc.TextSpec(context_length=8, vocab_size=64, width=32, heads=2,
                                         layers=1, output_dim=32))
-    cfg = PeftConfig(method="kadaptation")
+    cfg = PeftConfig(method=method)
     static = TaskStatic(spec=spec, peft_cfg=cfg, num_classes=5, compute_dtype=dtype)
     peft = init_peft(gen, cfg, spec, device="cpu")
-    for layer in peft.layers:  # live factors: the q and v deltas are added
-        for name in ("q_left", "q_right", "v_left", "v_right"):
+    for layer in peft.layers if method == "kadaptation" else ():
+        for name in ("q_left", "q_right", "v_left", "v_right"):  # live factors: deltas added
             getattr(layer, name).data.normal_(generator=gen)
     bundle = {"clip": pc.init_clip_params(gen, spec, device="cpu"), "peft": peft,
               "head": init_head(gen, static.head_dim, static.num_classes, device="cpu")}
@@ -194,3 +194,40 @@ def test_every_caller_hands_the_kernels_aligned_rows(caller):
     assert len(mlp) == (0 if caller == "timm_vit" else 2)
     for x, ln_s, ln_b, wfc, bfc, wproj, bproj, eps in mlp:
         assert wfc.data_ptr() % 16 == 0 and wproj.data_ptr() % 16 == 0
+
+
+def _train_step(method: str, dtype: str):
+    """One train step (an epoch of one batch) of a tiny task, as
+    ``build_epoch_fn`` runs it: forward, loss, autograd and the update."""
+    from pevit_tpu_torch.train import (TrainState, build_epoch_fn, combine, make_optimizer,
+                                       trainable_params)
+
+    static, trainable, frozen, bn, preproc = _tiny_serving_task(dtype, method)
+    params = trainable_params(trainable)
+    opt_init, _ = make_optimizer(static.optimizer, momentum=static.momentum,
+                                 nesterov=static.nesterov)
+    state = TrainState(params, opt_init(params), bn, torch.Generator().manual_seed(0))
+    images = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    labels = torch.tensor([0, 1, 2, 3])
+    epoch = build_epoch_fn(static, len(labels), preproc)
+    return lambda: epoch(combine(trainable, frozen), images, labels, state, 0.01, 1e-4)
+
+
+@pytest.mark.parametrize("method,dtype", [("kadaptation", "float32"), ("lora", "float32"),
+                                          ("kadaptation", "bfloat16")])
+def test_every_train_step_hands_the_mlp_backward_aligned_operands(method, dtype):
+    """Run on the CPU, a train step hands the fused-MLP backward operator the
+    tensors it hands it on the card: dy, x, wfc and wproj contiguous and
+    16-byte aligned (the kernel copies 16-byte chunks of each and raises
+    otherwise, in both bodies), one call a block."""
+    step = _train_step(method, dtype)
+    with _OperatorSpy() as spy:
+        step()
+    bwd = [args for name, args in spy.calls if name == "fused_mlp_bwd"]
+    assert len(bwd) == 2, [name for name, _ in spy.calls]  # one a block
+    for dy, x, ln_s, ln_b, wfc, bfc, wproj, eps in bwd:
+        assert dy.dtype == x.dtype == wfc.dtype == getattr(torch, dtype)
+        for t in (dy, x, wfc, wproj):
+            assert t.is_contiguous() and t.data_ptr() % 16 == 0, \
+                (method, dtype, tuple(t.shape), t.stride(), t.data_ptr() % 16)

@@ -317,12 +317,13 @@ def test_two_methods_in_one_output_dir_train_their_own_sweeps(tmp_path, monkeypa
 
 
 def test_semantics_version_keys_the_cache(monkeypatch):
-    """Version 2: the kernels' float32 bodies moved to the tensor cores, so
-    a cache written by version 1 (the FMA-unit bodies) must not replay."""
+    """Version 3: the fused-MLP backward's float32 body moved to the tensor
+    cores, as the forward kernels' had in version 2, so a cache written by
+    version 2 (that body on the FMA units) must not replay."""
     from pevit_tpu_torch.train import sweep_cache
 
-    assert sweep_cache.SEMANTICS_VERSION == 2
+    assert sweep_cache.SEMANTICS_VERSION == 3
     cfg, data = get_default_config(), _data()
     now = sweep_fingerprint(cfg, data, 10, 0, "kadaptation")
-    monkeypatch.setattr(sweep_cache, "SEMANTICS_VERSION", 1)
+    monkeypatch.setattr(sweep_cache, "SEMANTICS_VERSION", 2)
     assert sweep_fingerprint(cfg, data, 10, 0, "kadaptation") != now

@@ -1,7 +1,7 @@
 """The numerical design of the kernels' float32 bodies, on the CPU.
 
-K1's and K2's float32 bodies (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``) run
-their products on the tensor cores as three TF32 products: x splits into
+K1's, K2's and K3's float32 bodies (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``)
+run their products on the tensor cores as three TF32 products: x splits into
 hi = cvt.rna.tf32.f32(x) and lo = cvt.rna.tf32.f32(x - hi), and a . b is
 taken as a_lo . b_hi + a_hi . b_lo + a_hi . b_hi, summed over each k-step of
 8 (TF32 products are exact) and added to a float32 accumulator once per
@@ -15,9 +15,15 @@ bound tells float32 from TF32.  Its bias, the mean error signed toward the
 float64 result, must stay within the larger of ``FP32_CLASS_FACTOR`` x the
 plain product's and half a float32 ulp, and the same sum with each k-step's
 add truncated toward zero must not: truncation is what a tensor core's
-accumulation does.  The card runs the same checks on the kernels
-themselves (``chip_smoke.py`` phase 3).
+accumulation does.  K3's whole backward chain (its three products, the
+QuickGELU derivative and the LayerNorm backward) is held the same way at
+toy width.  The card runs the same checks on the kernels themselves
+(``chip_smoke.py`` phases 3 and 3b); the last tests check that the texts
+the card-side tools edit in copies of the sources still stand there.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -152,3 +158,114 @@ def test_bias_bound_refuses_a_truncating_add(k):
         assert abs(got) <= bound, (k, seed, got, bound)
         truncated = bias(tf32x3_matmul(a, b, truncate=True), exact)
         assert truncated < -bound, (k, seed, truncated, bound)
+
+
+# ---------------------------------------------------------------------------
+# K3's float32 body: the whole backward chain, every product through the split
+# ---------------------------------------------------------------------------
+
+K3_R, K3_C, K3_F = 64, 256, 1024
+
+
+def k3_operands(seed: int) -> tuple:
+    """dy, x and the frozen weights of the fused MLP's backward, drawn as
+    ``chip_smoke.check_fused_mlp_bwd`` draws them, at toy width."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    c, f = K3_C, K3_F
+    dy, x = r(K3_R, c), r(K3_R, c)
+    ln_s, ln_b = 1 + 0.1 * r(c), 0.1 * r(c)
+    wfc, bfc = r(c, f) * c ** -0.5, 0.1 * r(f)
+    wproj = r(f, c) * f ** -0.5
+    return dy, x, ln_s, ln_b, wfc, bfc, wproj
+
+
+def k3_chain(dy, x, ln_s, ln_b, wfc, bfc, wproj, matmul, eps: float = 1e-5):
+    """dx of the fused residual MLP as K3's float32 body computes it, with
+    its three products (u . Wfc, dy . Wproj^T, dh . Wfc^T) taken by
+    ``matmul`` and everything else in float32 as ``fused_mlp_bwd_ref``: the
+    LayerNorm statistics, the QuickGELU derivative and the LayerNorm
+    backward stay off the tensor cores."""
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + eps)
+    xhat = (x - mean) * rstd
+    h = matmul(xhat * ln_s + ln_b, wfc) + bfc
+    sig = torch.sigmoid(1.702 * h)
+    dh = matmul(dy, wproj.T.contiguous()) * (sig * (1.0 + 1.702 * h * (1.0 - sig)))
+    dxhat = matmul(dh, wfc.T.contiguous()) * ln_s
+    mdx, mdxx = dxhat.mean(-1, keepdim=True), (dxhat * xhat).mean(-1, keepdim=True)
+    return (dxhat - mdx - xhat * mdxx) * rstd + dy
+
+
+def test_k3_chain_is_the_plain_backward():
+    """With plain float32 products the chain is the port's plain backward,
+    so the tests below hold the kernel's design, not another function."""
+    from pevit_tpu_torch.ops.fused_mlp import fused_mlp_bwd_ref
+
+    args = k3_operands(0)
+    torch.testing.assert_close(k3_chain(*args, torch.matmul), fused_mlp_bwd_ref(*args),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3_chain_stays_float32_class(seed):
+    """K3's chain with every product as three TF32 products a k-step, each
+    k-step added once, rounded: within 4x the plain float32 backward's max
+    error and bias against float64, as ``chip_smoke.fp32_class`` holds the
+    kernel on the card; one TF32 product a k-step (the TF32 control)
+    exceeds the error bound, and the same chain with each k-step's add
+    truncated toward zero exceeds the bias bound."""
+    from pevit_tpu_torch.ops.fused_mlp import fused_mlp_bwd_ref
+
+    args = k3_operands(seed)
+    exact = k3_chain(*(t.double() for t in args), torch.matmul)
+    err = lambda got: (got.double() - exact).abs().max().item()
+    plain = fused_mlp_bwd_ref(*args)
+    bound = FP32_CLASS_FACTOR * err(plain)
+    bias_bound = max(FP32_CLASS_FACTOR * abs(bias(plain, exact)), FP32_HALF_ULP)
+    got = k3_chain(*args, tf32x3_matmul)
+    assert 0.0 < err(got) <= bound, (seed, err(got), bound)
+    assert abs(bias(got, exact)) <= bias_bound, (seed, bias(got, exact), bias_bound)
+    control = k3_chain(*args, tf32_matmul)
+    assert err(control) > bound, (seed, err(control), bound)
+    truncated = k3_chain(*args, lambda a, b: tf32x3_matmul(a, b, truncate=True))
+    assert bias(truncated, exact) < -bias_bound, (seed, bias(truncated, exact), bias_bound)
+
+
+REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "pevit_tpu_torch" / "ops" / "csrc"
+
+
+def load_tool(name: str):
+    """A script of ``tools/`` (not a package) as a module."""
+    spec = importlib.util.spec_from_file_location(name, REPO / "tools" / f"{name}.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("variant", ["bigfirst", "rz", "chain", "k1_pairs", "k3_pairs"])
+def test_every_fp32_mutant_still_edits_the_sources(variant):
+    """``tools/fp32_check_mutants.py`` builds each broken float32 body by
+    replacing text in a copy of the kernel sources; each text it replaces
+    must stand exactly once in the sources as they are, or the variant
+    would not be the body it names."""
+    tool = load_tool("fp32_check_mutants")
+    assert sorted(tool.VARIANTS) == sorted(["bigfirst", "rz", "chain", "k1_pairs", "k3_pairs"])
+    kernels, edits = tool.VARIANTS[variant]
+    assert edits and set(kernels) <= set(tool.ALL)
+    for name, old, new in edits:
+        assert (CSRC / name).read_text().count(old) == 1, (variant, name, old)
+        assert old != new
+
+
+@pytest.mark.parametrize("variant", ["du_wide", "dh_wide", "no_unroll"])
+def test_every_k3_variant_still_edits_the_source(variant):
+    """``tools/k3_fp32_variants.py`` times K3's float32 body against
+    variants it makes by replacing text in a copy of the sources; each text
+    must stand exactly once in the source as it is."""
+    tool = load_tool("k3_fp32_variants")
+    assert sorted(tool.VARIANTS) == sorted(["shipped", "du_wide", "dh_wide", "no_unroll"])
+    for name, old, new in tool.VARIANTS[variant]:
+        assert (CSRC / name).read_text().count(old) == 1, (variant, name, old)
+        assert old != new

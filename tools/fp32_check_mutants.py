@@ -4,29 +4,32 @@ on one CUDA card.
 
     python3 tools/fp32_check_mutants.py
 
-K1's and K2's float32 bodies sum three TF32 products a k-step of 8 on the
-tensor cores, from zero, and add that partial sum to a float32 accumulator
-once, rounded (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``).  The tensor core
-truncates as it accumulates, so every variant below that lets more of the
-sum run on the tensor core, or truncates the add, leaves its results biased
-toward zero.  For the shipped sources and for each variant, built from a
-copy of the sources in a temporary directory (the checkout is not
-touched), it runs phase 3's float32 rows through ``chip_smoke``'s own
-checks (``check_attention``: N = 50, 197, 257 at batch 256 and N = 197 at
-batch 64; ``check_fused_mlp``: C = 768 and 1024 at R = 12800) and prints
-one JSON line a row: passed, or the check that refused it, with
+The float32 bodies of K1, K2 and K3 sum three TF32 products a k-step of 8
+on the tensor cores, from zero, and add that partial sum to a float32
+accumulator once, rounded (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``).  The
+tensor core truncates as it accumulates, so every variant below that lets
+more of the sum run on the tensor core, or truncates the add, leaves its
+results biased toward zero.  For the shipped sources and for each variant,
+built from a copy of the sources in a temporary directory (the checkout is
+not touched), it runs phase 3's and 3b's float32 rows through
+``chip_smoke``'s own checks (``check_attention``: N = 50, 197, 257 at batch
+256 and N = 197 at batch 64; ``check_fused_mlp``: C = 768 and 1024 at
+R = 12800; ``check_fused_mlp_bwd``: C = 768 and 1024 at R = 6400) and
+prints one JSON line a row: passed, or the check that refused it, with
 ``fp32_class``'s readings.  Variants:
 
 * ``bigfirst``: the k-step's hi·hi product first, the small ones added to it;
 * ``rz``: the partial sum added to the accumulator rounding toward zero;
 * ``chain``: every product accumulated on the tensor core, no rounded add;
 * ``k1_pairs``: K1's k-steps two to a chain (six products) before the add;
-* ``k2_pairs``: the same in K2's GEMM core (``tf32x3_gemm.cuh``).
+* ``k3_pairs``: the same in the GEMM core that K2 and K3 share
+  (``tf32x3_gemm.cuh``).
 
-A last line gives, for each variant, whether some row of the kernel it
-changes was refused.  It exits non-zero if the shipped bodies fail a row
-or a variant does not build.  The card's name and power limit are printed
-first.  It needs a CUDA card and exits non-zero without one.
+A last line gives, for each variant and each kernel it changes, whether
+some row of that kernel was refused.  It exits non-zero if the shipped
+bodies fail a row or a variant does not build.  The card's name and power
+limit are printed first.  It needs a CUDA card and exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -47,16 +50,17 @@ _SPLIT = ("  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
           "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n")
 _ADD = "  for (int i = 0; i < 4; ++i) acc[i] += d[i];\n"
 
-# variant: (the kernel it changes, [(file, old text, new text), ...])
+ALL = ("attention_fwd", "fused_mlp_fwd", "fused_mlp_bwd")
+# variant: (the kernels it changes, [(file, old text, new text), ...])
 VARIANTS = {
-    "bigfirst": ("both", [("tf32x3.cuh", _SPLIT,
-                           "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n"
-                           "  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
-                           "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n")]),
-    "rz": ("both", [("tf32x3.cuh", _ADD,
-                     "  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rz(acc[i], d[i]);\n")]),
-    "chain": ("both", [("tf32x3.cuh", _SPLIT, _SPLIT.replace("(d, ", "(acc, "))]),
-    "k1_pairs": ("attention_fwd", [
+    "bigfirst": (ALL, [("tf32x3.cuh", _SPLIT,
+                        "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n"
+                        "  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
+                        "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n")]),
+    "rz": (ALL, [("tf32x3.cuh", _ADD,
+                  "  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rz(acc[i], d[i]);\n")]),
+    "chain": (ALL, [("tf32x3.cuh", _SPLIT, _SPLIT.replace("(d, ", "(acc, "))]),
+    "k1_pairs": (("attention_fwd",), [
         ("attention_fwd.cu",
          "void pv_step(float (&o)[HD / 8][4], const float (&p)[4],\n"
          "                                        const float* vr) {\n",
@@ -83,10 +87,10 @@ VARIANTS = {
          "        mma_tf32(pd, q_hi[kk], b_hi[0], b_hi[1]);\n"
          "        if (kk & 1) for (int i = 0; i < 4; ++i) s[j][i] += pd[i];\n"),
     ]),
-    "k2_pairs": ("fused_mlp_fwd", [
+    "k3_pairs": (("fused_mlp_fwd", "fused_mlp_bwd"), [
         ("tf32x3_gemm.cuh", "      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;\n",
          "      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;\n"
-         "  float dd[X3_MT][X3_NT][4];\n"),
+         "  float dd[X3_MT][NT][4];\n"),
         ("tf32x3_gemm.cuh",
          "          mma_tf32x3(acc[mi][ni], a_hi[mi], a_lo[mi], b_hi, b_lo);\n",
          "        {\n"
@@ -133,6 +137,8 @@ def rows() -> int:
     cases.append(("attention_fwd", lambda: cs.check_attention(gen, torch.float32, 197, 64)))
     cases += [("fused_mlp_fwd", lambda c=c: cs.check_fused_mlp(gen, torch.float32, c, 12800))
               for c in (768, 1024)]
+    cases += [("fused_mlp_bwd", lambda c=c: cs.check_fused_mlp_bwd(gen, torch.float32, c, 6400))
+              for c in (768, 1024)]
     keys = ("shape", "max_abs_err", "err_f64", "plain_err_f64", "tf32_err_f64", "bias_f64",
             "plain_bias_f64", "tf32_bias_f64")
     for kernel, case in cases:
@@ -164,7 +170,7 @@ def main() -> int:
                                  cwd=tmp, capture_output=True, text=True)
         got = [json.loads(line[4:]) for line in run.stdout.splitlines()
                if line.startswith("ROW ")]
-        if run.returncode != 0 or len(got) != 6:
+        if run.returncode != 0 or len(got) != 8:
             print(f"{variant}: failed (rc {run.returncode})\n{run.stderr[-4000:]}", flush=True)
             ok = False
             continue
@@ -173,9 +179,8 @@ def main() -> int:
         if variant == "shipped":
             ok &= all(r["passed"] for r in got)
         else:
-            changed = VARIANTS[variant][0]
-            caught[variant] = any(not r["passed"] for r in got
-                                  if changed in ("both", r["kernel"]))
+            caught[variant] = {k: any(not r["passed"] for r in got if r["kernel"] == k)
+                               for k in VARIANTS[variant][0]}
     print(json.dumps({"shipped_passed": ok, "caught": caught}), flush=True)
     return 0 if ok else 1
 
