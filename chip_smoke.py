@@ -175,9 +175,35 @@ on):
    (K1 only: its MLP weights train, so K2 is off); an OpenAI-layout RN50
    written from a seeded CLIP with live BatchNorm statistics, loaded bit
    for bit, ``zeroshot`` and ``linear_probe`` on it with no kernel launch
-   (the attention pool is plain); each kernel held against its plain
-   version at every batch each path gave it;
-11. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 10,
+   (the attention pool is plain); a seeded CLIP-Swin-T checkpoint in the
+   reference's layout loaded by ``get_model`` from ``clip_swin_tiny.yaml``
+   bit for bit, a 64-image fp32 forward of it and of a ``cls_swin_tiny``
+   classifier (features within 1e-4 of a CPU copy's on 8 images, feature
+   images/s), ``linear_probe`` on it with the text head (text features
+   card vs CPU within 1e-4), ``finetune`` on it (VISION.DROP_PATH_RATE
+   0.1, which CLIP-Swin does not consume, as in the reference) and on
+   ``cls_swin_tiny`` with DROP_PATH_RATE 0.1 (every train step through the
+   stochastic forward): no Swin path launches a kernel (window attention
+   and the MLP are plain, as in the reference); each kernel held against
+   its plain version at every batch each path gave it;
+11. streaming, a train split in host memory (``train/streaming.py``):
+   (a) 650 train and 160 val images of phase 4's prototypes, fp32, dropout
+   0, ``TPU.MAX_DEVICE_DATA_GB`` below the split, 2 trials x 2 epochs
+   through ``train_trials``, against the preloaded path handed the streamed
+   orders: every epoch's val logits within 1e-5 of the largest (the gap
+   printed), exact launches, the split's bytes crossing once an epoch for
+   both trials; (b) 28,000 images (4.21 GB) at the default 4.0 GB limit,
+   bf16, batch 128, one trial after a warm-up: exact launches, the split's
+   bytes once, the card's peak allocation during the epoch below the
+   split's size, streamed train images/s beside the preloaded path's on
+   the same split held on the card, and each one's device idle share from
+   a CUDA-only ``torch.profiler`` trace of a further epoch; (c)
+   ``kronecker_adaptation_clip`` with phase 6's flags and ``--no-tuning
+   True``, the train and test splits in host memory and the val split on
+   the card, so the final run merges train and val on the host and
+   streams: the artifacts' schema and exact launches; each kernel held
+   against its plain version at every batch each path gave it;
+12. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 11,
    summed and by path (each path's counts are zeroed just before it and read
    just after; phase 9's and the exported MAE probe's are the fresh
    process's, reported by it), the other numbers at the batch that launched
@@ -2395,6 +2421,175 @@ def aux_rn50(kernels, card: str, tmp: Path, rng) -> tuple:
     return paths
 
 
+def write_clip_swin_checkpoint(path: Path) -> dict:
+    """A CLIP-Swin-T state dict in the reference's layout (clip_swin.py:
+    153-260: the official Swin keys under ``visual.``, CLIP's text tower
+    under ``text.``, the bare projections and ``logit_scale``) from seeded
+    tensors (N(0, 0.02), LayerNorms near the identity), at
+    ``clip_swin_tiny.yaml``'s widths, saved with ``torch.save``.  Returns
+    the reference tree that it must load as."""
+    from pevit_tpu_torch.models.swin import clip_swin_state_dict_to_params, swin_tiny
+
+    rng = np.random.default_rng(AUX_SEED)
+    r = lambda *s, std=0.02: (rng.standard_normal(s, dtype=np.float32) * std)
+    ln = lambda pre, n: {f"{pre}.weight": 1 + r(n, std=0.1), f"{pre}.bias": r(n)}
+    spec, tw = swin_tiny(), 512
+    sd = {"visual.patch_embed.proj.weight": r(96, 3, 4, 4), "visual.patch_embed.proj.bias": r(96),
+          **ln("visual.patch_embed.norm", 96), **ln("visual.norm", 768)}
+    for i, (depth, heads) in enumerate(zip(spec.depths, spec.num_heads)):
+        dim, win = spec.stage_dim(i), spec.stage_window(i)
+        for b in range(depth):
+            pre = f"visual.layers.{i}.blocks.{b}"
+            sd.update({**ln(f"{pre}.norm1", dim), **ln(f"{pre}.norm2", dim),
+                       f"{pre}.attn.qkv.weight": r(3 * dim, dim), f"{pre}.attn.qkv.bias": r(3 * dim),
+                       f"{pre}.attn.proj.weight": r(dim, dim), f"{pre}.attn.proj.bias": r(dim),
+                       f"{pre}.attn.relative_position_bias_table": r((2 * win - 1) ** 2, heads),
+                       f"{pre}.attn.relative_position_index": np.zeros((win * win,) * 2, np.int64),
+                       f"{pre}.mlp.fc1.weight": r(4 * dim, dim), f"{pre}.mlp.fc1.bias": r(4 * dim),
+                       f"{pre}.mlp.fc2.weight": r(dim, 4 * dim), f"{pre}.mlp.fc2.bias": r(dim)})
+        if i < spec.num_stages - 1:
+            sd.update({**ln(f"visual.layers.{i}.downsample.norm", 4 * dim),
+                       f"visual.layers.{i}.downsample.reduction.weight": r(2 * dim, 4 * dim)})
+    sd.update({"text.token_embedding.weight": r(49408, tw), "text.positional_embedding":
+               r(77, tw, std=0.01), **ln("text.ln_final", tw), "text_projection": r(tw, 512),
+               "vision_projection": r(768, 512), "logit_scale": np.float32(4.6052)})
+    for i in range(12):
+        pre = f"text.resblocks.{i}"
+        sd.update({**ln(f"{pre}.ln_1", tw), **ln(f"{pre}.ln_2", tw),
+                   f"{pre}.attn.in_proj_weight": r(3 * tw, tw), f"{pre}.attn.in_proj_bias": r(3 * tw),
+                   f"{pre}.attn.out_proj.weight": r(tw, tw), f"{pre}.attn.out_proj.bias": r(tw),
+                   f"{pre}.mlp.c_fc.weight": r(4 * tw, tw), f"{pre}.mlp.c_fc.bias": r(4 * tw),
+                   f"{pre}.mlp.c_proj.weight": r(tw, 4 * tw), f"{pre}.mlp.c_proj.bias": r(tw)})
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}, path)
+    return clip_swin_state_dict_to_params(sd)[0]
+
+
+def swin_forward_check(kernels, backbone, rng) -> tuple:
+    """One fp32 forward of a Swin backbone at AUX_BATCH, 224 px: no kernel
+    launch (window attention and the MLP are plain, as in the reference),
+    features finite and, on 8 images, within 1e-4 of a CPU copy's (TF32
+    off), and feature images/s (median of 5 CUDA-event timings)."""
+    x = torch.from_numpy(rng.standard_normal((AUX_BATCH, 224, 224, 3)).astype(np.float32)).cuda()
+    fwd = lambda: backbone.forward_features(backbone.params, x)
+    with torch.no_grad():
+        reset_launches(kernels)
+        feats = fwd()
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        ms = time_ms(fwd, reps=5)
+        cpu = copy.deepcopy(backbone.params).cpu()
+        want = backbone.forward_features(cpu, x[:8].cpu())
+    err, scale = (feats[:8].cpu() - want).abs().max().item(), want.abs().max().item()
+    if any(launches.values()) or feats.shape != (AUX_BATCH, backbone.feat_dim) \
+            or not torch.isfinite(feats).all() or err > 1e-4 * scale:
+        raise AssertionError(f"{backbone.name} forward: launches {launches}, "
+                             f"{tuple(feats.shape)}, card vs CPU {err} > 1e-4 * {scale}")
+    return ({"feat_dim": backbone.feat_dim, "launches": launches,
+             "max_abs_err_card_vs_cpu": err, "max_abs": scale, "ms": ms,
+             "feature_images_per_s": AUX_BATCH / ms * 1e3},
+            {"train": {}, "evals": {}, "layers": 0, "fused_mlp": False, "fused_mlp_bwd": False})
+
+
+@contextlib.contextmanager
+def stochastic_forwards():
+    """A list that gets one entry for each call of a backbone's train-mode
+    forward (``forward_features_train``) by the tasks made inside the block."""
+    from pevit_tpu_torch.train import TrainTask
+
+    calls, init = [], TrainTask.__init__
+
+    def spy(self, *a, **k):
+        backbone = k.get("backbone")
+        if backbone is not None and backbone.forward_features_train is not None:
+            fwd = backbone.forward_features_train
+
+            def counted(p, x, generator):
+                calls.append(generator is not None)
+                return fwd(p, x, generator)
+
+            backbone.forward_features_train = counted
+        init(self, *a, **k)
+
+    TrainTask.__init__ = spy
+    try:
+        yield calls
+    finally:
+        TrainTask.__init__ = init
+
+
+def aux_swin(kernels, card: str, tmp: Path, rng) -> tuple:
+    """10d: a CLIP-Swin-T checkpoint in the reference's layout loaded by
+    ``get_model`` bit for bit; one fp32 forward each of ``clip_swin_tiny``
+    and a ``cls_swin_tiny`` classifier (card vs CPU); ``linear_probe`` on
+    ``clip_swin_tiny`` with the text-initialised head (text features on the
+    card against a CPU copy); ``finetune`` on it with VISION.DROP_PATH_RATE
+    0.1 (which CLIP-Swin does not consume, as in the reference) and on
+    ``cls_swin_tiny`` with DROP_PATH_RATE 0.1, whose train steps take the
+    stochastic forward.  No path launches a kernel."""
+    from pevit_tpu_torch.commands import finetune, linear_probe
+    from pevit_tpu_torch.commands._common import backbone_text_features
+    from pevit_tpu_torch.models import get_model
+
+    out, paths = {}, {}
+    ckpt = tmp / "clip_swin_tiny.pt"
+    t0 = time.perf_counter()
+    tree = write_clip_swin_checkpoint(ckpt)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clip_swin = get_model(aux_config("clip_swin_tiny.yaml", "TEST.MODEL_FILE", str(ckpt)),
+                          device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same_tree(clip_swin.params, tree, "get_model from a CLIP-Swin checkpoint")
+    out["clip_swin_checkpoint"] = {"write_s": write_s, "load_s": load_s,
+                                   "file_bytes": ckpt.stat().st_size}
+    out["clip_swin_tiny"], paths["aux_forward_clip_swin"] = swin_forward_check(
+        kernels, clip_swin, rng)
+    del clip_swin
+    cls_yaml = tmp / "cls_swin_tiny.yaml"
+    cls_yaml.write_text("MODEL:\n  NAME: cls_swin_tiny\n  SPEC:\n    DROP_PATH_RATE: 0.1\n")
+    cls_swin = get_model(aux_config(str(cls_yaml)), device="cuda")
+    if cls_swin.feat_dim != 768 or cls_swin.forward_features_train is None:
+        raise AssertionError(f"cls_swin_tiny: feat_dim {cls_swin.feat_dim}, no train forward")
+    out["cls_swin_tiny"], paths["aux_forward_cls_swin"] = swin_forward_check(kernels, cls_swin,
+                                                                             rng)
+    del cls_swin
+
+    no_kernel = lambda t, d: aux_batches(t, d, 0, fused_mlp=False, layers=0)
+    probe, task, _, config, paths["aux_clip_swin_probe"] = run_aux_command(
+        kernels, linear_probe, aux_argv(tmp / "swin_probe", "clip_swin_tiny.yaml", "--lr", "0.01",
+                                        "--l2", "0.0001", "TEST.MODEL_FILE", str(ckpt),
+                                        "TRAIN.INIT_HEAD_WITH_TEXT_ENCODER", "True"), no_kernel)
+    card_w = task.text_init_weights
+    cpu = dataclasses.replace(task.backbone, params=copy.deepcopy(task.backbone.params).cpu())
+    cpu_w = backbone_text_features(config, cpu)
+    err, scale = float(np.abs(card_w - cpu_w).max()), float(np.abs(cpu_w).max())
+    if card_w.shape != (512, 10) or err > 1e-4 * scale:
+        raise AssertionError(f"CLIP-Swin text head {card_w.shape}: card vs CPU {err} > 1e-4 * "
+                             f"{scale}")
+    probe["text_head_card_vs_cpu"] = {"max_abs_err": err, "max_abs": scale}
+    out["clip_swin_linear_probe"] = probe
+    del task, cpu
+
+    ft_yaml = tmp / "clip_swin_tiny_dp.yaml"
+    text = (REPO / "resources/model/clip_swin_tiny.yaml").read_text()
+    ft_yaml.write_text(text.replace("DROP_PATH_RATE: 0.0", "DROP_PATH_RATE: 0.1"))
+    for name, yaml, options in (("clip_swin_finetune", ft_yaml, ("TEST.MODEL_FILE", str(ckpt))),
+                                ("cls_swin_finetune", cls_yaml, ())):
+        with stochastic_forwards() as calls:
+            ft, *_, paths[f"aux_{name}"] = run_aux_command(
+                kernels, finetune, aux_argv(tmp / name, str(yaml), "--lr", "1e-5", "--l2",
+                                            "0.0001", *options), no_kernel)
+        steps = sum(paths[f"aux_{name}"]["train"].values())
+        ft["stochastic_train_forwards"] = len(calls)
+        if len(calls) != (steps if name == "cls_swin_finetune" else 0) or not all(calls):
+            raise AssertionError(f"{name}: {len(calls)} stochastic forwards for {steps} steps")
+        out[name] = ft
+    for name, summary in out.items():
+        print(f"aux swin {name}: {json.dumps(summary)} [{card}]", flush=True)
+    return paths
+
+
 def run_aux_backbones(kernels, gen, card: str) -> tuple:
     """Phase 10; returns the launches and kernel rows of its paths."""
     launches, table = {}, {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
@@ -2405,7 +2600,8 @@ def run_aux_backbones(kernels, gen, card: str) -> tuple:
         paths = {}
         for name, fn in (("vit", lambda: aux_vit(kernels, gen, card, tmp, rng)),
                          ("declip", lambda: aux_declip(kernels, gen, card, tmp, rng)),
-                         ("rn50", lambda: aux_rn50(kernels, card, tmp, rng))):
+                         ("rn50", lambda: aux_rn50(kernels, card, tmp, rng)),
+                         ("swin", lambda: aux_swin(kernels, card, tmp, rng))):
             t0 = time.perf_counter()
             paths.update(fn())
             steps[name] = time.perf_counter() - t0
@@ -2421,6 +2617,318 @@ def run_aux_backbones(kernels, gen, card: str) -> tuple:
                 print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
     steps["kernel_rows"] = time.perf_counter() - t0
     print(f"phase 10 seconds by step: {json.dumps(steps)}", flush=True)
+    return launches, table, time.perf_counter() - t_phase
+
+
+# ---------------------------------------------------------------------------
+# 11. streaming: a train split in host memory
+# ---------------------------------------------------------------------------
+
+STREAM_SEED = 5
+# (a) right: 650 train (5 steps of 128 and a tail of 10) and 160 val images
+# (chunks of 64, 64, 32), fp32, 2 trials x 2 epochs, against the preloaded
+# path handed the streamed orders
+STREAM_RIGHT = (650, 160, [(1e-3, 1e-4), (3e-4, 1e-2)], 2)
+# (b) full size: 28,000 images = 4.21 GB at the default 4.0 GB limit, bf16
+# batch 128 (218 steps of 128 and a tail of 96), a 64-image val split
+STREAM_FULL, STREAM_VAL = 28_000, 64
+
+
+@contextlib.contextmanager
+def spied_runners():
+    """The ``StreamingEpochRunner`` objects made inside the block."""
+    from pevit_tpu_torch.train import streaming
+
+    made, init = [], streaming.StreamingEpochRunner.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    streaming.StreamingEpochRunner.__init__ = spy
+    try:
+        yield made
+    finally:
+        streaming.StreamingEpochRunner.__init__ = init
+
+
+def set_device_limit(task, gb: float) -> None:
+    task.config.defrost()
+    task.config.TPU.MAX_DEVICE_DATA_GB = gb
+    task.config.freeze()
+
+
+def noisy_split(prototypes, n: int, rng) -> tuple:
+    """``n`` noisy copies of the prototypes, labelled with their class."""
+    labels = (np.arange(n) % len(prototypes)).astype(np.int32)
+    noise = rng.integers(-8, 9, (n,) + prototypes.shape[1:], dtype=np.int16)
+    return np.clip(prototypes[labels].astype(np.int16) + noise, 0, 255).astype(np.uint8), labels
+
+
+def stream_batches(n_train: int, n_val: int, batch: int, chunk: int, runs: int, dtype: str,
+                   fused_mlp_bwd: bool = True) -> dict:
+    """A streamed run's batches (``runs`` = trials x epochs): full batches
+    and a natural tail (one of a single image skipped), eval chunks and a
+    natural remainder."""
+    train, evals = collections.Counter(), collections.Counter()
+    train[batch] += runs * (n_train // batch)
+    if n_train % batch > 1:
+        train[n_train % batch] += runs
+    evals[chunk] += runs * (n_val // chunk)
+    if n_val % chunk:
+        evals[n_val % chunk] += runs
+    return {"dtype": dtype, "train": +train, "evals": +evals, "layers": 12, "width": 768,
+            "tokens": 50, "fused_mlp": True, "fused_mlp_bwd": fused_mlp_bwd}
+
+
+def stream_right(kernels, clip, prototypes, rng) -> tuple:
+    """11a: the streamed run of 2 trials against the preloaded path given
+    the same orders, fp32 and dropout 0: every epoch's val logits, exact
+    launches, and the split's bytes crossing once an epoch for both trials."""
+    import pevit_tpu_torch.train.trainer as trainer
+    from pevit_tpu_torch.train import combine
+    from pevit_tpu_torch.train.streaming import epoch_order
+
+    n_train, n_val, hparams, epochs = STREAM_RIGHT
+    images, labels = noisy_split(prototypes, n_train, rng)
+    val, val_labels = noisy_split(prototypes, n_val, rng)
+    task = make_task(clip, "float32", 0.0)
+    set_device_limit(task, 0.5 * images.nbytes / 1e9)
+    seen, softmax = [], trainer._softmax
+    trainer._softmax = lambda z: (seen.append(z), softmax(z))[1]
+    try:
+        with spied_runners() as runners:
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            res = task.train_trials(hparams, images, labels, val, val_labels, end_epoch=epochs,
+                                    seed=STREAM_SEED, keep_logits=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches(kernels)
+    finally:
+        trainer._softmax = softmax
+    (runner,) = runners
+    batches = stream_batches(n_train, n_val, TRAIN_BATCH, task.eval_chunk,
+                             len(hparams) * epochs, "float32")
+    if launches != expected_launches(batches):
+        raise AssertionError(f"streamed run launches {launches}, want "
+                             f"{expected_launches(batches)}")
+    steps = sum(batches["train"].values()) // len(hparams)
+    if runner.batches != steps or runner.h2d_bytes != epochs * images.nbytes:
+        raise AssertionError(f"streamed run gathered {runner.batches} batches ({steps} a trial) "
+                             f"and moved {runner.h2d_bytes} bytes, want {epochs} x "
+                             f"{images.nbytes}")
+    # the preloaded twin of each trial, handed the streamed orders
+    fit_eval = task._fit_eval_fn(n_train, epochs, n_val)
+    orders = [epoch_order(n_train, STREAM_SEED * 1000 + e) for e in range(epochs)]
+    dev_images, dev_labels = task.prepack(images), task._labels(labels)
+    dev_val = task.prepack(val)
+    gaps = []
+    for t, (lr, wd) in enumerate(hparams):
+        trainable, frozen, state = task._init_trial(STREAM_SEED, t)
+        _, logits = fit_eval(combine(trainable, frozen), dev_images, dev_labels, dev_val, state,
+                             [lr] * epochs, wd, orders=orders)
+        for e in range(epochs):
+            want = logits[e].cpu().numpy()
+            got = seen[e * len(hparams) + t]
+            gap, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            if got.shape != want.shape or not gap <= 1e-5 * scale:
+                raise AssertionError(f"trial {t} epoch {e}: streamed vs preloaded val logits "
+                                     f"{gap} > 1e-5 * {scale}")
+            gaps.append({"trial": t, "epoch": e, "max_abs_gap": gap, "max_abs_logit": scale})
+    if not all(np.isfinite(r["best_logits"]).all() for r in res):
+        raise AssertionError("non-finite streamed run")
+    return ({"train_images": n_train, "val_images": n_val, "trials": len(hparams),
+             "epochs": epochs, "launches": launches, "h2d_bytes": runner.h2d_bytes,
+             "split_bytes": images.nbytes, "batches_gathered": runner.batches,
+             "logit_gaps": gaps, "best_scores": [r["best_score"] for r in res],
+             "seconds": seconds}, batches)
+
+
+def device_busy_ms(fn) -> tuple:
+    """(wall ms, device-busy ms) of ``fn`` under a CUDA-only profiler trace:
+    the union of the card's kernel and copy intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the raw events: an epoch holds ~10^5 kernels, too many to parse into
+    # the profiler's function events in the time limit
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    total, (lo, hi) = 0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            total, lo, hi = total + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return wall, (total + hi - lo) / 1e6
+
+
+def stream_full(kernels, clip, prototypes, rng, card: str) -> tuple:
+    """11b: a 4.21 GB bf16 split streams by the default rule: epochs of one
+    trial (after a warm-up) beside the preloaded path on the same split
+    held on the card, streamed, preloaded, preloaded, streamed; exact
+    launches, the split's bytes once and the card's peak allocation in the
+    first; the device idle share of a further streamed and preloaded
+    epoch."""
+    block, block_labels = noisy_split(prototypes, 1000, rng)
+    reps = STREAM_FULL // len(block)
+    images, labels = np.tile(block, (reps, 1, 1, 1)), np.tile(block_labels, reps)
+    val, val_labels = noisy_split(prototypes, STREAM_VAL, rng)
+    task = make_task(clip, "bfloat16", 0.5)
+    hp = [(TRAIN_LR, TRAIN_WD)]
+    limit = float(task.config.TPU.MAX_DEVICE_DATA_GB)
+    if limit != 4.0 or images.nbytes <= limit * 1e9:
+        raise AssertionError(f"{images.nbytes} bytes against a {limit} GB limit: not streamed")
+    # warm-up: a 10-step streamed epoch
+    set_device_limit(task, 1e-3)
+    task.train_trials(hp, images[:10 * TRAIN_BATCH], labels[:10 * TRAIN_BATCH], val,
+                      val_labels, end_epoch=1)
+    set_device_limit(task, limit)
+    torch.cuda.synchronize()
+
+    def streamed():
+        return task.train_trials(hp, images, labels, val, val_labels, end_epoch=1)
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with spied_runners() as runners:
+        reset_launches(kernels)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s_seconds = [timed(streamed)]
+        launches = read_launches(kernels)
+        peak = torch.cuda.max_memory_allocated() - base
+    (runner,) = runners
+    batches = stream_batches(STREAM_FULL, STREAM_VAL, TRAIN_BATCH, task.eval_chunk, 1,
+                             "bfloat16")
+    if launches != expected_launches(batches):
+        raise AssertionError(f"streamed epoch launches {launches}, want "
+                             f"{expected_launches(batches)}")
+    if runner.h2d_bytes != images.nbytes or peak >= images.nbytes:
+        raise AssertionError(f"streamed epoch moved {runner.h2d_bytes} of {images.nbytes} bytes, "
+                             f"peak card allocation {peak}")
+    loss = task.last_state.loss.item()
+    if not np.isfinite(loss):
+        raise AssertionError("non-finite streamed epoch")
+
+    t0 = time.perf_counter()
+    dev_images, dev_labels = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+
+    def preloaded():
+        return task.train_trials(hp, dev_images, dev_labels, val, val_labels, end_epoch=1)
+
+    # streamed, preloaded, preloaded, streamed: a host-bound epoch's time
+    # moves by up to a quarter between runs, so each side's mean of two is
+    # compared
+    p_seconds = [timed(preloaded), timed(preloaded)]
+    s_seconds.append(timed(streamed))
+    s_wall, s_busy = device_busy_ms(streamed)
+    p_wall, p_busy = device_busy_ms(preloaded)
+    del dev_images, dev_labels
+    s_mean, p_mean = float(np.mean(s_seconds)), float(np.mean(p_seconds))
+    out = {"images": STREAM_FULL, "split_gb": images.nbytes / 1e9, "limit_gb": limit,
+           "launches": launches, "h2d_bytes": runner.h2d_bytes, "peak_card_bytes": peak,
+           "streamed_images_per_s": STREAM_FULL / s_mean,
+           "preloaded_images_per_s": STREAM_FULL / p_mean,
+           "streamed_over_preloaded": p_mean / s_mean,
+           "streamed_seconds": s_seconds, "preloaded_seconds": p_seconds,
+           "split_to_card_s": h2d_s, "last_loss": loss,
+           "profiled": {"streamed": {"wall_ms": s_wall, "device_busy_ms": s_busy,
+                                     "device_idle_share": 1 - s_busy / s_wall},
+                        "preloaded": {"wall_ms": p_wall, "device_busy_ms": p_busy,
+                                      "device_idle_share": 1 - p_busy / p_wall}}}
+    return out, batches
+
+
+def stream_command(kernels, tmp: Path) -> tuple:
+    """11c: ``kronecker_adaptation_clip`` with phase 6's flags and
+    ``--no-tuning True``, the train split (and the test split) in host
+    memory and the val split on the card: the final run merges them on the
+    host and streams; the artifacts' schema and exact launches."""
+    from pevit_tpu_torch.commands import kronecker_adaptation_clip
+    from pevit_tpu_torch.train import TrainTask
+
+    # 40 train images (6.0 MB) and 160 test images stay on the host, the
+    # 10 val images (1.5 MB) go to the card
+    argv = command_argv(tmp, "True", "0.001", "0.0001") + ["TPU.MAX_DEVICE_DATA_GB", "0.003"]
+    kinds, train_trials = [], TrainTask.train_trials
+
+    def spy(self, hp, tx, ty, vx, vy, **kw):
+        kinds.append((type(tx).__name__, type(vx).__name__))
+        return train_trials(self, hp, tx, ty, vx, vy, **kw)
+
+    times = {}
+    TrainTask.train_trials = spy
+    try:
+        with spied_runners() as runners:
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            with timed_command(times):
+                best, info = kronecker_adaptation_clip.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches(kernels)
+    finally:
+        TrainTask.train_trials = train_trials
+    (task, data, config), _ = times["run_method_call"]
+    host = [isinstance(d, np.ndarray) for d in data]
+    if host != [True, True, False, False, True, True] or kinds != [("ndarray", "ndarray")]:
+        raise AssertionError(f"splits on the host {host}; the final run was handed {kinds}")
+    check_command_artifacts(tmp)
+    batches = path_batches(task, data, trials=0)
+    if launches != expected_launches(batches) or len(runners) != 1:
+        raise AssertionError(f"streamed command launches {launches}, want "
+                             f"{expected_launches(batches)}; runners {len(runners)}")
+    close_command_logs()
+    epochs = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
+    return ({"best_acc": best, "n_trainable_params": info["n_trainable_params"],
+             "final_run_handed": kinds[0], "launches": launches, "epochs": epochs,
+             "h2d_bytes": runners[0].h2d_bytes, "train_step_images": dict(batches["train"]),
+             "eval_chunk_images": dict(batches["evals"]),
+             "seconds": {"command": seconds, "run_method": times["run_method"]}}, batches)
+
+
+def run_streaming(kernels, gen, card: str, clip, prototypes) -> tuple:
+    """Phase 11; returns the launches and kernel rows of its paths."""
+    launches, table = {}, {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    rng = np.random.default_rng(STREAM_SEED)
+    t_phase, steps, paths = time.perf_counter(), {}, {}
+    t0 = time.perf_counter()
+    out, paths["stream_right"] = stream_right(kernels, clip, prototypes, rng)
+    print(f"stream right: {json.dumps(out)} [{card}]", flush=True)
+    steps["right"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, paths["stream_full"] = stream_full(kernels, clip, prototypes, rng, card)
+    print(f"stream full size: {json.dumps(out)} [{card}]", flush=True)
+    steps["full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        out, paths["stream_command"] = stream_command(kernels, Path(tmp))
+    print(f"stream command kronecker_adaptation_clip: {json.dumps(out)} [{card}]", flush=True)
+    steps["command"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path, batches in paths.items():
+        launches[path] = expected_launches(batches)
+        for name, rows_ in path_kernel_rows(gen, path, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    steps["kernel_rows"] = time.perf_counter() - t0
+    print(f"phase 11 seconds by step: {json.dumps(steps)}", flush=True)
     return launches, table, time.perf_counter() - t_phase
 
 
@@ -2577,11 +3085,17 @@ def main() -> int:
     aux_launches, aux_table, seconds = run_aux_backbones(KERNELS, gen, card)
     print(f"phase 10: {seconds:.1f} s", flush=True)
 
-    # 11. report
+    # 11. streaming: a train split in host memory, right, at full size and
+    # through the command
+    stream_launches, stream_table, seconds = run_streaming(KERNELS, gen, card, clip, prototypes)
+    print(f"phase 11: {seconds:.1f} s", flush=True)
+
+    # 12. report
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
-                **aux_launches}
+                **aux_launches, **stream_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
-             + deploy_table[name] + aux_table[name] for name in command_table}
+             + deploy_table[name] + aux_table[name] + stream_table[name]
+             for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))

@@ -17,7 +17,10 @@ reference's paths, so the mapping only unstacks and restacks the layer axis:
 ResNet visual tower), or an auxiliary backbone of ``models.factory`` (the
 generic ViT, whose blocks sit at the top of its tree, or a DeCLIP-family
 model).  A ResNet tower stacks nothing: its blocks are keyed ``"0"``,
-``"1"``, ... in both layouts.
+``"1"``, ... in both layouts.  Swin keeps its stages and their blocks as
+Python lists in the reference and as ``core.layers.ListModule`` in the
+port: a list's items are keyed by their index here and made a list again
+on the way back.
 
 A serving weight bundle (``serve.serving_weights``: ``{"bundle", "bn_state"}``)
 maps the same way, int8 leaves included: the reference's stacked
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from .core.clip import CLIP, CLIPSpec
+from .core.layers import ListModule
 from .peft.base import MODULE_CLASSES, PeftConfig
 from .train.head import Head
 from .train.optim import AdamState, RmspropState, SgdState
@@ -75,10 +79,13 @@ _OPT_STATES = {cls.__name__: cls for cls in (SgdState, AdamState, RmspropState)}
 
 
 def _flatten(tree, prefix: tuple = ()) -> dict:
-    """Leaves of a nested dict by path; None leaves (frozen) are left out."""
+    """Leaves of a nested dict by path (a list's items keyed by their
+    index); None leaves (frozen) are left out."""
     out = {}
-    for key, val in tree.items():
-        if isinstance(val, dict):
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for key, val in items:
+        key = str(key)
+        if isinstance(val, (dict, list)):
             out.update(_flatten(val, prefix + (key,)))
         elif val is not None:
             out[prefix + (key,)] = val
@@ -139,8 +146,16 @@ def module_from_jax(tree_np: dict, module: torch.nn.Module, *, device=None) -> t
 
 
 def module_to_jax(module: torch.nn.Module) -> dict:
-    """A backbone module -> the reference's tree as numpy, layers restacked."""
-    return _from_state_dict(module.state_dict(), _STACKED["clip"])
+    """A backbone module -> the reference's tree as numpy, layers restacked
+    and each ``ListModule`` a list again."""
+    tree = _from_state_dict(module.state_dict(), _STACKED["clip"])
+    lists = [name.split(".") for name, m in module.named_modules() if isinstance(m, ListModule)]
+    for path in sorted(lists, key=len, reverse=True):  # the innermost lists first
+        node = tree
+        for key in path[:-1]:
+            node = node[int(key)] if isinstance(node, list) else node[key]
+        node[path[-1]] = [node[path[-1]][str(i)] for i in range(len(node[path[-1]]))]
+    return tree
 
 
 def clip_from_jax(clip_np: dict, spec: CLIPSpec, *, device=None) -> CLIP:

@@ -214,10 +214,11 @@ def mark_job_complete(config, exp_name: str, fingerprint: str, best_acc: float, 
 
 
 def load_device_data(config, device=None):
-    """The splits on ``device``: (train_x, train_y, val_x, val_y, test_x,
-    test_y), images uint8, labels int32 (float32 multi-hot for multilabel
-    datasets).  A split above TPU.MAX_DEVICE_DATA_GB raises: streaming from
-    host memory is not ported yet (ROADMAP §1, streaming)."""
+    """The splits: (train_x, train_y, val_x, val_y, test_x, test_y), images
+    uint8, labels int32 (float32 multi-hot for multilabel datasets).  A split
+    within TPU.MAX_DEVICE_DATA_GB goes to ``device`` as tensors; a larger one
+    stays in host memory as numpy, and the trainer streams it
+    (``train/streaming.py``)."""
     from ..data.registry import get_dataset_info
     from ..data.sources import build_splits
 
@@ -234,10 +235,7 @@ def load_device_data(config, device=None):
             labels = onehot
         labels = labels.astype(np.float32 if labels.ndim == 2 else np.int32)
         if ds.images.nbytes > max_bytes:
-            raise NotImplementedError(
-                f"a split of {ds.images.nbytes / 1e9:.2f} GB exceeds TPU.MAX_DEVICE_DATA_GB "
-                f"({config.TPU.MAX_DEVICE_DATA_GB}); streaming it from host memory is not "
-                "ported yet (ROADMAP §1, streaming)")
+            return ds.images, labels
         return torch.from_numpy(np.ascontiguousarray(ds.images)).to(dev), torch.from_numpy(labels).to(dev)
 
     return prep(train) + prep(val) + prep(test)

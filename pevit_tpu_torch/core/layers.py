@@ -46,6 +46,12 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out))
 
 
+class ListModule(nn.ModuleList):
+    """A ModuleList that the reference's tree holds as a Python list (Swin's
+    stages and their blocks), not stacked on a layer axis; the bridge
+    carries it as a list."""
+
+
 class Attention(nn.Module):
     def __init__(self, width: int):
         super().__init__()

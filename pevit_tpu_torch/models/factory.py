@@ -6,19 +6,15 @@ checkpoints (ViT and RN), the timm / DeiT / MAE / MoCo-v3 ViTs, the Swin
 classifiers, CLIP-Swin and the DeCLIP family.  Returns a ``Backbone``: the
 parameter module and ``forward_features(params, images_float,
 use_fused_mlp=True) -> (B, feat_dim)``, plus ``encode_text(params,
-tokens)`` for dual-tower models.
-
-The reference's ``Backbone.forward_features_train`` (a stochastic train
-forward) serves Swin's stochastic depth only, and comes with Swin.
+tokens)`` for dual-tower models and ``forward_features_train(params,
+images_float, generator)`` for a backbone that is stochastic in training
+(Swin's stochastic depth and dropout).
 
 ``use_fused_mlp`` is the MLP route of a CLIP-layout visual tower (CLIP
 ViTs, the DeCLIP family): the fused kernel while the tower is frozen, the
 unfused MLP where its weights train (the trainer passes its task's route).
 The generic ViTs' blocks carry the erf GELU and always take the unfused
-MLP; the plugins ignore it.
-
-Not ported: the Swin classifiers and CLIP-Swin (``cls_swin*``, ``swin*``,
-``clip_swin*``) raise with their ROADMAP item.
+MLP; Swin's blocks are plain PyTorch; the plugins ignore it.
 """
 
 from __future__ import annotations
@@ -31,10 +27,8 @@ import torch
 
 from ..utils.device import resolve_device
 from . import declip as _declip
+from . import swin as _swin
 from . import vit as _vit
-
-_SWIN_UNPORTED = ("MODEL.NAME={!r}: the Swin classifiers and CLIP-Swin are not ported "
-                  "(ROADMAP §1 item 3, auxiliary backbones: Swin)")
 
 
 @dataclasses.dataclass
@@ -49,6 +43,34 @@ class Backbone:
     # the tokenizer of the text tower's vocabulary; None -> OpenAI CLIP's.
     # The DeCLIP family's vocabulary has <|mask|> inserted.
     tokenize: Optional[Callable] = None
+    # the train-mode forward of a backbone that is stochastic in training
+    # (Swin's stochastic depth, cls_swin.py:209,280-281): (params,
+    # images_float, generator) -> (B, feat_dim).  None -> train == eval.
+    forward_features_train: Optional[Callable] = None
+
+
+def _swin_spec_from_cfg(mspec, default_spec: _swin.SwinSpec) -> _swin.SwinSpec:
+    """The Swin architecture keys the reference reads from the model spec
+    (cls_swin.py:690-704 at its top level; clip_swin.py:175-194 under VISION)."""
+    in_chans = int(mspec.get("IN_CHANS", 3))
+    if in_chans != 3:
+        raise ValueError(f"IN_CHANS={in_chans} unsupported (RGB only)")
+    qk_scale = mspec.get("QK_SCALE", None)
+    return dataclasses.replace(
+        default_spec,
+        patch_size=int(mspec.get("PATCH_SIZE", default_spec.patch_size)),
+        embed_dim=int(mspec.get("EMBED_DIM", default_spec.embed_dim)),
+        depths=tuple(mspec.get("DEPTHS", default_spec.depths)),
+        num_heads=tuple(mspec.get("NUM_HEADS", default_spec.num_heads)),
+        window_size=int(mspec.get("WINDOW_SIZE", default_spec.window_size)),
+        mlp_ratio=float(mspec.get("MLP_RATIO", default_spec.mlp_ratio)),
+        drop_rate=float(mspec.get("DROP_RATE", default_spec.drop_rate)),
+        ape=bool(mspec.get("APE", default_spec.ape)),
+        patch_norm=bool(mspec.get("PATCH_NORM", default_spec.patch_norm)),
+        qkv_bias=bool(mspec.get("QKV_BIAS", default_spec.qkv_bias)),
+        qk_scale=None if qk_scale is None else float(qk_scale),
+        layer_scale=bool(mspec.get("LAYER_SCALE", default_spec.layer_scale)),
+    )
 
 
 def _vit_spec_from_name(name: str) -> _vit.ViTSpec:
@@ -132,8 +154,97 @@ def get_model(config, *, device=None) -> Backbone:
                 p, x, spec=spec),
         )
 
-    if name.startswith(("cls_swin", "swin", "clip_swin")):
-        raise NotImplementedError(_SWIN_UNPORTED.format(name))
+    # the Swin classifiers (models/cls_swin.py:683-713)
+    if name.startswith(("cls_swin", "swin")):
+        mspec = config.MODEL.SPEC if "SPEC" in config.MODEL else {}
+        drop_path = float(mspec.get("DROP_PATH_RATE", 0.0))  # cls_swin.py:699
+        layer_scale = bool(mspec.get("LAYER_SCALE", False))  # cls_swin.py:704
+        if not config.MODEL.INIT_WEIGHTS:
+            raise ValueError(
+                "MODEL.INIT_WEIGHTS=False is not supported: params are "
+                "created with the trunc-normal init (cls_swin.py:706 "
+                "semantics); load a checkpoint instead of disabling init")
+        if ckpt_file:
+            from ..ckpt.torch_loader import read_torch_state_dict
+
+            raw = read_torch_state_dict(ckpt_file)
+            if "model" in raw and isinstance(raw["model"], dict):
+                raw = raw["model"]
+            params, spec = _swin.swin_state_dict_to_params(raw)
+            # the input resolution and QK_SCALE are the config's
+            # (cls_swin.py:697), whatever the checkpoint
+            qk = mspec.get("QK_SCALE", None)
+            spec = dataclasses.replace(spec, img_size=config.TRAIN.IMAGE_SIZE[0],
+                                       drop_path_rate=drop_path,
+                                       qk_scale=None if qk is None else float(qk))
+            if layer_scale and not spec.layer_scale:
+                raise ValueError("MODEL.SPEC.LAYER_SCALE=True but checkpoint has no gamma params")
+            model = _swin.swin_from_params(params, spec, device=dev)
+        else:
+            spec = _swin.swin_base() if "base" in name else _swin.swin_tiny()
+            spec = dataclasses.replace(_swin_spec_from_cfg(mspec, spec),
+                                       img_size=config.TRAIN.IMAGE_SIZE[0],
+                                       drop_path_rate=drop_path, layer_scale=layer_scale)
+            model = _swin.init_swin_params(gen, spec, device=dev)
+            logging.warning("=> %s: RANDOM init (no TEST.MODEL_FILE)", name)
+        stochastic = spec.drop_path_rate > 0.0 or spec.drop_rate > 0.0
+        return Backbone(
+            name=name, params=model, feat_dim=spec.stage_dim(spec.num_stages - 1),
+            forward_features=lambda p, x, use_fused_mlp=True: _swin.swin_forward_features(
+                p, x, spec=spec),
+            forward_features_train=(
+                (lambda p, x, generator: _swin.swin_forward_features(
+                    p, x, spec=spec, train=True, generator=generator)) if stochastic else None),
+        )
+
+    # CLIP with a Swin visual tower (models/clip_swin.py:253-284): image and
+    # text features leave L2-normalised (clip_swin.py:246-260, norm=True)
+    if name.startswith("clip_swin"):
+        from ..core.clip import CLIPSpec, encode_text
+
+        embed = config.MODEL.SPEC.get("EMBED_DIM", 512)
+        # the reference takes the CLIP tokenizer only (clip_swin.py:158)
+        tok_style = (config.MODEL.SPEC.get("TEXT", {}) or {}).get("TOKENIZER", "clip")
+        if tok_style != "clip":
+            raise ValueError(f"clip_swin supports only TOKENIZER 'clip', got {tok_style!r} "
+                             "(reference clip_swin.py:158 asserts the same)")
+        cspec = CLIPSpec.from_config(config)
+        if ckpt_file:
+            from ..ckpt.torch_loader import read_torch_state_dict
+
+            params, sspec, cspec = _swin.clip_swin_state_dict_to_params(
+                read_torch_state_dict(ckpt_file))
+            # QK_SCALE is the config's even with a checkpoint (clip_swin.py:187)
+            qk = (config.MODEL.SPEC.get("VISION", {}) or {}).get("QK_SCALE", None)
+            sspec = dataclasses.replace(sspec, img_size=config.TRAIN.IMAGE_SIZE[0],
+                                        qk_scale=None if qk is None else float(qk))
+            # the head count is not in a state dict; the YAML's is
+            # authoritative (clip_swin.py:164)
+            heads = (config.MODEL.SPEC.get("TEXT", {}) or {}).get("HEADS", cspec.text.heads)
+            cspec = dataclasses.replace(cspec, text=dataclasses.replace(cspec.text, heads=heads))
+            embed = cspec.embed_dim
+            model = _swin.clip_swin_from_params(params, sspec, cspec, device=dev)
+        else:
+            sspec = _swin.swin_base() if "base" in name else _swin.swin_tiny()
+            sspec = dataclasses.replace(
+                _swin_spec_from_cfg(config.MODEL.SPEC.get("VISION", {}) or {}, sspec),
+                img_size=config.TRAIN.IMAGE_SIZE[0])  # clip_swin.py:176
+            model = _swin.init_clip_swin_params(gen, sspec, cspec, device=dev)
+            logging.warning("=> %s: RANDOM init (no TEST.MODEL_FILE)", name)
+
+        def fwd(p, x, use_fused_mlp=True):
+            feats = _swin.swin_forward_features(p.visual, x, spec=sspec)
+            feats = feats.float() @ p.vision_projection
+            return feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
+
+        def txt(p, t):
+            # the projection sits outside the text tower (clip_swin.py:171-173)
+            # and the LayerNorms are TF-style, eps 1e-12 (clip_swin.py:24-39)
+            x = encode_text(_swin.clip_swin_text_view(p), t, spec=cspec, ln_eps=1e-12)
+            return x / torch.linalg.norm(x, dim=-1, keepdim=True)
+
+        return Backbone(name=name, params=model, feat_dim=embed, forward_features=fwd,
+                        encode_text=txt)
 
     # the DeCLIP family (models/declip.py:8-38, feature.py:262-281)
     if name.lower().startswith(("declip", "slip", "filip", "defilip", "clip_yfcc")):

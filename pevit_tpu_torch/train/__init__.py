@@ -9,6 +9,7 @@ from .trainer import (
     build_epoch_fn,
     build_eval_fn,
     build_fit_eval_fn,
+    build_step_fn,
     model_forward,
     trainable_params,
     trainable_pred,
@@ -26,6 +27,7 @@ __all__ = [
     "build_epoch_fn",
     "build_eval_fn",
     "build_fit_eval_fn",
+    "build_step_fn",
     "combine",
     "count_params",
     "head_forward",

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops._build import KernelBuildError, KernelInputError, KernelLaunchError
+from ..utils.device import to_numpy
 
 
 # the exceptions that mean the card or a kernel failed: they abort a sweep
@@ -174,6 +175,16 @@ def hyperparameter_sweep_lr(task, data, config, *, seed: int = 0):
     return best_lr, best_wd
 
 
+def merge_splits(a, b):
+    """Two parts of a split, one after the other (reference sweep.py:247-256):
+    on the host as numpy when either part is numpy (a part on the card is
+    copied back), so a host-resident split stays on the host, else
+    ``torch.cat`` on the card, whatever the merged size."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.concatenate([to_numpy(a), to_numpy(b)], axis=0)
+    return torch.cat([a, b])
+
+
 def run_method(task, data, config, *, no_tuning: bool, lr: float, l2: float, seed: int = 0,
                rebuild_data=None):
     """The method runner (reference ``kadapt_clip`` et al.,
@@ -214,8 +225,7 @@ def run_method(task, data, config, *, no_tuning: bool, lr: float, l2: float, see
                      len(train_y), len(val_y), len(test_y))
 
     if config.DATASET.MERGE_TRAIN_VAL_FINAL_RUN:
-        cat = torch.cat if isinstance(train_x, torch.Tensor) else np.concatenate
-        final_x, final_y = cat([train_x, val_x]), cat([train_y, val_y])
+        final_x, final_y = merge_splits(train_x, val_x), merge_splits(train_y, val_y)
         logging.info("Using the full trainval set to train final model. len=%d", len(final_y))
     else:
         final_x, final_y = train_x, train_y

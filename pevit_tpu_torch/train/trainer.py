@@ -19,7 +19,10 @@ runs eagerly, one trial after another, on one card; the math is the same:
   from the epoch's seed and the step index;
 * after every epoch the val split is evaluated in chunks of ``eval_chunk``
   plus a natural-size remainder, never padded; the best epoch is picked on
-  the host (strict ``>``, keeping the best epoch's probabilities).
+  the host (strict ``>``, keeping the best epoch's probabilities);
+* a numpy train split above ``TPU.MAX_DEVICE_DATA_GB`` stays in host memory
+  and is streamed (``streaming.py``): there the reference's numpy epoch
+  orders are used, and every trial of the call steps on each batch in turn.
 
 TPU-side knobs of the config's ``TPU`` node are read and ignored, see
 ``IGNORED_TPU_KNOBS``.  ``TPU.FUSED_MLP`` is not read: on the card the fused
@@ -314,9 +317,43 @@ class TrainState(NamedTuple):
     loss: Optional[torch.Tensor] = None
 
 
+def build_step_fn(static: TaskStatic, preproc: dict, lr_scales=None, wd_mask=None,
+                  forward_fn=None):
+    """One training step on an explicit batch, the step of every epoch.
+
+    Returns ``step(bundle, state, images, labels, lr, wd, generator) ->
+    state``: the forward and loss of the batch in train mode (dropout from
+    ``generator``, on the images' device), the gradients of
+    ``state.params``, the optional gradient clip and the optimiser update,
+    which changes the parameters in place.  It never waits on the card."""
+    _, opt_update = make_optimizer(static.optimizer, momentum=static.momentum,
+                                   nesterov=static.nesterov, lr_scales=lr_scales,
+                                   wd_mask=wd_mask)
+
+    def step(bundle, state: TrainState, imgs, labs, lr, wd, generator) -> TrainState:
+        params = state.params
+        names = list(params)
+        valid = torch.ones(imgs.shape[0], device=imgs.device)
+        with torch.enable_grad():
+            logits, new_bn = model_forward(static, bundle, state.bn, imgs, preproc,
+                                           train=True, generator=generator, mask=valid,
+                                           forward_fn=forward_fn)
+            loss = _loss(static, logits, labs, valid)
+            grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        grads = {n: torch.zeros_like(params[n]) if g is None else g
+                 for n, g in zip(names, grads)}
+        if static.clip_grad_norm > 0:
+            grads = clip_grad_norm(grads, static.clip_grad_norm)
+        opt_state = opt_update(grads, params, state.opt, lr, wd)
+        return TrainState(params, opt_state, {k: v.detach() for k, v in new_bn.items()},
+                          state.generator, loss.detach())
+
+    return step
+
+
 def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=None,
                    wd_mask=None, forward_fn=None):
-    """One training epoch.
+    """One training epoch over a split on the card.
 
     Returns ``epoch(bundle, images, labels, state, lr, wd, order=None) ->
     state``: ``order`` (the epoch's permutation of the train split) is drawn
@@ -324,45 +361,26 @@ def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=No
     ``wd_mask`` are per-parameter dicts; ``forward_fn`` as in
     :func:`model_forward`."""
     B = static.batch_size
-    _, opt_update = make_optimizer(static.optimizer, momentum=static.momentum,
-                                   nesterov=static.nesterov, lr_scales=lr_scales,
-                                   wd_mask=wd_mask)
+    step = build_step_fn(static, preproc, lr_scales, wd_mask, forward_fn)
 
     def epoch(bundle, images, labels, state: TrainState, lr, wd, order=None) -> TrainState:
-        params, opt_state, bn_state, gen, loss = state
         if order is None:
-            order = torch.randperm(n_train, generator=gen)
-        drop_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+            order = torch.randperm(n_train, generator=state.generator)
+        drop_seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
         order = torch.as_tensor(np.array(order), dtype=torch.long).to(images.device)
-        names = list(params)
 
         def run_step(idx, step_i):
-            nonlocal opt_state, bn_state, loss
-            imgs = images.index_select(0, idx)
-            labs = labels.index_select(0, idx)
+            nonlocal state
             step_gen = torch.Generator(device=images.device).manual_seed(drop_seed + step_i)
-            valid = torch.ones(idx.shape[0], device=images.device)
-            with torch.enable_grad():
-                logits, new_bn = model_forward(static, bundle, bn_state, imgs, preproc,
-                                               train=True, generator=step_gen, mask=valid,
-                                               forward_fn=forward_fn)
-                step_loss = _loss(static, logits, labs, valid)
-                grads = torch.autograd.grad(step_loss, [params[n] for n in names],
-                                            allow_unused=True)
-            grads = {n: torch.zeros_like(params[n]) if g is None else g
-                     for n, g in zip(names, grads)}
-            if static.clip_grad_norm > 0:
-                grads = clip_grad_norm(grads, static.clip_grad_norm)
-            opt_state = opt_update(grads, params, opt_state, lr, wd)
-            bn_state = {k: v.detach() for k, v in new_bn.items()}
-            loss = step_loss.detach()
+            state = step(bundle, state, images.index_select(0, idx),
+                         labels.index_select(0, idx), lr, wd, step_gen)
 
         steps_full = n_train // B
         for i in range(steps_full):
             run_step(order[i * B:(i + 1) * B], i)
         if n_train - steps_full * B > 1:  # a size-1 tail is skipped
             run_step(order[steps_full * B:], steps_full)
-        return TrainState(params, opt_state, bn_state, gen, loss)
+        return state
 
     return epoch
 
@@ -433,10 +451,16 @@ class TrainTask:
         self._forward_fn = None
         if backbone is not None:
             clip = backbone.params
-            # no ported backbone is stochastic in training: train and eval
-            # run one forward
-            self._forward_fn = lambda p, x, train, generator=None: backbone.forward_features(
-                p, x, use_fused_mlp=static.use_fused_mlp)
+            fused = static.use_fused_mlp
+            if backbone.forward_features_train is not None:
+                # train-time randomness (Swin's stochastic depth) draws from
+                # the step's generator (reference trainer.py:546-549)
+                self._forward_fn = lambda p, x, train, generator=None: (
+                    backbone.forward_features_train(p, x, generator) if train
+                    else backbone.forward_features(p, x, use_fused_mlp=fused))
+            else:
+                self._forward_fn = lambda p, x, train, generator=None: backbone.forward_features(
+                    p, x, use_fused_mlp=fused)
         self.config = config
         self.static = static
         if eval_chunk is None:
@@ -596,7 +620,8 @@ class TrainTask:
         one seeded ``+ 1``.  Returns per-trial dicts {"best_score", "last_score",
         "best_logits"}; ``last_trainable``, ``last_bundle`` and ``last_state``
         then hold the last trial's trainable partition, trained bundle and
-        state."""
+        state.  A numpy ``train_images`` above ``TPU.MAX_DEVICE_DATA_GB``
+        is streamed from host memory (:meth:`_train_trials_streaming`)."""
         n_train = len(train_labels)
         n_val = len(val_labels)
         n_epochs = end_epoch - begin_epoch
@@ -606,17 +631,21 @@ class TrainTask:
                 torch.Generator().manual_seed(seed * 1_000_003 + 2 * (len(hparams) - 1)))
             self.last_trainable, self.last_bundle = trainable, combine(trainable, frozen)
             return results
+        # a train split too big for the card streams from host memory
+        # (reference trainer.py:1010-1016); a tensor never streams
+        max_bytes = float(self.config.TPU.MAX_DEVICE_DATA_GB) * 1e9
+        if isinstance(train_images, np.ndarray) and train_images.nbytes > max_bytes:
+            return self._train_trials_streaming(
+                hparams, train_images, train_labels, val_images, val_labels, results=results,
+                begin_epoch=begin_epoch, end_epoch=end_epoch, seed=seed,
+                keep_logits=keep_logits, log_every=log_every)
         images, labels = self.prepack(train_images), self._labels(train_labels)
         val = self.prepack(val_images)
         labels_np = to_numpy(val_labels)
         schedule = list(self.config.TRAIN.SCHEDULE or [])
         fit_eval = self._fit_eval_fn(n_train, n_epochs, n_val)
         for t, (lr, wd) in enumerate(hparams):
-            base = seed * 1_000_003 + 2 * t
-            trainable, frozen, bn = self.init_bundle(torch.Generator().manual_seed(base))
-            params = trainable_params(trainable)
-            state = TrainState(params, self._opt_init(params), bn,
-                               torch.Generator().manual_seed(base + 1))
+            trainable, frozen, state = self._init_trial(seed, t)
             lr_table = [step_decay_lr(float(lr), e, schedule) for e in range(begin_epoch, end_epoch)]
             t0 = time.perf_counter()
             state, logits = fit_eval(combine(trainable, frozen), images, labels, val, state,
@@ -626,18 +655,74 @@ class TrainTask:
             res = results[t]
             for e in range(n_epochs):
                 probs = _softmax(logits_np[e])
-                score = self._score(labels_np, probs)
-                res["last_score"] = score
-                if score > res["best_score"] or (e == 0 and keep_logits and res["best_logits"] is None):
-                    if keep_logits:
-                        res["best_logits"] = probs
-                res["best_score"] = max(res["best_score"], score)
+                _update_result(res, self._score(labels_np, probs), probs, e == 0, keep_logits)
                 if log_every and (e % log_every == 0 or e == n_epochs - 1):
                     logging.info("[Trial %d epoch %d] Val %s: %.3f", t, begin_epoch + e,
-                                 self.metric_name, score)
+                                 self.metric_name, res["last_score"])
             if log_every:
                 logging.info("=> trial %d: %d epochs in %.2fs | best %.3f", t, n_epochs, run_s,
                              res["best_score"])
             self.last_trainable = trainable
             self.last_bundle, self.last_state = combine(trainable, frozen), state
         return results
+
+    def _init_trial(self, seed: int, t: int) -> tuple:
+        """Trial t's (trainable, frozen, state): the PEFT parameters and head
+        from a CPU generator seeded ``seed * 1_000_003 + 2 t``, the epoch
+        orders and dropout seeds from one seeded ``+ 1``."""
+        base = seed * 1_000_003 + 2 * t
+        trainable, frozen, bn = self.init_bundle(torch.Generator().manual_seed(base))
+        params = trainable_params(trainable)
+        return trainable, frozen, TrainState(params, self._opt_init(params), bn,
+                                             torch.Generator().manual_seed(base + 1))
+
+    def _train_trials_streaming(self, hparams, train_images: np.ndarray, train_labels,
+                                val_images, val_labels, *, results: list, begin_epoch: int,
+                                end_epoch: int, seed: int, keep_logits: bool,
+                                log_every: int) -> list:
+        """``train_trials`` over a host-resident train split: every trial of
+        the call steps on each streamed batch (``streaming.py``), and each is
+        evaluated after every epoch through :meth:`evaluate`."""
+        from .streaming import StreamingEpochRunner
+
+        runner = StreamingEpochRunner(self, lr_scales=self._lr_scales(), wd_mask=self._wd_mask())
+        trials = [self._init_trial(seed, t) for t in range(len(hparams))]
+        runs = [(combine(trainable, frozen), state) for trainable, frozen, state in trials]
+        train_labels = to_numpy(train_labels)
+        if isinstance(val_images, torch.Tensor):
+            val_images = self.prepack(val_images)
+        labels_np = to_numpy(val_labels)
+        schedule = list(self.config.TRAIN.SCHEDULE or [])
+        logging.info("streaming path: %d train images (%.1f GB) stay in host memory",
+                     len(train_labels), train_images.nbytes / 1e9)
+        for epoch in range(begin_epoch, end_epoch):
+            if not self.static.emulate_zero_shot:
+                states = runner.run_epoch(
+                    runs, train_images, train_labels,
+                    [step_decay_lr(float(lr), epoch, schedule) for lr, _ in hparams],
+                    [float(wd) for _, wd in hparams], seed=seed * 1000 + epoch)
+                runs = [(bundle, state) for (bundle, _), state in zip(runs, states)]
+            scores = []
+            for (trainable, frozen, _), (_, state), res in zip(trials, runs, results):
+                score, probs = self.evaluate(trainable, frozen, state.bn, val_images, labels_np)
+                _update_result(res, score, probs, epoch == begin_epoch, keep_logits)
+                scores.append(score)
+            if log_every and (epoch % log_every == 0 or epoch == end_epoch - 1):
+                logging.info("[Epoch %d] Val %s: %s (streaming)", epoch, self.metric_name,
+                             " ".join(f"{s:.3f}" for s in scores))
+        trainable, frozen, _ = trials[-1]
+        self.last_trainable = trainable
+        self.last_bundle, self.last_state = runs[-1]
+        return results
+
+
+def _update_result(res: dict, score: float, probs: np.ndarray, first: bool,
+                   keep_logits: bool) -> None:
+    """One epoch's score into a trial's result (reference trainer.py:920-933):
+    the best score by strict ``>``, with its probabilities kept, and the
+    first epoch's probabilities kept in any case."""
+    res["last_score"] = score
+    if score > res["best_score"] or (first and keep_logits and res["best_logits"] is None):
+        if keep_logits:
+            res["best_logits"] = probs
+    res["best_score"] = max(res["best_score"], score)

@@ -8,7 +8,8 @@ bit-identical images and labels
 * through the ``.npz`` fast path, with an explicit val split too;
 
 and the command's ``load_device_data`` puts the same arrays on the device as
-the JAX command does, and raises for a split over TPU.MAX_DEVICE_DATA_GB.
+the JAX command does, and keeps a split over TPU.MAX_DEVICE_DATA_GB in host
+memory, as the JAX command does.
 """
 
 import numpy as np
@@ -101,10 +102,27 @@ def test_load_device_data_matches_the_jax_command(tmp_path):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
-def test_load_device_data_raises_over_the_device_limit(tmp_path):
-    cfg = _config(get_default_config, tmp_path, "cifar-10", classes=10)
-    cfg.defrost()
-    cfg.TPU.MAX_DEVICE_DATA_GB = 1e-6
-    cfg.freeze()
-    with pytest.raises(NotImplementedError, match="streaming"):
-        port_common.load_device_data(cfg, "cpu")
+@pytest.mark.parametrize("dataset,classes", [("cifar-10", 10), ("voc-2007-classification", 20)])
+def test_load_device_data_keeps_a_split_over_the_device_limit_on_the_host(tmp_path, dataset,
+                                                                          classes):
+    """A split above TPU.MAX_DEVICE_DATA_GB stays in host memory as numpy,
+    as the JAX command's does (the trainer streams it); the limit here keeps
+    the 160-image test split and the train split on the host and the val
+    split on the device."""
+    cfgs = [_config(make, tmp_path / sub, dataset, classes=classes)
+            for make, sub in ((jax_defaults, "j"), (get_default_config, "p"))]
+    limit = 1.5 * len(psrc.build_splits(cfgs[1])[1]) * 8 * 8 * 3 / 1e9
+    for cfg in cfgs:
+        cfg.defrost()
+        cfg.TPU.MAX_DEVICE_DATA_GB = limit
+        cfg.freeze()
+    want = jax_common.load_device_data(cfgs[0])
+    got = port_common.load_device_data(cfgs[1], "cpu")
+    assert len(got) == len(want) == 6
+    on_host = [isinstance(w, np.ndarray) for w in want]
+    assert on_host == [True, True, False, False, True, True]
+    for g, w, host in zip(got, want, on_host):
+        assert isinstance(g, np.ndarray if host else torch.Tensor)
+        g, w = (g if host else g.numpy()), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)

@@ -1,11 +1,12 @@
 """``models.get_model`` against pevit_tpu/models/factory.py for each shipped
-model YAML but ``clip_swin_tiny``, at toy size (32 px, one or two narrow
-layers; CLIP names with random weights): the same ``feat_dim``; the
-reference's parameter tree loads into the port's backbone through the
-bridge, leaf for leaf; the forward features (and the text features, where
-the backbone has a text tower) then agree at 1e-5 in fp32.  A checkpoint
-through TEST.MODEL_FILE (timm and DeCLIP layouts) gives the same tree bit
-for bit.  The Swin names raise, naming their ROADMAP item.
+model YAML, at toy size (32 px, one or two narrow layers; CLIP names with
+random weights; ``clip_swin_tiny`` two stages of two 16-wide blocks,
+window 4): the same ``feat_dim``; the reference's parameter tree loads into
+the port's backbone through the bridge, leaf for leaf; the forward features
+(and the text features, where the backbone has a text tower) then agree at
+1e-5 in fp32.  A checkpoint through TEST.MODEL_FILE (timm and DeCLIP
+layouts) gives the same tree bit for bit.  The Swin names build from
+MODEL.NAME alone and match.
 """
 
 import dataclasses
@@ -29,7 +30,18 @@ from .test_torch_declip import declip_state_dict
 from .test_torch_vit import close, np_tree, same_trees, timm_state_dict
 
 REPO = Path(__file__).resolve().parents[1]
-YAMLS = sorted(p.stem for p in (REPO / "resources/model").glob("*.yaml") if p.stem != "clip_swin_tiny")
+YAMLS = sorted(p.stem for p in (REPO / "resources/model").glob("*.yaml"))
+TOY_SWIN = {"EMBED_DIM": 16, "DEPTHS": [2, 2], "NUM_HEADS": [2, 2], "WINDOW_SIZE": 4}
+
+
+def listless(tree):
+    """Swin's lists of stages and blocks as index-keyed dicts (what ``flat``
+    walks)."""
+    if isinstance(tree, list):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {k: listless(v) for k, v in tree.items()}
+    return tree
 
 
 def toy_config(make, update, name, *opts, res=32):
@@ -45,7 +57,15 @@ def toy_config(make, update, name, *opts, res=32):
     cfg.defrost()
     spec = cfg.MODEL.SPEC
     mname = cfg.MODEL.NAME
-    if mname.startswith(("ViT-", "RN")) or "TEXT" in spec and "VISION" in spec:
+    if mname.startswith("clip_swin"):
+        spec.EMBED_DIM = 16
+        if "VISION" not in spec:
+            spec.VISION = type(spec)()
+        spec.VISION.update(TOY_SWIN)
+        spec.TEXT.WIDTH, spec.TEXT.LAYERS, spec.TEXT.HEADS = 32, 1, 2
+    elif mname.startswith(("cls_swin", "swin")):
+        spec.update(TOY_SWIN)
+    elif mname.startswith(("ViT-", "RN")) or "TEXT" in spec and "VISION" in spec:
         cfg.MODEL.PRETRAINED = "random"
         spec.EMBED_DIM = 16
         spec.VISION.WIDTH, spec.VISION.LAYERS = 64, 2
@@ -75,7 +95,7 @@ def test_every_shipped_yaml_builds_and_matches(name):
     assert (pb.encode_text is None) == (jb.encode_text is None)
     assert (pb.tokenize is None) == (jb.tokenize is None)
     bridge.module_from_jax(np_tree(jb.params), pb.params, device="cpu")
-    same_trees(bridge.module_to_jax(pb.params), np_tree(jb.params))
+    same_trees(listless(bridge.module_to_jax(pb.params)), listless(np_tree(jb.params)))
     x = images(3, res)
     want = jb.forward_features(jb.params, jnp.asarray(x))
     for fused in (True, False):
@@ -98,10 +118,18 @@ def test_every_shipped_yaml_builds_and_matches(name):
 
 
 @pytest.mark.parametrize("name", ["cls_swin_tiny", "swin_base", "clip_swin"])
-def test_swin_names_raise_with_their_roadmap_item(name):
-    _, pcfg = pair("vit_base_patch16_224", "MODEL.NAME", name)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-        get_model(pcfg, device="cpu")
+def test_swin_names_build_and_match_jax(name):
+    """The Swin names from MODEL.NAME over another YAML, at toy size, random
+    weights bridged from JAX's: the same tree and features."""
+    jcfg, pcfg = pair("vit_base_patch16_224", "MODEL.NAME", name)
+    jb, pb = jax_get_model(jcfg), get_model(pcfg, device="cpu")
+    assert pb.feat_dim == jb.feat_dim == (16 if name == "clip_swin" else 32)
+    assert (pb.encode_text is None) == (jb.encode_text is None) == (name != "clip_swin")
+    bridge.module_from_jax(np_tree(jb.params), pb.params, device="cpu")
+    same_trees(listless(bridge.module_to_jax(pb.params)), listless(np_tree(jb.params)))
+    x = images(2, 32, seed=3)
+    close(pb.forward_features(pb.params, torch.from_numpy(x)).detach().numpy(),
+          jb.forward_features(jb.params, jnp.asarray(x)), f"{name} features")
 
 
 def test_an_unknown_name_raises():

@@ -204,13 +204,32 @@ def test_serving_loader_zero_classes_fails_loudly():
         load_serving_callable(device="cpu")
 
 
-def test_non_vit_backbones_raise(tmp_path):
+def test_the_export_tool_exports_clip_swin_and_the_loader_still_refuses_it(tmp_path):
+    """CLIP-Swin (a factory backbone) exports through tools.export_model; the
+    artifact equals the in-process serving forward of the task the tool
+    builds.  The serving loader builds CLIP towers only, as the reference's
+    does, and refuses the name."""
+    from .test_torch_swin import toy_clip_swin_yaml
+
     config = config_from(CIFAR, _tiny_model(tmp_path), ["MODEL.NAME", "clip_swin"])
     with pytest.raises(NotImplementedError, match="auxiliary backbones"):
         load_serving_callable(config=config, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="auxiliary backbones"):
-        export_model.main(["--model", _tiny_model(tmp_path), "--ds", CIFAR, *CPU,
-                           "MODEL.NAME", "clip_swin"])
+    model = toy_clip_swin_yaml(tmp_path)
+    opts = ["TRAIN.IMAGE_SIZE", "[32,32]", "TPU.COMPUTE_DTYPE", "float32"]
+    out = tmp_path / "clip_swin.pt2"
+    export_model.main(["--model", model, "--ds", CIFAR, "--method", "linear_probe",
+                       "--out", str(out), *CPU, *opts])
+    ep = load_exported(out)
+    assert not any(".text." in n for n in ep.state_dict)
+    task, static, trainable, frozen, bn = build_task(config_from(CIFAR, model, opts),
+                                                     "linear_probe", 0, torch.device("cpu"),
+                                                     backbones=True)
+    serve = make_serving_fn(static, trainable, frozen, bn, task.preproc,
+                            forward_fn=task._forward_fn, device="cpu")
+    x = _images(3, seed=1)
+    got, want = exported_callable(ep, device="cpu")(x), serve(x)
+    assert got.shape == (3, 10)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("flag", [("--mesh", "4"), ("--platforms", "cpu,cuda")])
