@@ -78,8 +78,12 @@ on):
    ``TPU.CHECKPOINT_DIR`` set.  Checks: the JSON and TXT artifacts have the
    reference's schema; ``predictions`` is (160, 10) with rows summing to 1;
    the sweep cache holds 42 to 90 trials and the chosen (lr, wd) is the
-   reference walk's over those scores; K1, K2 and K3 launch exactly as often
-   as the sweep's and the final run's steps and eval chunks ask; the saved
+   reference walk's over those scores; the sweep's chunks hold at most
+   TPU.SWEEP_PARALLEL_TRIALS trials and sum to its trials; K1, K2 and K3
+   launch exactly as often as the sweep's and the final run's steps and
+   eval chunks ask, one launch a block for each step and eval chunk of a
+   whole chunk, at its trials times the images (each ``train_trials`` call
+   recorded, ``call_batches``); the saved
    ``step_50.npz`` restores, bit for bit, the state the final run trained;
    the text features on the card match the same tower's on the CPU within
    1e-4 of their largest value; a second run replays from the completion
@@ -87,8 +91,8 @@ on):
    the sweep (per trial), the final run (train images/s) and the whole
    phase are printed.  Then each kernel is held against its plain version,
    in the command's dtype, at every batch the command gave it (each
-   train-step size for all three, each eval-chunk size for K1 and K2), and
-   timed there;
+   train-step size for all three, each eval-chunk size for K1 and K2, the
+   sweep's at its chunks' trial-folded batches), and timed there;
 7. the other entry points, at full ViT-B/32 width and depth on synthetic
    cifar-10: a seeded CLIP written as an OpenAI-layout checkpoint (a
    ``torch.save`` pickle and the same inside ``{"state_dict": ...}``), each
@@ -125,9 +129,10 @@ on):
    Then each one's command in phase 6's output directory with its script's
    flags: ``lora_clip`` with the sweep (its own cache file beside phase 6's,
    which stays as it was, 42 to 90 trials, every one trained, and the
-   reference walk's (lr, wd)), ``adapter_clip`` and ``compacter_clip`` the
-   final run only (a cut for the time limit); exact launches for their
-   steps and chunks, the artifacts, ``n_trainable_params`` equal to the
+   reference walk's (lr, wd), its chunks of trials batched as phase 6's),
+   ``adapter_clip`` and ``compacter_clip`` the final run only (a cut for
+   the time limit); exact launches for their steps and chunks, the
+   artifacts, ``n_trainable_params`` equal to the
    JAX package's count, Compacter's rule unchanged bit for bit; each kernel
    held against its plain version at every batch each path gave it;
 9. the deployment path, on phase 4's tower with the head fitted to a
@@ -189,10 +194,11 @@ on):
 11. streaming, a train split in host memory (``train/streaming.py``):
    (a) 650 train and 160 val images of phase 4's prototypes, fp32, dropout
    0, ``TPU.MAX_DEVICE_DATA_GB`` below the split, 2 trials x 2 epochs
-   through ``train_trials``, against the preloaded path handed the streamed
-   orders: every epoch's val logits within 1e-5 of the largest (the gap
-   printed), exact launches, the split's bytes crossing once an epoch for
-   both trials; (b) 28,000 images (4.21 GB) at the default 4.0 GB limit,
+   through ``train_trials`` (one batched step a streamed batch for both),
+   against each trial's preloaded serial run handed the streamed orders:
+   every epoch's val logits within 1e-5 of the largest (the gap printed),
+   exact launches, the split's bytes crossing once an epoch for both
+   trials; (b) 28,000 images (4.21 GB) at the default 4.0 GB limit,
    bf16, batch 128, one trial after a warm-up: exact launches, the split's
    bytes once, the card's peak allocation during the epoch below the
    split's size, streamed train images/s beside the preloaded path's on
@@ -203,7 +209,27 @@ on):
    the card, so the final run merges train and val on the host and
    streams: the artifacts' schema and exact launches; each kernel held
    against its plain version at every batch each path gave it;
-12. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 11,
+12. trial batches, a sweep chunk's trials as one batch through
+   ``train_trials`` on phase 4's tower and phase 5's data (500 train
+   images, the first 160 val): (a) 4 KAdaptation trials of distinct (lr,
+   wd), fp32, dropout 0, 2 epochs, batched and through
+   ``_train_trials_serial``: every (trial, epoch) val logit and each
+   trial's trained parameters within 1e-5 of the serial path's largest;
+   (b) a chunk of 8 (TPU.SWEEP_PARALLEL_TRIALS' default) in bf16 at batch
+   128, dropout 0.5, 2 epochs, after a warm-up chunk, serial, batched,
+   batched, serial: seconds per trial of each path (the mean of its two
+   runs), each one's device idle share from a CUDA-only ``torch.profiler``
+   trace of one more run, the card's peak allocation of a batched chunk,
+   launches exactly 12 a step and an eval chunk for the whole chunk, each
+   trial's gaps to the serial path and both paths' best scores (reported,
+   not held: in bf16 another delta-GEMM algorithm can move a trial);
+   (c) the process capped (``torch.cuda.set_per_process_memory_fraction``)
+   at 3/4 of (b)'s peak above what it holds: ``sweep._run_stage`` on 8
+   trials splits the chunk that runs out of memory, logs the split and
+   returns 8 finite scores; the cap is lifted; (d) each kernel held against
+   its plain version at every trial-folded batch (a and b) with its
+   launches;
+13. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 12,
    summed and by path (each path's counts are zeroed just before it and read
    just after; phase 9's and the exported MAE probe's are the fresh
    process's, reported by it), the other numbers at the batch that launched
@@ -993,11 +1019,43 @@ def reference_walk(score, config) -> tuple:
     return best_lr, best_wd
 
 
+def trial_call(task, hparams, train_labels, val_labels, end_epoch: int,
+               begin_epoch: int = 0) -> dict:
+    """What one ``train_trials`` call gives the kernels: its chunk of
+    trials, run as one batch (``batches_trials``) or one after another, and
+    its split sizes, epochs, batch and eval chunk."""
+    return {"trials": len(hparams), "batched": task.batches_trials,
+            "n_train": len(train_labels), "n_val": len(val_labels),
+            "epochs": end_epoch - begin_epoch, "batch": task.static.batch_size,
+            "chunk": task.eval_chunk, "emulated": task.static.emulate_zero_shot}
+
+
+@contextlib.contextmanager
+def recorded_calls(calls: list):
+    """Record every ``TrainTask.train_trials`` call made inside the block
+    (``trial_call``), in order."""
+    from pevit_tpu_torch.train import TrainTask
+
+    real = TrainTask.train_trials
+
+    def record(self, hparams, tx, ty, vx, vy, *, end_epoch, begin_epoch=0, **kw):
+        calls.append(trial_call(self, hparams, ty, vy, end_epoch, begin_epoch))
+        return real(self, hparams, tx, ty, vx, vy, end_epoch=end_epoch,
+                    begin_epoch=begin_epoch, **kw)
+
+    TrainTask.train_trials = record
+    try:
+        yield calls
+    finally:
+        TrainTask.train_trials = real
+
+
 @contextlib.contextmanager
 def timed_command(times: dict):
     """Time a command's text features, image features, sweep and
     ``run_method`` by wrapping them where the commands look them up; keeps
-    the arguments and results of all but the sweep."""
+    the arguments and results of all but the sweep, and every
+    ``train_trials`` call in ``times["calls"]``."""
     import pevit_tpu_torch.evaluation as evaluation
     import pevit_tpu_torch.train as train
     from pevit_tpu_torch.train import sweep
@@ -1022,7 +1080,8 @@ def timed_command(times: dict):
     for (module, attr, name, keep), fn in zip(wrapped, saved):
         setattr(module, attr, wrap(name, fn, keep))
     try:
-        yield
+        with recorded_calls(times.setdefault("calls", [])):
+            yield
     finally:
         for (module, attr, _, _), fn in zip(wrapped, saved):
             setattr(module, attr, fn)
@@ -1042,43 +1101,40 @@ def check_text_features_on_cpu(call) -> dict:
     return {"shape": list(card.shape), "max_abs_err": err, "max_abs": scale}
 
 
-def command_batches(task, data, trials: int) -> tuple:
-    """Images in each train step and each eval chunk of the command, as two
-    ``{images: times run}`` counts: every sweep trial trains END_EPOCH
-    epochs on the train split and evaluates the val split after each, the
-    final run END_EPOCH + EXTRA_FINAL_TRAIN_EPOCH epochs on train + val,
-    evaluated on the test split; full batches plus a natural tail (one of a
-    single image skipped), eval chunks of ``task.eval_chunk`` plus a natural
-    remainder.  An emulated zero-shot run takes no train step."""
-    config = task.config
-    n_train, n_val, n_test = (len(data[i]) for i in (1, 3, 5))
-    sweep_e = config.TRAIN.END_EPOCH
-    final_e = sweep_e + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
-
-    def add(counts, n, size, times, tail_min):
-        counts[size] += times * (n // size)
+def call_batches(calls: list) -> tuple:
+    """Images in each kernel launch of a path's train steps and eval chunks,
+    as two ``{images: times run}`` counts, from its ``train_trials`` calls
+    (``trial_call``): every call trains its epochs on its train split and
+    evaluates its val split after each, full batches plus a natural tail
+    (one of a single image skipped), eval chunks of the task's chunk plus a
+    natural remainder.  A batched chunk of T trials runs each step and each
+    eval chunk once, at T times the images; a chunk run one trial after
+    another runs each T times.  An emulated zero-shot run takes no train
+    step."""
+    def add(counts, n, size, times, tail_min, width):
+        counts[width * size] += times * (n // size)
         if n % size >= tail_min:
-            counts[n % size] += times
+            counts[width * (n % size)] += times
 
     train, evals = collections.Counter(), collections.Counter()
-    add(train, n_train, task.static.batch_size, trials * sweep_e, 2)
-    add(train, n_train + n_val, task.static.batch_size, final_e, 2)
-    add(evals, n_val, task.eval_chunk, trials * sweep_e, 1)
-    add(evals, n_test, task.eval_chunk, final_e, 1)
-    if task.static.emulate_zero_shot:
-        train = collections.Counter()
+    for c in calls:
+        width, runs = (c["trials"], 1) if c["batched"] else (1, c["trials"])
+        if not c["emulated"]:
+            add(train, c["n_train"], c["batch"], runs * c["epochs"], 2, width)
+        add(evals, c["n_val"], c["chunk"], runs * c["epochs"], 1, width)
     return +train, +evals
 
 
-def path_batches(task, data, trials: int) -> dict:
+def path_batches(task, calls: list) -> dict:
     """What one run of a training command gave the kernels: its batches
-    (``command_batches``), dtype and widths, and which kernels it routes
-    through: K2 wherever the fused MLP is on (all but full_finetune, the
-    adapter and Compacter), K3 where a gradient also flows through it (all
-    but the linear probe, which trains the head only)."""
+    (``call_batches`` of its ``train_trials`` calls), dtype and widths, and
+    which kernels it routes through: K2 wherever the fused MLP is on (all
+    but full_finetune, the adapter and Compacter), K3 where a gradient also
+    flows through it (all but the linear probe, which trains the head
+    only)."""
     st = task.static
     vision = st.spec.vision
-    train, evals = command_batches(task, data, trials)
+    train, evals = call_batches(calls)
     return {"dtype": st.compute_dtype, "train": train, "evals": evals, "layers": vision.layers,
             "width": vision.width, "tokens": vision.seq_len, "fused_mlp": st.use_fused_mlp,
             "fused_mlp_bwd": st.use_fused_mlp and st.peft_cfg.method != "linear_probe"}
@@ -1205,11 +1261,14 @@ def run_command(kernels, tmp: Path) -> dict:
 
     (task, data, config), _ = times["run_method_call"]
     trials = len(records)  # each trained once, replays aside
-    batches = path_batches(task, data, trials)
+    chunks = [c["trials"] for c in times["calls"][:-1]]  # the sweep's, then the final run
+    if sum(chunks) != trials or max(chunks) > task.max_parallel_trials():
+        raise AssertionError(f"sweep chunks {chunks} for {trials} trials")
+    batches = path_batches(task, times["calls"])
     want_launches = expected_launches(batches)
     if launches != want_launches:
         raise AssertionError(f"command launches {launches}, want {want_launches} for "
-                             f"{trials} trials and the final run")
+                             f"{trials} trials in chunks {chunks} and the final run")
 
     # TPU.CHECKPOINT_DIR: the final run's trained state, restored bit for bit
     epochs = config.TRAIN.END_EPOCH + config.TRAIN.EXTRA_FINAL_TRAIN_EPOCH
@@ -1236,7 +1295,8 @@ def run_command(kernels, tmp: Path) -> dict:
     final_images = (len(data[1]) + len(data[3])) * epochs
     return {"best_acc": best, "best_lr": info["best_lr"], "best_wd": info["best_l2_lambda"],
             "n_params": info["n_params"], "n_trainable_params": info["n_trainable_params"],
-            "trials": trials, "distinct_trials": len(scores), "launches": launches,
+            "trials": trials, "distinct_trials": len(scores), "sweep_chunks": chunks,
+            "launches": launches,
             "train_step_images": dict(batches["train"]),
             "eval_chunk_images": dict(batches["evals"]), "text_features": text,
             "checkpoint": {"file": saved[0], "leaves": len(trained), "restored": "bit-equal"},
@@ -1403,7 +1463,7 @@ def run_training_entry(kernels, module, tmp: Path, ckpt: Path, folder: str, *opt
     seconds = time.perf_counter() - t0
     launches = read_launches(kernels)
     (task, data, config), _ = times["run_method_call"]
-    batches = path_batches(task, data, trials=0)
+    batches = path_batches(task, times["calls"])
     if launches != expected_launches(batches):
         raise AssertionError(f"{folder}: launches {launches}, want {expected_launches(batches)}")
     n_test = len(data[5])
@@ -1676,11 +1736,14 @@ def run_baseline_command(kernels, method: str, tmp: Path) -> tuple:
         trials = len(check_sweep(own, info))
     elif len(list(cache_dir.iterdir())) != len(before):
         raise AssertionError(f"{method}: a run without the sweep wrote a sweep cache")
-    batches = path_batches(task, data, trials)
+    chunks = [c["trials"] for c in times["calls"][:-1]]
+    if sum(chunks) != trials:
+        raise AssertionError(f"{method}: sweep chunks {chunks} for {trials} trials")
+    batches = path_batches(task, times["calls"])
     want = expected_launches(batches)
     if launches != want:
         raise AssertionError(f"{method} command launches {launches}, want {want} for {trials} "
-                             "sweep trials and the final run")
+                             f"sweep trials in chunks {chunks} and the final run")
     head = task.static.head_dim * task.static.num_classes + task.static.num_classes
     if info["n_trainable_params"] != JAX_PEFT_TRAINABLE[method] + head:
         raise AssertionError(f"{method}: n_trainable_params {info['n_trainable_params']}, the "
@@ -1695,7 +1758,7 @@ def run_baseline_command(kernels, method: str, tmp: Path) -> tuple:
     final_s = times["run_method"] - times.get("sweep", 0.0)
     summary = {"best_acc": best, "best_lr": info["best_lr"], "best_wd": info["best_l2_lambda"],
                "n_trainable_params": info["n_trainable_params"], "n_params": info["n_params"],
-               "sweep_trials": trials, "launches": launches,
+               "sweep_trials": trials, "sweep_chunks": chunks, "launches": launches,
                "train_step_images": dict(batches["train"]),
                "eval_chunk_images": dict(batches["evals"]),
                "seconds": {"command": seconds, "text_features": times["text_features"],
@@ -2083,21 +2146,22 @@ def aux_config(model: str, *opts):
                        str(REPO / "resources/model" / model), list(opts))
 
 
-def aux_batches(task, data, tokens: int, fused_mlp: bool, layers: int = 12) -> dict:
-    """A command's batches over a backbone whose blocks are the CLIP blocks
-    (``layers`` of them; 0 for an RN tower, which launches no kernel): the
-    backbone runs in float32, so its kernels run their fp32 bodies; K2 only
-    where the blocks take the fused MLP (DeCLIP's frozen tower), K3 never
-    (no gradient crosses a fused MLP on these paths)."""
-    train, evals = command_batches(task, data, trials=0)
+def aux_batches(task, calls: list, tokens: int, fused_mlp: bool, layers: int = 12) -> dict:
+    """A command's batches (from its ``train_trials`` calls) over a backbone
+    whose blocks are the CLIP blocks (``layers`` of them; 0 for an RN tower,
+    which launches no kernel): the backbone runs in float32, so its kernels
+    run their fp32 bodies; K2 only where the blocks take the fused MLP
+    (DeCLIP's frozen tower), K3 never (no gradient crosses a fused MLP on
+    these paths)."""
+    train, evals = call_batches(calls)
     return {"dtype": "float32", "train": train, "evals": evals, "layers": layers, "width": 768,
             "tokens": tokens, "fused_mlp": fused_mlp, "fused_mlp_bwd": False}
 
 
 def run_aux_command(kernels, module, argv: list, batches_of) -> tuple:
     """One command run: exact launches for the batches ``batches_of(task,
-    data)`` gives, and the predictions artifact.  Returns (summary, task,
-    data, config, batches)."""
+    calls)`` gives for its ``train_trials`` calls, and the predictions
+    artifact.  Returns (summary, task, data, config, batches)."""
     times = {}
     reset_launches(kernels)
     t0 = time.perf_counter()
@@ -2107,7 +2171,7 @@ def run_aux_command(kernels, module, argv: list, batches_of) -> tuple:
     seconds = time.perf_counter() - t0
     launches = read_launches(kernels)
     (task, data, config), _ = times["run_method_call"]
-    batches = batches_of(task, data)
+    batches = batches_of(task, times["calls"])
     if launches != expected_launches(batches):
         raise AssertionError(f"{config.MODEL.NAME} {module.__name__}: launches {launches}, "
                              f"want {expected_launches(batches)}")
@@ -2218,7 +2282,7 @@ def aux_vit(kernels, gen, card: str, tmp: Path, rng) -> tuple:
     probe, task, data, config, paths["aux_mae_probe"] = run_aux_command(
         kernels, linear_probe, aux_argv(tmp / "mae", "mae_vitb16.yaml", "--lr", "0.01", "--l2",
                                         "0.0001"),
-        lambda t, d: aux_batches(t, d, 197, fused_mlp=False))
+        lambda t, calls: aux_batches(t, calls, 197, fused_mlp=False))
     if config.MODEL.SPEC.GLOBAL_POOL is not False or task.backbone is None:
         raise AssertionError("the MAE probe kept its global pool")
     out["mae_linear_probe"] = probe
@@ -2227,7 +2291,7 @@ def aux_vit(kernels, gen, card: str, tmp: Path, rng) -> tuple:
     ft, ftask, fdata, _, paths["aux_vit_finetune"] = run_aux_command(
         kernels, finetune, aux_argv(tmp / "vit_ft", "vit_base_patch16_224.yaml", "--lr", "1e-5",
                                     "--l2", "0.0001", "TEST.MODEL_FILE", str(ckpt)),
-        lambda t, d: aux_batches(t, d, 197, fused_mlp=False))
+        lambda t, calls: aux_batches(t, calls, 197, fused_mlp=False))
     same_tree(ftask.clip, tree, "the pretrained ViT-B/16 after the finetune run")
     images, labels = fdata[0][:AUX_BATCH], fdata[1][:AUX_BATCH]
     ft["first_step_grads"] = []
@@ -2307,7 +2371,7 @@ def aux_declip(kernels, gen, card: str, tmp: Path, rng) -> tuple:
         kernels, linear_probe, aux_argv(tmp / "declip", "vitb32_DeCLIP.yaml", "--lr", "0.01",
                                         "--l2", "0.0001", "TRAIN.INIT_HEAD_WITH_TEXT_ENCODER",
                                         "True"),
-        lambda t, d: aux_batches(t, d, 50, fused_mlp=True))
+        lambda t, calls: aux_batches(t, calls, 50, fused_mlp=True))
     card_w = task.text_init_weights
     cpu = dataclasses.replace(task.backbone, params=copy.deepcopy(task.backbone.params).cpu())
     cpu_w = backbone_text_features(config, cpu)
@@ -2330,7 +2394,7 @@ def aux_declip(kernels, gen, card: str, tmp: Path, rng) -> tuple:
     slip, stask, _, _, paths["aux_slip_finetune"] = run_aux_command(
         kernels, finetune, aux_argv(tmp / "slip", "vitb32_SLIP.yaml", "--lr", "1e-5", "--l2",
                                     "0.0001", epochs=("1", "0")),
-        lambda t, d: aux_batches(t, d, 50, fused_mlp=False))
+        lambda t, calls: aux_batches(t, calls, 50, fused_mlp=False))
     if slip["launches"]["fused_mlp_fwd"] or sum(paths["aux_slip_finetune"]["train"].values()) != 1:
         raise AssertionError(f"SLIP finetune: {slip['launches']}, steps "
                              f"{paths['aux_slip_finetune']['train']}")
@@ -2415,7 +2479,7 @@ def aux_rn50(kernels, card: str, tmp: Path, rng) -> tuple:
         kernels, linear_probe, aux_argv(tmp / "rn", "vitb32_CLIP.yaml", "--lr", "0.01", "--l2",
                                         "0.0001", "MODEL.NAME", "RN50", "MODEL.PRETRAINED",
                                         str(ckpt)),
-        lambda t, d: aux_batches(t, d, 0, fused_mlp=False, layers=0))
+        lambda t, calls: aux_batches(t, calls, 0, fused_mlp=False, layers=0))
     for name, summary in out.items():
         print(f"aux RN50 {name}: {json.dumps(summary)} [{card}]", flush=True)
     return paths
@@ -2555,7 +2619,7 @@ def aux_swin(kernels, card: str, tmp: Path, rng) -> tuple:
                                                                              rng)
     del cls_swin
 
-    no_kernel = lambda t, d: aux_batches(t, d, 0, fused_mlp=False, layers=0)
+    no_kernel = lambda t, calls: aux_batches(t, calls, 0, fused_mlp=False, layers=0)
     probe, task, _, config, paths["aux_clip_swin_probe"] = run_aux_command(
         kernels, linear_probe, aux_argv(tmp / "swin_probe", "clip_swin_tiny.yaml", "--lr", "0.01",
                                         "--l2", "0.0001", "TEST.MODEL_FILE", str(ckpt),
@@ -2665,20 +2729,21 @@ def noisy_split(prototypes, n: int, rng) -> tuple:
     return np.clip(prototypes[labels].astype(np.int16) + noise, 0, 255).astype(np.uint8), labels
 
 
-def stream_batches(n_train: int, n_val: int, batch: int, chunk: int, runs: int, dtype: str,
-                   fused_mlp_bwd: bool = True) -> dict:
-    """A streamed run's batches (``runs`` = trials x epochs): full batches
-    and a natural tail (one of a single image skipped), eval chunks and a
-    natural remainder."""
+def stream_batches(n_train: int, n_val: int, batch: int, chunk: int, epochs: int, dtype: str,
+                   trials: int = 1) -> dict:
+    """A streamed run's batches: ``epochs`` of full batches and a natural
+    tail (one of a single image skipped), eval chunks and a natural
+    remainder, each step and chunk one launch for the batch of ``trials``
+    at ``trials`` times the images."""
     train, evals = collections.Counter(), collections.Counter()
-    train[batch] += runs * (n_train // batch)
+    train[trials * batch] += epochs * (n_train // batch)
     if n_train % batch > 1:
-        train[n_train % batch] += runs
-    evals[chunk] += runs * (n_val // chunk)
+        train[trials * (n_train % batch)] += epochs
+    evals[trials * chunk] += epochs * (n_val // chunk)
     if n_val % chunk:
-        evals[n_val % chunk] += runs
+        evals[trials * (n_val % chunk)] += epochs
     return {"dtype": dtype, "train": +train, "evals": +evals, "layers": 12, "width": 768,
-            "tokens": 50, "fused_mlp": True, "fused_mlp_bwd": fused_mlp_bwd}
+            "tokens": 50, "fused_mlp": True, "fused_mlp_bwd": True}
 
 
 def stream_right(kernels, clip, prototypes, rng) -> tuple:
@@ -2708,16 +2773,17 @@ def stream_right(kernels, clip, prototypes, rng) -> tuple:
     finally:
         trainer._softmax = softmax
     (runner,) = runners
-    batches = stream_batches(n_train, n_val, TRAIN_BATCH, task.eval_chunk,
-                             len(hparams) * epochs, "float32")
+    batches = stream_batches(n_train, n_val, TRAIN_BATCH, task.eval_chunk, epochs, "float32",
+                             trials=len(hparams))
     if launches != expected_launches(batches):
         raise AssertionError(f"streamed run launches {launches}, want "
                              f"{expected_launches(batches)}")
-    steps = sum(batches["train"].values()) // len(hparams)
-    if runner.batches != steps or runner.h2d_bytes != epochs * images.nbytes:
-        raise AssertionError(f"streamed run gathered {runner.batches} batches ({steps} a trial) "
-                             f"and moved {runner.h2d_bytes} bytes, want {epochs} x "
-                             f"{images.nbytes}")
+    steps = sum(batches["train"].values())  # one batched step a batch for both trials
+    if (runner.trials != len(hparams) or runner.batches != steps
+            or runner.h2d_bytes != epochs * images.nbytes):
+        raise AssertionError(f"streamed run of {runner.trials} trials gathered {runner.batches} "
+                             f"batches ({steps} wanted) and moved {runner.h2d_bytes} bytes, "
+                             f"want {epochs} x {images.nbytes}")
     # the preloaded twin of each trial, handed the streamed orders
     fit_eval = task._fit_eval_fn(n_train, epochs, n_val)
     orders = [epoch_order(n_train, STREAM_SEED * 1000 + e) for e in range(epochs)]
@@ -2812,7 +2878,7 @@ def stream_full(kernels, clip, prototypes, rng, card: str) -> tuple:
         peak = torch.cuda.max_memory_allocated() - base
     (runner,) = runners
     batches = stream_batches(STREAM_FULL, STREAM_VAL, TRAIN_BATCH, task.eval_chunk, 1,
-                             "bfloat16")
+                             "bfloat16")  # one trial, one epoch
     if launches != expected_launches(batches):
         raise AssertionError(f"streamed epoch launches {launches}, want "
                              f"{expected_launches(batches)}")
@@ -2889,7 +2955,7 @@ def stream_command(kernels, tmp: Path) -> tuple:
     if host != [True, True, False, False, True, True] or kinds != [("ndarray", "ndarray")]:
         raise AssertionError(f"splits on the host {host}; the final run was handed {kinds}")
     check_command_artifacts(tmp)
-    batches = path_batches(task, data, trials=0)
+    batches = path_batches(task, times["calls"])
     if launches != expected_launches(batches) or len(runners) != 1:
         raise AssertionError(f"streamed command launches {launches}, want "
                              f"{expected_launches(batches)}; runners {len(runners)}")
@@ -2929,6 +2995,224 @@ def run_streaming(kernels, gen, card: str, clip, prototypes) -> tuple:
                 print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
     steps["kernel_rows"] = time.perf_counter() - t0
     print(f"phase 11 seconds by step: {json.dumps(steps)}", flush=True)
+    return launches, table, time.perf_counter() - t_phase
+
+
+# ---------------------------------------------------------------------------
+# 12. trial batches: a sweep chunk's trials trained as one batch
+# ---------------------------------------------------------------------------
+
+TRIAL_SEED = 7
+TRIAL_VAL = 160  # phase 5's val split cut to chunks of 64, 64 and 32
+# (a) four trials of distinct (lr, wd), fp32, dropout 0
+TRIAL_RIGHT = [(1e-3, 1e-4), (3e-4, 1e-2), (2e-3, 0.0), (5e-4, 1e-3)]
+# (b) a chunk of TPU.SWEEP_PARALLEL_TRIALS = 8 (its default), bf16, dropout 0.5
+TRIAL_WIDTH = 8
+TRIAL_FULL = [(lr, wd) for lr in (1e-3, 3e-4) for wd in (0.0, 1e-4, 1e-3, 1e-2)]
+# (c) the cap below a chunk of 8's need, as a share of it above the base
+OOM_CAP_SHARE = 0.75
+
+
+def trial_logits(task, seen: list):
+    """Spy on ``task._fit_eval_fn``: each fit_eval call's (trained params,
+    val logits) into ``seen``, copied to the host."""
+    build = task._fit_eval_fn
+
+    def wrapped(*a, **k):
+        fit_eval = build(*a, **k)
+
+        def run(*args, **kw):
+            state, logits = fit_eval(*args, **kw)
+            seen.append(({n: p.detach().float().cpu() for n, p in state.params.items()},
+                         logits.cpu().numpy()))
+            return state, logits
+        return run
+
+    task._fit_eval_fn = wrapped
+
+
+def per_trial(seen: list, batched: bool, trials: int) -> list:
+    """[(val logits (epochs, n, K), {name: params})] per trial from
+    ``trial_logits``: the batched path's one call, or the serial path's one
+    call per trial."""
+    if not batched:
+        return [(logits, params) for params, logits in seen]
+    ((params, logits),) = seen
+    return [(logits[t], {n: p[t] for n, p in params.items()}) for t in range(trials)]
+
+
+def trial_gaps(got: list, want: list, what: str, limit=None) -> list:
+    """Per trial: the largest val-logit and trained-parameter gaps, each
+    relative to the serial path's largest value; held to ``limit`` where
+    one is given."""
+    gaps = []
+    for t, ((g_logits, g_params), (w_logits, w_params)) in enumerate(zip(got, want)):
+        rel = lambda g, w: float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        row = {"trial": t, "logit_gap": rel(g_logits, w_logits),
+               "param_gap": max(rel(g_params[n].numpy(), w_params[n].numpy())
+                                for n in w_params if w_params[n].abs().max() > 0)}
+        if limit is not None and max(row["logit_gap"], row["param_gap"]) > limit:
+            raise AssertionError(f"{what} trial {t}: batched vs serial {row} > {limit}")
+        gaps.append(row)
+    return gaps
+
+
+def trial_run(task, hparams, data, *, serial: bool, epochs: int = TRAIN_EPOCHS):
+    """One chunk of ``hparams`` through ``train_trials`` (or the serial
+    path), seconds and per-trial (logits, params)."""
+    images, labels, val, val_labels = data
+    seen = []
+    trial_logits(task, seen)
+    train = task._train_trials_serial if serial else task.train_trials
+    t0 = time.perf_counter()
+    res = train(hparams, images, labels, val, val_labels, end_epoch=epochs, seed=TRIAL_SEED,
+                keep_logits=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del task._fit_eval_fn
+    return seconds, res, per_trial(seen, not serial, len(hparams))
+
+
+def trial_launches(kernels, task, hparams, data) -> tuple:
+    """The batched chunk with its launches read around it and held to one
+    launch a block a step and eval chunk for the whole chunk.  Returns
+    (seconds, results, per-trial outputs, launches, batches)."""
+    calls = []
+    reset_launches(kernels)
+    with recorded_calls(calls):
+        seconds, res, out = trial_run(task, hparams, data, serial=False)
+    launches = read_launches(kernels)
+    batches = path_batches(task, calls)
+    want = expected_launches(batches)
+    steps = sum(batches["train"].values())
+    if launches != want or calls[0]["trials"] != len(hparams) or not calls[0]["batched"]:
+        raise AssertionError(f"chunk of {len(hparams)}: launches {launches}, want {want} "
+                             f"({steps} steps and {sum(batches['evals'].values())} eval "
+                             f"chunks for the whole chunk); calls {calls}")
+    return seconds, res, out, launches, batches
+
+
+def trials_right(kernels, clip, data) -> tuple:
+    """12a: four fp32 KAdaptation trials, dropout 0, batched and serial:
+    every (trial, epoch) val logit and each trial's trained factors within
+    1e-5 of the largest."""
+    task = make_task(clip, "float32", 0.0)
+    seconds, res, got, launches, batches = trial_launches(kernels, task, TRIAL_RIGHT, data)
+    serial_s, serial_res, want = trial_run(task, TRIAL_RIGHT, data, serial=True)
+    gaps = trial_gaps(got, want, "fp32", limit=1e-5)
+    if not all(np.isfinite(r["best_logits"]).all() for r in res):
+        raise AssertionError("non-finite batched fp32 run")
+    return ({"trials": len(TRIAL_RIGHT), "epochs": TRAIN_EPOCHS, "launches": launches,
+             "gaps": gaps, "best_scores": [r["best_score"] for r in res],
+             "serial_best_scores": [r["best_score"] for r in serial_res],
+             "seconds": {"batched": seconds, "serial": serial_s}}, batches)
+
+
+def trials_full(kernels, clip, data) -> tuple:
+    """12b: a chunk of 8 bf16 trials at batch 128, dropout 0.5, after a
+    warm-up chunk: batched and serial in turns (S B B S), seconds per trial,
+    each path's device idle share from a CUDA-only profile of one more run,
+    the card's peak allocation of a batched chunk, exact launches; each
+    trial's gap to the serial path and both best scores, reported."""
+    task = make_task(clip, "bfloat16", 0.5)
+    if task.max_parallel_trials() != TRIAL_WIDTH:
+        raise AssertionError(f"TPU.SWEEP_PARALLEL_TRIALS {task.max_parallel_trials()}")
+    hp = TRIAL_FULL
+    trial_run(task, hp[:2], data, serial=False, epochs=1)  # warm-up
+    s_seconds = [trial_run(task, hp, data, serial=True)[0]]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, res, got, launches, batches = trial_launches(kernels, task, hp, data)
+    peak = torch.cuda.max_memory_allocated() - base
+    b_seconds = [seconds, trial_run(task, hp, data, serial=False)[0]]
+    s_seconds_2, serial_res, want = trial_run(task, hp, data, serial=True)
+    s_seconds.append(s_seconds_2)
+    b_wall, b_busy = device_busy_ms(lambda: task.train_trials(
+        hp, *data[:2], *data[2:], end_epoch=TRAIN_EPOCHS, seed=TRIAL_SEED))
+    s_wall, s_busy = device_busy_ms(lambda: task._train_trials_serial(
+        hp, *data[:2], *data[2:], end_epoch=TRAIN_EPOCHS, seed=TRIAL_SEED))
+    if not all(np.isfinite(r["best_logits"]).all() for r in res):
+        raise AssertionError("non-finite batched bf16 chunk")
+    T = len(hp)
+    b_mean, s_mean = float(np.mean(b_seconds)), float(np.mean(s_seconds))
+    return ({"trials": T, "epochs": TRAIN_EPOCHS, "batch": TRAIN_BATCH, "launches": launches,
+             "seconds_per_trial": {"batched": b_mean / T, "serial": s_mean / T},
+             "serial_over_batched": s_mean / b_mean,
+             "batched_seconds": b_seconds, "serial_seconds": s_seconds,
+             "peak_card_bytes": peak,
+             "profiled": {"batched": {"wall_ms": b_wall, "device_busy_ms": b_busy,
+                                      "device_idle_share": 1 - b_busy / b_wall},
+                          "serial": {"wall_ms": s_wall, "device_busy_ms": s_busy,
+                                     "device_idle_share": 1 - s_busy / s_wall}},
+             "gaps": trial_gaps(got, want, "bf16"),
+             "best_scores": [r["best_score"] for r in res],
+             "serial_best_scores": [r["best_score"] for r in serial_res]}, batches, peak)
+
+
+def trials_oom(clip, data, peak: int) -> dict:
+    """12c: the process capped below a chunk of 8's need (its peak from
+    12b) and above a chunk of 4's; ``sweep._run_stage`` on 8 trials splits
+    the chunk that runs out of memory, logs the split and returns 8 finite
+    scores.  The cap is lifted afterwards."""
+    from pevit_tpu_torch.train import sweep
+
+    task = make_task(clip, "bfloat16", 0.5)
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = torch.cuda.memory_reserved() + OOM_CAP_SHARE * peak
+    records, calls = [], []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    root = logging.getLogger()
+    root.addHandler(handler)
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        with recorded_calls(calls):
+            t0 = time.perf_counter()
+            scores = sweep._run_stage(task, TRIAL_FULL, data, TRAIN_EPOCHS, TRIAL_SEED,
+                                      TRIAL_WIDTH)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+        root.removeHandler(handler)
+    split = [m for m in records if "ran out of card memory" in m]
+    widths = [c["trials"] for c in calls]
+    if (len(scores) != len(TRIAL_FULL) or not all(np.isfinite(scores)) or not split
+            or widths[0] != TRIAL_WIDTH or sum(w for w in widths if w < TRIAL_WIDTH) < 8):
+        raise AssertionError(f"capped sweep stage: scores {scores}, chunks {widths}, "
+                             f"log {split}")
+    return {"cap_bytes": cap, "cap_share_of_card": cap / total, "chunk_widths_run": widths,
+            "split_log": split, "scores": scores, "seconds": seconds}
+
+
+def run_trial_batches(kernels, gen, card: str, clip, data) -> tuple:
+    """Phase 12; returns the launches and kernel rows of its batched paths."""
+    launches, table = {}, {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    data = (*data[:2], data[2][:TRIAL_VAL], data[3][:TRIAL_VAL])
+    t_phase, steps, paths = time.perf_counter(), {}, {}
+    t0 = time.perf_counter()
+    out, paths["trials_fp32"] = trials_right(kernels, clip, data)
+    print(f"trial batch fp32: {json.dumps(out)} [{card}]", flush=True)
+    steps["right"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, paths["trials_bf16"], peak = trials_full(kernels, clip, data)
+    print(f"trial batch bf16: {json.dumps(out)} [{card}]", flush=True)
+    steps["full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = trials_oom(clip, data, peak)
+    print(f"trial batch out of memory: {json.dumps(out)} [{card}]", flush=True)
+    steps["oom"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path, batches in paths.items():
+        launches[path] = expected_launches(batches)
+        for name, rows_ in path_kernel_rows(gen, path, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    steps["kernel_rows"] = time.perf_counter() - t0
+    print(f"phase 12 seconds by step: {json.dumps(steps)}", flush=True)
     return launches, table, time.perf_counter() - t_phase
 
 
@@ -3090,11 +3374,16 @@ def main() -> int:
     stream_launches, stream_table, seconds = run_streaming(KERNELS, gen, card, clip, prototypes)
     print(f"phase 11: {seconds:.1f} s", flush=True)
 
-    # 12. report
+    # 12. trial batches: a chunk's trials as one batch, against the serial
+    # path, at the default chunk width, and halved out of memory
+    trial_launches_, trial_table, seconds = run_trial_batches(KERNELS, gen, card, clip, data)
+    print(f"phase 12: {seconds:.1f} s", flush=True)
+
+    # 13. report
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
-                **aux_launches, **stream_launches}
+                **aux_launches, **stream_launches, **trial_launches_}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
-             + deploy_table[name] + aux_table[name] + stream_table[name]
+             + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
              for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)

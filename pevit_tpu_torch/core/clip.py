@@ -124,6 +124,12 @@ class BlockHooks:
     (B, H, N, hd) outputs; ``mlp_post(shared, layer, generator, m) -> m'``
     on the bare MLP output.  ``shared`` and ``layer`` are the PEFT module's
     shared part (None where a method shares nothing) and this layer's part.
+
+    A batch of T trials (``peft.base.make_hooks(..., trials=T)``) runs the
+    tower unchanged on its T*B images: the hooks know T, take the folded
+    (T*B, N, C) input, and apply trial t's parameters (stacked (T, ...) in
+    ``shared`` and ``layer``) to trial t's B rows; ``generator`` is then a
+    sequence of T generators, one per trial.
     """
 
     attn_delta: Optional[Callable] = None

@@ -41,6 +41,11 @@ KERNEL = Kernel(
 )
 HEAD_DIM = 64
 MAX_SEQ = 257
+# the launchers count the grid's blocks in a 32-bit int: one per (batch,
+# head) in bf16, per (batch, head, 64-query tile) in fp32; every pointer
+# offset is 64-bit
+QUERY_TILE_F32 = 64
+MAX_BLOCKS = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,6 +64,14 @@ def rows_aligned(offset: int, strides, itemsize: int) -> bool:
     strides ``strides`` (in elements of ``itemsize`` bytes) all multiples of
     16 bytes.  Both bodies require it."""
     return offset % 16 == 0 and all(st * itemsize % 16 == 0 for st in strides)
+
+
+def check_grid(B: int, H: int, N: int, dtype) -> None:
+    """The batch a launch can take: its grid's blocks at most ``MAX_BLOCKS``."""
+    blocks = B * H * (-(-N // QUERY_TILE_F32) if dtype == torch.float32 else 1)
+    if blocks > MAX_BLOCKS:
+        raise KernelInputError(f"attention kernel takes at most {MAX_BLOCKS} blocks, got {blocks} "
+                               f"(B={B}, H={H}, N={N}, {dtype})")
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -83,6 +96,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         raise KernelInputError(f"attention kernel takes head_dim {HEAD_DIM}, got {hd}")
     if not 0 < N <= MAX_SEQ:
         raise KernelInputError(f"attention kernel takes 1 <= N <= {MAX_SEQ}, got {N}")
+    check_grid(B, H, N, q.dtype)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise KernelInputError("attention kernel needs unit stride along head_dim")
     if not all(rows_aligned(t.data_ptr(), t.stride()[:3], t.element_size()) for t in (q, k, v)):

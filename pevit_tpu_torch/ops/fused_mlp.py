@@ -51,6 +51,12 @@ BWD_KERNEL = Kernel(
 )
 WIDTHS = (256, 512, 768, 1024)
 HIDDEN_MULTIPLE = 128
+# Both kernels' GEMMs give each 128-row tile of the R rows one block row of
+# the grid's y dimension, which CUDA caps at 65535; their index products
+# (row x C, row x F, in elements and bytes) are 64-bit, so R x F may pass
+# 2^31 (a chunk of 16 trials' 512-image eval chunks on ViT-L/14 is
+# R = 2,105,344 rows, R x F = 8.6e9).
+MAX_ROWS = 65535 * 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WEIGHTS = ("ln_scale", "ln_bias", "wfc", "bfc", "wproj", "bproj")
 
@@ -121,7 +127,17 @@ def _check(name, x, weights: dict) -> tuple:
             raise KernelInputError(f"{n} must be {shapes[n]}, got {tuple(t.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise KernelInputError(f"{name} takes contiguous tensors")
-    return x.numel() // C, C, F
+    R = x.numel() // C
+    check_rows(name, R)
+    return R, C, F
+
+
+def check_rows(name: str, R: int) -> None:
+    """The row count a launch can take: at most ``MAX_ROWS``, the grid's
+    limit (a larger batch is split by its caller)."""
+    if R > MAX_ROWS:
+        raise KernelInputError(f"{name} takes at most {MAX_ROWS} rows (65535 row tiles of 128), "
+                               f"got {R}")
 
 
 def fwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:

@@ -11,6 +11,8 @@ down 768 -> 64 and up 64 -> 768, kernels N(0, 0.02), biases zero, a
 LayerNorm before and none after.  The reference evaluates the MLP twice
 per block, once as the adapter's input and once as its residual; both are
 bit-identical, so it is computed once, as the JAX package does.
+:func:`mlp_post_trials` is the hook of a batch of trials: the parameters
+stacked over a leading trial axis, m the trials' batches folded into one.
 """
 
 from __future__ import annotations
@@ -71,6 +73,21 @@ def mlp_post(shared, layer: AdapterLayer, generator, m: torch.Tensor, *,
     h = torch.relu(h.float() @ layer.down_kernel.to(dt).float() + layer.down_bias).to(dt)
     up = h.float() @ layer.up_kernel.to(dt).float() + layer.up_bias
     return up.to(dt) + m
+
+
+def mlp_post_trials(shared, layer: AdapterLayer, generators, m: torch.Tensor, *, trials: int,
+                    train: bool = False) -> torch.Tensor:
+    """:func:`mlp_post` of ``trials`` trials at once: m (T*B, N, C), the
+    adapter's parameters stacked (T, ...), trial t's rows through trial t's
+    adapter."""
+    del shared, generators, train
+    dt = m.dtype
+    mt = m.reshape(trials, -1, m.shape[-1])
+    h = layer_norm(mt, layer.norm_scale[:, None], layer.norm_bias[:, None])
+    h = torch.relu(torch.bmm(h.float(), layer.down_kernel.to(dt).float())
+                   + layer.down_bias[:, None]).to(dt)
+    up = torch.bmm(h.float(), layer.up_kernel.to(dt).float()) + layer.up_bias[:, None]
+    return (up.to(dt) + mt).reshape(m.shape)
 
 
 def num_params(n_layers: int, width: int) -> int:

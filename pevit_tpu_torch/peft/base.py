@@ -53,22 +53,35 @@ def init_peft(generator: torch.Generator, cfg: PeftConfig, spec: CLIPSpec, *, de
                                             device=device)
 
 
-def make_hooks(cfg: PeftConfig, spec: CLIPSpec, train: bool) -> Optional[BlockHooks]:
-    """The per-block callbacks for the visual tower, or None."""
+def make_hooks(cfg: PeftConfig, spec: CLIPSpec, train: bool,
+               trials: int = 0) -> Optional[BlockHooks]:
+    """The per-block callbacks for the visual tower, or None.  With
+    ``trials`` they are a batch of trials' hooks: the PEFT parameters
+    stacked over a leading trial axis, the block input the trials' batches
+    folded into one, one generator per trial (``BlockHooks``)."""
     n_head = spec.vision.heads
+    if trials:
+        kw = {"trials": trials}
+        pick = lambda module, name: getattr(module, name + "_trials")
+    else:
+        kw = {}
+        pick = getattr
     if cfg.method == "kadaptation":
         return BlockHooks(attn_delta=partial(
-            _kadaptation.attn_delta,
+            pick(_kadaptation, "attn_delta"),
             n_head=n_head,
             train=train,
             reference_compat=cfg.reference_compat,
             dropout_p=cfg.kadapt_dropout_p,
+            **kw,
         ))
     if cfg.method == "lora":
-        return BlockHooks(attn_delta=partial(_lora.attn_delta, n_head=n_head, train=train,
-                                             reference_compat=cfg.reference_compat))
+        return BlockHooks(attn_delta=partial(pick(_lora, "attn_delta"), n_head=n_head,
+                                             train=train,
+                                             reference_compat=cfg.reference_compat, **kw))
     if cfg.method in ("adapter", "compacter"):
-        return BlockHooks(mlp_post=partial(_MODULES[cfg.method].mlp_post, train=train))
+        return BlockHooks(mlp_post=partial(pick(_MODULES[cfg.method], "mlp_post"), train=train,
+                                           **kw))
     return None
 
 

@@ -15,6 +15,9 @@ A PHMLinear (phm_dim P = 4, rank 1) builds its weight as
 and both projections, drawn from U(-1, 1) and never trained (the
 reference's name filter leaves it frozen, ``peft.base``); the factors are
 glorot-uniform with gain sqrt(2) per (a, b) slice, the biases zero.
+:func:`mlp_post_trials` is the hook of a batch of trials: the parameters,
+the rule too, stacked over a leading trial axis (each trial draws its own
+rule, as each of the reference's trials rebuilds its model).
 """
 
 from __future__ import annotations
@@ -94,8 +97,11 @@ def phm_linear(x: torch.Tensor, w_left: torch.Tensor, w_right: torch.Tensor,
     """PHMLinear: H built in float32, cast to x's dtype, then ``x @ H`` with
     a float32 result (``x.float() @ H.to(dtype).float()``, as the
     reference's ``preferred_element_type=float32`` product) plus ``b`` in
-    float32.  Returns float32."""
+    float32.  Returns float32.  With the operands stacked over T trials, x
+    is (T, rows, in) and each trial's rows go through its own H."""
     h = batched_kron_sum(rule, bmm(w_left, w_right))
+    if h.dim() == 3:  # stacked trials: x (T, rows, in), b (T, out)
+        return torch.bmm(x.float(), h.to(x.dtype).float()) + b.float()[:, None]
     return x.float() @ h.to(x.dtype).float() + b.float()
 
 
@@ -112,6 +118,22 @@ def mlp_post(shared: CompacterShared, layer: CompacterLayer, generator, m: torch
     h = gelu_new(h).to(dt)
     h = phm_linear(h, layer.up_w_left, layer.up_w_right, rule, layer.up_b)
     return h.to(dt) + m
+
+
+def mlp_post_trials(shared: CompacterShared, layer: CompacterLayer, generators,
+                    m: torch.Tensor, *, trials: int, train: bool = False) -> torch.Tensor:
+    """:func:`mlp_post` of ``trials`` trials at once: m (T*B, N, C), the
+    parameters and the rule stacked (T, ...), trial t's rows through trial
+    t's adapter."""
+    del generators, train
+    dt = m.dtype
+    rule = shared.phm_rule
+    mt = m.reshape(trials, -1, m.shape[-1])
+    h = layer_norm(mt, layer.norm_scale[:, None], layer.norm_bias[:, None])
+    h = phm_linear(h, layer.down_w_left, layer.down_w_right, rule, layer.down_b)
+    h = gelu_new(h).to(dt)
+    h = phm_linear(h, layer.up_w_left, layer.up_w_right, rule, layer.up_b)
+    return (h.to(dt) + mt).reshape(m.shape)
 
 
 def num_params(n_layers: int, width: int) -> int:

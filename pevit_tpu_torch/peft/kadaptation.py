@@ -9,6 +9,12 @@ The reference's quirks are kept behind ``reference_compat=True``:
 4. the (N, B, C) -> (B*H, N, hd) raw reshape scrambles tokens, batch rows
    and heads (``permute(1, 0, 2).reshape(...)``, never a view);
 5. Dropout(0.5) on H itself, independently for q and v (training only).
+
+:func:`attn_delta_trials` is the hook of a batch of trials: every parameter
+stacked over a leading trial axis, the block input the trials' batches
+folded into one (T*B, N, C), and trial t's H applied to trial t's rows, its
+dropout drawn from trial t's generator and its scramble (quirk 4) kept
+within trial t's own (B, N, C).
 """
 
 from __future__ import annotations
@@ -76,7 +82,8 @@ def init_params(generator: torch.Generator, n_layers: int, width: int, *,
 
 def delta_weights(shared: KAdaptationShared, layer: KAdaptationLayer, *,
                   reference_compat: bool = True):
-    """The (C, C) H_q and H_v delta-weight matrices of one layer."""
+    """The (C, C) H_q and H_v delta-weight matrices of one layer, (T, C, C)
+    for parameters stacked over T trials."""
     rule1 = bmm(shared.phm_rule1_left, shared.phm_rule1_right)
     rule2 = bmm(shared.phm_rule2_left, shared.phm_rule2_right)
     wq = bmm(layer.q_left, layer.q_right)
@@ -125,6 +132,53 @@ def attn_delta(
         dq = dq.reshape(B, N, n_head, hd).transpose(1, 2)
         dv = dv.reshape(B, N, n_head, hd).transpose(1, 2)
     return dq, dv
+
+
+def trial_heads(d: torch.Tensor, batch: int, n_head: int, reference_compat: bool):
+    """A (T, B*N, C) delta of T trials of ``batch`` images each in the
+    attention's (T*B, H, N, hd) layout: under ``reference_compat`` the
+    raw-reshape scramble of quirk 4, (B, N, C) -> (N, B, C) -> (B, H, N, hd)
+    within each trial's own rows, never across trials; else the plain
+    split into heads."""
+    T, BN, C = d.shape
+    N, hd = BN // batch, C // n_head
+    if reference_compat:
+        return d.view(T, batch, N, C).permute(0, 2, 1, 3).flatten().view(
+            T * batch, n_head, N, hd)
+    return d.view(T * batch, N, n_head, hd).transpose(1, 2)
+
+
+def attn_delta_trials(
+    shared: KAdaptationShared,
+    layer: KAdaptationLayer,
+    generators,
+    x: torch.Tensor,
+    *,
+    trials: int,
+    n_head: int,
+    train: bool = False,
+    reference_compat: bool = True,
+    dropout_p: float = KDROPOUT_P,
+):
+    """:func:`attn_delta` of ``trials`` trials at once: x (T*B, N, C), every
+    parameter stacked (T, ...), ``generators`` one per trial (on x's
+    device) for the train-time dropout; returns (T*B, H, N, hd) deltas,
+    trial t's rows from trial t's H.  Each generator draws H_q's mask, then
+    H_v's, as :func:`attn_delta` draws them from its one generator."""
+    TB, N, C = x.shape
+    B = TB // trials
+    h_q, h_v = delta_weights(shared, layer, reference_compat=reference_compat)
+    if train and dropout_p > 0:
+        keep = 1.0 - dropout_p
+        draw = lambda g: torch.rand((C, C), generator=g, device=h_q.device)
+        h_q = h_q * (torch.stack([draw(g) for g in generators]) < keep) / keep
+        h_v = h_v * (torch.stack([draw(g) for g in generators]) < keep) / keep
+    b = layer.b.float()[:, None, :]
+    x32 = x.float().reshape(trials, B * N, C)
+    dq = torch.bmm(x32, h_q.to(x.dtype).float()) * SCALE + b
+    dv = torch.bmm(x32, h_v.to(x.dtype).float()) * SCALE + b
+    return (trial_heads(dq, B, n_head, reference_compat),
+            trial_heads(dv, B, n_head, reference_compat))
 
 
 def num_params(n_layers: int, width: int) -> int:

@@ -6,7 +6,8 @@ the scale is 32; A ~ N(0, 0.02), B = 0, so the delta starts at exactly 0.
 It shares KAdaptation's application quirks: the delta comes from the LN'd
 block input, is added after q's scale, and under ``reference_compat`` goes
 through the (N, B, C) -> (B*H, N, hd) raw-reshape scramble.  No bias, no
-dropout (the reference's ``lora_r_dropout`` is None).
+dropout (the reference's ``lora_r_dropout`` is None).  :func:`attn_delta_trials`
+is the hook of a batch of trials, as KAdaptation's.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from .kadaptation import trial_heads
 
 LORA_RANK = 4
 LORA_ALPHA = 128
@@ -80,6 +82,27 @@ def attn_delta(shared, layer: LoRALayer, generator, x: torch.Tensor, *, n_head: 
         dq = dq.reshape(B, N, n_head, hd).transpose(1, 2)
         dv = dv.reshape(B, N, n_head, hd).transpose(1, 2)
     return dq, dv
+
+
+def attn_delta_trials(shared, layer: LoRALayer, generators, x: torch.Tensor, *, trials: int,
+                      n_head: int, train: bool = False, reference_compat: bool = True):
+    """:func:`attn_delta` of ``trials`` trials at once: x (T*B, N, C), the
+    factors stacked (T, ...); returns (T*B, H, N, hd) deltas, trial t's rows
+    through trial t's factors, the scramble within each trial."""
+    del shared, generators, train
+    TB, N, C = x.shape
+    B = TB // trials
+    dt = x.dtype
+    xt = x.reshape(trials, B * N, C)
+
+    def low_rank(a, b):  # as _low_rank, one product per trial
+        h = torch.bmm(xt.float(), a.to(dt).float()).to(dt)
+        return torch.bmm(h.float(), b.to(dt).float())
+
+    dq = low_rank(layer.q_a, layer.q_b) * SCALE
+    dv = low_rank(layer.v_a, layer.v_b) * SCALE
+    return (trial_heads(dq, B, n_head, reference_compat),
+            trial_heads(dv, B, n_head, reference_compat))
 
 
 def num_params(n_layers: int, width: int) -> int:

@@ -5,6 +5,11 @@ semantics (momentum 0.1, eps 1e-5, biased variance to normalise, unbiased
 for the running update); its state is a ``{"mean", "var"}`` dict that
 ``batch_norm`` returns updated in training.  The linear kernel is stored
 ``(embed_dim, num_classes)``: logits = feats @ kernel + bias.
+
+A batch of trials holds the head's parameters stacked over a leading trial
+axis (kernel (T, D, K), bias (T, K), logit scale (T,)), the BN state as
+(T, D), and takes features (T, B, D): every statistic is over a trial's own
+B rows, and the same code serves one trial, whose features are (B, D).
 """
 
 from __future__ import annotations
@@ -37,28 +42,29 @@ def init_bn_state(dim: int, *, device=None) -> dict:
 
 def batch_norm(x: torch.Tensor, state: dict, *, train: bool,
                mask: Optional[torch.Tensor] = None):
-    """torch BatchNorm1d(affine=False); x: (B, D), mask: (B,) validity.
-    Returns (y in x's dtype, state)."""
+    """torch BatchNorm1d(affine=False); x: (B, D) or (T, B, D), mask: (B,)
+    or (T, B) validity, the statistics over the B rows.  Returns (y in x's
+    dtype, state)."""
     x32 = x.float()
     if not train:
-        y = (x32 - state["mean"]) * torch.rsqrt(state["var"] + BN_EPS)
+        y = (x32 - state["mean"].unsqueeze(-2)) * torch.rsqrt(state["var"].unsqueeze(-2) + BN_EPS)
         return y.to(x.dtype), state
 
     if mask is None:
-        count = torch.tensor(float(x.shape[0]), device=x.device)
-        mean = x32.mean(0)
-        var = ((x32 - mean) ** 2).mean(0)
+        count = torch.tensor(float(x.shape[-2]), device=x.device)
+        mean = x32.mean(-2, keepdim=True)
+        var = ((x32 - mean) ** 2).mean(-2, keepdim=True)
     else:
-        m = mask.float()[:, None]
-        count = torch.clamp(m.sum(), min=1.0)
-        mean = (x32 * m).sum(0) / count
-        var = (((x32 - mean) ** 2) * m).sum(0) / count
+        m = mask.float()[..., None]
+        count = torch.clamp(m.sum(-2, keepdim=True), min=1.0)
+        mean = (x32 * m).sum(-2, keepdim=True) / count
+        var = (((x32 - mean) ** 2) * m).sum(-2, keepdim=True) / count
 
     y = (x32 - mean) * torch.rsqrt(var + BN_EPS)
     unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
     new_state = {
-        "mean": (1 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,
-        "var": (1 - BN_MOMENTUM) * state["var"] + BN_MOMENTUM * unbiased,
+        "mean": (1 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean.squeeze(-2),
+        "var": (1 - BN_MOMENTUM) * state["var"] + BN_MOMENTUM * unbiased.squeeze(-2),
     }
     if mask is not None:
         y = y * m
@@ -112,13 +118,14 @@ def head_forward(
     normalize_feature: bool = False,
     apply_logit_scale: bool = False,
 ):
-    """Features (float32) -> (logits float32, bn_state)."""
+    """Features (float32) -> (logits float32, bn_state); (B, D) features
+    give (B, K) logits, a trial batch's (T, B, D) give (T, B, K)."""
     x = feats.float()
     if use_bn:
         x, bn_state = batch_norm(x, bn_state, train=train, mask=mask)
     if normalize_feature:
         x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
-    logits = x @ head.linear.kernel + head.linear.bias
+    logits = x @ head.linear.kernel + head.linear.bias.unsqueeze(-2)
     if apply_logit_scale:
-        logits = torch.exp(head.logit_scale) * logits
+        logits = torch.exp(head.logit_scale)[..., None, None] * logits
     return logits, bn_state

@@ -9,6 +9,13 @@ modules' own tensors); the optimiser state comes back as a new tuple.
 learning-rate scales must fold in exactly as the reference folds them, with
 ``lr`` and ``wd`` as plain numbers per call.
 
+A batch of trials (``TrainTask.train_trials``) holds every parameter stacked
+over a leading trial axis, (T, ...): ``lr`` and ``wd`` are then (T,) tensors
+on the parameters' device, one value per trial, broadcast over each
+parameter's trailing axes (:func:`per_trial`), the reference's vmapped
+``lr`` and ``wd``; ``lr_scales`` and the weight-decay mask stay per parameter,
+and Adam's ``step`` is shared, since every trial steps together.
+
 torch SGD (dampening 0):
     g   = grad + wd * p
     buf = momentum * buf + g          (buf starts at 0, so the first buf = g)
@@ -45,6 +52,15 @@ def _zeros_like(params: dict) -> dict:
     return {n: torch.zeros_like(p) for n, p in params.items()}
 
 
+def per_trial(v, like: torch.Tensor):
+    """``v`` as it multiplies ``like``: a plain number as it is, a (T,)
+    tensor of per-trial values viewed as (T, 1, ...) against a (T, ...)
+    stacked parameter."""
+    if isinstance(v, torch.Tensor) and v.dim() == 1:
+        return v.view((-1,) + (1,) * (like.dim() - 1))
+    return v
+
+
 # --- SGD -------------------------------------------------------------------
 
 def sgd_init(params: dict) -> SgdState:
@@ -56,10 +72,11 @@ def sgd_update(grads: dict, params: dict, state: SgdState, *, lr, wd, momentum=0
                nesterov=False, lr_scales: Optional[dict] = None) -> SgdState:
     new_buf = {}
     for n, p in params.items():
-        g = grads[n] + wd * p
+        g = grads[n] + per_trial(wd, p) * p
         b = momentum * state.momentum_buf[n] + g
         step = g + momentum * b if nesterov else b
-        p.sub_((lr if lr_scales is None else lr * lr_scales[n]) * step)
+        rate = per_trial(lr, p)
+        p.sub_((rate if lr_scales is None else rate * lr_scales[n]) * step)
         new_buf[n] = b
     return SgdState(momentum_buf=new_buf)
 
@@ -81,13 +98,13 @@ def adam_update(grads: dict, params: dict, state: AdamState, *, lr, wd, b1=0.9, 
     for n, p in params.items():
         g = grads[n]
         if not decoupled:
-            g = g + wd * p
+            g = g + per_trial(wd, p) * p
         m_new[n] = b1 * state.m[n] + (1 - b1) * g
         v_new[n] = b2 * state.v[n] + (1 - b2) * g * g
         step = (m_new[n] / bc1) / (torch.sqrt(v_new[n] / bc2) + eps)
         if decoupled:
-            step = step + wd * p
-        p.sub_(lr * step)
+            step = step + per_trial(wd, p) * p
+        p.sub_(per_trial(lr, p) * step)
     return AdamState(step=t, m=m_new, v=v_new)
 
 
@@ -102,19 +119,25 @@ def rmsprop_update(grads: dict, params: dict, state: RmspropState, *, lr, wd, al
                    eps=1e-8, momentum=0.9) -> RmspropState:
     sq_new, buf_new = {}, {}
     for n, p in params.items():
-        g = grads[n] + wd * p
+        g = grads[n] + per_trial(wd, p) * p
         sq_new[n] = alpha * state.sq[n] + (1 - alpha) * g * g
         step = g / (torch.sqrt(sq_new[n]) + eps)
         buf_new[n] = momentum * state.momentum_buf[n] + step
-        p.sub_(lr * buf_new[n])
+        p.sub_(per_trial(lr, p) * buf_new[n])
     return RmspropState(sq=sq_new, momentum_buf=buf_new)
 
 
 # --- gradient clipping ------------------------------------------------------
 
 @torch.no_grad()
-def clip_grad_norm(grads: dict, max_norm: float) -> dict:
-    """torch.nn.utils.clip_grad_norm_ semantics, returning new gradients."""
+def clip_grad_norm(grads: dict, max_norm: float, trials: int = 0) -> dict:
+    """torch.nn.utils.clip_grad_norm_ semantics, returning new gradients.
+    With ``trials`` the gradients are stacked over a leading trial axis and
+    each trial's norm is over its own slices."""
+    if trials:
+        total = torch.sqrt(sum(g.float().square().flatten(1).sum(1) for g in grads.values()))
+        scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+        return {n: g * per_trial(scale, g).to(g.dtype) for n, g in grads.items()}
     total = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
     scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}
@@ -164,7 +187,8 @@ def build_wd_mask(params: dict, without_wd_list, *, timm_filter: bool = False):
 # --- dispatch --------------------------------------------------------------
 
 def make_optimizer(name: str, *, momentum=0.9, nesterov=False, lr_scales=None, wd_mask=None):
-    """``(init_fn(params), update_fn(grads, params, state, lr, wd) -> state)``.
+    """``(init_fn(params), update_fn(grads, params, state, lr, wd) -> state)``;
+    ``lr`` and ``wd`` plain numbers, or (T,) tensors for stacked trials.
 
     ``lr_scales``: optional ``{name: multiplier}`` (TRAIN.TWO_LR).
     ``wd_mask``: optional ``{name: 0/1}`` (TRAIN.WITHOUT_WD_LIST, timm's
@@ -180,7 +204,8 @@ def make_optimizer(name: str, *, momentum=0.9, nesterov=False, lr_scales=None, w
             # followed by subtracting lr * wd * mask * p_old
             @torch.no_grad()
             def upd(g, p, s, lr, wd):
-                decay = {n: (lr * wd * wd_mask[n]) * t for n, t in p.items()}
+                decay = {n: (per_trial(lr, t) * per_trial(wd, t) * wd_mask[n]) * t
+                         for n, t in p.items()}
                 new_s = inner_upd(g, p, s, lr, 0.0)
                 for n, t in p.items():
                     t.sub_(decay[n])
@@ -189,7 +214,7 @@ def make_optimizer(name: str, *, momentum=0.9, nesterov=False, lr_scales=None, w
             # coupled: g' = g + wd * mask * p, then a wd = 0 update
             @torch.no_grad()
             def upd(g, p, s, lr, wd):
-                g2 = {n: g[n] + (wd * wd_mask[n]) * p[n] for n in p}
+                g2 = {n: g[n] + (per_trial(wd, p[n]) * wd_mask[n]) * p[n] for n in p}
                 return inner_upd(g2, p, s, lr, 0.0)
 
         return inner_init, upd

@@ -9,10 +9,15 @@ reference's does per pytree leaf.  :func:`partition` records the decision in
 each parameter's ``requires_grad`` and splits the tree at module granularity:
 a module with trainable and frozen parameters (a head whose logit scale is
 frozen) sits on both sides.
+
+:func:`stack_trials` gives a batch of trials its stacked storage: one bundle
+whose per-trial modules hold each parameter stacked over a leading trial
+axis, with every trial's own module made a view into its slice.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable
 
 import torch
@@ -81,3 +86,35 @@ def count_params(tree) -> int:
     if isinstance(tree, nn.Module):
         tree = {"": tree}
     return int(sum(t.numel() for t in named_parameters(tree).values()))
+
+
+def _set_parameter(module: nn.Module, name: str, param: nn.Parameter) -> None:
+    owner, _, leaf = name.rpartition(".")
+    setattr(module.get_submodule(owner) if owner else module, leaf, param)
+
+
+def stack_trials(bundles: list) -> dict:
+    """One bundle for the trials of ``bundles`` (one bundle each, of one
+    structure): the ``clip`` entry is the first bundle's (every trial holds
+    the same frozen tower); every other module becomes a copy of the
+    first trial's whose parameters are the trials' stacked, (T, ...), with
+    the first trial's ``requires_grad``.  Each trial's own module is made a
+    view into the stack: its parameters become parameters over slice t of
+    the stack's storage, so an in-place update of the stack is every
+    trial's, and the trial's modules and trees go on reading their own
+    trial."""
+    out = {}
+    for key, first in bundles[0].items():
+        if key == "clip" or first is None:
+            out[key] = first
+            continue
+        modules = [b[key] for b in bundles]
+        stacked = copy.deepcopy(first)
+        for name, p in list(first.named_parameters()):
+            data = torch.stack([m.get_parameter(name).detach() for m in modules])
+            big = nn.Parameter(data, requires_grad=p.requires_grad)
+            _set_parameter(stacked, name, big)
+            for t, m in enumerate(modules):
+                _set_parameter(m, name, nn.Parameter(big.detach()[t], requires_grad=p.requires_grad))
+        out[key] = stacked
+    return out

@@ -16,9 +16,11 @@ The epoch (:class:`StreamingEpochRunner`):
 * each batch crosses to the card once, whatever the number of trials: its
   rows are gathered into one of two pinned uint8 host buffers, used in
   turn, copied on a side CUDA stream and pre-patchified there; the compute
-  stream waits on the copy's event, and each trial then takes its step on
-  the batch.  A buffer is written again only once its copy's event has
-  completed;
+  stream waits on the copy's event.  A batch of T trials (``trials``, the
+  reference's vmapped step, ``pevit_tpu/train/streaming.py:79``) then takes
+  one step on it, the batch repeated T times on the card (one copy);
+  without one, each trial takes its step on the batch in turn.  A buffer
+  is written again only once its copy's event has completed;
 * the gather of batch i+1 runs on a worker thread while the trials' steps
   on batch i are launched (the reference's one-batch transfer-ahead), and
   the loop never waits on the card otherwise (no ``.item()``, no copy to
@@ -59,15 +61,19 @@ def epoch_steps(n: int, batch: int) -> int:
 class StreamingEpochRunner:
     """The epoch loop over a host-resident split for the trials of one call.
 
-    ``h2d_bytes`` counts the image bytes the runner has copied to the card
-    (each batch once), ``batches`` the batches it has gathered."""
+    With ``trials`` = T > 0 the call's trials are one batch of T
+    (``TrainTask._init_trials``), stepped together; with 0 each run is one
+    trial.  ``h2d_bytes`` counts the image bytes the runner has copied to
+    the card (each batch once), ``batches`` the batches it has gathered."""
 
-    def __init__(self, task, *, lr_scales=None, wd_mask=None):
+    def __init__(self, task, *, lr_scales=None, wd_mask=None, trials: int = 0):
         st: TaskStatic = task.static
         self.task = task
         self.batch = st.batch_size
         self.device = task.device
-        self._step = build_step_fn(st, task.preproc, lr_scales, wd_mask, task._forward_fn)
+        self.trials = trials
+        self._step = build_step_fn(st, task.preproc, lr_scales, wd_mask, task._forward_fn,
+                                   trials)
         self._label_dtype = torch.float32 if st.multilabel else torch.long
         self._pinned = None  # two (images, labels) pinned host buffers
         self._events = [None, None]
@@ -128,24 +134,36 @@ class StreamingEpochRunner:
                   seed: int) -> list:
         """One epoch of every trial over host-resident ``images`` / ``labels``.
 
-        ``runs`` holds each trial's ``(bundle, TrainState)``; ``lrs`` and
-        ``wds`` its learning rate and weight decay.  Each trial draws its
-        epoch's dropout seed from its state's generator, as the preloaded
-        epoch does when given its order.  On the card a worker thread
-        gathers batch i+1 while the trials' steps on batch i are launched.
-        Returns the trials' new states."""
+        ``runs`` holds each trial's ``(bundle, TrainState)``, or with
+        ``trials`` the batch's one ``(stacked bundle, TrainState)``; ``lrs``
+        and ``wds`` each trial's learning rate and weight decay.  Each trial
+        draws its epoch's dropout seed from its own generator, as the
+        preloaded epoch does when given its order.  On the card a worker
+        thread gathers batch i+1 while the steps on batch i are launched.
+        Returns the runs' new states."""
         n = len(labels)
         B = self.batch
         order = epoch_order(n, seed)
         states = [state for _, state in runs]
-        drop_seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=s.generator))
-                      for s in states]
+        gens = [g for s in states for g in (s.generator if self.trials else [s.generator])]
+        drop_seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=g)) for g in gens]
         steps = epoch_steps(n, B)
+        if self.trials:  # to the card once an epoch
+            lrs = torch.tensor(lrs, dtype=torch.float32, device=self.device)
+            wds = torch.tensor(wds, dtype=torch.float32, device=self.device)
 
         def step_all(i, imgs, labs):
+            step_gens = [torch.Generator(device=self.device).manual_seed(s + i)
+                         for s in drop_seeds]
+            if self.trials:
+                T = self.trials
+                imgs = imgs.unsqueeze(0).expand(T, *imgs.shape).reshape(-1, *imgs.shape[1:])
+                labs = labs.unsqueeze(0).expand(T, *labs.shape)
+                states[0] = self._step(runs[0][0], states[0], imgs, labs, lrs, wds, step_gens)
+                return
             for t, (bundle, _) in enumerate(runs):
-                gen = torch.Generator(device=self.device).manual_seed(drop_seeds[t] + i)
-                states[t] = self._step(bundle, states[t], imgs, labs, lrs[t], wds[t], gen)
+                states[t] = self._step(bundle, states[t], imgs, labs, lrs[t], wds[t],
+                                       step_gens[t])
 
         if self.device.type != "cuda":
             for i in range(steps):

@@ -8,21 +8,28 @@ step spans 8/4/2/1 (2 probes each), every probe a full training: up to
 rates are independent and advance in lockstep, one stage of trials at a
 time (1 coarse + 4 refinement stages); a stage is cut into chunks of
 ``task.max_parallel_trials()`` trials, which the port's ``train_trials``
-runs one after another on the card.  Selection is the reference's exactly:
-strict ``>``, iteration order, ``WD_SEARCH_LEFT``,
-``SEARCH_RESULT_ON_LAST_EPOCH`` and score 0.0 for a trial that fails.
+trains as one batch on the card, as the reference's vmapped chunk.
+Selection is the reference's exactly: strict ``>``, iteration order,
+``WD_SEARCH_LEFT``, ``SEARCH_RESULT_ON_LAST_EPOCH`` and score 0.0 for a
+trial that fails.
 
-Where the port differs from the reference, on purpose: a device error (the
-card out of memory, a CUDA error, or a kernel that fails to build, refuses
-its inputs or fails to launch) aborts the sweep and is never scored 0.0.  The reference retries such a chunk as two
-halves because its remote compiler limits a program's size by the chunk's
-width; here a chunk's trials run one after another, so halving a chunk
-changes neither memory nor program size, and a retry would only hide the
-fault (ROADMAP §3).
+A chunk of more than one trial that runs the card out of memory
+(``torch.cuda.OutOfMemoryError``) is retried as two halves, after
+``torch.cuda.empty_cache()``, as the reference retries a chunk that fails
+on its device (``pevit_tpu/train/sweep.py:36-74``): the batch's activations
+grow with its width.  A single trial out of memory aborts the sweep, and so
+does every other device error (a CUDA error, or a kernel that fails to
+build, refuses its inputs or fails to launch), whatever the chunk's width;
+none is ever scored 0.0.  Where the port differs from the reference, on
+purpose: the reference halves on any runtime error, the port on running out
+of memory only, because a CUDA error other than that is sticky (it leaves
+the process's context unusable, so a retry could only fail again or hide
+the fault) and a kernel's refusal does not depend on the width (ROADMAP §3).
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import time
 
@@ -34,6 +41,7 @@ from ..utils.device import to_numpy
 
 
 # the exceptions that mean the card or a kernel failed: they abort a sweep
+# (out of memory only on a single trial; a wider chunk is halved)
 DEVICE_ERRORS = (torch.cuda.OutOfMemoryError, KernelBuildError, KernelInputError,
                  KernelLaunchError) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
@@ -58,19 +66,33 @@ def wd_grid(config):
 
 def _run_chunk(task, chunk: list, data, end_epoch: int, seed: int, begin_epoch: int = 0) -> list:
     """Scores of one chunk of trials; 0.0 for all of them if the chunk fails
-    with anything but a device error (kadaptation_clip.py:200-205), which
-    is raised."""
+    with anything but a device error (kadaptation_clip.py:200-205).  A chunk
+    of more than one trial that runs out of card memory is split into two
+    halves, each run in turn; any other device error is raised."""
     train_x, train_y, val_x, val_y = data
+    halve = False
     try:
         res = task.train_trials(chunk, train_x, train_y, val_x, val_y, end_epoch=end_epoch,
                                 begin_epoch=begin_epoch, seed=seed)
     except Exception as e:  # noqa: BLE001 - the reference scores a failed trial 0
-        if is_device_error(e):
+        if not is_device_error(e):
+            logging.warning("sweep stage chunk failed (%s); scoring 0", e)
+            return [0.0] * len(chunk)
+        if not (isinstance(e, torch.cuda.OutOfMemoryError) and len(chunk) > 1):
             logging.error("DEVICE error in sweep stage (%s: %s) - aborting sweep",
                           type(e).__name__, e)
             raise
-        logging.warning("sweep stage chunk failed (%s); scoring 0", e)
-        return [0.0] * len(chunk)
+        mid = len(chunk) // 2
+        logging.warning("sweep chunk of %d ran out of card memory (%s); splitting to %d+%d",
+                        len(chunk), e, mid, len(chunk) - mid)
+        halve = True
+    if halve:
+        # out of the handler, so that the failed chunk's tensors, which its
+        # traceback holds, are freed before the cache is emptied
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (_run_chunk(task, chunk[:mid], data, end_epoch, seed, begin_epoch)
+                + _run_chunk(task, chunk[mid:], data, end_epoch, seed, begin_epoch))
     use_last = task.config.TRAIN.SEARCH_RESULT_ON_LAST_EPOCH
     out = []
     for r in res:

@@ -53,7 +53,11 @@ _VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CAC
 #      cores too (the same split): float32 KAdaptation and LoRA trials sum
 #      their MLP gradients in another order and score differently in the
 #      last bits.
-SEMANTICS_VERSION = 3
+#   4  a sweep chunk's trials train as one batch: the frozen tower's
+#      kernels and the trials' delta products run at the chunk's folded
+#      shapes, so on the card a batched trial can round differently from the
+#      same trial trained alone.
+SEMANTICS_VERSION = 4
 
 
 def _dtype_name(arr) -> str:

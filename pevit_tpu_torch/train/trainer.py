@@ -2,27 +2,41 @@
 training runs with per-epoch evaluation (training subset of
 ``pevit_tpu/train/trainer.py``).
 
-The reference runs an epoch as one XLA computation and trains a batch of
+The reference runs an epoch as one XLA computation and trains a chunk of
 hyperparameter trials at once under ``vmap``, on a device mesh.  The port
-runs eagerly, one trial after another, on one card; the math is the same:
+runs eagerly on one card and trains a chunk of trials as one batched
+computation too (``TrainTask.train_trials``), with the trial axis written
+out: the frozen CLIP tower runs once a step on the chunk's T*B images, so
+its kernels launch once for the whole chunk, and only what differs per trial
+carries a leading trial axis: the PEFT parameters, the head, the BN state
+and the optimiser state, stacked (T, ...) (``partition.stack_trials``, each
+trial's own modules views into the stack), and the PEFT hooks, the head's
+BN, the loss (the sum of each trial's masked mean), the gradient clip and
+the optimisers apply trial t's parameters, learning rate and weight decay to
+trial t's rows.  ``full_finetune`` (one tower per trial) and the auxiliary
+backbones train one trial after another (``_train_trials_serial``).  The
+math is the reference's:
 
-* each epoch visits the train split in a shuffled order (drawn from the
-  state's generator, or injected by the caller so that a run can replay
-  another's order); full batches, then the tail at its NATURAL size — padding
-  is not equivalent because KAdaptation's raw-reshape scramble mixes batch
-  rows — and a tail of one image is skipped;
+* each epoch visits the train split in a shuffled order, each trial its own
+  (drawn from the trial's generator, or injected by the caller so that a
+  run can replay another's order); full batches, then the tail at its
+  NATURAL size — padding is not equivalent because KAdaptation's
+  raw-reshape scramble mixes batch rows — and a tail of one image is
+  skipped;
 * gradients are taken for the trainable partition only (the frozen
   parameters have ``requires_grad`` False); a trainable tensor that the
   forward does not use (KAdaptation's v factors, quirk 1) gets a zero
   gradient, so weight decay still applies to it as in the reference;
-* each step draws its dropout from a fresh generator on the card, seeded
-  from the epoch's seed and the step index;
+* each step draws each trial's dropout from a fresh generator on the card,
+  seeded from the trial's epoch seed and the step index;
 * after every epoch the val split is evaluated in chunks of ``eval_chunk``
-  plus a natural-size remainder, never padded; the best epoch is picked on
-  the host (strict ``>``, keeping the best epoch's probabilities);
+  plus a natural-size remainder, never padded, every trial on the same
+  chunk; the best epoch is picked on the host (strict ``>``, keeping the
+  best epoch's probabilities);
 * a numpy train split above ``TPU.MAX_DEVICE_DATA_GB`` stays in host memory
   and is streamed (``streaming.py``): there the reference's numpy epoch
-  orders are used, and every trial of the call steps on each batch in turn.
+  orders are used, one for every trial, and the chunk's trials take one
+  batched step on each batch.
 
 TPU-side knobs of the config's ``TPU`` node are read and ignored, see
 ``IGNORED_TPU_KNOBS``.  ``TPU.FUSED_MLP`` is not read: on the card the fused
@@ -55,7 +69,7 @@ from ..peft.base import (
 from ..utils.device import compute_dtype, resolve_device, to_numpy
 from .head import head_forward, init_bn_state, init_head
 from .optim import build_wd_mask, clip_grad_norm, make_optimizer, step_decay_lr
-from .partition import combine, count_params, named_parameters, partition
+from .partition import combine, count_params, named_parameters, partition, stack_trials
 
 # TPU-side knobs the port reads from the config and ignores, with their
 # defaults.  FAST_LN and FAST_LN_SWEEP change numerics in the reference
@@ -236,6 +250,7 @@ def model_forward(
     generator: Optional[torch.Generator] = None,
     mask: Optional[torch.Tensor] = None,
     forward_fn=None,
+    trials: int = 0,
 ):
     """uint8 images -> (logits float32, bn_state).
 
@@ -250,9 +265,17 @@ def model_forward(
     images normalised in the compute dtype, as the reference's does
     (``pevit_tpu/train/trainer.py:259-262``); the backbones then cast them
     to float32, so under a bfloat16 task they run in float32 on
-    bfloat16-rounded images."""
+    bfloat16-rounded images.
+
+    ``trials`` > 0 runs a batch of T trials: the bundle's PEFT module and
+    head hold every parameter stacked (T, ...), ``bn_state`` is (T, D),
+    ``images_u8`` the trials' batches folded into one (T*B, ...),
+    ``generator`` one generator per trial and ``mask`` (T, B); the frozen
+    tower runs once on the T*B images and the logits come back (T, B, K)."""
     dt = static.dtype
     if forward_fn is not None:
+        if trials:
+            raise ValueError("an auxiliary backbone trains one trial at a time")
         if images_u8.dim() != 4:
             raise ValueError("an auxiliary backbone takes (B, H, W, 3) images, got "
                              f"{tuple(images_u8.shape)}")
@@ -263,7 +286,8 @@ def model_forward(
                             use_bn=static.use_bn, normalize_feature=static.normalize_feature,
                             apply_logit_scale=static.apply_logit_scale)
     kw = dict(spec=static.spec, peft=bundle.get("peft"),
-              hooks=make_hooks(static.peft_cfg, static.spec, train=train), generator=generator,
+              hooks=make_hooks(static.peft_cfg, static.spec, train=train, trials=trials),
+              generator=generator,
               compute_dtype=dt, use_fused_mlp=static.use_fused_mlp,
               apply_proj=not static.merge_encoder_head_proj)
     if images_u8.dim() == 3:
@@ -276,10 +300,13 @@ def model_forward(
     else:
         raise ValueError(f"want (B, H, W, 3) or pre-patchified (B, G*G, p*p*3) uint8 images, "
                          f"got {tuple(images_u8.shape)}")
+    feats = feats.float()
+    if trials:
+        feats = feats.view(trials, -1, feats.shape[-1])
     return head_forward(
         bundle["head"],
         bn_state,
-        feats.float(),
+        feats,
         train=train,
         mask=mask,
         use_bn=static.use_bn,
@@ -289,15 +316,17 @@ def model_forward(
 
 
 def _loss(static: TaskStatic, logits, labels, mask):
-    """Masked-mean CE (or BCE for multilabel)."""
+    """Masked-mean CE (or BCE for multilabel): a scalar for (B, K) logits;
+    for a batch of trials' (T, B, K), with labels and mask (T, B), each
+    trial's own masked mean, (T,)."""
     if static.multilabel:
         per = (torch.clamp(logits, min=0) - logits * labels
                + torch.log1p(torch.exp(-logits.abs()))).mean(-1)
     else:
         logz = torch.logsumexp(logits, dim=-1)
-        per = logz - logits.gather(-1, labels[:, None].long())[:, 0]
-    count = torch.clamp(mask.sum(), min=1.0)
-    return (per * mask).sum() / count
+        per = logz - logits.gather(-1, labels[..., None].long())[..., 0]
+    count = torch.clamp(mask.sum(-1), min=1.0)
+    return (per * mask).sum(-1) / count
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +337,9 @@ class TrainState(NamedTuple):
     """What a training run carries from step to step.  ``params`` are the
     trainable tensors of the bundle (updated in place); ``generator`` is a
     CPU generator for epoch orders and per-step dropout seeds; ``loss`` is
-    the last step's loss (a detached tensor, None before the first step)."""
+    the last step's loss (a detached tensor, None before the first step).
+    A batch of T trials holds the stacked (T, ...) parameters, optimiser and
+    BN state, a list of T generators and (T,) losses."""
 
     params: dict
     opt: Any
@@ -318,14 +349,19 @@ class TrainState(NamedTuple):
 
 
 def build_step_fn(static: TaskStatic, preproc: dict, lr_scales=None, wd_mask=None,
-                  forward_fn=None):
+                  forward_fn=None, trials: int = 0):
     """One training step on an explicit batch, the step of every epoch.
 
     Returns ``step(bundle, state, images, labels, lr, wd, generator) ->
     state``: the forward and loss of the batch in train mode (dropout from
     ``generator``, on the images' device), the gradients of
     ``state.params``, the optional gradient clip and the optimiser update,
-    which changes the parameters in place.  It never waits on the card."""
+    which changes the parameters in place.  It never waits on the card.
+
+    With ``trials`` > 0 the step is a batch of T trials' (:func:`model_forward`):
+    ``images`` (T*B, ...), ``labels`` (T, B), ``lr`` and ``wd`` (T,) tensors
+    on the card, ``generator`` one per trial; the gradients are those of the
+    sum of the trials' losses, so each trial's parameters get its own."""
     _, opt_update = make_optimizer(static.optimizer, momentum=static.momentum,
                                    nesterov=static.nesterov, lr_scales=lr_scales,
                                    wd_mask=wd_mask)
@@ -333,17 +369,18 @@ def build_step_fn(static: TaskStatic, preproc: dict, lr_scales=None, wd_mask=Non
     def step(bundle, state: TrainState, imgs, labs, lr, wd, generator) -> TrainState:
         params = state.params
         names = list(params)
-        valid = torch.ones(imgs.shape[0], device=imgs.device)
+        valid = torch.ones(labs.shape[:2] if trials else imgs.shape[:1], device=imgs.device)
         with torch.enable_grad():
             logits, new_bn = model_forward(static, bundle, state.bn, imgs, preproc,
                                            train=True, generator=generator, mask=valid,
-                                           forward_fn=forward_fn)
+                                           forward_fn=forward_fn, trials=trials)
             loss = _loss(static, logits, labs, valid)
-            grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+            grads = torch.autograd.grad(loss.sum(), [params[n] for n in names],
+                                        allow_unused=True)
         grads = {n: torch.zeros_like(params[n]) if g is None else g
                  for n, g in zip(names, grads)}
         if static.clip_grad_norm > 0:
-            grads = clip_grad_norm(grads, static.clip_grad_norm)
+            grads = clip_grad_norm(grads, static.clip_grad_norm, trials)
         opt_state = opt_update(grads, params, state.opt, lr, wd)
         return TrainState(params, opt_state, {k: v.detach() for k, v in new_bn.items()},
                           state.generator, loss.detach())
@@ -352,47 +389,64 @@ def build_step_fn(static: TaskStatic, preproc: dict, lr_scales=None, wd_mask=Non
 
 
 def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=None,
-                   wd_mask=None, forward_fn=None):
+                   wd_mask=None, forward_fn=None, trials: int = 0):
     """One training epoch over a split on the card.
 
     Returns ``epoch(bundle, images, labels, state, lr, wd, order=None) ->
     state``: ``order`` (the epoch's permutation of the train split) is drawn
     from ``state.generator`` unless given.  ``lr_scales`` (TRAIN.TWO_LR) and
     ``wd_mask`` are per-parameter dicts; ``forward_fn`` as in
-    :func:`model_forward`."""
+    :func:`model_forward`.
+
+    With ``trials`` > 0 the epoch is a batch of T trials' (:func:`build_step_fn`):
+    each trial draws its order, then its dropout seed, from its own
+    generator; a given ``order`` is one permutation for every trial or
+    (T, n_train), one each; step i gathers each trial's batch i into one
+    (T*B, ...) batch."""
     B = static.batch_size
-    step = build_step_fn(static, preproc, lr_scales, wd_mask, forward_fn)
+    step = build_step_fn(static, preproc, lr_scales, wd_mask, forward_fn, trials)
 
     def epoch(bundle, images, labels, state: TrainState, lr, wd, order=None) -> TrainState:
+        gens = list(state.generator) if trials else [state.generator]
         if order is None:
-            order = torch.randperm(n_train, generator=state.generator)
-        drop_seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
+            order = [torch.randperm(n_train, generator=g) for g in gens]
+        drop_seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=g)) for g in gens]
         order = torch.as_tensor(np.array(order), dtype=torch.long).to(images.device)
+        order = order.expand(len(gens), n_train)
 
-        def run_step(idx, step_i):
+        def run_step(cols, step_i):
             nonlocal state
-            step_gen = torch.Generator(device=images.device).manual_seed(drop_seed + step_i)
-            state = step(bundle, state, images.index_select(0, idx),
-                         labels.index_select(0, idx), lr, wd, step_gen)
+            step_gens = [torch.Generator(device=images.device).manual_seed(s + step_i)
+                         for s in drop_seeds]
+            idx = order[:, cols].reshape(-1)
+            imgs, labs = images.index_select(0, idx), labels.index_select(0, idx)
+            if trials:
+                labs = labs.view(trials, -1, *labels.shape[1:])
+            state = step(bundle, state, imgs, labs, lr, wd,
+                         step_gens if trials else step_gens[0])
 
         steps_full = n_train // B
         for i in range(steps_full):
-            run_step(order[i * B:(i + 1) * B], i)
+            run_step(slice(i * B, (i + 1) * B), i)
         if n_train - steps_full * B > 1:  # a size-1 tail is skipped
-            run_step(order[steps_full * B:], steps_full)
+            run_step(slice(steps_full * B, n_train), steps_full)
         return state
 
     return epoch
 
 
-def build_eval_fn(static: TaskStatic, preproc: dict, forward_fn=None):
+def build_eval_fn(static: TaskStatic, preproc: dict, forward_fn=None, trials: int = 0):
     """``eval_chunk(bundle, bn_state, imgs) -> float32 logits`` in eval
-    mode, without autograd."""
+    mode, without autograd.  With ``trials`` > 0 every trial evaluates the
+    same chunk: it is repeated T times on its device (one copy), the tower
+    runs once on them all, and the logits come back (T, chunk, K)."""
 
     def eval_chunk(bundle, bn_state, imgs):
         with torch.no_grad():
+            if trials:
+                imgs = imgs.unsqueeze(0).expand(trials, *imgs.shape).reshape(-1, *imgs.shape[1:])
             logits, _ = model_forward(static, bundle, bn_state, imgs, preproc, train=False,
-                                      forward_fn=forward_fn)
+                                      forward_fn=forward_fn, trials=trials)
         return logits.float()
 
     return eval_chunk
@@ -400,26 +454,35 @@ def build_eval_fn(static: TaskStatic, preproc: dict, forward_fn=None):
 
 def build_fit_eval_fn(static: TaskStatic, n_train: int, n_epochs: int, preproc: dict, *,
                       eval_chunk: int, n_val: int, lr_scales=None, wd_mask=None,
-                      forward_fn=None):
+                      forward_fn=None, trials: int = 0):
     """Train ``n_epochs`` and evaluate after every epoch.
 
     Returns ``fit_eval(bundle, images, labels, val_images, state, lr_table,
     wd, orders=None) -> (state, logits)`` with ``logits`` (n_epochs, n_val,
     K) float32; ``orders[e]`` injects epoch e's order.  Eval runs in full
     chunks of ``eval_chunk`` and a natural-size remainder, never padded: the
-    scramble makes a chunk's composition part of its logits."""
-    epoch = build_epoch_fn(static, n_train, preproc, lr_scales, wd_mask, forward_fn)
-    one_chunk = build_eval_fn(static, preproc, forward_fn)
+    scramble makes a chunk's composition part of its logits.
+
+    With ``trials`` > 0 it is a batch of T trials' (:func:`build_epoch_fn`):
+    ``lr_table`` is (T, n_epochs) and ``wd`` (T,), copied to the images'
+    device once, and ``logits`` come back (T, n_epochs, n_val, K)."""
+    epoch = build_epoch_fn(static, n_train, preproc, lr_scales, wd_mask, forward_fn, trials)
+    one_chunk = build_eval_fn(static, preproc, forward_fn, trials)
 
     def fit_eval(bundle, images, labels, val_images, state, lr_table, wd, orders=None):
+        lrs = lr_table
+        if trials:  # (n_epochs, T) and (T,) on the card
+            lrs = torch.tensor(np.asarray(lr_table, np.float64).T, dtype=torch.float32,
+                               device=images.device)
+            wd = torch.tensor(wd, dtype=torch.float32, device=images.device)
         logits = []
         for e in range(n_epochs):
             if not static.emulate_zero_shot:
-                state = epoch(bundle, images, labels, state, lr_table[e], wd,
+                state = epoch(bundle, images, labels, state, lrs[e], wd,
                               None if orders is None else orders[e])
             logits.append(torch.cat([one_chunk(bundle, state.bn, val_images[s:s + eval_chunk])
-                                     for s in range(0, n_val, eval_chunk)]))
-        return state, torch.stack(logits)
+                                     for s in range(0, n_val, eval_chunk)], dim=-2))
+        return state, torch.stack(logits, dim=-3)
 
     return fit_eval
 
@@ -436,7 +499,8 @@ def _softmax(logits: np.ndarray) -> np.ndarray:
 
 class TrainTask:
     """Owns the frozen CLIP tower (or an auxiliary backbone) on the card and
-    runs trainings of one task, one trial after another.
+    runs trainings of one task: a chunk of trials as one batched computation
+    (``batches_trials``), else one trial after another.
 
     ``backbone`` (a ``models.factory.Backbone``) replaces the CLIP: its
     module is the bundle's ``clip`` and its forward the visual tower, on
@@ -532,9 +596,19 @@ class TrainTask:
         return copy.deepcopy(self.clip, {id(m): m for m in shared})
 
     def max_parallel_trials(self) -> int:
-        """The sweep's trial chunk: TPU.SWEEP_PARALLEL_TRIALS (one card; the
-        chunk's trials run one after another)."""
+        """The sweep's trial chunk: TPU.SWEEP_PARALLEL_TRIALS, the trials
+        that ``train_trials`` trains as one batch on the card (one card, so
+        no mesh multiplies it)."""
         return max(1, self.config.TPU.SWEEP_PARALLEL_TRIALS)
+
+    @property
+    def batches_trials(self) -> bool:
+        """Whether ``train_trials`` trains a chunk's trials as one batched
+        computation: every method on the CLIP tower but full_finetune, which
+        trains a tower per trial; the auxiliary backbones (whose train-time
+        randomness draws from one generator per forward) and full_finetune
+        train one trial after another (:meth:`_train_trials_serial`)."""
+        return self._forward_fn is None and self.static.peft_cfg.method != "full_finetune"
 
     def model_info(self, trainable) -> dict:
         """Parameter counts, as the reference's (kadaptation_clip.py:284-289):
@@ -577,11 +651,13 @@ class TrainTask:
                     logging.info("no weight decay: %s", n)
         return mask
 
-    def _fit_eval_fn(self, n_train: int, n_epochs: int, n_val: int):
+    def _fit_eval_fn(self, n_train: int, n_epochs: int, n_val: int, trials: int = 0):
+        """:func:`build_fit_eval_fn` for one trial, or for a batch of
+        ``trials``."""
         return build_fit_eval_fn(self.static, n_train, n_epochs, self.preproc,
                                  eval_chunk=self.eval_chunk, n_val=n_val,
                                  lr_scales=self._lr_scales(), wd_mask=self._wd_mask(),
-                                 forward_fn=self._forward_fn)
+                                 forward_fn=self._forward_fn, trials=trials)
 
     def _labels(self, labels) -> torch.Tensor:
         dt = torch.float32 if self.static.multilabel else torch.long
@@ -607,34 +683,88 @@ class TrainTask:
         probs = _softmax(logits.cpu().numpy())
         return self._score(to_numpy(labels), probs), probs
 
+    def _evaluate_trials(self, bundle, bn_state, images_u8, labels, trials: int) -> list:
+        """A batch of trials (the stacked ``bundle`` and (T, D) ``bn_state``)
+        over a whole split in natural-size chunks, every trial on each chunk
+        in one forward; returns each trial's (score, probs)."""
+        one_chunk = build_eval_fn(self.static, self.preproc, trials=trials)
+        n = len(labels)
+        logits = torch.cat([one_chunk(bundle, bn_state, self.prepack(images_u8[s:s + self.eval_chunk]))
+                            for s in range(0, n, self.eval_chunk)], dim=1).cpu().numpy()
+        labels_np = to_numpy(labels)
+        return [(self._score(labels_np, probs), probs) for probs in map(_softmax, logits)]
+
     # -- training ------------------------------------------------------------
 
     def train_trials(self, hparams: list, train_images, train_labels, val_images, val_labels, *,
                      end_epoch: int, begin_epoch: int = 0, seed: int = 0,
                      keep_logits: bool = False, log_every: int = 0) -> list:
-        """Train one trial per ``(lr, wd)`` in ``hparams``, one after another,
-        evaluating after every epoch.
+        """Train one trial per ``(lr, wd)`` in ``hparams``, evaluating after
+        every epoch: as one batched computation, the reference's vmapped
+        trials, where :attr:`batches_trials`, else one after another
+        (:meth:`_train_trials_serial`).
 
         Trial t's PEFT parameters and head come from a CPU generator seeded
         ``seed * 1_000_003 + 2 t``, its epoch orders and dropout seeds from
-        one seeded ``+ 1``.  Returns per-trial dicts {"best_score", "last_score",
-        "best_logits"}; ``last_trainable``, ``last_bundle`` and ``last_state``
-        then hold the last trial's trainable partition, trained bundle and
-        state.  A numpy ``train_images`` above ``TPU.MAX_DEVICE_DATA_GB``
-        is streamed from host memory (:meth:`_train_trials_streaming`)."""
+        one seeded ``+ 1``, on either path.  Returns per-trial dicts
+        {"best_score", "last_score", "best_logits"}; ``last_trainable``,
+        ``last_bundle`` and ``last_state`` then hold the last trial's
+        trainable partition, trained bundle and state (on the batched path
+        views of its slice of the stacks).  A numpy ``train_images`` above
+        ``TPU.MAX_DEVICE_DATA_GB`` is streamed from host memory
+        (:meth:`_train_trials_streaming`)."""
+        kw = dict(end_epoch=end_epoch, begin_epoch=begin_epoch, seed=seed,
+                  keep_logits=keep_logits, log_every=log_every)
+        if not self.batches_trials:
+            return self._train_trials_serial(hparams, train_images, train_labels, val_images,
+                                             val_labels, **kw)
+        T = len(hparams)
+        n_train, n_val = len(train_labels), len(val_labels)
+        n_epochs = end_epoch - begin_epoch
+        results = [{"best_score": 0.0, "last_score": 0.0, "best_logits": None} for _ in hparams]
+        if n_epochs <= 0:
+            self._keep_untrained(seed, T)
+            return results
+        batch = self._init_trials(seed, T)
+        if self._streams(train_images):
+            return self._train_trials_streaming(hparams, train_images, train_labels, val_images,
+                                                val_labels, results=results, batch=batch, **kw)
+        images, labels = self.prepack(train_images), self._labels(train_labels)
+        val = self.prepack(val_images)
+        labels_np = to_numpy(val_labels)
+        schedule = list(self.config.TRAIN.SCHEDULE or [])
+        lr_table = [[step_decay_lr(float(lr), e, schedule) for e in range(begin_epoch, end_epoch)]
+                    for lr, _ in hparams]
+        fit_eval = self._fit_eval_fn(n_train, n_epochs, n_val, T)
+        t0 = time.perf_counter()
+        state, logits = fit_eval(batch.bundle, images, labels, val, batch.state, lr_table,
+                                 [float(wd) for _, wd in hparams])
+        logits_np = logits.cpu().numpy()  # (T, E, n_val, K)
+        run_s = time.perf_counter() - t0
+        for t, res in enumerate(results):
+            self._score_epochs(t, res, logits_np[t], labels_np, begin_epoch, keep_logits,
+                               log_every)
+        if log_every:
+            logging.info("=> %d trials x %d epochs in %.2fs | best: %s", T, n_epochs, run_s,
+                         " ".join(f"{r['best_score']:.3f}" for r in results))
+        self._keep_last(batch, state)
+        return results
+
+    def _train_trials_serial(self, hparams: list, train_images, train_labels, val_images,
+                             val_labels, *, end_epoch: int, begin_epoch: int = 0, seed: int = 0,
+                             keep_logits: bool = False, log_every: int = 0) -> list:
+        """:meth:`train_trials` one trial after another, each through the
+        single-trial :func:`build_fit_eval_fn`: the path of full_finetune and
+        the auxiliary backbones, and the yardstick the batched path is held
+        to."""
         n_train = len(train_labels)
         n_val = len(val_labels)
         n_epochs = end_epoch - begin_epoch
         results = [{"best_score": 0.0, "last_score": 0.0, "best_logits": None} for _ in hparams]
         if n_epochs <= 0:
-            trainable, frozen, _ = self.init_bundle(
-                torch.Generator().manual_seed(seed * 1_000_003 + 2 * (len(hparams) - 1)))
-            self.last_trainable, self.last_bundle = trainable, combine(trainable, frozen)
+            self._keep_untrained(seed, len(hparams))
             return results
-        # a train split too big for the card streams from host memory
-        # (reference trainer.py:1010-1016); a tensor never streams
-        max_bytes = float(self.config.TPU.MAX_DEVICE_DATA_GB) * 1e9
-        if isinstance(train_images, np.ndarray) and train_images.nbytes > max_bytes:
+        if self._streams(train_images):
             return self._train_trials_streaming(
                 hparams, train_images, train_labels, val_images, val_labels, results=results,
                 begin_epoch=begin_epoch, end_epoch=end_epoch, seed=seed,
@@ -653,18 +783,38 @@ class TrainTask:
             logits_np = logits.cpu().numpy()
             run_s = time.perf_counter() - t0
             res = results[t]
-            for e in range(n_epochs):
-                probs = _softmax(logits_np[e])
-                _update_result(res, self._score(labels_np, probs), probs, e == 0, keep_logits)
-                if log_every and (e % log_every == 0 or e == n_epochs - 1):
-                    logging.info("[Trial %d epoch %d] Val %s: %.3f", t, begin_epoch + e,
-                                 self.metric_name, res["last_score"])
+            self._score_epochs(t, res, logits_np, labels_np, begin_epoch, keep_logits, log_every)
             if log_every:
                 logging.info("=> trial %d: %d epochs in %.2fs | best %.3f", t, n_epochs, run_s,
                              res["best_score"])
             self.last_trainable = trainable
             self.last_bundle, self.last_state = combine(trainable, frozen), state
         return results
+
+    def _score_epochs(self, t: int, res: dict, logits: np.ndarray, labels_np: np.ndarray,
+                      begin_epoch: int, keep_logits: bool, log_every: int) -> None:
+        """Trial t's (epochs, n_val, K) val logits into its result, epoch by
+        epoch."""
+        n_epochs = len(logits)
+        for e in range(n_epochs):
+            probs = _softmax(logits[e])
+            _update_result(res, self._score(labels_np, probs), probs, e == 0, keep_logits)
+            if log_every and (e % log_every == 0 or e == n_epochs - 1):
+                logging.info("[Trial %d epoch %d] Val %s: %.3f", t, begin_epoch + e,
+                             self.metric_name, res["last_score"])
+
+    def _streams(self, train_images) -> bool:
+        """A numpy train split too big for the card streams from host
+        memory (reference trainer.py:1010-1016); a tensor never streams."""
+        max_bytes = float(self.config.TPU.MAX_DEVICE_DATA_GB) * 1e9
+        return isinstance(train_images, np.ndarray) and train_images.nbytes > max_bytes
+
+    def _keep_untrained(self, seed: int, n_trials: int) -> None:
+        """``last_trainable`` and ``last_bundle`` of a call that trains no
+        epoch: the last trial's freshly drawn bundle."""
+        trainable, frozen, _ = self.init_bundle(
+            torch.Generator().manual_seed(seed * 1_000_003 + 2 * (n_trials - 1)))
+        self.last_trainable, self.last_bundle = trainable, combine(trainable, frozen)
 
     def _init_trial(self, seed: int, t: int) -> tuple:
         """Trial t's (trainable, frozen, state): the PEFT parameters and head
@@ -676,18 +826,55 @@ class TrainTask:
         return trainable, frozen, TrainState(params, self._opt_init(params), bn,
                                              torch.Generator().manual_seed(base + 1))
 
+    def _init_trials(self, seed: int, n_trials: int) -> "TrialBatch":
+        """Trials 0..T-1 as one batch: each drawn by :meth:`init_bundle` from
+        the generators :meth:`_init_trial` seeds, then stacked
+        (``partition.stack_trials``; each trial's modules become views of its
+        slice), with a (T, D) BN state, the optimiser state of the stacked
+        parameters and the trials' T generators."""
+        trees, bundles, bns, gens = [], [], [], []
+        for t in range(n_trials):
+            base = seed * 1_000_003 + 2 * t
+            trainable, frozen, bn = self.init_bundle(torch.Generator().manual_seed(base))
+            trees.append((trainable, frozen))
+            bundles.append(combine(trainable, frozen))
+            bns.append(bn)
+            gens.append(torch.Generator().manual_seed(base + 1))
+        bundle = stack_trials(bundles)
+        params = trainable_params(partition(bundle, trainable_pred(self.static))[0])
+        bn = {k: torch.stack([b[k] for b in bns]) for k in bns[0]}
+        return TrialBatch(trees, bundle, TrainState(params, self._opt_init(params), bn, gens))
+
+    def _keep_last(self, batch: "TrialBatch", state: TrainState) -> None:
+        """``last_trainable``, ``last_bundle`` and ``last_state``: the batch's
+        last trial, as views of its slice of the stacks."""
+        t = len(batch.trees) - 1
+        trainable, frozen = batch.trees[t]
+        self.last_trainable = trainable
+        self.last_bundle = combine(trainable, frozen)
+        self.last_state = TrainState(trainable_params(trainable), _trial_slice(state.opt, t),
+                                     _trial_slice(state.bn, t), state.generator[t],
+                                     None if state.loss is None else state.loss[t])
+
     def _train_trials_streaming(self, hparams, train_images: np.ndarray, train_labels,
                                 val_images, val_labels, *, results: list, begin_epoch: int,
-                                end_epoch: int, seed: int, keep_logits: bool,
-                                log_every: int) -> list:
-        """``train_trials`` over a host-resident train split: every trial of
-        the call steps on each streamed batch (``streaming.py``), and each is
-        evaluated after every epoch through :meth:`evaluate`."""
+                                end_epoch: int, seed: int, keep_logits: bool, log_every: int,
+                                batch: Optional["TrialBatch"] = None) -> list:
+        """``train_trials`` over a host-resident train split (``streaming.py``):
+        the ``batch`` of trials takes one batched step on each streamed batch
+        and is evaluated in one forward per val chunk after every epoch;
+        without a batch every trial steps on each batch in turn and is
+        evaluated through :meth:`evaluate`."""
         from .streaming import StreamingEpochRunner
 
-        runner = StreamingEpochRunner(self, lr_scales=self._lr_scales(), wd_mask=self._wd_mask())
-        trials = [self._init_trial(seed, t) for t in range(len(hparams))]
-        runs = [(combine(trainable, frozen), state) for trainable, frozen, state in trials]
+        T = len(hparams)
+        runner = StreamingEpochRunner(self, lr_scales=self._lr_scales(), wd_mask=self._wd_mask(),
+                                      trials=0 if batch is None else T)
+        if batch is None:
+            trials = [self._init_trial(seed, t) for t in range(T)]
+            runs = [(combine(trainable, frozen), state) for trainable, frozen, state in trials]
+        else:
+            runs = [(batch.bundle, batch.state)]
         train_labels = to_numpy(train_labels)
         if isinstance(val_images, torch.Tensor):
             val_images = self.prepack(val_images)
@@ -702,18 +889,45 @@ class TrainTask:
                     [step_decay_lr(float(lr), epoch, schedule) for lr, _ in hparams],
                     [float(wd) for _, wd in hparams], seed=seed * 1000 + epoch)
                 runs = [(bundle, state) for (bundle, _), state in zip(runs, states)]
-            scores = []
-            for (trainable, frozen, _), (_, state), res in zip(trials, runs, results):
-                score, probs = self.evaluate(trainable, frozen, state.bn, val_images, labels_np)
+            if batch is None:
+                scored = [self.evaluate(trainable, frozen, state.bn, val_images, labels_np)
+                          for (trainable, frozen, _), (_, state) in zip(trials, runs)]
+            else:
+                scored = self._evaluate_trials(batch.bundle, runs[0][1].bn, val_images,
+                                               labels_np, T)
+            for res, (score, probs) in zip(results, scored):
                 _update_result(res, score, probs, epoch == begin_epoch, keep_logits)
-                scores.append(score)
             if log_every and (epoch % log_every == 0 or epoch == end_epoch - 1):
                 logging.info("[Epoch %d] Val %s: %s (streaming)", epoch, self.metric_name,
-                             " ".join(f"{s:.3f}" for s in scores))
+                             " ".join(f"{score:.3f}" for score, _ in scored))
+        if batch is not None:
+            self._keep_last(batch, runs[0][1])
+            return results
         trainable, frozen, _ = trials[-1]
         self.last_trainable = trainable
         self.last_bundle, self.last_state = runs[-1]
         return results
+
+
+class TrialBatch(NamedTuple):
+    """A batch of trials: each trial's (trainable, frozen) trees, whose
+    modules are views into the stacks; the stacked bundle; its state."""
+
+    trees: list
+    bundle: dict
+    state: TrainState
+
+
+def _trial_slice(x, t: int):
+    """Trial t's part of a batch's optimiser or BN state: slice t of every
+    tensor; Adam's shared step as it is."""
+    if isinstance(x, torch.Tensor):
+        return x[t]
+    if isinstance(x, dict):
+        return {k: _trial_slice(v, t) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_trial_slice(v, t) for v in x))
+    return x
 
 
 def _update_result(res: dict, score: float, probs: np.ndarray, first: bool,

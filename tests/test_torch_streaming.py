@@ -10,7 +10,7 @@ with seeded non-zero PEFT factors and dropout 0:
   train split streams), 1 and 2 trials with different (lr, wd), both
   packages initialising the trials alike: every epoch's val probabilities,
   ``best_score``, ``last_score`` and ``best_logits``;
-* the streamed run against the port's preloaded run handed the streamed
+* the streamed run against the port's batched preloaded run handed the streamed
   orders: equal, bit for bit, on the CPU;
 * a spy: the runner hands ``prepack`` one batch of train rows at a time and
   gathers each batch once for two trials, and moves the split's bytes once
@@ -152,23 +152,34 @@ def test_run_epoch_matches_jax(clip_params, method, n_train):
 
 
 def _spy_evaluate(monkeypatch, task, out: list, jax_side: bool):
-    real = task.evaluate
+    """Each epoch's val probabilities of every trial: JAX's ``evaluate`` and
+    the port's ``_evaluate_trials`` each evaluate all the trials of a call
+    at once."""
+    if jax_side:
+        real = task.evaluate
 
-    def spy(*a, **k):
-        scores, probs = real(*a, **k)
-        out.append(list(probs) if jax_side else [probs])
-        return scores, probs
+        def spy(*a, **k):
+            scores, probs = real(*a, **k)
+            out.append(list(probs))
+            return scores, probs
 
-    monkeypatch.setattr(task, "evaluate", spy)
+        monkeypatch.setattr(task, "evaluate", spy)
+        return
+    real = task._evaluate_trials
+
+    def port_spy(*a, **k):
+        scored = real(*a, **k)
+        out.append([probs for _, probs in scored])
+        return scored
+
+    monkeypatch.setattr(task, "_evaluate_trials", port_spy)
 
 
 def _epoch_probs(seen: list, trials: int, epochs: int) -> np.ndarray:
-    """(trials, epochs, n, K) from the spied evaluate calls: JAX's gives all
-    trials per call; the port's one trial per call, trials in turn."""
-    if len(seen) == epochs:
-        return np.stack([np.stack([seen[e][t] for e in range(epochs)]) for t in range(trials)])
-    return np.stack([np.stack([seen[e * trials + t][0] for e in range(epochs)])
-                     for t in range(trials)])
+    """(trials, epochs, n, K) from the spied evaluate calls, all trials per
+    call."""
+    assert len(seen) == epochs
+    return np.stack([np.stack([seen[e][t] for e in range(epochs)]) for t in range(trials)])
 
 
 @pytest.mark.parametrize("hparams", [[(LR, WD)], [(LR, WD), (0.003, 1e-2)]],
@@ -223,17 +234,18 @@ def test_train_trials_streamed_matches_jax(clip_params, monkeypatch, method, hpa
 
 
 def _preloaded_twin(ptask, hparams, images, labels, val, *, seed, epochs):
-    """The port's preloaded run of each trial, handed the streamed orders."""
-    fit_eval = ptask._fit_eval_fn(len(labels), epochs, len(val))
+    """The port's preloaded run of the trials as one batch, handed the
+    streamed orders: each trial's trained parameters and its (epochs, n, K)
+    val logits."""
+    T = len(hparams)
+    fit_eval = ptask._fit_eval_fn(len(labels), epochs, len(val), T)
     orders = [ps.epoch_order(len(labels), seed * 1000 + e) for e in range(epochs)]
-    out = []
-    for t, (lr, wd) in enumerate(hparams):
-        trainable, frozen, state = ptask._init_trial(seed, t)
-        state, logits = fit_eval(combine(trainable, frozen), ptask.prepack(images),
-                                 ptask._labels(labels), ptask.prepack(val), state,
-                                 [lr] * epochs, wd, orders=orders)
-        out.append((state, logits.numpy()))
-    return out
+    batch = ptask._init_trials(seed, T)
+    _, logits = fit_eval(batch.bundle, ptask.prepack(images), ptask._labels(labels),
+                         ptask.prepack(val), batch.state, [[lr] * epochs for lr, _ in hparams],
+                         [wd for _, wd in hparams], orders=orders)
+    return [(trainable_params(trainable), logits[t].numpy())
+            for t, (trainable, _) in enumerate(batch.trees)]
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -250,12 +262,12 @@ def test_streamed_run_equals_the_preloaded_run_with_its_orders(clip_params, monk
     last = trainable_params(ptask.last_trainable)
     twins = _preloaded_twin(_port_task(clip_params, method, limit=4.0), hparams, images, labels,
                             val, seed=seed, epochs=epochs)
-    for t, (state, logits) in enumerate(twins):
+    for t, (_, logits) in enumerate(twins):
         for e in range(epochs):
             z = logits[e] - logits[e].max(-1, keepdims=True)
             probs = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
             np.testing.assert_array_equal(streamed[t, e], probs)
-    last_twin = twins[-1][0].params
+    last_twin = twins[-1][0]
     assert last.keys() == last_twin.keys()
     for name, p in last.items():
         np.testing.assert_array_equal(p.detach().numpy(), last_twin[name].detach().numpy())
@@ -386,8 +398,8 @@ def test_the_command_streams_a_host_split_as_the_preloaded_path_with_its_orders(
 
     real_fit_eval_fn = TrainTask._fit_eval_fn
 
-    def with_streamed_orders(self, n_train, n_epochs, n_val):
-        fe = real_fit_eval_fn(self, n_train, n_epochs, n_val)
+    def with_streamed_orders(self, n_train, n_epochs, n_val, trials=0):
+        fe = real_fit_eval_fn(self, n_train, n_epochs, n_val, trials)
         orders = [ps.epoch_order(n_train, e) for e in range(n_epochs)]  # seed 0
         return lambda *a: fe(*a, orders=orders)
 

@@ -3,11 +3,13 @@ driven by the fake task of tests/test_sweep_semantics.py:
 
 * ``hyperparameter_sweep_lr`` picks the same (lr, wd) as the JAX sweep and
   asks the task for the same chunks of jobs, on the 8 score surfaces;
-* a trial failing with anything but a device error scores 0.0; a device
-  error (the card out of memory, a kernel that fails to build, refuses its
-  inputs or fails to launch, an accelerator error, a plain RuntimeError of
-  a CUDA error) raises, on a chunk of 8 and on a chunk of 1, and is never
-  halved; an nvcc failure inside a chunk aborts the whole sweep;
+* a trial failing with anything but a device error scores 0.0; a chunk of
+  more than one trial that runs out of card memory is halved, down to a
+  single trial, whose running out of memory raises; every other device
+  error (a kernel that fails to build, refuses its inputs or fails to
+  launch, an accelerator error, a plain RuntimeError of a CUDA error)
+  raises, on a chunk of 8 and on a chunk of 1, and is never halved; an
+  nvcc failure inside a chunk aborts the whole sweep;
 * the score cache replays a finished sweep without training and resumes a
   cut one, and its fingerprint follows the reference's invalidation rules,
   for arrays and tensors alike, and also hashes the PEFT method: two
@@ -102,7 +104,12 @@ def _device_errors():
 
 @pytest.mark.parametrize("width", [8, 1])
 @pytest.mark.parametrize("error", _device_errors(), ids=lambda e: type(e).__name__)
-def test_device_error_raises_and_is_never_halved(width, error):
+def test_device_error_raises_and_is_never_halved(width, error, caplog):
+    """A chunk of more than one trial that runs out of card memory is split
+    in halves, as the reference splits a chunk that fails on its device,
+    down to single trials, whose running out of memory aborts the sweep;
+    every other device error raises at once, from a chunk of any width, and
+    is never halved."""
     class DeviceTask(FakeTask):
         def train_trials(self, hparams, *a, **k):
             self.calls.append(list(hparams))
@@ -112,7 +119,32 @@ def test_device_error_raises_and_is_never_halved(width, error):
     jobs = [(float(i), float(i) / 10) for i in range(width)]
     with pytest.raises(type(error)):
         psweep._run_stage(task, jobs, (None,) * 4, end_epoch=1, seed=0, max_parallel=8)
-    assert task.calls == [jobs]
+    if isinstance(error, torch.cuda.OutOfMemoryError) and width > 1:
+        # 8 -> 4 + 4 -> 2 + 2 -> 1 + 1: the first single trial raises
+        assert task.calls == [jobs, jobs[:4], jobs[:2], jobs[:1]]
+        assert "sweep chunk of 8 ran out of card memory" in caplog.text
+        assert "splitting to 4+4" in caplog.text
+    else:
+        assert task.calls == [jobs]
+
+
+def test_a_chunk_out_of_memory_finishes_in_halves():
+    """A chunk of 8 that runs out of card memory at more than 2 trials runs
+    as four chunks of 2, every trial scored as it would be unhalved."""
+    class TightTask(FakeTask):
+        def train_trials(self, hparams, *a, **k):
+            if len(hparams) > 2:
+                self.calls.append(list(hparams))
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+            return super().train_trials(hparams, *a, **k)
+
+    score = lambda lr, wd: lr + wd
+    task = TightTask(get_default_config(), score)
+    jobs = [(float(i), float(i) / 10) for i in range(8)]
+    got = psweep._run_stage(task, jobs, (None,) * 4, end_epoch=1, seed=0, max_parallel=8)
+    assert got == [score(*j) for j in jobs]
+    assert task.calls == [jobs, jobs[:4]] + [jobs[i:i + 2] for i in (0, 2)] + [jobs[4:]] + [
+        jobs[i:i + 2] for i in (4, 6)]
 
 
 def test_kernel_build_failure_aborts_the_sweep(tmp_path, monkeypatch):
@@ -317,13 +349,16 @@ def test_two_methods_in_one_output_dir_train_their_own_sweeps(tmp_path, monkeypa
 
 
 def test_semantics_version_keys_the_cache(monkeypatch):
-    """Version 3: the fused-MLP backward's float32 body moved to the tensor
-    cores, as the forward kernels' had in version 2, so a cache written by
-    version 2 (that body on the FMA units) must not replay."""
+    """Version 4: a sweep chunk's trials train as one batch, which on the
+    card can round a trial differently from the same trial trained alone,
+    so a cache written by version 3 (trials one after another) must not
+    replay; nor one of version 2 (before the fused-MLP backward's float32
+    body moved to the tensor cores)."""
     from pevit_tpu_torch.train import sweep_cache
 
-    assert sweep_cache.SEMANTICS_VERSION == 3
+    assert sweep_cache.SEMANTICS_VERSION == 4
     cfg, data = get_default_config(), _data()
     now = sweep_fingerprint(cfg, data, 10, 0, "kadaptation")
-    monkeypatch.setattr(sweep_cache, "SEMANTICS_VERSION", 2)
-    assert sweep_fingerprint(cfg, data, 10, 0, "kadaptation") != now
+    for old in (3, 2):
+        monkeypatch.setattr(sweep_cache, "SEMANTICS_VERSION", old)
+        assert sweep_fingerprint(cfg, data, 10, 0, "kadaptation") != now

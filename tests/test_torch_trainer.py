@@ -339,14 +339,16 @@ def test_train_trials_selection_matches(clip_params, monkeypatch, keep_logits):
                              keep_logits=keep_logits)
 
     ptask, *_ = _port_side(trainable, frozen, bn)
-    calls = iter(range(2))
+    calls = []
 
     def fake_fit_eval(bundle, im, lb, vi, state, lr_table, wd):
-        return state, torch.from_numpy(canned[next(calls)])
+        calls.append(len(lr_table))
+        return state, torch.from_numpy(canned)  # the chunk's (trials, epochs, n_val, K)
 
     monkeypatch.setattr(ptask, "_fit_eval_fn", lambda *a: fake_fit_eval)
     got = ptask.train_trials(hp, images, train_labels, val, labels, end_epoch=4,
                              keep_logits=keep_logits)
+    assert calls == [2]  # one batched call for both trials, as JAX's one vmapped call
     for g, w in zip(got, want):
         assert g["best_score"] == pytest.approx(w["best_score"], abs=1e-9)
         assert g["last_score"] == pytest.approx(w["last_score"], abs=1e-9)
