@@ -229,7 +229,26 @@ on):
    returns 8 finite scores; the cap is lifted; (d) each kernel held against
    its plain version at every trial-folded batch (a and b) with its
    launches;
-13. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 12,
+13. trial axis II, full fine-tuning and the auxiliary backbones trained as
+   one batch a chunk (each trial's tower stacked, a frozen backbone shared),
+   on phase 5's data cut to 256 train images (8 steps of 32 an epoch), 2
+   epochs: (a) full fine-tuning of phase 4's ViT-B/32 tower, a bf16 chunk
+   of 8 after a warm-up chunk, serial, batched, batched, serial: seconds a
+   trial of each path, each one's device idle share from a CUDA-only
+   profile of one more run, the card's peak allocation of a batched chunk,
+   K1 exactly 12 a step and an eval chunk for the whole chunk; then an fp32
+   chunk of 4, every (trial, epoch) val logit and each trial's trained
+   parameters batched within 1e-5 of the serial path's largest, and the
+   task's tower unchanged; (b) the same fp32 check for the timm ViT-B/16
+   under full fine-tuning, a chunk of 4 (K1's fp32 body at 128 images, N =
+   197), and the DeCLIP ViT-B/32 linear probe, a chunk of 8 on the shared
+   tower (K1 and K2 fp32, once a block a step and an eval chunk), on the
+   first 64 val images; (c) Swin-T with DROP_PATH_RATE 0.1, the linear
+   probe and full fine-tuning, chunks of 4, fp32: every train step through
+   the stochastic forward and batched within 1e-5 of serial (each trial's
+   draws from its own generators); the plain path, no kernel launch; each
+   kernel held against its plain version at every trial-folded batch;
+14. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 13,
    summed and by path (each path's counts are zeroed just before it and read
    just after; phase 9's and the exported MAE probe's are the fresh
    process's, reported by it), the other numbers at the batch that launched
@@ -1022,10 +1041,9 @@ def reference_walk(score, config) -> tuple:
 def trial_call(task, hparams, train_labels, val_labels, end_epoch: int,
                begin_epoch: int = 0) -> dict:
     """What one ``train_trials`` call gives the kernels: its chunk of
-    trials, run as one batch (``batches_trials``) or one after another, and
-    its split sizes, epochs, batch and eval chunk."""
-    return {"trials": len(hparams), "batched": task.batches_trials,
-            "n_train": len(train_labels), "n_val": len(val_labels),
+    trials, run as one batch, and its split sizes, epochs, batch and eval
+    chunk."""
+    return {"trials": len(hparams), "n_train": len(train_labels), "n_val": len(val_labels),
             "epochs": end_epoch - begin_epoch, "batch": task.static.batch_size,
             "chunk": task.eval_chunk, "emulated": task.static.emulate_zero_shot}
 
@@ -1107,10 +1125,9 @@ def call_batches(calls: list) -> tuple:
     (``trial_call``): every call trains its epochs on its train split and
     evaluates its val split after each, full batches plus a natural tail
     (one of a single image skipped), eval chunks of the task's chunk plus a
-    natural remainder.  A batched chunk of T trials runs each step and each
-    eval chunk once, at T times the images; a chunk run one trial after
-    another runs each T times.  An emulated zero-shot run takes no train
-    step."""
+    natural remainder.  A chunk of T trials runs each step and each eval
+    chunk once, at T times the images.  An emulated zero-shot run takes no
+    train step."""
     def add(counts, n, size, times, tail_min, width):
         counts[width * size] += times * (n // size)
         if n % size >= tail_min:
@@ -1118,10 +1135,9 @@ def call_batches(calls: list) -> tuple:
 
     train, evals = collections.Counter(), collections.Counter()
     for c in calls:
-        width, runs = (c["trials"], 1) if c["batched"] else (1, c["trials"])
         if not c["emulated"]:
-            add(train, c["n_train"], c["batch"], runs * c["epochs"], 2, width)
-        add(evals, c["n_val"], c["chunk"], runs * c["epochs"], 1, width)
+            add(train, c["n_train"], c["batch"], c["epochs"], 2, c["trials"])
+        add(evals, c["n_val"], c["chunk"], c["epochs"], 1, c["trials"])
     return +train, +evals
 
 
@@ -1172,7 +1188,7 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
 
 
 def kernel_report(kernels, launches: dict, table: dict) -> list:
-    """The ``kernels`` line: launches summed over the paths of phases 6 to 10
+    """The ``kernels`` line: launches summed over the paths of phases 6 to 13
     (each read around its own run); the other numbers at the batch that
     launched the kernel most (the larger batch on a tie); every path's
     batches under ``by_shape``."""
@@ -2567,9 +2583,9 @@ def stochastic_forwards():
         if backbone is not None and backbone.forward_features_train is not None:
             fwd = backbone.forward_features_train
 
-            def counted(p, x, generator):
+            def counted(p, x, generator, trials=0):
                 calls.append(generator is not None)
-                return fwd(p, x, generator)
+                return fwd(p, x, generator, trials=trials)
 
             backbone.forward_features_train = counted
         init(self, *a, **k)
@@ -3048,9 +3064,10 @@ def trial_gaps(got: list, want: list, what: str, limit=None) -> list:
     gaps = []
     for t, ((g_logits, g_params), (w_logits, w_params)) in enumerate(zip(got, want)):
         rel = lambda g, w: float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
-        row = {"trial": t, "logit_gap": rel(g_logits, w_logits),
-               "param_gap": max(rel(g_params[n].numpy(), w_params[n].numpy())
-                                for n in w_params if w_params[n].abs().max() > 0)}
+        leaf_gap, leaf = max((rel(g_params[n].numpy(), w_params[n].numpy()), n)
+                             for n in w_params if w_params[n].abs().max() > 0)
+        row = {"trial": t, "logit_gap": rel(g_logits, w_logits), "param_gap": leaf_gap,
+               "param_gap_leaf": leaf}
         if limit is not None and max(row["logit_gap"], row["param_gap"]) > limit:
             raise AssertionError(f"{what} trial {t}: batched vs serial {row} > {limit}")
         gaps.append(row)
@@ -3073,19 +3090,20 @@ def trial_run(task, hparams, data, *, serial: bool, epochs: int = TRAIN_EPOCHS):
     return seconds, res, per_trial(seen, not serial, len(hparams))
 
 
-def trial_launches(kernels, task, hparams, data) -> tuple:
+def trial_launches(kernels, task, hparams, data, batches_of=path_batches) -> tuple:
     """The batched chunk with its launches read around it and held to one
-    launch a block a step and eval chunk for the whole chunk.  Returns
-    (seconds, results, per-trial outputs, launches, batches)."""
+    launch a block a step and eval chunk for the whole chunk (the batches
+    ``batches_of(task, calls)`` gives).  Returns (seconds, results,
+    per-trial outputs, launches, batches)."""
     calls = []
     reset_launches(kernels)
     with recorded_calls(calls):
         seconds, res, out = trial_run(task, hparams, data, serial=False)
     launches = read_launches(kernels)
-    batches = path_batches(task, calls)
+    batches = batches_of(task, calls)
     want = expected_launches(batches)
     steps = sum(batches["train"].values())
-    if launches != want or calls[0]["trials"] != len(hparams) or not calls[0]["batched"]:
+    if launches != want or calls[0]["trials"] != len(hparams):
         raise AssertionError(f"chunk of {len(hparams)}: launches {launches}, want {want} "
                              f"({steps} steps and {sum(batches['evals'].values())} eval "
                              f"chunks for the whole chunk); calls {calls}")
@@ -3213,6 +3231,232 @@ def run_trial_batches(kernels, gen, card: str, clip, data) -> tuple:
                 print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
     steps["kernel_rows"] = time.perf_counter() - t0
     print(f"phase 12 seconds by step: {json.dumps(steps)}", flush=True)
+    return launches, table, time.perf_counter() - t_phase
+
+
+# ---------------------------------------------------------------------------
+# 13. trial axis II: full fine-tuning and the auxiliary backbones as one batch
+# ---------------------------------------------------------------------------
+
+AXIS_BATCH = 32
+# phase 5's data cut to 8 train steps an epoch; 13a evaluates phase 12's 160
+# val images, 13b and 13c the first 64
+AXIS_TRAIN, AXIS_VAL = 256, 64
+# full fine-tuning at the finetune command's scale of rates, and the linear
+# probe's, each with four weight decays: the chunk of 8, or 4 of them; the
+# fp32 checks fine-tune at ten times the rates, so that two epochs move the
+# val logits by far more than the tolerance
+AXIS_FT = [(lr, wd) for lr in (1e-5, 3e-5) for wd in (0.0, 1e-4, 1e-3, 1e-2)]
+AXIS_PROBE = [(lr, wd) for lr in (1e-2, 3e-3) for wd in (0.0, 1e-4, 1e-3, 1e-2)]
+AXIS_RIGHT = [(10 * lr, wd) for lr, wd in AXIS_FT[::2]]
+AXIS_DROP_PATH = 0.1
+# N(0, LIVE_BIAS) added to every bias of a tower that the fp32 checks
+# fine-tune, as a pretrained tower's are live: a bias trained from zero holds
+# lr times its summed gradient, and the last blocks' sum over a batch nearly
+# cancels (the shift that ln_post and the head's BN take out), so float32
+# summation order alone moves it by 2.5e-5 of itself at any rate (13a's
+# ViT-B/32 on an H100 80GB HBM3, at lr 1e-5 and 1e-4 alike)
+LIVE_BIAS = 0.02
+
+
+def live_biases(module, seed: int):
+    """``module`` with N(0, LIVE_BIAS) added to every bias, in place."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.rsplit(".", 1)[-1] == "bias":
+                p.add_((torch.randn(p.shape, generator=gen) * LIVE_BIAS).to(p.device))
+    return module
+
+
+def axis_task(method: str, dtype_name: str, *, clip=None, backbone=None):
+    """A task of ``method`` at batch AXIS_BATCH, 100 classes, through the
+    config entry points: on the CLIP ViT-B/32 tower ``clip``, or on an
+    auxiliary ``backbone`` (which runs in float32 whatever the dtype)."""
+    from pevit_tpu_torch.config import get_default_config
+    from pevit_tpu_torch.core import CLIPSpec
+    from pevit_tpu_torch.peft import PeftConfig
+    from pevit_tpu_torch.train import TaskStatic, TrainTask
+
+    cfg = get_default_config()
+    cfg.defrost()
+    cfg.DATASET.NUM_CLASSES = 100
+    cfg.TRAIN.BATCH_SIZE_PER_GPU = AXIS_BATCH
+    cfg.TPU.COMPUTE_DTYPE = dtype_name
+    cfg.freeze()
+    static = TaskStatic.from_config(cfg, CLIPSpec.vit_b32(), PeftConfig(method=method),
+                                    feat_dim=0 if backbone is None else backbone.feat_dim)
+    return TrainTask(cfg, static, clip, device="cuda", backbone=backbone)
+
+
+def axis_right(kernels, task, hparams, data, what: str, batches_of=path_batches) -> tuple:
+    """A float32 chunk batched (its launches held to one a block a step and
+    eval chunk for the whole chunk) and serial: every (trial, epoch) val
+    logit and each trial's trained parameters within 1e-5 of the serial
+    path's largest, the second epoch's logits moved by more than 100x that
+    from the first's, seconds a trial of each.  Returns (summary, batches)."""
+    seconds, res, got, launches, batches = trial_launches(kernels, task, hparams, data,
+                                                          batches_of)
+    serial_s, serial_res, want = trial_run(task, hparams, data, serial=True)
+    gaps = trial_gaps(got, want, what, limit=1e-5)
+    moved = min(float(np.abs(w[1] - w[0]).max() / np.abs(w).max()) for w, _ in want)
+    if moved <= 100 * 1e-5:
+        raise AssertionError(f"{what}: the second epoch moved the val logits by {moved}")
+    if not all(np.isfinite(r["best_logits"]).all() for r in res):
+        raise AssertionError(f"non-finite batched {what} run")
+    T = len(hparams)
+    return ({"trials": T, "epochs": TRAIN_EPOCHS, "batch": task.static.batch_size,
+             "launches": launches, "gaps": gaps, "logits_moved": moved,
+             "train_step_images": dict(batches["train"]),
+             "eval_chunk_images": dict(batches["evals"]),
+             "seconds_per_trial": {"batched": seconds / T, "serial": serial_s / T},
+             "best_scores": [r["best_score"] for r in res],
+             "serial_best_scores": [r["best_score"] for r in serial_res]}, batches)
+
+
+def axis_clip(kernels, clip, data) -> tuple:
+    """13a: full fine-tuning of phase 4's ViT-B/32 tower.  A bf16 chunk of 8
+    after a warm-up chunk, serial, batched, batched, serial: seconds a trial
+    of each path (the mean of its two runs), each one's device idle share
+    from a CUDA-only profile of one more run, the card's peak allocation of a
+    batched chunk, K1 exactly 12 a step and an eval chunk for the whole
+    chunk (K2 and K3 off: the MLP weights train); then an fp32 chunk of 4
+    on a copy of the tower with live biases (``live_biases``), batched and
+    serial within 1e-5.  The pretrained tower is left as it was: every
+    trial trains its own slice of the stack."""
+    sums = torch.stack([p.detach().float().sum() for p in clip.parameters()])
+    task = axis_task("full_finetune", "bfloat16", clip=clip)
+    hp = AXIS_FT
+    trial_run(task, hp[:2], data, serial=False, epochs=1)  # warm-up
+    s_seconds = [trial_run(task, hp, data, serial=True)[0]]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, res, _, launches, bf16_batches = trial_launches(kernels, task, hp, data)
+    peak = torch.cuda.max_memory_allocated() - base
+    b_seconds = [seconds, trial_run(task, hp, data, serial=False)[0]]
+    s_seconds.append(trial_run(task, hp, data, serial=True)[0])
+    b_wall, b_busy = device_busy_ms(lambda: task.train_trials(
+        hp, *data[:2], *data[2:], end_epoch=TRAIN_EPOCHS, seed=TRIAL_SEED))
+    s_wall, s_busy = device_busy_ms(lambda: task._train_trials_serial(
+        hp, *data[:2], *data[2:], end_epoch=TRAIN_EPOCHS, seed=TRIAL_SEED))
+    if not all(np.isfinite(r["best_logits"]).all() for r in res):
+        raise AssertionError("non-finite batched bf16 full fine-tuning chunk")
+    T = len(hp)
+    b_mean, s_mean = float(np.mean(b_seconds)), float(np.mean(s_seconds))
+    bf16 = {"trials": T, "epochs": TRAIN_EPOCHS, "batch": AXIS_BATCH, "launches": launches,
+            "train_step_images": dict(bf16_batches["train"]),
+            "eval_chunk_images": dict(bf16_batches["evals"]),
+            "seconds_per_trial": {"batched": b_mean / T, "serial": s_mean / T},
+            "serial_over_batched": s_mean / b_mean,
+            "batched_seconds": b_seconds, "serial_seconds": s_seconds,
+            "peak_card_bytes": peak,
+            "profiled": {"batched": {"wall_ms": b_wall, "device_busy_ms": b_busy,
+                                     "device_idle_share": 1 - b_busy / b_wall},
+                         "serial": {"wall_ms": s_wall, "device_busy_ms": s_busy,
+                                    "device_idle_share": 1 - s_busy / s_wall}},
+            "best_scores": [r["best_score"] for r in res]}
+    del task
+    torch.cuda.empty_cache()
+    live = live_biases(copy.deepcopy(clip), TRIAL_SEED)
+    fp32, fp32_batches = axis_right(kernels, axis_task("full_finetune", "float32", clip=live),
+                                    AXIS_RIGHT, data, "ViT-B/32 full_finetune fp32")
+    del live
+    if not torch.equal(sums, torch.stack([p.detach().float().sum() for p in clip.parameters()])):
+        raise AssertionError("full fine-tuning changed the task's pretrained tower")
+    return {"bf16": bf16, "fp32": fp32}, {"axis_clip_ft_bf16": bf16_batches,
+                                          "axis_clip_ft_fp32": fp32_batches}
+
+
+def axis_backbones(kernels, data) -> tuple:
+    """13b: the timm ViT-B/16 (live biases) under fp32 full fine-tuning, a
+    chunk of 4 (K1's fp32 body at 4 x 32 images, N = 197, 12 a step), and the DeCLIP
+    ViT-B/32 linear probe, a chunk of 8 on the shared frozen tower (K1 and
+    K2 fp32, 12 each a step and an eval chunk): each batched and serial
+    within 1e-5."""
+    from pevit_tpu_torch.models import get_model
+
+    out, paths = {}, {}
+    vit = get_model(aux_config("vit_base_patch16_224.yaml"), device="cuda")
+    live_biases(vit.params, TRIAL_SEED)
+    out["vit_b16_full_finetune"], paths["axis_vit_ft"] = axis_right(
+        kernels, axis_task("full_finetune", "float32", backbone=vit), AXIS_RIGHT, data,
+        "ViT-B/16 full_finetune", lambda t, calls: aux_batches(t, calls, 197, fused_mlp=False))
+    del vit
+    torch.cuda.empty_cache()
+    declip = get_model(aux_config("vitb32_DeCLIP.yaml"), device="cuda")
+    out["declip_linear_probe"], paths["axis_declip_probe"] = axis_right(
+        kernels, axis_task("linear_probe", "float32", backbone=declip), AXIS_PROBE, data,
+        "DeCLIP linear_probe", lambda t, calls: aux_batches(t, calls, 50, fused_mlp=True))
+    return out, paths
+
+
+def axis_swin(kernels, data, tmp: Path) -> tuple:
+    """13c: Swin-T (live biases) with DROP_PATH_RATE 0.1, the linear probe and
+    full fine-tuning, chunks of 4, fp32: every train step through the stochastic
+    forward, each trial's drop-path draws from its own generators, batched
+    and serial within 1e-5.  The plain path: no kernel launches."""
+    from pevit_tpu_torch.models import get_model
+
+    yaml = tmp / "cls_swin_tiny_axis.yaml"
+    yaml.write_text(f"MODEL:\n  NAME: cls_swin_tiny\n  SPEC:\n    DROP_PATH_RATE: "
+                    f"{AXIS_DROP_PATH}\n")
+    no_kernel = lambda t, calls: aux_batches(t, calls, 0, fused_mlp=False, layers=0)
+    out, paths = {}, {}
+    for method, hp in (("linear_probe", AXIS_PROBE[::2]), ("full_finetune", AXIS_RIGHT)):
+        swin = get_model(aux_config(str(yaml)), device="cuda")
+        live_biases(swin.params, TRIAL_SEED)
+        if swin.forward_features_train is None:
+            raise AssertionError("cls_swin_tiny with drop path has no train-mode forward")
+        with stochastic_forwards() as calls:
+            out[f"swin_{method}"], paths[f"axis_swin_{method}"] = axis_right(
+                kernels, axis_task(method, "float32", backbone=swin), hp, data,
+                f"Swin-T {method}", no_kernel)
+        steps = sum(paths[f"axis_swin_{method}"]["train"].values())
+        # the batched chunk's steps, then each serial trial's
+        if len(calls) != steps * (1 + len(hp)) or not all(calls):
+            raise AssertionError(f"Swin-T {method}: {len(calls)} stochastic forwards for "
+                                 f"{steps} steps batched and {len(hp)} x {steps} serial")
+        out[f"swin_{method}"]["stochastic_train_forwards"] = len(calls)
+        del swin
+        torch.cuda.empty_cache()
+    return out, paths
+
+
+def run_trial_axis(kernels, gen, card: str, clip, data) -> tuple:
+    """Phase 13; returns the launches and kernel rows of its batched paths."""
+    launches, table = {}, {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    clip_data = (*data[0:2], data[2][:TRIAL_VAL], data[3][:TRIAL_VAL])
+    clip_data = (clip_data[0][:AXIS_TRAIN], clip_data[1][:AXIS_TRAIN], *clip_data[2:])
+    small = (*clip_data[:2], clip_data[2][:AXIS_VAL], clip_data[3][:AXIS_VAL])
+    t_phase, steps, paths = time.perf_counter(), {}, {}
+    t0 = time.perf_counter()
+    out, found = axis_clip(kernels, clip, clip_data)
+    paths.update(found)
+    print(f"trial axis ViT-B/32 full_finetune: {json.dumps(out)} [{card}]", flush=True)
+    steps["clip"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, found = axis_backbones(kernels, small)
+    paths.update(found)
+    print(f"trial axis backbones: {json.dumps(out)} [{card}]", flush=True)
+    steps["backbones"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_axis_") as tmp:
+        out, found = axis_swin(kernels, small, Path(tmp))
+    paths.update(found)
+    print(f"trial axis Swin-T: {json.dumps(out)} [{card}]", flush=True)
+    steps["swin"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path, batches in paths.items():
+        launches[path] = expected_launches(batches)
+        if not batches["layers"]:
+            continue
+        for name, rows_ in path_kernel_rows(gen, path, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    steps["kernel_rows"] = time.perf_counter() - t0
+    print(f"phase 13 seconds by step: {json.dumps(steps)}", flush=True)
     return launches, table, time.perf_counter() - t_phase
 
 
@@ -3379,12 +3623,17 @@ def main() -> int:
     trial_launches_, trial_table, seconds = run_trial_batches(KERNELS, gen, card, clip, data)
     print(f"phase 12: {seconds:.1f} s", flush=True)
 
-    # 13. report
+    # 13. trial axis II: full fine-tuning and the auxiliary backbones, a
+    # chunk's trials as one batch against the serial path
+    axis_launches, axis_table, seconds = run_trial_axis(KERNELS, gen, card, clip, data)
+    print(f"phase 13: {seconds:.1f} s", flush=True)
+
+    # 14. report
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
-                **aux_launches, **stream_launches, **trial_launches_}
+                **aux_launches, **stream_launches, **trial_launches_, **axis_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
              + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
-             for name in command_table}
+             + axis_table[name] for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))

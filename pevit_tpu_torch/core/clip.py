@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from . import trial_axis
 from .layers import (
     LayerNorm,
     ResidualAttentionBlock,
@@ -266,6 +267,12 @@ def encode_image(
     An RN tower (``spec.vision_rn``) takes (B, H, W, 3) float images and no
     PEFT hooks, and has no separate projection (it lives in the attention
     pool), as in the reference (model.py:1076-1084).
+
+    A visual tower stacked over T trials (``full_finetune`` on a batch of
+    trials: every parameter (T, ...), ``trial_axis``) takes the trials'
+    images folded into x, (T*B, ...), and gives trial t's rows trial t's
+    patch embedding, class and positional embeddings, LayerNorms, blocks
+    and projection.
     """
     if spec.vision_rn is not None:
         if hooks is not None and (hooks.attn_delta is not None or hooks.mlp_post is not None):
@@ -281,15 +288,16 @@ def encode_image(
         if patch_fold is None:
             raise ValueError("pre-patchified input requires patch_fold=(mean, std)")
         mean, std = (torch.as_tensor(t, device=x.device).float() for t in patch_fold)
-        kernel32 = vp.patch_embed.kernel.float()  # (p*p*3, width)
+        kernel32 = vp.patch_embed.kernel.float()  # (p*p*3, width), or (T, ...)
         s = (1.0 / (255.0 * std)).repeat(p * p)
         t = (-mean / std).repeat(p * p)
-        x = x.to(dt) @ (kernel32 * s[:, None]).to(dt) + (t @ kernel32).to(dt)
+        x = trial_axis.add(trial_axis.matmul(x.to(dt), (kernel32 * s[:, None]).to(dt)),
+                           (t @ kernel32).to(dt), 1)
     else:
         # patchify == non-overlapping conv == one GEMM (no bias)
-        x = patchify_images(x.to(dt), p) @ vp.patch_embed.kernel.to(dt)
-    cls = vp.class_embedding.to(dt).expand(B, 1, v.width)
-    x = torch.cat([cls, x], dim=1) + vp.positional_embedding.to(dt)
+        x = trial_axis.matmul(patchify_images(x.to(dt), p), vp.patch_embed.kernel.to(dt))
+    cls = trial_axis.rows(vp.class_embedding.to(dt), B, 1).unsqueeze(1)
+    x = trial_axis.add(torch.cat([cls, x], dim=1), vp.positional_embedding.to(dt), 2)
     x = layer_norm(x, vp.ln_pre.scale, vp.ln_pre.bias)
 
     for i, blk in enumerate(vp.blocks):
@@ -306,7 +314,7 @@ def encode_image(
     x = layer_norm(x[:, 0, :], vp.ln_post.scale, vp.ln_post.bias)
     if not apply_proj:
         return x
-    return x @ vp.proj.to(x.dtype)
+    return trial_axis.matmul(x, vp.proj.to(x.dtype))
 
 
 def encode_text(clip: CLIP, tokens: torch.Tensor, *, spec: CLIPSpec,

@@ -14,6 +14,11 @@ scaled by 1/sqrt(hd) BEFORE the PEFT delta is added.
 Attention with a mask (the text tower's causal mask) is plain PyTorch, as in
 the reference (``pevit_tpu/core/layers.py:229-233``, plain XLA there); only
 mask-free attention goes through the attention kernel, which takes no mask.
+
+A tower stacked over a batch of trials (``trial_axis``) holds every weight
+(T, ...) and runs on the trials' folded (T*B, ...) rows: ``linear`` and
+``layer_norm`` apply trial t's weights to trial t's rows, and the attention
+core, which has no weights, runs once on them all.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch import nn
 
 from ..ops.attention import attention_core
 from ..ops.fused_mlp import fused_mlp_residual
+from . import trial_axis
 
 
 class LayerNorm(nn.Module):
@@ -79,12 +85,13 @@ class ResidualAttentionBlock(nn.Module):
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """float32-island LayerNorm; returns x's dtype."""
+    """float32-island LayerNorm; returns x's dtype.  A stacked (T, C) scale
+    and bias apply trial by trial to x's (T*B, ..., C) rows."""
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
     var = x32.var(-1, keepdim=True, correction=0)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * scale.float() + bias.float()
+    y = trial_axis.add(trial_axis.mul(y, scale.float(), 1), bias.float(), 1)
     return y.to(x.dtype)
 
 
@@ -107,8 +114,9 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, p: Dense) -> torch.Tensor:
-    """``x @ W + b`` with W and b cast to x's dtype."""
-    return x @ p.kernel.to(x.dtype) + p.bias.to(x.dtype)
+    """``x @ W + b`` with W and b cast to x's dtype; a stacked (T, in, out)
+    W and (T, out) b apply trial by trial to x's (T*B, ..., in) rows."""
+    return trial_axis.add(trial_axis.matmul(x, p.kernel.to(x.dtype)), p.bias.to(x.dtype), 1)
 
 
 def mlp(p: MLP, x: torch.Tensor, act: Optional[Callable] = None) -> torch.Tensor:
@@ -188,12 +196,19 @@ def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_he
     ``act`` replaces QuickGELU (the timm ViTs pass :func:`gelu_exact`).  The
     fused kernel computes QuickGELU only, so a block given ``act`` always
     takes the unfused MLP, whatever ``use_fused_mlp`` says, as the
-    reference's block does (``pevit_tpu/core/layers.py:274``)."""
+    reference's block does (``pevit_tpu/core/layers.py:274``).
+
+    A block of a stacked tower (its weights (T, ...), x the trials' folded
+    rows) trains its MLP weights, so it takes the unfused MLP; the fused
+    route raises for it."""
     h = layer_norm(x, p.ln_1.scale, p.ln_1.bias, eps=ln_eps)
     x = x + multi_head_attention(p.attn, h, n_head=n_head, mask=mask, qv_delta_fn=qv_delta_fn)
     if not use_fused_mlp or mlp_post_fn is not None or act is not None:
         m = mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps), act=act)
         return x + (m if mlp_post_fn is None else mlp_post_fn(m))
+    if trial_axis.stacked(p.mlp.c_fc.kernel, 2):
+        raise ValueError("the fused MLP takes one frozen tower's weights; a tower stacked "
+                         "over trials trains them and takes the unfused MLP")
     dt = x.dtype
     return fused_mlp_residual(
         x, p.ln_2.scale, p.ln_2.bias,

@@ -16,6 +16,16 @@ row only (``pevit_tpu/core/resnet.py:102-119``), which is what torch's full
 attention returns as ``x[0]``.  Convolutions are ``conv2d`` calls on NCHW
 activations and the attention pool is plain PyTorch, as both are plain XLA
 in the reference: this tower reaches no hand-written kernel.
+
+A tower stacked over T trials (``full_finetune`` on a batch of trials,
+every parameter (T, ...)) takes the trials' images folded, (T*B, H, W, 3),
+and runs its convolutions with the trials side by side on the channel axis,
+(B, T*C, H, W): each convolution is one grouped convolution (``groups=T``,
+trial t's kernel on trial t's channels), each BatchNorm one scale and
+offset per channel of the T*C, the pooling and the residuals as they are;
+the attention pool takes the trials' rows folded again, (T*B, ...), and
+applies trial t's projections to trial t's rows.  A stack of one trial is
+the lone tower's layout and calls.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import trial_axis
 from .layers import Dense
 
 EXPANSION = 4  # Bottleneck.expansion (model.py:12)
@@ -160,15 +171,25 @@ def init_resnet_params(generator: torch.Generator, spec: ResNetSpec) -> Modified
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.Tensor:
-    """NCHW activations, an HWIO kernel, torch's symmetric padding."""
-    return F.conv2d(x, kernel.to(x.dtype).permute(3, 2, 0, 1), stride=stride, padding=pad)
+    """NCHW activations, an HWIO kernel, torch's symmetric padding; a
+    stacked (T, kh, kw, in, out) kernel convolves trial t's channels of a
+    (B, T*in, H, W) input with its slice t, one grouped convolution."""
+    T = trial_axis.stacked(kernel, 4)
+    if T == 1:
+        kernel = kernel[0]
+    if T <= 1:
+        return F.conv2d(x, kernel.to(x.dtype).permute(3, 2, 0, 1), stride=stride, padding=pad)
+    w = kernel.to(x.dtype).permute(0, 4, 3, 1, 2)  # (T, out, in, kh, kw)
+    return F.conv2d(x, w.reshape(-1, *w.shape[2:]), stride=stride, padding=pad, groups=T)
 
 
 def _bn(x: torch.Tensor, p: BatchNorm, eps: float = 1e-5) -> torch.Tensor:
     """Eval-mode BatchNorm as one scale and offset per channel, computed in
-    float32 and cast to the activations' dtype."""
+    float32 and cast to the activations' dtype; stacked (T, C) statistics
+    and affine give the T*C channels of the side-by-side layout."""
     s = p.scale.float() / torch.sqrt(p.var.float() + eps)
     t = p.bias.float() - p.mean.float() * s
+    s, t = s.reshape(-1), t.reshape(-1)
     return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
 
 
@@ -188,15 +209,22 @@ def _bottleneck(p: Bottleneck, x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 def _proj(t: torch.Tensor, p: Dense) -> torch.Tensor:
-    return t @ p.kernel.to(t.dtype) + p.bias.to(t.dtype)
+    return trial_axis.add(trial_axis.matmul(t, p.kernel.to(t.dtype)), p.bias.to(t.dtype), 1)
 
 
 def _attn_pool(p: AttentionPool, x: torch.Tensor, n_head: int) -> torch.Tensor:
     """AttentionPool2d (model.py:56-90) on (B, C, H, W), the mean-token
-    query row only: float32 logits, the probabilities cast to v's dtype."""
+    query row only: float32 logits, the probabilities cast to v's dtype.
+    A stacked pool takes the side-by-side (B, T*C, H, W) layout and gives
+    (T*B, output_dim), trial-major."""
+    T = trial_axis.stacked(p.positional_embedding, 2)
+    if T > 1:
+        Bt, TC, H, W = x.shape
+        x = x.reshape(Bt, T, TC // T, H, W).transpose(0, 1).reshape(T * Bt, TC // T, H, W)
     B, C = x.shape[:2]
     x = x.flatten(2).transpose(1, 2)  # (B, H*W, C), row-major positions
-    x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1) + p.positional_embedding.to(x.dtype)
+    x = trial_axis.add(torch.cat([x.mean(dim=1, keepdim=True), x], dim=1),
+                       p.positional_embedding.to(x.dtype), 2)
     hd = C // n_head
     q = _proj(x[:, :1], p.q_proj).reshape(B, 1, n_head, hd) * (1.0 / math.sqrt(hd))
     k = _proj(x, p.k_proj).reshape(B, -1, n_head, hd)
@@ -210,8 +238,13 @@ def _attn_pool(p: AttentionPool, x: torch.Tensor, n_head: int) -> torch.Tensor:
 def encode_image_rn(tower: ModifiedResNet, x: torch.Tensor, *, spec: ResNetSpec,
                     compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """ModifiedResNet forward (model.py:127-152): (B, H, W, 3) float
-    images -> (B, output_dim) in ``compute_dtype``."""
+    images -> (B, output_dim) in ``compute_dtype``; a stacked tower takes
+    and gives the trials' rows folded, (T*B, ...)."""
     x = x.to(compute_dtype).permute(0, 3, 1, 2)
+    T = trial_axis.stacked(tower.stem.conv1, 4)
+    if T > 1:  # the trials side by side on the channel axis
+        TB, C, H, W = x.shape
+        x = x.reshape(T, TB // T, C, H, W).transpose(0, 1).reshape(TB // T, T * C, H, W)
     stem = tower.stem
     x = F.relu(_bn(_conv(x, stem.conv1, stride=2, pad=1), stem.bn1))
     x = F.relu(_bn(_conv(x, stem.conv2, pad=1), stem.bn2))

@@ -161,7 +161,8 @@ def encode_image(model: Declip, x: torch.Tensor, *, spec: DeclipSpec,
                  use_fused_mlp: bool = True) -> torch.Tensor:
     """Pooled image features: ln_post(CLS) @ proj (visual_transformer.py:53-79).
     ``use_fused_mlp`` is the blocks' MLP route: the fused kernel for a
-    frozen tower, the unfused MLP where its weights train."""
+    frozen tower, the unfused MLP where its weights train (a tower stacked
+    over trials, ``core.clip.encode_image``)."""
     return _clip_encode_image(model, x, spec=spec.clip, compute_dtype=compute_dtype,
                               use_fused_mlp=use_fused_mlp)
 
@@ -170,7 +171,8 @@ def encode_image_dense(model: Declip, x: torch.Tensor, *, spec: DeclipSpec,
                        compute_dtype: torch.dtype = torch.float32,
                        use_fused_mlp: bool = True) -> torch.Tensor:
     """FILIP dense image features: image_mapping of the patch tokens after
-    the blocks, before ln_post and unprojected (filip.py:58-61)."""
+    the blocks, before ln_post and unprojected (filip.py:58-61).  A model
+    stacked over trials maps trial t's rows with its own image_mapping."""
     tokens = _clip_encode_image(model, x, spec=spec.clip, compute_dtype=compute_dtype,
                                 use_fused_mlp=use_fused_mlp, return_all_tokens=True)
     return linear(tokens[:, 1:, :].float(), model.image_mapping)

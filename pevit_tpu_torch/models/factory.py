@@ -5,10 +5,18 @@ evaluation/feature.py:241-317), which dispatches MODEL.NAME over the CLIP
 checkpoints (ViT and RN), the timm / DeiT / MAE / MoCo-v3 ViTs, the Swin
 classifiers, CLIP-Swin and the DeCLIP family.  Returns a ``Backbone``: the
 parameter module and ``forward_features(params, images_float,
-use_fused_mlp=True) -> (B, feat_dim)``, plus ``encode_text(params,
+use_fused_mlp=True, trials=0) -> (B, feat_dim)``, plus ``encode_text(params,
 tokens)`` for dual-tower models and ``forward_features_train(params,
-images_float, generator)`` for a backbone that is stochastic in training
-(Swin's stochastic depth and dropout).
+images_float, generator, trials=0)`` for a backbone that is stochastic in
+training (Swin's stochastic depth and dropout).
+
+``trials`` > 0 is a batch of T trials (``TrainTask.train_trials``): the
+images are the trials' batches folded, (T*B, ...), trial-major, and the
+features come back folded the same way.  ``params`` is then the task's own
+module, shared by every trial (a frozen backbone), or a copy whose
+parameters are stacked (T, ...) over the trials (``full_finetune``,
+``train.partition.stack_trials``), which the forwards apply trial by trial
+(``core.trial_axis``); ``generator`` is one generator per trial.
 
 ``use_fused_mlp`` is the MLP route of a CLIP-layout visual tower (CLIP
 ViTs, the DeCLIP family): the fused kernel while the tower is frozen, the
@@ -25,6 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core import trial_axis
 from ..utils.device import resolve_device
 from . import declip as _declip
 from . import swin as _swin
@@ -38,14 +47,16 @@ class Backbone:
     name: str
     params: torch.nn.Module
     feat_dim: int
-    forward_features: Callable  # (params, images_float, use_fused_mlp=True) -> (B, feat_dim)
+    # (params, images_float, use_fused_mlp=True, trials=0) -> (B, feat_dim)
+    forward_features: Callable
     encode_text: Optional[Callable] = None  # (params, tokens) -> (B, feat_dim)
     # the tokenizer of the text tower's vocabulary; None -> OpenAI CLIP's.
     # The DeCLIP family's vocabulary has <|mask|> inserted.
     tokenize: Optional[Callable] = None
     # the train-mode forward of a backbone that is stochastic in training
     # (Swin's stochastic depth, cls_swin.py:209,280-281): (params,
-    # images_float, generator) -> (B, feat_dim).  None -> train == eval.
+    # images_float, generator, trials=0) -> (B, feat_dim), one generator per
+    # trial when ``trials``.  None -> train == eval.
     forward_features_train: Optional[Callable] = None
 
 
@@ -127,7 +138,7 @@ def get_model(config, *, device=None) -> Backbone:
                                spec_hint=CLIPSpec.from_config(config), device=dev)
         return Backbone(
             name=name, params=clip, feat_dim=spec.embed_dim,
-            forward_features=lambda p, x, use_fused_mlp=True: encode_image(
+            forward_features=lambda p, x, use_fused_mlp=True, trials=0: encode_image(
                 p, x, spec=spec, use_fused_mlp=use_fused_mlp),
             encode_text=lambda p, t: encode_text(p, t, spec=spec),
         )
@@ -150,8 +161,8 @@ def get_model(config, *, device=None) -> Backbone:
             logging.warning("=> %s: RANDOM init (no TEST.MODEL_FILE)", name)
         return Backbone(
             name=name, params=vit, feat_dim=spec.width,
-            forward_features=lambda p, x, use_fused_mlp=True: _vit.vit_forward_features(
-                p, x, spec=spec),
+            forward_features=lambda p, x, use_fused_mlp=True, trials=0: (
+                _vit.vit_forward_features(p, x, spec=spec)),
         )
 
     # the Swin classifiers (models/cls_swin.py:683-713)
@@ -190,10 +201,10 @@ def get_model(config, *, device=None) -> Backbone:
         stochastic = spec.drop_path_rate > 0.0 or spec.drop_rate > 0.0
         return Backbone(
             name=name, params=model, feat_dim=spec.stage_dim(spec.num_stages - 1),
-            forward_features=lambda p, x, use_fused_mlp=True: _swin.swin_forward_features(
-                p, x, spec=spec),
+            forward_features=lambda p, x, use_fused_mlp=True, trials=0: (
+                _swin.swin_forward_features(p, x, spec=spec)),
             forward_features_train=(
-                (lambda p, x, generator: _swin.swin_forward_features(
+                (lambda p, x, generator, trials=0: _swin.swin_forward_features(
                     p, x, spec=spec, train=True, generator=generator)) if stochastic else None),
         )
 
@@ -232,9 +243,9 @@ def get_model(config, *, device=None) -> Backbone:
             model = _swin.init_clip_swin_params(gen, sspec, cspec, device=dev)
             logging.warning("=> %s: RANDOM init (no TEST.MODEL_FILE)", name)
 
-        def fwd(p, x, use_fused_mlp=True):
+        def fwd(p, x, use_fused_mlp=True, trials=0):
             feats = _swin.swin_forward_features(p.visual, x, spec=sspec)
-            feats = feats.float() @ p.vision_projection
+            feats = trial_axis.matmul(feats.float(), p.vision_projection)
             return feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
 
         def txt(p, t):
@@ -272,15 +283,16 @@ def get_model(config, *, device=None) -> Backbone:
             return Backbone(
                 name=name, params=model,
                 feat_dim=(dspec.vision.seq_len - 1) * dspec.dense_embed_dim,
-                forward_features=lambda p, x, use_fused_mlp=True: _declip.encode_image_dense(
-                    p, x, spec=dspec, use_fused_mlp=use_fused_mlp).reshape(x.shape[0], -1),
+                forward_features=lambda p, x, use_fused_mlp=True, trials=0: (
+                    _declip.encode_image_dense(p, x, spec=dspec, use_fused_mlp=use_fused_mlp)
+                    .reshape(x.shape[0], -1)),
                 encode_text=lambda p, t: _declip.encode_text_dense(
                     p, t, spec=dspec).reshape(t.shape[0], -1),
                 tokenize=declip_tokenize,
             )
         return Backbone(
             name=name, params=model, feat_dim=dspec.embed_dim,
-            forward_features=lambda p, x, use_fused_mlp=True: _declip.encode_image(
+            forward_features=lambda p, x, use_fused_mlp=True, trials=0: _declip.encode_image(
                 p, x, spec=dspec, use_fused_mlp=use_fused_mlp),
             encode_text=lambda p, t: _declip.encode_text(p, t, spec=dspec),
             tokenize=declip_tokenize,

@@ -25,6 +25,14 @@ Train-time randomness (drop path, dropout) draws from an explicit
 ``torch.Generator``; train mode with a non-zero rate and no generator
 raises, as the reference raises without an rng.
 
+A batch of T trials runs on the trials' images folded, (T*B, ...): a frozen
+tower shared, a trained one stacked (every parameter (T, ...),
+``core.trial_axis``), trial t's rows through trial t's weights and its
+relative-position bias.  The generator is then one per trial, and each
+draw gives trial t's rows from trial t's generator, the shape a lone trial
+draws, in a lone trial's order, so that a batch draws what each trial
+draws alone.
+
 The parameter tree is the reference's: ``patch_embed`` (kernel ``(p*p*3,
 C)``, bias), ``patch_norm``, ``absolute_pos_embed``, ``stages`` (a list of
 ``{"blocks": [...], "downsample"}``), ``norm`` and ``head``; each block
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import trial_axis
 from ..core.clip import CLIPSpec, TextSpec, init_clip_params
 from ..core.layers import LayerNorm, ListModule, ResidualAttentionBlock, gelu_exact, layer_norm
 
@@ -226,30 +235,39 @@ def init_swin_params(generator: torch.Generator, spec: SwinSpec, *, device=None)
 # forward
 # ---------------------------------------------------------------------------
 
-def _drop_path(h: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+def _gens(generator) -> list:
+    """A forward's generator as a list: one per trial of a batch, or the
+    lone one."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return [generator]
+    return list(generator)
+
+
+def _drop_path(h: torch.Tensor, p: float, generator) -> torch.Tensor:
     """Per-sample stochastic depth (cls_swin.py:87-104): each sample's branch
-    is kept with probability 1 - p and the kept ones scaled by 1 / (1 - p)."""
+    is kept with probability 1 - p and the kept ones scaled by 1 / (1 - p).
+    ``generator`` is one generator, or one per trial of h's folded rows."""
     if p <= 0.0:
         return h
     keep = 1.0 - p
     shape = (h.shape[0],) + (1,) * (h.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=h.device) < keep
+    mask = trial_axis.rand_rows(shape, _gens(generator), h.device) < keep
     return h * mask.to(h.dtype) / torch.tensor(keep, dtype=h.dtype, device=h.device)
 
 
-def _dropout(h: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
-    """Elementwise inverted dropout."""
+def _dropout(h: torch.Tensor, p: float, generator) -> torch.Tensor:
+    """Elementwise inverted dropout; ``generator`` as in :func:`_drop_path`."""
     if p <= 0.0:
         return h
     keep = 1.0 - p
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    mask = trial_axis.rand_rows(h.shape, _gens(generator), h.device) < keep
     return h * mask.to(h.dtype) / torch.tensor(keep, dtype=h.dtype, device=h.device)
 
 
 def _lin(x: torch.Tensor, p: Linear) -> torch.Tensor:
-    y = x @ p.kernel.to(x.dtype)
+    y = trial_axis.matmul(x, p.kernel.to(x.dtype))
     bias = getattr(p, "bias", None)
-    return y if bias is None else y + bias.to(x.dtype)
+    return y if bias is None else trial_axis.add(y, bias.to(x.dtype), 1)
 
 
 def _window_attention(bp: SwinBlock, x: torch.Tensor, *, res: int, window: int, shift: int,
@@ -271,8 +289,9 @@ def _window_attention(bp: SwinBlock, x: torch.Tensor, *, res: int, window: int, 
     q, k, v = qkv[0], qkv[1], qkv[2]  # (B*nW, H, n, hd)
     q = q * (hd ** -0.5 if qk_scale is None else qk_scale)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    rel = bp.rel_bias[rel_index].reshape(n, n, n_head)
-    logits = logits + rel.permute(2, 0, 1)[None]
+    table = bp.rel_bias[..., rel_index, :]  # (n*n, H), or (T, n*n, H) stacked
+    rel = table.reshape(*table.shape[:-2], n, n, n_head).movedim(-1, -3)
+    logits = trial_axis.add(logits, rel, 3)
     if mask is not None:
         logits = logits + mask[None].expand(B, -1, -1, -1).reshape(-1, 1, n, n)
     attn = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -293,7 +312,9 @@ def swin_forward_features(swin: Swin, x: torch.Tensor, *, spec: SwinSpec,
     """(B, H, W, 3) float images -> (B, final_dim) pooled features.
 
     ``train=True`` turns on stochastic depth and dropout where their rates
-    are non-zero; they draw from ``generator`` (on x's device)."""
+    are non-zero; they draw from ``generator`` (on x's device), or, for a
+    batch of trials whose images x folds, from a sequence of one generator
+    per trial."""
     use_dp = train and spec.drop_path_rate > 0.0
     do_rate = spec.drop_rate if train else 0.0
     if (use_dp or do_rate > 0.0) and generator is None:
@@ -308,8 +329,8 @@ def swin_forward_features(swin: Swin, x: torch.Tensor, *, spec: SwinSpec,
     x = _lin(x, swin.patch_embed)
     if spec.patch_norm:
         x = layer_norm(x, swin.patch_norm.scale, swin.patch_norm.bias)
-    if spec.ape:
-        x = x + swin.absolute_pos_embed.to(x.dtype)
+    if spec.ape:  # (1, L, C), or (T, 1, L, C) stacked
+        x = trial_axis.add(x, swin.absolute_pos_embed.select(-3, 0).to(x.dtype), 2)
     if do_rate > 0.0:
         x = _dropout(x, do_rate, generator)  # pos_drop (cls_swin.py:530)
     x = x.reshape(B, g, g, spec.embed_dim)
@@ -325,7 +346,7 @@ def swin_forward_features(swin: Swin, x: torch.Tensor, *, spec: SwinSpec,
                 qk_scale=spec.qk_scale, drop_rate=do_rate, generator=generator)
             gamma = getattr(bp, "gamma", None)
             if gamma is not None:
-                attn_out = attn_out * gamma.to(attn_out.dtype)
+                attn_out = trial_axis.mul(attn_out, gamma.to(attn_out.dtype), 1)
             p_blk = float(dpr[blk_idx]) if use_dp else 0.0
             if p_blk > 0.0:
                 attn_out = _drop_path(attn_out, p_blk, generator)
@@ -338,7 +359,7 @@ def swin_forward_features(swin: Swin, x: torch.Tensor, *, spec: SwinSpec,
             if do_rate > 0.0:
                 h = _dropout(h, do_rate, generator)  # and its second
             if gamma is not None:
-                h = h * gamma.to(h.dtype)
+                h = trial_axis.mul(h, gamma.to(h.dtype), 1)
             if p_blk > 0.0:
                 h = _drop_path(h, p_blk, generator)
             x = x + h

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import trial_axis
 from ..core.clip import patchify_images
 from ..core.layers import Dense, LayerNorm, ResidualAttentionBlock, gelu_exact, layer_norm
 from ..core.layers import residual_attention_block
@@ -114,13 +115,16 @@ def vit_forward_features(vit: ViT, x: torch.Tensor, *, spec: ViTSpec,
                          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, H, W, 3) float images -> (B, width) pooled features, in
     ``compute_dtype`` (float32 by default, whatever the images' dtype, as
-    the reference casts them)."""
+    the reference casts them).  A ViT stacked over T trials (every
+    parameter (T, ...), ``core.trial_axis``) takes the trials' images
+    folded, (T*B, ...), and gives trial t's rows its own weights."""
     B = x.shape[0]
     dt = compute_dtype
     x = patchify_images(x.to(dt), spec.patch_size)
-    x = x @ vit.patch_embed.kernel.to(dt) + vit.patch_embed.bias.to(dt)
-    cls = vit.cls_token.to(dt).expand(B, 1, spec.width)
-    x = torch.cat([cls, x], dim=1) + vit.pos_embed.to(dt)
+    x = trial_axis.add(trial_axis.matmul(x, vit.patch_embed.kernel.to(dt)),
+                       vit.patch_embed.bias.to(dt), 1)
+    cls = trial_axis.rows(vit.cls_token.to(dt), B, 1).unsqueeze(1)
+    x = trial_axis.add(torch.cat([cls, x], dim=1), vit.pos_embed.to(dt), 2)
     for blk in vit.blocks:
         x = residual_attention_block(blk, x, n_head=spec.heads, act=gelu_exact)
     if spec.global_pool:

@@ -12,7 +12,10 @@ frozen) sits on both sides.
 
 :func:`stack_trials` gives a batch of trials its stacked storage: one bundle
 whose per-trial modules hold each parameter stacked over a leading trial
-axis, with every trial's own module made a view into its slice.
+axis, with every trial's own module made a view into its slice.  A frozen
+tower is shared by every trial; a trained one (``full_finetune``) is
+stacked like the rest, each trial starting from an :func:`alias` of the
+pretrained tower, so the stack is the only copy of it.
 """
 
 from __future__ import annotations
@@ -93,28 +96,51 @@ def _set_parameter(module: nn.Module, name: str, param: nn.Parameter) -> None:
     setattr(module.get_submodule(owner) if owner else module, leaf, param)
 
 
+def alias(module: nn.Module, keep=()) -> nn.Module:
+    """A module of ``module``'s structure whose parameters are new
+    parameters over the same storage (nothing is copied) and whose buffers
+    are the same tensors: a trial's own tower, which :func:`partition` can
+    flag and :func:`stack_trials` can re-point, leaving ``module`` as it is.
+    The submodules and parameters in ``keep`` (a frozen text tower every
+    trial shares) stay the same objects."""
+    memo = {id(p): nn.Parameter(p.detach(), requires_grad=p.requires_grad)
+            for p in module.parameters()}
+    memo.update({id(b): b for b in module.buffers()})
+    memo.update({id(k): k for k in keep})
+    return copy.deepcopy(module, memo)
+
+
 def stack_trials(bundles: list) -> dict:
     """One bundle for the trials of ``bundles`` (one bundle each, of one
-    structure): the ``clip`` entry is the first bundle's (every trial holds
-    the same frozen tower); every other module becomes a copy of the
-    first trial's whose parameters are the trials' stacked, (T, ...), with
-    the first trial's ``requires_grad``.  Each trial's own module is made a
-    view into the stack: its parameters become parameters over slice t of
-    the stack's storage, so an in-place update of the stack is every
-    trial's, and the trial's modules and trees go on reading their own
-    trial."""
+    structure, partitioned).  The ``clip`` entry is the first bundle's
+    where none of its parameters trains (every trial holds the same frozen
+    tower).  Every other module, and a ``clip`` that trains, becomes an
+    :func:`alias` of the first trial's whose parameters are the trials'
+    stacked, (T, ...), with the first trial's ``requires_grad``; of a
+    ``clip`` only the trained parameters are stacked, and its frozen ones
+    (a text tower, a logit scale) stay the first trial's.  Each trial's own
+    module is made a view into the stack: its parameters become parameters
+    over slice t of the stack's storage, so an in-place update of the stack
+    is every trial's, and the trial's modules and trees go on reading their
+    own trial.  A stacked module must be each trial's own object."""
     out = {}
     for key, first in bundles[0].items():
-        if key == "clip" or first is None:
+        names = [] if first is None else [
+            n for n, p in first.named_parameters() if key != "clip" or p.requires_grad]
+        if not names:
             out[key] = first
             continue
         modules = [b[key] for b in bundles]
-        stacked = copy.deepcopy(first)
-        for name, p in list(first.named_parameters()):
+        if len({id(m) for m in modules}) != len(modules):
+            raise ValueError(f"the trials share one {key!r} module; give each its own "
+                             "(partition.alias)")
+        stacked = alias(first)
+        for name in names:
+            flag = first.get_parameter(name).requires_grad
             data = torch.stack([m.get_parameter(name).detach() for m in modules])
-            big = nn.Parameter(data, requires_grad=p.requires_grad)
+            big = nn.Parameter(data, requires_grad=flag)
             _set_parameter(stacked, name, big)
             for t, m in enumerate(modules):
-                _set_parameter(m, name, nn.Parameter(big.detach()[t], requires_grad=p.requires_grad))
+                _set_parameter(m, name, nn.Parameter(big.detach()[t], requires_grad=flag))
         out[key] = stacked
     return out

@@ -17,7 +17,10 @@ A chunk of more than one trial that runs the card out of memory
 (``torch.cuda.OutOfMemoryError``) is retried as two halves, after
 ``torch.cuda.empty_cache()``, as the reference retries a chunk that fails
 on its device (``pevit_tpu/train/sweep.py:36-74``): the batch's activations
-grow with its width.  A single trial out of memory aborts the sweep, and so
+grow with its width, and under full fine-tuning so do the stacked tower, its
+gradients and its optimiser state (about 12 bytes a parameter a trial in
+float32, so a chunk of 8 ViT-B/16 towers holds about 8 GB before any
+activation).  A single trial out of memory aborts the sweep, and so
 does every other device error (a CUDA error, or a kernel that fails to
 build, refuses its inputs or fails to launch), whatever the chunk's width;
 none is ever scored 0.0.  Where the port differs from the reference, on

@@ -57,7 +57,12 @@ _VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CAC
 #      kernels and the trials' delta products run at the chunk's folded
 #      shapes, so on the card a batched trial can round differently from the
 #      same trial trained alone.
-SEMANTICS_VERSION = 4
+#   5  full fine-tuning and the auxiliary backbones train a chunk as one
+#      batch too: a tower stacked over the trials runs T-batched products
+#      and grouped convolutions, and a shared backbone's kernels run at the
+#      chunk's folded shapes, so their trials round differently from the
+#      serial ones that version 4 cached.
+SEMANTICS_VERSION = 5
 
 
 def _dtype_name(arr) -> str:

@@ -5,17 +5,19 @@ training runs with per-epoch evaluation (training subset of
 The reference runs an epoch as one XLA computation and trains a chunk of
 hyperparameter trials at once under ``vmap``, on a device mesh.  The port
 runs eagerly on one card and trains a chunk of trials as one batched
-computation too (``TrainTask.train_trials``), with the trial axis written
-out: the frozen CLIP tower runs once a step on the chunk's T*B images, so
-its kernels launch once for the whole chunk, and only what differs per trial
-carries a leading trial axis: the PEFT parameters, the head, the BN state
-and the optimiser state, stacked (T, ...) (``partition.stack_trials``, each
-trial's own modules views into the stack), and the PEFT hooks, the head's
-BN, the loss (the sum of each trial's masked mean), the gradient clip and
-the optimisers apply trial t's parameters, learning rate and weight decay to
-trial t's rows.  ``full_finetune`` (one tower per trial) and the auxiliary
-backbones train one trial after another (``_train_trials_serial``).  The
-math is the reference's:
+computation too (``TrainTask.train_trials``), for every method and backbone,
+with the trial axis written out: the tower runs once a step on the chunk's
+T*B images, so its kernels launch once for the whole chunk, and only what
+differs per trial carries a leading trial axis: the PEFT parameters, the
+head, the BN state and the optimiser state, and under ``full_finetune`` the
+trained tower itself, stacked (T, ...) (``partition.stack_trials``, each
+trial's own modules views into the stack), and the PEFT hooks, the tower's
+primitives (``core.trial_axis``), the head's BN, the loss (the sum of each
+trial's masked mean), the gradient clip and the optimisers apply trial t's
+parameters, learning rate and weight decay to trial t's rows.  A frozen
+tower, the CLIP's or an auxiliary backbone's, is shared.
+``_train_trials_serial`` trains one trial after another: the yardstick the
+batched path is held to.  The math is the reference's:
 
 * each epoch visits the train split in a shuffled order, each trial its own
   (drawn from the trial's generator, or injected by the caller so that a
@@ -27,8 +29,9 @@ math is the reference's:
   parameters have ``requires_grad`` False); a trainable tensor that the
   forward does not use (KAdaptation's v factors, quirk 1) gets a zero
   gradient, so weight decay still applies to it as in the reference;
-* each step draws each trial's dropout from a fresh generator on the card,
-  seeded from the trial's epoch seed and the step index;
+* each step draws each trial's dropout (KAdaptation's, a Swin backbone's
+  stochastic depth and dropout) from a fresh generator on the card, seeded
+  from the trial's epoch seed and the step index;
 * after every epoch the val split is evaluated in chunks of ``eval_chunk``
   plus a natural-size remainder, never padded, every trial on the same
   chunk; the best epoch is picked on the host (strict ``>``, keeping the
@@ -69,7 +72,14 @@ from ..peft.base import (
 from ..utils.device import compute_dtype, resolve_device, to_numpy
 from .head import head_forward, init_bn_state, init_head
 from .optim import build_wd_mask, clip_grad_norm, make_optimizer, step_decay_lr
-from .partition import combine, count_params, named_parameters, partition, stack_trials
+from .partition import (
+    alias,
+    combine,
+    count_params,
+    named_parameters,
+    partition,
+    stack_trials,
+)
 
 # TPU-side knobs the port reads from the config and ignores, with their
 # defaults.  FAST_LN and FAST_LN_SWEEP change numerics in the reference
@@ -260,31 +270,49 @@ def model_forward(
     normalisation folds into the patch-embedding GEMM.  ``generator`` (on
     the images' device) draws KAdaptation's train-time dropout.
 
-    ``forward_fn(backbone, x, train, generator) -> feats`` replaces the CLIP
-    visual tower (an auxiliary backbone of ``models.factory``).  It gets the
-    images normalised in the compute dtype, as the reference's does
-    (``pevit_tpu/train/trainer.py:259-262``); the backbones then cast them
-    to float32, so under a bfloat16 task they run in float32 on
-    bfloat16-rounded images.
+    ``forward_fn(backbone, x, train, generator, trials=0) -> feats``
+    replaces the CLIP visual tower (an auxiliary backbone of
+    ``models.factory``).  It gets the images normalised in the compute
+    dtype, as the reference's does (``pevit_tpu/train/trainer.py:259-262``);
+    the backbones then cast them to float32, so under a bfloat16 task they
+    run in float32 on bfloat16-rounded images.
 
     ``trials`` > 0 runs a batch of T trials: the bundle's PEFT module and
-    head hold every parameter stacked (T, ...), ``bn_state`` is (T, D),
-    ``images_u8`` the trials' batches folded into one (T*B, ...),
-    ``generator`` one generator per trial and ``mask`` (T, B); the frozen
-    tower runs once on the T*B images and the logits come back (T, B, K)."""
+    head hold every parameter stacked (T, ...), and its tower too where it
+    trains (``full_finetune``), ``bn_state`` is (T, D), ``images_u8`` the
+    trials' batches folded into one (T*B, ...), ``generator`` one generator
+    per trial and ``mask`` (T, B); the tower runs once on the T*B images and
+    the logits come back (T, B, K)."""
     dt = static.dtype
     if forward_fn is not None:
-        if trials:
-            raise ValueError("an auxiliary backbone trains one trial at a time")
         if images_u8.dim() != 4:
             raise ValueError("an auxiliary backbone takes (B, H, W, 3) images, got "
                              f"{tuple(images_u8.shape)}")
         x = images_u8.to(dt) / torch.tensor(255.0, dtype=dt, device=images_u8.device)
         x = (x - preproc["mean"].to(dt)) / preproc["std"].to(dt)
-        feats = forward_fn(bundle["clip"], x, train, generator)
-        return head_forward(bundle["head"], bn_state, feats.float(), train=train, mask=mask,
-                            use_bn=static.use_bn, normalize_feature=static.normalize_feature,
-                            apply_logit_scale=static.apply_logit_scale)
+        feats = forward_fn(bundle["clip"], x, train, generator, trials=trials)
+    else:
+        feats = _encode_clip(static, bundle, images_u8, preproc, train, generator, trials)
+    feats = feats.float()
+    if trials:
+        feats = feats.view(trials, -1, feats.shape[-1])
+    return head_forward(
+        bundle["head"],
+        bn_state,
+        feats,
+        train=train,
+        mask=mask,
+        use_bn=static.use_bn,
+        normalize_feature=static.normalize_feature,
+        apply_logit_scale=static.apply_logit_scale,
+    )
+
+
+def _encode_clip(static: TaskStatic, bundle: dict, images_u8: torch.Tensor, preproc: dict,
+                 train: bool, generator, trials: int) -> torch.Tensor:
+    """The CLIP visual tower's features of :func:`model_forward`'s images,
+    with the PEFT hooks of the task's method."""
+    dt = static.dtype
     kw = dict(spec=static.spec, peft=bundle.get("peft"),
               hooks=make_hooks(static.peft_cfg, static.spec, train=train, trials=trials),
               generator=generator,
@@ -300,19 +328,7 @@ def model_forward(
     else:
         raise ValueError(f"want (B, H, W, 3) or pre-patchified (B, G*G, p*p*3) uint8 images, "
                          f"got {tuple(images_u8.shape)}")
-    feats = feats.float()
-    if trials:
-        feats = feats.view(trials, -1, feats.shape[-1])
-    return head_forward(
-        bundle["head"],
-        bn_state,
-        feats,
-        train=train,
-        mask=mask,
-        use_bn=static.use_bn,
-        normalize_feature=static.normalize_feature,
-        apply_logit_scale=static.apply_logit_scale,
-    )
+    return feats
 
 
 def _loss(static: TaskStatic, logits, labels, mask):
@@ -500,7 +516,8 @@ def _softmax(logits: np.ndarray) -> np.ndarray:
 class TrainTask:
     """Owns the frozen CLIP tower (or an auxiliary backbone) on the card and
     runs trainings of one task: a chunk of trials as one batched computation
-    (``batches_trials``), else one trial after another.
+    (:meth:`train_trials`), or one trial after another
+    (:meth:`_train_trials_serial`).
 
     ``backbone`` (a ``models.factory.Backbone``) replaces the CLIP: its
     module is the bundle's ``clip`` and its forward the visual tower, on
@@ -518,13 +535,14 @@ class TrainTask:
             fused = static.use_fused_mlp
             if backbone.forward_features_train is not None:
                 # train-time randomness (Swin's stochastic depth) draws from
-                # the step's generator (reference trainer.py:546-549)
-                self._forward_fn = lambda p, x, train, generator=None: (
-                    backbone.forward_features_train(p, x, generator) if train
-                    else backbone.forward_features(p, x, use_fused_mlp=fused))
+                # the step's generator, one per trial of a batch (reference
+                # trainer.py:546-549)
+                self._forward_fn = lambda p, x, train, generator=None, trials=0: (
+                    backbone.forward_features_train(p, x, generator, trials=trials) if train
+                    else backbone.forward_features(p, x, use_fused_mlp=fused, trials=trials))
             else:
-                self._forward_fn = lambda p, x, train, generator=None: backbone.forward_features(
-                    p, x, use_fused_mlp=fused)
+                self._forward_fn = lambda p, x, train, generator=None, trials=0: (
+                    backbone.forward_features(p, x, use_fused_mlp=fused, trials=trials))
         self.config = config
         self.static = static
         if eval_chunk is None:
@@ -562,9 +580,19 @@ class TrainTask:
 
     # -- bundle ------------------------------------------------------------
 
-    def init_bundle(self, generator: torch.Generator) -> tuple:
+    def init_bundle(self, generator: torch.Generator, tower=None) -> tuple:
         """(trainable, frozen, bn_state) for one trial; the PEFT parameters
-        and then the head are drawn from ``generator`` (a CPU generator)."""
+        and then the head are drawn from ``generator`` (a CPU generator).
+        ``tower`` is the backbone the bundle holds in place of the trial's
+        own (:meth:`_trial_clip`): a batch of trials gives each trial an
+        alias of the pretrained tower, which ``stack_trials`` stacks."""
+        bundle = self._fresh_bundle(generator, self._trial_clip() if tower is None else tower)
+        trainable, frozen = partition(bundle, trainable_pred(self.static))
+        return trainable, frozen, init_bn_state(self.static.head_dim, device=self.device)
+
+    def _fresh_bundle(self, generator: torch.Generator, tower) -> dict:
+        """``{"clip": tower, "peft": ..., "head": ...}``, the PEFT parameters
+        and then the head drawn from ``generator``, not yet partitioned."""
         st = self.static
         peft = (init_peft(generator, st.peft_cfg, st.spec, device=self.device)
                 if self.backbone is None else None)
@@ -579,9 +607,7 @@ class TrainTask:
                          text_init_weights=text_weights,
                          logit_scale_init=self.config.TRAIN.LOGIT_SCALE_INIT,
                          backbone_logit_scale=backbone_ls, device=self.device)
-        bundle = {"clip": self._trial_clip(), "peft": peft, "head": head}
-        trainable, frozen = partition(bundle, trainable_pred(st))
-        return trainable, frozen, init_bn_state(st.head_dim, device=self.device)
+        return {"clip": tower, "peft": peft, "head": head}
 
     def _trial_clip(self):
         """The backbone a trial's bundle holds: the task's own, except under
@@ -592,8 +618,12 @@ class TrainTask:
         parameters."""
         if self.static.peft_cfg.method != "full_finetune":
             return self.clip
-        shared = [getattr(self.clip, n) for n in ("text", "logit_scale") if hasattr(self.clip, n)]
-        return copy.deepcopy(self.clip, {id(m): m for m in shared})
+        return copy.deepcopy(self.clip, {id(m): m for m in self._shared_parts()})
+
+    def _shared_parts(self) -> list:
+        """The parts of the backbone that every trial shares under
+        full_finetune: its text tower and logit scale, where it has them."""
+        return [getattr(self.clip, n) for n in ("text", "logit_scale") if hasattr(self.clip, n)]
 
     def max_parallel_trials(self) -> int:
         """The sweep's trial chunk: TPU.SWEEP_PARALLEL_TRIALS, the trials
@@ -604,11 +634,13 @@ class TrainTask:
     @property
     def batches_trials(self) -> bool:
         """Whether ``train_trials`` trains a chunk's trials as one batched
-        computation: every method on the CLIP tower but full_finetune, which
-        trains a tower per trial; the auxiliary backbones (whose train-time
-        randomness draws from one generator per forward) and full_finetune
-        train one trial after another (:meth:`_train_trials_serial`)."""
-        return self._forward_fn is None and self.static.peft_cfg.method != "full_finetune"
+        computation: for every method and backbone (a trained tower is
+        stacked over the trials, a frozen one shared)."""
+        return True
+
+    @property
+    def _trains_tower(self) -> bool:
+        return self.static.peft_cfg.method == "full_finetune"
 
     def model_info(self, trainable) -> dict:
         """Parameter counts, as the reference's (kadaptation_clip.py:284-289):
@@ -627,8 +659,12 @@ class TrainTask:
         }
 
     def _trainable_names(self) -> dict:
-        trainable, _, _ = self.init_bundle(torch.Generator().manual_seed(0))
-        return trainable_params(trainable)
+        """``{name: tensor}`` of a lone trial's trainable parameters, at their
+        lone shapes: the task's own tower (not a trial's copy of it) beside a
+        fresh PEFT module and head, nothing partitioned."""
+        pred = trainable_pred(self.static)
+        bundle = self._fresh_bundle(torch.Generator().manual_seed(0), self.clip)
+        return {n: p for n, p in named_parameters(bundle).items() if pred(tuple(n.split(".")))}
 
     def _lr_scales(self):
         """TRAIN.TWO_LR per-parameter multipliers: backbone-side (clip, peft)
@@ -687,7 +723,7 @@ class TrainTask:
         """A batch of trials (the stacked ``bundle`` and (T, D) ``bn_state``)
         over a whole split in natural-size chunks, every trial on each chunk
         in one forward; returns each trial's (score, probs)."""
-        one_chunk = build_eval_fn(self.static, self.preproc, trials=trials)
+        one_chunk = build_eval_fn(self.static, self.preproc, self._forward_fn, trials=trials)
         n = len(labels)
         logits = torch.cat([one_chunk(bundle, bn_state, self.prepack(images_u8[s:s + self.eval_chunk]))
                             for s in range(0, n, self.eval_chunk)], dim=1).cpu().numpy()
@@ -701,8 +737,7 @@ class TrainTask:
                      keep_logits: bool = False, log_every: int = 0) -> list:
         """Train one trial per ``(lr, wd)`` in ``hparams``, evaluating after
         every epoch: as one batched computation, the reference's vmapped
-        trials, where :attr:`batches_trials`, else one after another
-        (:meth:`_train_trials_serial`).
+        trials, for every method and backbone.
 
         Trial t's PEFT parameters and head come from a CPU generator seeded
         ``seed * 1_000_003 + 2 t``, its epoch orders and dropout seeds from
@@ -715,9 +750,6 @@ class TrainTask:
         (:meth:`_train_trials_streaming`)."""
         kw = dict(end_epoch=end_epoch, begin_epoch=begin_epoch, seed=seed,
                   keep_logits=keep_logits, log_every=log_every)
-        if not self.batches_trials:
-            return self._train_trials_serial(hparams, train_images, train_labels, val_images,
-                                             val_labels, **kw)
         T = len(hparams)
         n_train, n_val = len(train_labels), len(val_labels)
         n_epochs = end_epoch - begin_epoch
@@ -754,9 +786,8 @@ class TrainTask:
                              val_labels, *, end_epoch: int, begin_epoch: int = 0, seed: int = 0,
                              keep_logits: bool = False, log_every: int = 0) -> list:
         """:meth:`train_trials` one trial after another, each through the
-        single-trial :func:`build_fit_eval_fn`: the path of full_finetune and
-        the auxiliary backbones, and the yardstick the batched path is held
-        to."""
+        single-trial :func:`build_fit_eval_fn`: the yardstick the batched
+        path is held to."""
         n_train = len(train_labels)
         n_val = len(val_labels)
         n_epochs = end_epoch - begin_epoch
@@ -831,11 +862,14 @@ class TrainTask:
         the generators :meth:`_init_trial` seeds, then stacked
         (``partition.stack_trials``; each trial's modules become views of its
         slice), with a (T, D) BN state, the optimiser state of the stacked
-        parameters and the trials' T generators."""
+        parameters and the trials' T generators.  Under full_finetune each
+        trial's bundle holds an alias of the pretrained tower (no copy), so
+        the stack is the only copy of it the batch makes."""
         trees, bundles, bns, gens = [], [], [], []
         for t in range(n_trials):
             base = seed * 1_000_003 + 2 * t
-            trainable, frozen, bn = self.init_bundle(torch.Generator().manual_seed(base))
+            tower = (alias(self.clip, self._shared_parts()),) if self._trains_tower else ()
+            trainable, frozen, bn = self.init_bundle(torch.Generator().manual_seed(base), *tower)
             trees.append((trainable, frozen))
             bundles.append(combine(trainable, frozen))
             bns.append(bn)
@@ -863,8 +897,8 @@ class TrainTask:
         """``train_trials`` over a host-resident train split (``streaming.py``):
         the ``batch`` of trials takes one batched step on each streamed batch
         and is evaluated in one forward per val chunk after every epoch;
-        without a batch every trial steps on each batch in turn and is
-        evaluated through :meth:`evaluate`."""
+        without a batch (the serial path) every trial steps on each batch in
+        turn and is evaluated through :meth:`evaluate`."""
         from .streaming import StreamingEpochRunner
 
         T = len(hparams)

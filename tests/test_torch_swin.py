@@ -501,9 +501,9 @@ def test_finetune_on_clip_swin_runs_the_train_mode_forward(monkeypatch, tmp_path
         real(self, *a, **k)
         fwd = self._forward_fn
 
-        def counted(p, x, train, generator=None):
+        def counted(p, x, train, generator=None, trials=0):
             calls.append((train, generator is not None))
-            return fwd(p, x, train, generator)
+            return fwd(p, x, train, generator, trials=trials)
 
         self._forward_fn = counted
 

@@ -460,13 +460,14 @@ def test_full_finetune_trials_start_from_the_pretrained_tower(clip_params, monke
     jtask.train_trials(hp, images, labels, val, val_labels, end_epoch=EPOCHS)
     ptask.train_trials(hp, images, labels, val, val_labels, end_epoch=EPOCHS)
     (want,) = seen["jax"]  # (trials, epochs, n_val, K): one vmapped call
-    assert len(seen["port"]) == 2  # one call per trial
+    (got,) = seen["port"]  # one batched call, each trial's tower stacked
+    assert got.shape == want.shape == (2, EPOCHS, 6, K)
     for t in range(2):
         for e in range(EPOCHS):
-            _close(seen["port"][t][e], want[t, e], f"trial {t} epoch {e} val logits")
+            _close(got[t][e], want[t, e], f"trial {t} epoch {e} val logits")
     # the same (lr, wd) from the same start: the two trials agree (their
     # epoch orders differ, so only up to float32 summation order)
-    _close(seen["port"][1], seen["port"][0], "trial 1 vs trial 0")
+    _close(got[1], got[0], "trial 1 vs trial 0")
     assert all(torch.equal(p, before[n]) for n, p in ptask.clip.named_parameters())
     trained = ptask.last_bundle["clip"]
     assert trained is not ptask.clip and trained.text is ptask.clip.text
