@@ -248,7 +248,24 @@ on):
    the stochastic forward and batched within 1e-5 of serial (each trial's
    draws from its own generators); the plain path, no kernel launch; each
    kernel held against its plain version at every trial-folded batch;
-14. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 13,
+14. the mesh (``parallel``, ``utils.dist``): (a) a world of one over NCCL
+   through the launcher's variables in this process: one ``all_reduce`` on
+   the card, then a bf16 KAdaptation chunk of 2 through ``train_trials``
+   and its mesh plan, bit for bit the chunk run before joining; (b) a
+   2-rank gloo world on the one card (this script run twice with
+   ``--mesh-rank``, both ranks on ``cuda:0``), at full ViT-B/32 width, 1
+   epoch each: a chunk of 8 KAdaptation trials cut 4 + 4 over "trial" in
+   fp32 (held within 1e-5 of this process's chunk without a world) and in
+   bf16 (dropout 0.5, gaps reported); the fp32 final run (dropout 0.5) at
+   batch 128 over "data", 64 + 64 rows a step, its natural tail of 44 and
+   eval remainder of 36 whole on each rank (within 1e-5); an fp32 LoRA
+   step at (data 1, model 2), each rank's attention on 6 heads and the MLP
+   kernels on gathered weights (within 1e-5); a data-parallel serving call
+   from a bf16 mesh artifact of width 2 at batch 256 (top-1 1.0 and within
+   1e-3 of the largest logit of the serving fn); each rank's launches
+   printed and held to its batches, the ranks' results equal; each kernel
+   held against its plain version at every batch a rank gave it;
+15. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 14,
    summed and by path (each path's counts are zeroed just before it and read
    just after; phase 9's and the exported MAE probe's are the fresh
    process's, reported by it), the other numbers at the batch that launched
@@ -256,6 +273,12 @@ on):
    ``{"ok": true, ...}`` line last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
+
+``python3 chip_smoke.py --mesh-cards`` (on a host of several cards, none of
+the phases above) runs the KAdaptation command with its sweep in fp32 once
+in this process and once in a world of one rank a card over NCCL, and
+holds every sweep score, the chosen (lr, wd) and the test predictions
+(within 1e-5 of the largest) to the single process's.
 """
 
 from __future__ import annotations
@@ -478,10 +501,10 @@ def check_close(name, got, want, rtol, atol) -> float:
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_attention(gen, dtype, n, batch=SERVE_BATCH):
+def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12):
     from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref
 
-    B, H, hd = batch, 12, 64
+    B, H, hd = batch, heads, 64
     q, k, v = (torch.randn(B, n, H, hd, device="cuda", generator=gen) * s
                for s in (0.25, 0.25, 1.0))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -792,10 +815,11 @@ TRAIN_LR, TRAIN_WD, TRAIN_EPOCHS = 1e-3, 1e-4, 2
 TRAIN_FACTOR_SCALE = 0.1
 
 
-def make_task(clip, dtype_name: str, dropout_p: float, method: str = "kadaptation"):
+def make_task(clip, dtype_name: str, dropout_p: float, method: str = "kadaptation", *,
+              batch: int = TRAIN_BATCH, tpu: dict = None):
     """A ViT-B/32 task of ``method`` (KAdaptation unless given) through the
     config entry points, on the given frozen tower, whose bundles carry
-    seeded non-zero factors (``seed_peft``)."""
+    seeded non-zero factors (``seed_peft``); ``tpu`` sets TPU knobs."""
     from pevit_tpu_torch.config import get_default_config
     from pevit_tpu_torch.core import CLIPSpec
     from pevit_tpu_torch.peft import PeftConfig
@@ -804,8 +828,10 @@ def make_task(clip, dtype_name: str, dropout_p: float, method: str = "kadaptatio
     cfg = get_default_config()
     cfg.defrost()
     cfg.DATASET.NUM_CLASSES = 100
-    cfg.TRAIN.BATCH_SIZE_PER_GPU = TRAIN_BATCH
+    cfg.TRAIN.BATCH_SIZE_PER_GPU = batch
     cfg.TPU.COMPUTE_DTYPE = dtype_name
+    for k, v in (tpu or {}).items():
+        cfg.TPU[k] = v
     cfg.freeze()
     static = TaskStatic.from_config(cfg, CLIPSpec.vit_b32(),
                                     PeftConfig(method=method, kadapt_dropout_p=dropout_p))
@@ -1174,9 +1200,10 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
     train, evals, layers = batches["train"], batches["evals"], batches["layers"]
     dtype, tokens, width = getattr(torch, batches["dtype"]), batches["tokens"], batches["width"]
     rows = {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    heads = batches.get("heads", 12)  # a model rank's heads under tensor parallelism
     for b in sorted(set(train) | set(evals)):
         n = {"path": path, "images": b, "launches": layers * (train[b] + evals[b])}
-        rows["attention_fwd"].append({**check_attention(gen, dtype, tokens, b), **n})
+        rows["attention_fwd"].append({**check_attention(gen, dtype, tokens, b, heads), **n})
         if batches["fused_mlp"]:
             rows["fused_mlp_fwd"].append({**check_fused_mlp(gen, dtype, width, b * tokens), **n})
     if batches["fused_mlp_bwd"]:
@@ -3460,6 +3487,436 @@ def run_trial_axis(kernels, gen, card: str, clip, data) -> tuple:
     return launches, table, time.perf_counter() - t_phase
 
 
+# ---------------------------------------------------------------------------
+# 14. the mesh: a world of one over NCCL, and a 2-rank gloo world on the card
+# ---------------------------------------------------------------------------
+
+MESH_SEED = 9
+MESH_TRIALS = [(lr, wd) for lr in (1e-3, 3e-4) for wd in (0.0, 1e-4, 1e-3, 1e-2)]
+MESH_TRIAL_SPLIT = (64, 64, 32)  # train, val, batch: 2 steps and one eval chunk, 1 epoch
+MESH_FINAL_SPLIT = (300, 100)  # 2 full steps of 128 and a natural tail of 44; 64 + 36
+MESH_TP_SPLIT = (128, 64)  # one step of 128, one eval chunk
+MESH_SERVE_BATCH = 256
+MESH_LR, MESH_WD = 1e-3, 1e-4
+
+
+def mesh_split(prototypes, n_train: int, n_val: int, seed: int) -> tuple:
+    """Noisy prototypes, seeded: every rank draws the same split."""
+    rng = np.random.default_rng(seed)
+
+    def noisy(labels):
+        noise = rng.integers(-8, 9, (len(labels),) + prototypes.shape[1:], dtype=np.int16)
+        return np.clip(prototypes[labels].astype(np.int16) + noise, 0, 255).astype(np.uint8)
+
+    ty = rng.integers(0, len(prototypes), n_train)
+    vy = rng.integers(0, len(prototypes), n_val)
+    return noisy(ty), ty, noisy(vy), vy
+
+
+def mesh_runs(prototypes) -> dict:
+    """The runs of phase 14b, each with its task's options and split."""
+    trial = mesh_split(prototypes, *MESH_TRIAL_SPLIT[:2], MESH_SEED)
+    final = mesh_split(prototypes, *MESH_FINAL_SPLIT, MESH_SEED + 1)
+    tp = mesh_split(prototypes, *MESH_TP_SPLIT, MESH_SEED + 2)
+    return {
+        "trials_fp32": (dict(dtype_name="float32", dropout_p=0.0, batch=MESH_TRIAL_SPLIT[2]),
+                        MESH_TRIALS, trial),
+        "trials_bf16": (dict(dtype_name="bfloat16", dropout_p=0.5, batch=MESH_TRIAL_SPLIT[2]),
+                        MESH_TRIALS, trial),
+        "final_data": (dict(dtype_name="float32", dropout_p=0.5), [(MESH_LR, MESH_WD)], final),
+        "lora_model": (dict(dtype_name="float32", dropout_p=0.0, method="lora",
+                            tpu={"MESH_MODEL": 2, "MESH_DATA": 1}), [(MESH_LR, MESH_WD)], tp),
+    }
+
+
+def mesh_run(clip, opts: dict, hparams: list, data) -> tuple:
+    """One ``train_trials`` call, 1 epoch; (results, per-trial (logits,
+    params) of this process's trials)."""
+    task = make_task(clip, **opts)
+    seen = []
+    trial_logits(task, seen)
+    res = task.train_trials(hparams, *data, end_epoch=1, seed=TRIAL_SEED, keep_logits=True)
+    torch.cuda.synchronize()
+    ((params, logits),) = seen
+    return task, res, [(logits[t], {n: p[t] for n, p in params.items()})
+                       for t in range(logits.shape[0])]
+
+
+def mesh_batches(task, name: str, ranks: int) -> dict:
+    """The batches one rank gave the kernels in run ``name`` of phase 14b,
+    counted for ``ranks`` ranks (each gives the same): a trial rank's 4
+    trials at their folded batch; a data rank's 64 rows of each full step
+    and 32 of the full eval chunk, the natural tail (44) and remainder (36)
+    whole; a model rank's 6 heads (K2 and K3 on the gathered weights)."""
+    st = task.static
+    batches = path_batches(task, [])
+    B = st.batch_size
+    train, evals = collections.Counter(), collections.Counter()
+    if name.startswith("trials"):
+        n_train, n_val, _ = MESH_TRIAL_SPLIT
+        local = len(MESH_TRIALS) // 2
+        train[local * B] += n_train // B
+        evals[local * n_val] += 1
+    elif name == "final_data":
+        n_train, n_val = MESH_FINAL_SPLIT
+        train[B // 2] += n_train // B
+        train[n_train % B] += 1
+        evals[task.eval_chunk // 2] += n_val // task.eval_chunk
+        evals[n_val % task.eval_chunk] += 1
+    else:
+        n_train, n_val = MESH_TP_SPLIT
+        train[B] += n_train // B
+        evals[n_val] += 1
+        batches["heads"] = st.spec.vision.heads // 2
+    batches["train"] = collections.Counter({b: ranks * n for b, n in train.items()})
+    batches["evals"] = collections.Counter({b: ranks * n for b, n in evals.items()})
+    return batches
+
+
+def mesh_gaps(got: list, want: list) -> tuple:
+    """The largest val-logit and trained-parameter gaps over the trials,
+    each relative to the single-process run's largest value."""
+    rel = lambda g, w: float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+    logit = max(rel(g[0], w[0]) for g, w in zip(got, want))
+    param = max(rel(g[1][n].numpy(), w[1][n].numpy()) for g, w in zip(got, want)
+                for n in w[1] if w[1][n].abs().max() > 0)
+    return logit, param
+
+
+def mesh_rank_main(out_dir: str) -> int:
+    """A rank of phase 14b's 2-rank gloo world on the one card (this script
+    run with ``--mesh-rank``, the launcher's variables set): every run of
+    ``mesh_runs`` through the mesh and a data-parallel serving call from a
+    mesh artifact, each rank's launches read around each, its outputs
+    written for the parent."""
+    import pickle
+
+    from pevit_tpu_torch.ops import KERNELS
+    from pevit_tpu_torch.serve import export_classifier, exported_callable, make_serving_fn
+    from pevit_tpu_torch.utils import dist
+
+    dist.initialize(backend="gloo", device="cuda:0")
+    rank = dist.rank()
+    static, trainable, frozen, bn, preproc = build_classifier(seed=0)
+    res = static.spec.vision.input_resolution
+    prototypes = np.random.default_rng(0).integers(0, 256, (static.num_classes, res, res, 3),
+                                                   dtype=np.uint8)
+    out = {"rank": rank, "runs": {}}
+    for name, (opts, hparams, data) in mesh_runs(prototypes).items():
+        reset_launches(KERNELS)
+        t0 = time.perf_counter()
+        task, results, trials = mesh_run(frozen["clip"], opts, hparams, data)
+        seconds = time.perf_counter() - t0
+        launches = read_launches(KERNELS)
+        want = expected_launches(mesh_batches(task, name, 1))
+        print(f"rank {rank} {name}: launches {launches} in {seconds:.2f} s", flush=True)
+        if launches != want:
+            raise AssertionError(f"rank {rank} {name}: launches {launches}, want {want}")
+        out["runs"][name] = {"launches": launches, "seconds": seconds,
+                             "plan": task._mesh_plan(len(hparams))[1:],
+                             "scores": [r["best_score"] for r in results],
+                             "trials": [(lg, {n: p.cpu() for n, p in ps.items()})
+                                        for lg, ps in trials],
+                             "first": 4 * rank if name.startswith("trials") else 0}
+    # serving: the fitted classifier as a data-parallel artifact of width 2
+    fit_prototype_head(static, trainable, frozen, bn, preproc, prototypes)
+    images = mesh_split(prototypes, MESH_SERVE_BATCH, 0, MESH_SEED + 3)[0]
+    serve = make_serving_fn(static, trainable, frozen, bn, preproc, device="cuda")
+    want = serve(images).float().cpu()
+    t0 = time.perf_counter()
+    ep = export_classifier(static, trainable, frozen, bn, preproc, image_size=res,
+                           device="cuda", mesh=2)
+    export_s = time.perf_counter() - t0
+    call = exported_callable(ep, device="cuda")
+    call(images)  # warm-up
+    reset_launches(KERNELS)
+    got = call(images).float().cpu()
+    torch.cuda.synchronize()
+    launches = read_launches(KERNELS)
+    print(f"rank {rank} serve: launches {launches}, export {export_s:.1f} s", flush=True)
+    layers = static.spec.vision.layers
+    if launches != {"attention_fwd": layers, "fused_mlp_fwd": layers, "fused_mlp_bwd": 0}:
+        raise AssertionError(f"rank {rank} mesh serving launches {launches}")
+    out["serve"] = {"launches": launches, "export_s": export_s,
+                    "max_abs_diff": float((got - want).abs().max()),
+                    "max_logit": float(want.abs().max()),
+                    "top1": float((got.argmax(-1) == want.argmax(-1)).float().mean())}
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@contextlib.contextmanager
+def launcher_env(world: int, rank: int, port: int):
+    """The launcher's variables of one rank, as torchrun sets them."""
+    import os
+
+    keys = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_world_one(kernels, clip, prototypes) -> tuple:
+    """14a: a world of one over NCCL (the launcher's variables, this
+    process): one ``all_reduce`` on the card, then a bf16 KAdaptation chunk
+    through ``train_trials`` and its mesh plan, bit for bit the same chunk
+    run before joining."""
+    from pevit_tpu_torch.utils import dist
+
+    opts, hparams, data = mesh_runs(prototypes)["trials_bf16"]
+    _, before_res, before = mesh_run(clip, opts, hparams[:2], data)
+    with launcher_env(1, 0, free_port()):
+        dist.initialize()
+        try:
+            backend = torch.distributed.get_backend()
+            t = torch.arange(4.0, device="cuda")
+            torch.distributed.all_reduce(t)
+            torch.cuda.synchronize()
+            if backend != "nccl" or not torch.equal(t, torch.arange(4.0, device="cuda")):
+                raise AssertionError(f"world of one: backend {backend}, all_reduce {t}")
+            calls = []
+            reset_launches(kernels)
+            with recorded_calls(calls):
+                task, after_res, after = mesh_run(clip, opts, hparams[:2], data)
+            launches = read_launches(kernels)
+            plan = task._mesh_plan(2)
+        finally:
+            torch.distributed.destroy_process_group()
+    batches = path_batches(task, calls)
+    if launches != expected_launches(batches) or plan[0] is not None:
+        raise AssertionError(f"world of one: launches {launches}, plan {plan}")
+    same = all(np.array_equal(a[0], b[0]) and all(torch.equal(a[1][n], b[1][n]) for n in a[1])
+               for a, b in zip(before, after))
+    if not same or [r["best_score"] for r in before_res] != [r["best_score"] for r in after_res]:
+        raise AssertionError("world of one: the chunk is not the single-process chunk bit for bit")
+    return {"backend": backend, "bit_equal": same, "launches": launches}, batches
+
+
+def run_mesh(kernels, gen, card: str, clip, prototypes) -> tuple:
+    """Phase 14; returns the launches and kernel rows of its paths."""
+    import pickle
+
+    t_phase, steps = time.perf_counter(), {}
+    launches, table = {}, {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    paths = {}
+    t0 = time.perf_counter()
+    out, paths["mesh_world_one"] = mesh_world_one(kernels, clip, prototypes)
+    launches["mesh_world_one"] = out["launches"]
+    print(f"mesh world of one: {json.dumps(out)} [{card}]", flush=True)
+    steps["world_one"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        port, procs = free_port(), []
+        for rank in range(2):
+            with launcher_env(2, rank, port):
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", tmp],
+                    cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines():
+                if line.startswith(f"rank {rank} "):
+                    print(line, flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"phase 14 rank {rank} failed:\n{log[-6000:]}")
+        ranks = []
+        for rank in range(2):
+            with open(Path(tmp) / f"rank{rank}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    steps["world_two"] = time.perf_counter() - t0
+
+    # the same runs in this process, without a world
+    t0 = time.perf_counter()
+    summary = {}
+    for name, (opts, hparams, data) in mesh_runs(prototypes).items():
+        t1 = time.perf_counter()
+        task, res, want = mesh_run(clip, opts, hparams, data)
+        single_s = time.perf_counter() - t1
+        got = []
+        for r in ranks:
+            run = r["runs"][name]
+            if run["scores"] != ranks[0]["runs"][name]["scores"]:
+                raise AssertionError(f"{name}: the ranks' results differ")
+            got.append((run["first"], run["trials"]))
+        if name.startswith("trials"):
+            got_trials = [t for _, trials in sorted(got, key=lambda x: x[0]) for t in trials]
+        else:
+            got_trials = got[0][1]
+            for other in got[1][1]:  # every rank trained the same parameters
+                if not all(torch.equal(other[1][n], got_trials[0][1][n]) for n in other[1]):
+                    raise AssertionError(f"{name}: the ranks' parameters differ")
+        logit_gap, param_gap = mesh_gaps(got_trials, want)
+        held = opts["dtype_name"] == "float32"
+        row = {"plan": ranks[0]["runs"][name]["plan"], "logit_gap": logit_gap,
+               "param_gap": param_gap, "held": held,
+               "scores": ranks[0]["runs"][name]["scores"],
+               "single_scores": [x["best_score"] for x in res],
+               "seconds": [r["runs"][name]["seconds"] for r in ranks],
+               "single_seconds": single_s}
+        if held and max(logit_gap, param_gap) > 1e-5:
+            raise AssertionError(f"phase 14 {name}: mesh vs single process {row} > 1e-5")
+        summary[name] = row
+        paths[f"mesh_{name}"] = mesh_batches(task, name, 2)
+        launches[f"mesh_{name}"] = {k: sum(r["runs"][name]["launches"][k] for r in ranks)
+                                    for k in ranks[0]["runs"][name]["launches"]}
+        print(f"mesh {name}: {json.dumps(row)} [{card}]", flush=True)
+    serve = [r["serve"] for r in ranks]
+    for s in serve:
+        if s["top1"] < 1.0 or s["max_abs_diff"] > 1e-3 * s["max_logit"]:
+            raise AssertionError(f"phase 14 mesh serving vs the serving fn: {s}")
+    print(f"mesh serving, width 2, batch {MESH_SERVE_BATCH}: {json.dumps(serve)} [{card}]",
+          flush=True)
+    paths["mesh_serve"] = {**path_batches(task, []), "dtype": "bfloat16",
+                           "train": collections.Counter(),
+                           "evals": collections.Counter({MESH_SERVE_BATCH // 2: 2}),
+                           "fused_mlp": True, "fused_mlp_bwd": False}
+    launches["mesh_serve"] = {k: sum(s["launches"][k] for s in serve) for k in serve[0]["launches"]}
+    steps["single_process"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for path, batches in paths.items():
+        if launches[path] != expected_launches(batches):
+            raise AssertionError(f"{path}: launches {launches[path]}, want "
+                                 f"{expected_launches(batches)}")
+        for name, rows_ in path_kernel_rows(gen, path, batches).items():
+            table[name].extend(rows_)
+            for r in rows_:
+                print(f"{path} kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    steps["kernel_rows"] = time.perf_counter() - t0
+    print(f"phase 14 seconds by step: {json.dumps(steps)}", flush=True)
+    return launches, table, time.perf_counter() - t_phase
+
+
+# ---------------------------------------------------------------------------
+# the mesh across the cards of a host: ``python3 chip_smoke.py --mesh-cards``
+# (not a phase of the default run, which needs one card)
+# ---------------------------------------------------------------------------
+
+CARDS_OPTS = ["TPU.PARITY_FP32", "True", "TRAIN.END_EPOCH", "2",
+              "TRAIN.EXTRA_FINAL_TRAIN_EPOCH", "1"]
+
+
+def cards_argv(out: Path, device: str) -> list:
+    """Phase 6's command line in fp32 (TPU.PARITY_FP32), the sweep at 2
+    epochs and the final run at 3, into ``out``; ``--device`` before the
+    overrides unless the device is the card."""
+    argv = command_argv(out)
+    i = argv.index("DATASET.NUM_SAMPLES_PER_CLASS")
+    return argv[:i] + ([] if device == "cuda" else ["--device", device]) + argv[i:] + CARDS_OPTS
+
+
+def cards_outputs(out: Path) -> tuple:
+    """A run's sweep scores ``{(lr, wd): score}`` and its test predictions."""
+    (cache,) = (out / "out" / "cifar-10" / "sweep_cache").iterdir()
+    scores = {(r["lr"], r["wd"]): r["score"]
+              for r in map(json.loads, cache.read_text().splitlines())}
+    folder = out / "out" / "predictions" / "finetuning_5"
+    preds = np.asarray(json.loads((folder / "seed0_cifar-10.json").read_text())["predictions"][0])
+    return scores, preds
+
+
+def mesh_card_rank_main(out: str, device: str) -> int:
+    """One rank of ``--mesh-cards``' world: the command, which joins the
+    world from the launcher's variables (NCCL, ``cuda:{LOCAL_RANK}``)."""
+    from pevit_tpu_torch.commands import kronecker_adaptation_clip
+    from pevit_tpu_torch.utils import dist
+
+    t0 = time.perf_counter()
+    best, info = kronecker_adaptation_clip.main(cards_argv(Path(out), device))
+    print(f"rank {dist.rank()} of {dist.world_size()} ({torch.distributed.get_backend()}): "
+          f"best {best}, lr {info['best_lr']}, wd {info['best_l2_lambda']}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_cards_main(device: str = "cuda") -> int:
+    """The KAdaptation command with its sweep, fp32, once in this process on
+    one card and once in a world of one rank a card (NCCL): the sweep's
+    trial chunks cut over the ranks, the final run's full batches over
+    them.  Every sweep score, the chosen (lr, wd) and the test predictions
+    (within 1e-5 of the largest) must agree."""
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from pevit_tpu_torch.commands import kronecker_adaptation_clip
+
+    n = torch.cuda.device_count() if device == "cuda" else 2
+    if n < 2:
+        raise AssertionError(f"--mesh-cards needs two cards or more; this host has {n}")
+    card = card_line() if device == "cuda" else "CPU"
+    print(card, flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        best, info = kronecker_adaptation_clip.main(cards_argv(tmp / "one", device))
+        one_s = time.perf_counter() - t0
+        close_command_logs()
+        port, procs = free_port(), []
+        t0 = time.perf_counter()
+        for rank in range(n):
+            with launcher_env(n, rank, port):
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--mesh-card-rank",
+                     str(tmp / "world"), device],
+                    cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=1800)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        world_s = time.perf_counter() - t0
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            print("\n".join(x for x in log.splitlines() if x.startswith(f"rank {rank} ")),
+                  flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"--mesh-cards rank {rank} failed:\n{log[-6000:]}")
+        one_scores, one_preds = cards_outputs(tmp / "one")
+        world_scores, world_preds = cards_outputs(tmp / "world")
+    chosen = f"lr {info['best_lr']}, wd {info['best_l2_lambda']}"
+    gap = float(np.abs(world_preds - one_preds).max() / np.abs(one_preds).max())
+    out = {"cards": n, "trials": len(one_scores), "chosen": chosen, "best": best,
+           "scores_equal": one_scores == world_scores, "prediction_gap": gap,
+           "seconds": {"one": one_s, "world": world_s}}
+    print(f"mesh across cards: {json.dumps(out)} [{card}]", flush=True)
+    if not out["scores_equal"] or gap > 1e-5 or not all(chosen in log for log in logs):
+        raise AssertionError(f"--mesh-cards: the world and one process disagree: {out}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a CUDA card",
@@ -3628,12 +4085,19 @@ def main() -> int:
     axis_launches, axis_table, seconds = run_trial_axis(KERNELS, gen, card, clip, data)
     print(f"phase 13: {seconds:.1f} s", flush=True)
 
-    # 14. report
+    # 14. the mesh: a world of one over NCCL, then a 2-rank gloo world on
+    # the card: trials over ranks, the final run over data, tensor
+    # parallelism, mesh serving, against this process without a world
+    mesh_launches, mesh_table, seconds = run_mesh(KERNELS, gen, card, clip, prototypes)
+    print(f"phase 14: {seconds:.1f} s", flush=True)
+
+    # 15. report
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
-                **aux_launches, **stream_launches, **trial_launches_, **axis_launches}
+                **aux_launches, **stream_launches, **trial_launches_, **axis_launches,
+                **mesh_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
              + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
-             + axis_table[name] for name in command_table}
+             + axis_table[name] + mesh_table[name] for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))
@@ -3644,4 +4108,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-card-rank":
+        sys.exit(mesh_card_rank_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) >= 2 and sys.argv[1] == "--mesh-cards":
+        sys.exit(mesh_cards_main(*sys.argv[2:3]))
     sys.exit(main())

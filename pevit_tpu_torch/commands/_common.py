@@ -274,6 +274,7 @@ def run_training_command(method: str, *, description: str, probe: bool = False, 
     parser = argparse.ArgumentParser(description=description)
     add_common_args(parser, probe=probe)
     args = parser.parse_args(argv)
+    comm.initialize(device=args.device)
     device = resolve_device(args.device)
     config = setup_config(args)
 
@@ -312,7 +313,11 @@ def run_training_command(method: str, *, description: str, probe: bool = False, 
     from ..peft import PeftConfig
     from ..train import TaskStatic, TrainTask, run_method
 
-    data = load_device_data(config, device)
+    def load():
+        with comm.main_process_first():  # it decodes and caches the splits
+            return load_device_data(config, device)
+
+    data = load()
 
     job_fp = None
     if config.TPU.SKIP_COMPLETED_JOBS and args.save_predictions:
@@ -375,13 +380,14 @@ def run_training_command(method: str, *, description: str, probe: bool = False, 
         task, data, config,
         no_tuning=args.no_tuning, lr=args.lr, l2=args.l2,
         seed=args.fix_seed if args.fix_seed != -1 else 0,
-        rebuild_data=lambda: load_device_data(config, device),
+        rebuild_data=load,
     )
 
-    if args.save_predictions:
+    if args.save_predictions and comm.is_main_process():
         dump_artifacts(config, exp_name, best_acc, model_info, txt=True)
         if job_fp is not None:
             mark_job_complete(config, exp_name, job_fp, best_acc, model_info)
+    comm.barrier()
     _maybe_submit(args, config, model_info)
     logging.info("=> Finished: best %s = %.3f", config.TEST.METRIC or "accuracy", best_acc)
     return best_acc, model_info

@@ -14,6 +14,7 @@ import os
 import zipfile
 from collections import defaultdict
 
+from ..utils import dist as comm
 from ._common import json_prec_dump
 
 
@@ -36,6 +37,10 @@ def main(argv=None):
     parser.add_argument("--combine_path", required=True, type=str,
                         help="Folder holding seed{S}_{dataset}.json prediction files.")
     args = parser.parse_args(argv)
+    comm.initialize(device="cpu")  # a host-side tool: gloo in a world, the main rank writes
+    if not comm.is_main_process():
+        comm.barrier()
+        return None
 
     by_dataset = defaultdict(list)
     for fname in sorted(os.listdir(args.combine_path)):
@@ -48,6 +53,7 @@ def main(argv=None):
         for dataset, files in sorted(by_dataset.items()):
             zf.writestr(f"{dataset}.json", json_prec_dump(combine_seed_files(files)))
     print(f"wrote {out_zip} with {len(by_dataset)} datasets")
+    comm.barrier()
     return out_zip
 
 

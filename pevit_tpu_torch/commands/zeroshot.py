@@ -46,22 +46,27 @@ def feature_paths(config) -> tuple:
 
 def load_or_extract_features(config, clip, spec, test_images):
     """Image and text features, read from the ``.npy`` cache where a
-    file exists, else computed and written there."""
+    file exists, else computed and written there (by the main process of
+    a world, after every rank has looked)."""
     from ..evaluation import extract_image_features, extract_text_features
 
     img_f, txt_f = feature_paths(config)
     os.makedirs(os.path.dirname(img_f), exist_ok=True)
-    if os.path.exists(img_f):
+    have_img, have_txt = os.path.exists(img_f), os.path.exists(txt_f)
+    comm.barrier()
+    if have_img:
         image_features = np.load(img_f)
         logging.info("loaded cached image features %s", img_f)
     else:
         image_features = extract_image_features(config, clip, spec, test_images)
-        np.save(img_f, image_features)
-    if os.path.exists(txt_f):
+        if comm.is_main_process():
+            np.save(img_f, image_features)
+    if have_txt:
         text_features = np.load(txt_f)
     else:
         text_features = extract_text_features(config, clip, spec)
-        np.save(txt_f, text_features)
+        if comm.is_main_process():
+            np.save(txt_f, text_features)
     return image_features, text_features
 
 
@@ -70,6 +75,7 @@ def main(argv=None):
     add_zeroshot_args(parser)
     args = parser.parse_args(argv)
     args.no_tuning = False
+    comm.initialize(device=args.device)
     device = resolve_device(args.device)
     config = setup_config(args)
 
@@ -90,7 +96,8 @@ def main(argv=None):
     from ..data.sources import build_splits
     from ..evaluation import clip_zeroshot_evaluator
 
-    _, _, test = build_splits(config, test_split_only=True)
+    with comm.main_process_first():  # it decodes and caches the split
+        _, _, test = build_splits(config, test_split_only=True)
     ckpt = config.TEST.MODEL_FILE or config.MODEL.PRETRAINED or None
     clip, spec = load_clip(config.MODEL.NAME, checkpoint_path=ckpt, seed=args.fix_seed,
                            spec_hint=CLIPSpec.from_config(config), device=device)
@@ -100,7 +107,7 @@ def main(argv=None):
                                                           test.labels, config)
     logging.info("=> TEST: %s %.3f", metric_name, result)
 
-    if args.save_predictions:
+    if args.save_predictions and comm.is_main_process():
         z = logits - logits.max(axis=-1, keepdims=True)
         probs = np.exp(z)
         probs /= probs.sum(axis=-1, keepdims=True)

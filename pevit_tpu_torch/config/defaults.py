@@ -246,14 +246,17 @@ def update_config(config, args) -> None:
     """Merge the YAML file ``args.cfg``, then the ``KEY VALUE`` overrides in
     ``args.opts``, as the reference's update_config
     (vision_benchmark/config/default.py:252-272): TRAIN.LR is scaled by the
-    world size (1 for the port's single process), NAME gains the file's
-    stem, and a mixup/cutmix setting turns MIXUP_PROB on."""
+    world size, NAME gains the file's stem, and a mixup/cutmix setting
+    turns MIXUP_PROB on.  The world size is the reference's, its process
+    count: one JAX process drives a host's chips, so the port, one process
+    a card, multiplies by its hosts (``dist.host_count``), not its ranks,
+    and a world on one host keeps TRAIN.LR as it is."""
     from ..utils import dist as comm
 
     config.defrost()
     config.merge_from_file(args.cfg)
     config.merge_from_list(getattr(args, "opts", []) or [])
-    config.TRAIN.LR *= comm.world_size()
+    config.TRAIN.LR *= comm.host_count()
     file_name, _ = op.splitext(op.basename(args.cfg))
     config.NAME = file_name + config.NAME
     config.RANK = comm.rank()

@@ -72,6 +72,76 @@ class MLP(nn.Module):
         self.c_proj = Dense(4 * width, width)
 
 
+class ShardedAttention(nn.Module):
+    """A frozen attention's share on one rank of a model axis (tensor
+    parallelism, ``parallel.mesh.shard_params``): ``in_proj`` holds the q,
+    k and v columns of the rank's ``heads`` (column-parallel by heads, so
+    the attention kernel runs on whole heads), ``out_proj`` the matching
+    rows of the output projection (row-parallel) and its whole bias,
+    added once after the partial products are summed over ``axis``."""
+
+    def __init__(self, attn: Attention, n_head: int, axis):
+        super().__init__()
+        C = attn.out_proj.kernel.shape[0]
+        n, i = axis.size, axis.index
+        if n_head % n:
+            raise ValueError(f"{n_head} heads do not cut into {n} model ranks")
+        hc = C // n
+        cols = torch.cat([torch.arange(j * C + i * hc, j * C + (i + 1) * hc) for j in range(3)])
+        w = attn.in_proj
+        self.in_proj = Dense(C, 3 * hc)
+        self.out_proj = Dense(hc, C)
+        with torch.no_grad():
+            self.in_proj.kernel = nn.Parameter(w.kernel.detach()[:, cols.to(w.kernel.device)]
+                                               .clone(), requires_grad=False)
+            self.in_proj.bias = nn.Parameter(w.bias.detach()[cols.to(w.bias.device)].clone(),
+                                             requires_grad=False)
+            self.out_proj.kernel = nn.Parameter(
+                attn.out_proj.kernel.detach()[i * hc:(i + 1) * hc].clone(), requires_grad=False)
+            self.out_proj.bias = attn.out_proj.bias
+        self.axis = axis
+        self.heads = (i * n_head // n, (i + 1) * n_head // n)
+
+
+class ShardedMLP(nn.Module):
+    """A frozen MLP's share on one rank of a model axis: ``c_fc``'s columns
+    and bias slice, ``c_proj``'s rows (column / row-parallel, as the
+    reference's specs) and ``c_proj``'s whole bias.  The fused MLP kernels
+    add the residual and ``c_proj``'s bias inside, so a partial sum cannot
+    run through them: :meth:`gathered` all-gathers the slices over
+    ``axis`` and the block runs the kernels on the whole weights."""
+
+    def __init__(self, mlp: MLP, axis):
+        super().__init__()
+        F = mlp.c_fc.kernel.shape[1]
+        n, i = axis.size, axis.index
+        f = F // n
+        self.c_fc = Dense(mlp.c_fc.kernel.shape[0], f)
+        self.c_proj = Dense(f, mlp.c_proj.kernel.shape[1])
+        with torch.no_grad():
+            self.c_fc.kernel = nn.Parameter(mlp.c_fc.kernel.detach()[:, i * f:(i + 1) * f].clone(),
+                                            requires_grad=False)
+            self.c_fc.bias = nn.Parameter(mlp.c_fc.bias.detach()[i * f:(i + 1) * f].clone(),
+                                          requires_grad=False)
+            self.c_proj.kernel = nn.Parameter(mlp.c_proj.kernel.detach()[i * f:(i + 1) * f].clone(),
+                                              requires_grad=False)
+            self.c_proj.bias = mlp.c_proj.bias
+        self.axis = axis
+
+    def gathered(self):
+        """The whole MLP's weights (``c_fc`` / ``c_proj``, each a ``kernel``
+        and ``bias``), the slices gathered over the model axis."""
+        from types import SimpleNamespace
+
+        from ..parallel.collectives import gather_dim
+
+        return SimpleNamespace(
+            c_fc=SimpleNamespace(kernel=gather_dim(self.c_fc.kernel, self.axis, 1),
+                                 bias=gather_dim(self.c_fc.bias, self.axis, 0)),
+            c_proj=SimpleNamespace(kernel=gather_dim(self.c_proj.kernel, self.axis, 0),
+                                   bias=self.c_proj.bias))
+
+
 class ResidualAttentionBlock(nn.Module):
     """Parameters of one CLIP block; see :func:`residual_attention_block`."""
 
@@ -154,6 +224,8 @@ def multi_head_attention(p: Attention, x: torch.Tensor, *, n_head: int,
     packed projection where no delta is added, and the attention core takes
     them as they are.
     """
+    if isinstance(p, ShardedAttention):
+        return _sharded_attention(p, x, n_head=n_head, mask=mask, qv_delta_fn=qv_delta_fn)
     B, N, C = x.shape
     hd = C // n_head
     q, k, v = linear(x, p.in_proj).split(C, dim=-1)
@@ -168,6 +240,35 @@ def multi_head_attention(p: Attention, x: torch.Tensor, *, n_head: int,
             v = v + v_delta.transpose(1, 2).to(v.dtype)
     out = attention_core(q, k, v) if mask is None else masked_attention(q, k, v, mask)
     return linear(out.reshape(B, N, C), p.out_proj)
+
+
+def _sharded_attention(p: ShardedAttention, x: torch.Tensor, *, n_head: int,
+                       mask: Optional[torch.Tensor], qv_delta_fn: Optional[DeltaFn]) -> torch.Tensor:
+    """:func:`multi_head_attention` on one rank of a model axis: the
+    attention of its heads, the out-projection's partial product summed over
+    the axis, then its bias.  The input enters through Megatron's f (the
+    backward sums the ranks' shares of its gradient); the PEFT delta is
+    computed whole on every rank (the scramble of quirk 4 mixes heads) and
+    the rank's heads kept."""
+    from ..parallel.collectives import copy_to, reduce_from
+
+    B, N, C = x.shape
+    hd = C // n_head
+    h0, h1 = p.heads
+    x = copy_to(x, p.axis)
+    q, k, v = linear(x, p.in_proj).split((h1 - h0) * hd, dim=-1)
+    q = q.reshape(B, N, h1 - h0, hd) * (1.0 / math.sqrt(hd))
+    k = k.reshape(B, N, h1 - h0, hd)
+    v = v.reshape(B, N, h1 - h0, hd)
+    if qv_delta_fn is not None:
+        q_delta, v_delta = qv_delta_fn(x)
+        if q_delta is not None:
+            q = q + q_delta[:, h0:h1].transpose(1, 2).to(q.dtype)
+        if v_delta is not None:
+            v = v + v_delta[:, h0:h1].transpose(1, 2).to(v.dtype)
+    out = attention_core(q, k, v) if mask is None else masked_attention(q, k, v, mask)
+    y = out.reshape(B, N, (h1 - h0) * hd) @ p.out_proj.kernel.to(x.dtype)
+    return reduce_from(y, p.axis) + p.out_proj.bias.to(x.dtype)
 
 
 def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_head: int,
@@ -203,16 +304,17 @@ def residual_attention_block(p: ResidualAttentionBlock, x: torch.Tensor, *, n_he
     route raises for it."""
     h = layer_norm(x, p.ln_1.scale, p.ln_1.bias, eps=ln_eps)
     x = x + multi_head_attention(p.attn, h, n_head=n_head, mask=mask, qv_delta_fn=qv_delta_fn)
+    mlp_p = p.mlp.gathered() if isinstance(p.mlp, ShardedMLP) else p.mlp
     if not use_fused_mlp or mlp_post_fn is not None or act is not None:
-        m = mlp(p.mlp, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps), act=act)
+        m = mlp(mlp_p, layer_norm(x, p.ln_2.scale, p.ln_2.bias, eps=ln_eps), act=act)
         return x + (m if mlp_post_fn is None else mlp_post_fn(m))
-    if trial_axis.stacked(p.mlp.c_fc.kernel, 2):
+    if trial_axis.stacked(mlp_p.c_fc.kernel, 2):
         raise ValueError("the fused MLP takes one frozen tower's weights; a tower stacked "
                          "over trials trains them and takes the unfused MLP")
     dt = x.dtype
     return fused_mlp_residual(
         x, p.ln_2.scale, p.ln_2.bias,
-        p.mlp.c_fc.kernel.to(dt), p.mlp.c_fc.bias.to(dt),
-        p.mlp.c_proj.kernel.to(dt), p.mlp.c_proj.bias.to(dt),
+        mlp_p.c_fc.kernel.to(dt), mlp_p.c_fc.bias.to(dt),
+        mlp_p.c_proj.kernel.to(dt), mlp_p.c_proj.bias.to(dt),
         eps=ln_eps,
     )

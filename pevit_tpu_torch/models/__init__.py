@@ -1,7 +1,8 @@
 """Auxiliary backbones through ``get_model`` (counterpart of
 ``pevit_tpu/models``): the generic ViT (timm / DeiT / MAE / MoCo-v3), the
 Swin classifiers and CLIP-Swin, the DeCLIP family and the plugin
-templates; and NNCLR's memory bank, a DeCLIP pretraining aid."""
+templates; and the DeCLIP pretraining aids, NNCLR's memory bank and the
+cross-rank contrastive logits."""
 
 from .declip import (
     Declip,
@@ -9,6 +10,7 @@ from .declip import (
     declip_state_dict_to_params,
     encode_image_dense,
     encode_text_dense,
+    gathered_contrastive_logits,
     init_declip_params,
     normalize_declip_state_dict,
 )
@@ -53,6 +55,7 @@ __all__ = [
     "encode_image_dense",
     "encode_text_dense",
     "enqueue",
+    "gathered_contrastive_logits",
     "get_model",
     "init_clip_swin_params",
     "init_declip_params",

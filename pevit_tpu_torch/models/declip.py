@@ -303,3 +303,49 @@ def declip_from_params(params_np: dict, spec: DeclipSpec, *, device=None) -> Dec
     from ..bridge import module_from_jax
 
     return module_from_jax(params_np, Declip(spec), device=device)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's rows of ``x`` over a process group, in rank order; the
+    backward sums the gradient of each slice over the group and returns this
+    rank's (the transpose of ``jax.lax.all_gather(tiled=True)``, and the
+    reference's AllGather, declip_model/clip.py:20-44)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from ..parallel.collectives import gather_dim
+
+        ctx.axis, ctx.rows = axis, x.shape[0]
+        return gather_dim(x, axis, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.axis.group)
+        lo = ctx.axis.index * ctx.rows
+        return g[lo:lo + ctx.rows], None
+
+
+def gathered_contrastive_logits(image_features: torch.Tensor, text_features: torch.Tensor,
+                                logit_scale: torch.Tensor, group=None) -> torch.Tensor:
+    """Cross-rank contrastive logits: this rank's images against the text
+    batch of every rank of ``group`` (the world when None), each rank
+    holding equally many rows; ``exp(logit_scale) * normalise(images) @
+    normalise(all texts)ᵀ``.  The gather is differentiable
+    (:class:`_AllGather`), as ``pevit_tpu/models/declip.py:349-360``'s
+    ``all_gather`` over the data axis."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import Axis
+
+    if dist.is_available() and dist.is_initialized():
+        ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+        axis = Axis(group or dist.group.WORLD, len(ranks), ranks.index(dist.get_rank()))
+        all_text = text_features if axis.size == 1 else _AllGather.apply(text_features, axis)
+    else:
+        all_text = text_features
+    imf = image_features / torch.linalg.vector_norm(image_features, dim=-1, keepdim=True)
+    txf = all_text / torch.linalg.vector_norm(all_text, dim=-1, keepdim=True)
+    return torch.exp(logit_scale) * imf @ txf.T

@@ -17,9 +17,15 @@ artifact exported on the CPU launches the kernels on the card.
 ``forward_fn`` serves an auxiliary backbone (``models.factory``; the
 trainer's ``TrainTask._forward_fn``): the bundle's ``clip`` is then that
 backbone, and a served or exported tower holds all of it but a text tower.
-Not ported, and raising with their ROADMAP item: a device mesh (``mesh``,
-ROADMAP §1 item 5), and ``platforms``, which has no meaning here (the
-artifact picks its device when it runs; ROADMAP §3).
+
+``export_classifier(mesh=n)`` writes a data-parallel artifact for a world
+of n ranks (``utils.dist``), the reference's GSPMD serving program with its
+batch on "data": every rank runs the same program on its rows, and the
+program gathers the LN'd block input over the world where the attention
+delta reads the whole batch (quirk 4), through an exportable
+``all_reduce``.  ``exported_callable`` cuts a batch over the ranks and
+gathers the logits.  ``platforms`` has no meaning here (the artifact picks
+its device when it runs; ROADMAP §3) and raises.
 """
 
 from __future__ import annotations
@@ -40,16 +46,14 @@ from .quant import dequantize_tree, quantize_tree
 from .train.head import Head
 from .train.partition import combine, named_parameters
 from .train.trainer import model_forward
+from .utils import dist as comm
 from .utils.device import resolve_device
 
 __all__ = ["make_serving_fn", "export_classifier", "serving_weights", "save_exported",
            "load_exported", "exported_callable", "InferencePipeline", "MicroBatcher"]
 
 
-def _refuse_unported(*, mesh=None, platforms=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a data-parallel serving program over a device mesh is not "
-                                  "ported (ROADMAP §1 item 5, parallel)")
+def _refuse_unported(*, platforms=None) -> None:
     if platforms is not None:
         raise NotImplementedError("platforms has no counterpart: an exported program picks "
                                   "its device when it runs (ROADMAP §3)")
@@ -84,13 +88,28 @@ class _Tower(nn.Module):
         self.peft = peft
         self.head = head
         self.forward_fn = forward_fn
+        self.mesh = None  # (width, process group) of a data-parallel program
 
-    def forward(self, images_u8, bn_mean, bn_var, pre_mean, pre_std):
+    def forward(self, images_u8, bn_mean, bn_var, pre_mean, pre_std, shard=None):
         bundle = {"clip": self.clip, "peft": self.peft, "head": self.head}
+        if shard is not None:
+            from .parallel.mesh import TracedRowShard
+
+            shard = TracedRowShard(self.mesh[0], shard, self.mesh[1])
         logits, _ = model_forward(self.static, bundle, {"mean": bn_mean, "var": bn_var},
                                   images_u8, {"mean": pre_mean, "std": pre_std}, train=False,
-                                  forward_fn=self.forward_fn)
+                                  forward_fn=self.forward_fn, shard=shard)
         return logits
+
+
+def _set_mesh(module: nn.Module, tower: _Tower, mesh) -> None:
+    """Make ``module`` (around ``tower``) a data-parallel program over
+    ``mesh`` = (width, process group): the width recorded as the buffer
+    ``mesh_data_width``, read back by :func:`exported_data_width`."""
+    if mesh is None:
+        return
+    tower.mesh = mesh
+    module.register_buffer("mesh_data_width", torch.tensor(mesh[0], dtype=torch.int64))
 
 
 def _skeleton(static, served: nn.Module, forward_fn=None) -> _Tower:
@@ -122,7 +141,7 @@ class ServingModule(nn.Module):
     statistics and ``preproc`` are buffers either way."""
 
     def __init__(self, static, bundle: dict, bn_state: dict, preproc: dict, *,
-                 quantize: bool = False, forward_fn=None):
+                 quantize: bool = False, forward_fn=None, mesh=None):
         super().__init__()
         for name, t in (("bn_mean", bn_state["mean"]), ("bn_var", bn_state["var"]),
                         ("pre_mean", preproc["mean"]), ("pre_std", preproc["std"])):
@@ -131,10 +150,12 @@ class ServingModule(nn.Module):
         tower = _Tower(static, served, bundle["peft"], bundle["head"], forward_fn)
         if not quantize:
             self.tower, self._skeleton, self._leaves = tower, None, None
+            _set_mesh(self, tower, mesh)
             return
         self.tower = None
         # a tuple: not a submodule, nothing lifted
         self._skeleton = (_skeleton(static, served, forward_fn),)
+        _set_mesh(self, self._skeleton[0], mesh)
         self._leaves = {}
         for name, leaf in quantize_tree(dict(tower.named_parameters())).items():
             parts = leaf.items() if isinstance(leaf, dict) else ((None, leaf),)
@@ -149,12 +170,12 @@ class ServingModule(nn.Module):
                 else {part: getattr(self, buf) for part, buf in parts.items()}
                 for name, parts in self._leaves.items()}
 
-    def forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+    def forward(self, images_u8: torch.Tensor, shard=None) -> torch.Tensor:
         stats = (self.bn_mean, self.bn_var, self.pre_mean, self.pre_std)
         if self.tower is not None:
-            return self.tower(images_u8, *stats)
+            return self.tower(images_u8, *stats, shard)
         return torch.func.functional_call(self._skeleton[0], dequantize_tree(self._weights()),
-                                          (images_u8, *stats))
+                                          (images_u8, *stats, shard))
 
 
 class ServingArgsModule(nn.Module):
@@ -164,22 +185,23 @@ class ServingArgsModule(nn.Module):
     Holds only ``preproc``."""
 
     def __init__(self, static, preproc: dict, served: nn.Module, *, quantize: bool = False,
-                 forward_fn=None):
+                 forward_fn=None, mesh=None):
         super().__init__()
         for name in ("mean", "std"):
             self.register_buffer(f"pre_{name}", torch.as_tensor(preproc[name]).detach())
         self.quantize = quantize
         self._skeleton = (_skeleton(static, served, forward_fn),)
         self._names = [n for n, _ in self._skeleton[0].named_parameters()]
+        _set_mesh(self, self._skeleton[0], mesh)
 
-    def forward(self, weights: dict, images_u8: torch.Tensor) -> torch.Tensor:
+    def forward(self, weights: dict, images_u8: torch.Tensor, shard=None) -> torch.Tensor:
         bundle = {n: weights["bundle"][n] for n in self._names}  # the text tower is not read
         if self.quantize:
             bundle = dequantize_tree(bundle)
         bn = weights["bn_state"]
         return torch.func.functional_call(self._skeleton[0], bundle,
                                           (images_u8, bn["mean"], bn["var"], self.pre_mean,
-                                           self.pre_std))
+                                           self.pre_std, shard))
 
 
 def _on_device(bundle: dict, dev) -> dict:
@@ -257,23 +279,42 @@ def export_classifier(static, trainable, frozen, bn_state, preproc, *, image_siz
     traced on ``device`` (``None`` -> CUDA); :func:`exported_callable` runs
     it on any device.  ``forward_fn`` exports an auxiliary backbone's
     forward, as in :func:`make_serving_fn`.
+
+    ``mesh`` (a width n, or a ``parallel.Mesh`` whose data axis is the
+    width) exports a data-parallel program for a world of exactly n ranks,
+    traced on each of them: the program takes this rank's rows of a batch
+    and its index (an int64 tensor of one element) and gathers over the
+    world where the attention delta reads the whole batch; its batch is
+    each rank's rows, so the whole batch is a multiple of n
+    (:func:`exported_callable` refuses another).  The width is recorded
+    (:func:`exported_data_width`).
     """
-    _refuse_unported(mesh=mesh, platforms=platforms)
+    _refuse_unported(platforms=platforms)
     dev = resolve_device(device)
+    n = _mesh_width(mesh)
+    mesh_arg = None
     batch = _EXAMPLE_BATCH if dynamic_batch else 1
     example = torch.zeros((batch, image_size, image_size, 3), dtype=torch.uint8, device=dev)
     images_dim = {0: torch.export.Dim("b", min=1)} if dynamic_batch else None
+    extra, extra_shapes = (), {}
+    if n > 1:
+        import torch.distributed as dist
+
+        mesh_arg = (n, dist.group.WORLD)
+        extra = (torch.tensor([comm.rank()], dtype=torch.int64, device=dev),)
+        extra_shapes = {"shard": None}
     bundle = _on_device(combine(trainable, frozen), dev)
     if bake_weights:
         module = ServingModule(static, bundle, bn_state, preproc, quantize=quantize,
-                               forward_fn=forward_fn)
-        args, shapes = (example,), {"images_u8": images_dim}
+                               forward_fn=forward_fn, mesh=mesh_arg)
+        args, shapes = (example, *extra), {"images_u8": images_dim, **extra_shapes}
     else:
         module = ServingArgsModule(static, preproc, _served_backbone(bundle["clip"], forward_fn),
-                                   quantize=quantize, forward_fn=forward_fn)
+                                   quantize=quantize, forward_fn=forward_fn, mesh=mesh_arg)
         weights = _canonical(serving_weights(trainable, frozen, bn_state, quantize=quantize), dev)
         static_weights = torch.utils._pytree.tree_map(lambda _: None, weights)
-        args, shapes = (weights, example), {"weights": static_weights, "images_u8": images_dim}
+        args, shapes = (weights, example, *extra), {"weights": static_weights,
+                                                    "images_u8": images_dim, **extra_shapes}
     with torch.no_grad():
         ep = torch.export.export(module.to(dev), args,
                                  dynamic_shapes=shapes if dynamic_batch else None, strict=False)
@@ -283,14 +324,34 @@ def export_classifier(static, trainable, frozen, bn_state, preproc, *, image_siz
     return ep
 
 
+def _mesh_width(mesh) -> int:
+    """The data width of ``export_classifier``'s ``mesh``, checked against
+    the world: a data-parallel program runs on exactly that many ranks."""
+    if mesh is None:
+        return 1
+    n = int(mesh) if isinstance(mesh, int) else mesh.data.size
+    if n > 1 and comm.world_size() != n:
+        raise ValueError(f"a data-parallel artifact over {n} ranks is exported and served in "
+                         f"a world of {n} ranks (torchrun --nproc-per-node {n}); this world "
+                         f"has {comm.world_size()}")
+    return n
+
+
+def exported_data_width(ep: torch.export.ExportedProgram) -> int:
+    """The data width an artifact was exported for (1: not data-parallel)."""
+    width = ep.state_dict.get("mesh_data_width")
+    return 1 if width is None else int(width)
+
+
 def is_baked(ep: torch.export.ExportedProgram) -> bool:
-    """True for a self-contained artifact (its one input is the images)."""
-    return len(ep.graph_signature.user_inputs) == 1
+    """True for a self-contained artifact (its one input is the images, and
+    a data-parallel one's also the rank's index)."""
+    return len(ep.graph_signature.user_inputs) == 1 + (exported_data_width(ep) > 1)
 
 
 def exported_image_size(ep: torch.export.ExportedProgram) -> int:
     """S of the (b, S, S, 3) images an artifact takes."""
-    name = ep.graph_signature.user_inputs[-1]
+    name = ep.graph_signature.user_inputs[-1 - (exported_data_width(ep) > 1)]
     node = next(n for n in ep.graph.nodes if n.op == "placeholder" and n.name == name)
     return int(node.meta["val"].shape[1])
 
@@ -303,20 +364,46 @@ def exported_callable(ep: torch.export.ExportedProgram, weights=None, *, device=
     constants and the device its input checks name, so that an artifact
     traced on the CPU runs on the card, where its operators launch the
     kernels.  A weights-as-args artifact needs ``weights``
-    (:func:`serving_weights`, moved to the device here)."""
+    (:func:`serving_weights`, moved to the device here).
+
+    A data-parallel artifact (``export_classifier(mesh=n)``) is called on
+    every rank of a world of n with the same batch: each rank runs its rows
+    on its device and the logits are gathered, so every rank returns all of
+    them.  A batch that is not a multiple of n raises."""
     from torch.export.passes import move_to_device_pass
 
     dev = resolve_device(device)
     if is_baked(ep) != (weights is None):
         raise ValueError("a baked artifact takes no weights; a weights-as-args one needs them")
+    n = _mesh_width(exported_data_width(ep))
     module = move_to_device_pass(ep, dev).module()
     if weights is not None:
         weights = _canonical(weights, dev)
+    head = () if weights is None else (weights,)
+    if n == 1:
+        def call(images_u8) -> torch.Tensor:
+            with torch.inference_mode():
+                x = torch.as_tensor(images_u8).to(dev)
+                return module(*head, x)
+
+        return call
+
+    import torch.distributed as dist
+
+    from .parallel.collectives import Axis, gather_dim
+
+    r = comm.rank()
+    axis = Axis(dist.group.WORLD, n, r)
+    index = torch.tensor([r], dtype=torch.int64, device=dev)
 
     def call(images_u8) -> torch.Tensor:
+        x = torch.as_tensor(images_u8)
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} does not cut into {n} equal parts; this "
+                             f"artifact serves multiples of {n}")
+        b = x.shape[0] // n
         with torch.inference_mode():
-            x = torch.as_tensor(images_u8).to(dev)
-            return module(x) if weights is None else module(weights, x)
+            return gather_dim(module(*head, x[r * b:(r + 1) * b].to(dev), index), axis, 0)
 
     return call
 

@@ -21,7 +21,12 @@ MODEL.NAME may name a CLIP (ViT or RN) or, for ``--method linear_probe``
 or ``full_finetune``, an auxiliary backbone of ``models.get_model``, whose
 forward the artifact then holds.  The reference's flags, and ``--device`` (``cuda`` by default; ``cpu``
 traces on the CPU; an artifact runs on whichever device it is given).
-``--platforms`` and ``--mesh`` raise: neither has a counterpart yet.
+``--mesh N`` exports a data-parallel artifact for a world of N ranks; run
+the tool in such a world, which every rank joins (the main rank writes):
+
+    torchrun --nproc-per-node N -m pevit_tpu_torch.tools.export_model --mesh N ...
+
+``--platforms`` raises: it has no counterpart.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ def main(argv=None):
     ap.add_argument("--platforms", default="",
                     help="not ported: an artifact picks its device when it runs")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="not ported: a data-parallel artifact over N devices")
+                    help="a data-parallel artifact over a world of N ranks (run under torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE config overrides")
@@ -61,8 +66,14 @@ def main(argv=None):
     from ..serve import export_classifier, save_exported
     from ..serve_daemon import config_from
     from ..serving_loader import build_task, restore_into
+    from ..utils import dist as comm
     from ..utils.device import resolve_device
 
+    comm.initialize(device=args.device)
+    if args.mesh and comm.world_size() < args.mesh:
+        raise SystemExit(f"--mesh {args.mesh} needs {args.mesh} ranks, have "
+                         f"{comm.world_size()} (hint: torchrun --nproc-per-node {args.mesh} "
+                         "-m pevit_tpu_torch.tools.export_model ...)")
     dev = resolve_device(args.device)
     config = config_from(args.ds, args.model, args.opts)
     task, static, trainable, frozen, bn_state = build_task(config, args.method, args.seed, dev,
@@ -85,7 +96,11 @@ def main(argv=None):
         mesh=args.mesh or None,
         forward_fn=task._forward_fn,
     )
+    if not comm.is_main_process():
+        comm.barrier()
+        return exported
     save_exported(exported, args.out)
+    comm.barrier()
     size_mb = Path(args.out).stat().st_size / 1e6
     inputs = [str(n.meta["val"].shape) for n in exported.graph.nodes
               if n.op == "placeholder" and n.name in exported.graph_signature.user_inputs][-1:]

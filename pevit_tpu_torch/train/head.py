@@ -41,16 +41,23 @@ def init_bn_state(dim: int, *, device=None) -> dict:
 
 
 def batch_norm(x: torch.Tensor, state: dict, *, train: bool,
-               mask: Optional[torch.Tensor] = None):
+               mask: Optional[torch.Tensor] = None, reduce=None):
     """torch BatchNorm1d(affine=False); x: (B, D) or (T, B, D), mask: (B,)
-    or (T, B) validity, the statistics over the B rows.  Returns (y in x's
+    or (T, B) validity, the statistics over the B rows, or with ``reduce``
+    (a sum over a data axis) over every rank's rows.  Returns (y in x's
     dtype, state)."""
     x32 = x.float()
     if not train:
         y = (x32 - state["mean"].unsqueeze(-2)) * torch.rsqrt(state["var"].unsqueeze(-2) + BN_EPS)
         return y.to(x.dtype), state
 
-    if mask is None:
+    if reduce is not None:
+        m = (torch.ones(x.shape[:-1], device=x.device) if mask is None else mask.float())[..., None]
+        sums = reduce(torch.cat([(x32 * m).sum(-2, keepdim=True), m.sum(-2, keepdim=True)], -1))
+        count = torch.clamp(sums[..., -1:], min=1.0)
+        mean = sums[..., :-1] / count
+        var = reduce((((x32 - mean) ** 2) * m).sum(-2, keepdim=True)) / count
+    elif mask is None:
         count = torch.tensor(float(x.shape[-2]), device=x.device)
         mean = x32.mean(-2, keepdim=True)
         var = ((x32 - mean) ** 2).mean(-2, keepdim=True)
@@ -117,12 +124,14 @@ def head_forward(
     use_bn: bool = True,
     normalize_feature: bool = False,
     apply_logit_scale: bool = False,
+    reduce=None,
 ):
     """Features (float32) -> (logits float32, bn_state); (B, D) features
-    give (B, K) logits, a trial batch's (T, B, D) give (T, B, K)."""
+    give (B, K) logits, a trial batch's (T, B, D) give (T, B, K).
+    ``reduce``: the BN statistics' sum over a data axis (:func:`batch_norm`)."""
     x = feats.float()
     if use_bn:
-        x, bn_state = batch_norm(x, bn_state, train=train, mask=mask)
+        x, bn_state = batch_norm(x, bn_state, train=train, mask=mask, reduce=reduce)
     if normalize_feature:
         x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
     logits = x @ head.linear.kernel + head.linear.bias.unsqueeze(-2)

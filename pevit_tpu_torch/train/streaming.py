@@ -27,6 +27,11 @@ The epoch (:class:`StreamingEpochRunner`):
   the host, no synchronize): the training step is host-bound, so a gather
   on the launching thread would add to every step.
 
+On a mesh with a data axis (``TrainTask._mesh_plan``) each data rank
+gathers and copies only its rows of every full batch and takes its share of
+the step (``build_step_fn``'s ``shard``); a tail runs whole on every rank,
+as the reference's (``pevit_tpu/train/streaming.py:74-77``).
+
 On the CPU (the tests) a batch is gathered into a fresh array and no
 stream is used.
 """
@@ -66,14 +71,18 @@ class StreamingEpochRunner:
     trial.  ``h2d_bytes`` counts the image bytes the runner has copied to
     the card (each batch once), ``batches`` the batches it has gathered."""
 
-    def __init__(self, task, *, lr_scales=None, wd_mask=None, trials: int = 0):
+    def __init__(self, task, *, lr_scales=None, wd_mask=None, trials: int = 0, mesh=None,
+                 shard_steps: bool = True):
         st: TaskStatic = task.static
         self.task = task
         self.batch = st.batch_size
         self.device = task.device
         self.trials = trials
         self._step = build_step_fn(st, task.preproc, lr_scales, wd_mask, task._forward_fn,
-                                   trials)
+                                   trials, mesh)
+        from ..parallel.mesh import row_shard
+
+        self._shard = row_shard(mesh, self.batch) if shard_steps else None
         self._label_dtype = torch.float32 if st.multilabel else torch.long
         self._pinned = None  # two (images, labels) pinned host buffers
         self._events = [None, None]
@@ -155,25 +164,32 @@ class StreamingEpochRunner:
         def step_all(i, imgs, labs):
             step_gens = [torch.Generator(device=self.device).manual_seed(s + i)
                          for s in drop_seeds]
+            kw = {"shard": self._shard} if self._shard is not None and i < n // B else {}
             if self.trials:
                 T = self.trials
                 imgs = imgs.unsqueeze(0).expand(T, *imgs.shape).reshape(-1, *imgs.shape[1:])
                 labs = labs.unsqueeze(0).expand(T, *labs.shape)
-                states[0] = self._step(runs[0][0], states[0], imgs, labs, lrs, wds, step_gens)
+                states[0] = self._step(runs[0][0], states[0], imgs, labs, lrs, wds, step_gens,
+                                       **kw)
                 return
             for t, (bundle, _) in enumerate(runs):
                 states[t] = self._step(bundle, states[t], imgs, labs, lrs[t], wds[t],
-                                       step_gens[t])
+                                       step_gens[t], **kw)
+
+        def rows(i):
+            """Batch i's rows of the order this rank gathers: its share of a
+            full batch under a data axis, else all of them."""
+            idx = order[i * B:(i + 1) * B]
+            return self._shard.take(idx) if self._shard is not None and i < n // B else idx
 
         if self.device.type != "cuda":
             for i in range(steps):
-                step_all(i, *self._load(images, labels, order[i * B:(i + 1) * B]))
+                step_all(i, *self._load(images, labels, rows(i)))
             return states
         self._buffers(images, labels)
         with ThreadPoolExecutor(max_workers=1) as worker:
             def fetch(i):
-                return worker.submit(self._gather, images, labels, order[i * B:(i + 1) * B],
-                                     i % 2)
+                return worker.submit(self._gather, images, labels, rows(i), i % 2)
 
             pending = fetch(0) if steps else None
             for i in range(steps):

@@ -28,6 +28,15 @@ purpose: the reference halves on any runtime error, the port on running out
 of memory only, because a CUDA error other than that is sticky (it leaves
 the process's context unusable, so a retry could only fail again or hide
 the fault) and a kernel's refusal does not depend on the width (ROADMAP §3).
+
+In a world of several ranks (``utils.dist``) every rank walks the same
+sweep: a chunk's trials are laid over the ranks by ``train_trials``, which
+gives every rank every score.  The ranks agree on a chunk's outcome before
+acting on it: one rank out of memory while its peers finished would
+otherwise halve alone and wait for them forever, so the worst outcome over
+the world (another device error, then running out of memory, then any
+other failure) decides on every rank.  The sweep cache and the artifacts
+are written by the main process only.
 """
 
 from __future__ import annotations
@@ -40,13 +49,18 @@ import numpy as np
 import torch
 
 from ..ops._build import KernelBuildError, KernelInputError, KernelLaunchError
+from ..utils import dist as comm
 from ..utils.device import to_numpy
+
+
+class RankDeviceError(RuntimeError):
+    """Another rank of the world hit a device error."""
 
 
 # the exceptions that mean the card or a kernel failed: they abort a sweep
 # (out of memory only on a single trial; a wider chunk is halved)
 DEVICE_ERRORS = (torch.cuda.OutOfMemoryError, KernelBuildError, KernelInputError,
-                 KernelLaunchError) + (
+                 KernelLaunchError, RankDeviceError) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 
@@ -55,6 +69,16 @@ def is_device_error(e: BaseException) -> bool:
     ``AcceleratorError`` raises as a plain RuntimeError."""
     return isinstance(e, DEVICE_ERRORS) or (isinstance(e, RuntimeError)
                                             and str(e).startswith("CUDA error"))
+
+
+def failure_kind(e) -> "str | None":
+    """How a failure is told to the other ranks: "oom" (out of card memory),
+    "device" (another device error) or "other"; None for no failure."""
+    if e is None:
+        return None
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return "oom"
+    return "device" if is_device_error(e) else "other"
 
 
 def wd_grid(config):
@@ -71,25 +95,37 @@ def _run_chunk(task, chunk: list, data, end_epoch: int, seed: int, begin_epoch: 
     """Scores of one chunk of trials; 0.0 for all of them if the chunk fails
     with anything but a device error (kadaptation_clip.py:200-205).  A chunk
     of more than one trial that runs out of card memory is split into two
-    halves, each run in turn; any other device error is raised."""
+    halves, each run in turn; any other device error is raised.  The
+    outcome is the worst over the world's ranks (:data:`_OUTCOMES`)."""
     train_x, train_y, val_x, val_y = data
-    halve = False
+    failure, outcome = None, 0
     try:
         res = task.train_trials(chunk, train_x, train_y, val_x, val_y, end_epoch=end_epoch,
                                 begin_epoch=begin_epoch, seed=seed)
     except Exception as e:  # noqa: BLE001 - the reference scores a failed trial 0
-        if not is_device_error(e):
-            logging.warning("sweep stage chunk failed (%s); scoring 0", e)
-            return [0.0] * len(chunk)
-        if not (isinstance(e, torch.cuda.OutOfMemoryError) and len(chunk) > 1):
-            logging.error("DEVICE error in sweep stage (%s: %s) - aborting sweep",
-                          type(e).__name__, e)
-            raise
+        failure = e
+        kind = failure_kind(e)
+        if kind == "oom" and len(chunk) == 1:
+            kind = "device"  # a single trial out of memory cannot be halved
+        outcome = _OUTCOMES.index({"other": "failed", "oom": "out of memory",
+                                   "device": "device error"}[kind])
+    outcome = _OUTCOMES[comm.max_over_world(outcome)]
+    if outcome == "failed":
+        logging.warning("sweep stage chunk failed (%s); scoring 0", failure)
+        return [0.0] * len(chunk)
+    if outcome == "device error":
+        logging.error("DEVICE error in sweep stage (%s: %s) - aborting sweep",
+                      type(failure).__name__, failure)
+        if failure is not None and is_device_error(failure):
+            raise failure
+        raise RankDeviceError(f"another rank hit a device error in a sweep chunk"
+                              f"{'' if failure is None else f' ({failure})'}")
+    halve = outcome == "out of memory"
+    if halve:
         mid = len(chunk) // 2
         logging.warning("sweep chunk of %d ran out of card memory (%s); splitting to %d+%d",
-                        len(chunk), e, mid, len(chunk) - mid)
-        halve = True
-    if halve:
+                        len(chunk), failure or "on another rank", mid, len(chunk) - mid)
+        failure = None
         # out of the handler, so that the failed chunk's tensors, which its
         # traceback holds, are freed before the cache is emptied
         gc.collect()
@@ -102,6 +138,10 @@ def _run_chunk(task, chunk: list, data, end_epoch: int, seed: int, begin_epoch: 
         v = r["last_score"] if use_last else r["best_score"]
         out.append(0.0 if not np.isfinite(v) else float(v))
     return out
+
+
+# a chunk's outcomes, from the mildest; the world acts on the worst
+_OUTCOMES = ("trained", "failed", "out of memory", "device error")
 
 
 def _run_stage(task, jobs: list, data, end_epoch: int, seed: int, max_parallel: int, cache=None,
@@ -135,6 +175,7 @@ def _run_stage(task, jobs: list, data, end_epoch: int, seed: int, max_parallel: 
         cache.put(lr, wd, sc)
         for i in pending[(lr, wd)]:
             scores[i] = sc
+    comm.barrier()  # the main process's writes are on disk before any rank reads on
     return scores
 
 
@@ -266,7 +307,9 @@ def run_method(task, data, config, *, no_tuning: bool, lr: float, l2: float, see
     if config.TPU.CHECKPOINT_DIR:
         from ..ckpt import save_trainable
 
-        save_trainable(config.TPU.CHECKPOINT_DIR, task.last_bundle, step=end_epoch)
+        if comm.is_main_process():
+            save_trainable(config.TPU.CHECKPOINT_DIR, task.last_bundle, step=end_epoch)
+        comm.barrier()
     model_info["best_logits"] = res["best_logits"]
     logging.info("=> Learning rate %s, L2 lambda %s: Best score: Acc@1 %.3f",
                  best_lr, best_wd, res["best_score"])

@@ -33,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import dist as comm
 from ..utils.device import to_numpy
 
 # config keys that name OUTPUT locations: they cannot change a trial's score
@@ -143,8 +144,11 @@ class SweepCache:
         return self._scores.get(self._key(lr, wd))
 
     def put(self, lr: float, wd: float, score: float) -> None:
+        """Record a score; only the main process of a world writes it."""
         k = self._key(lr, wd)
         self._scores[k] = float(score)
+        if not comm.is_main_process():
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"lr": k[0], "wd": k[1], "score": float(score)}) + "\n")
             f.flush()

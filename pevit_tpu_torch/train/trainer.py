@@ -4,7 +4,7 @@ training runs with per-epoch evaluation (training subset of
 
 The reference runs an epoch as one XLA computation and trains a chunk of
 hyperparameter trials at once under ``vmap``, on a device mesh.  The port
-runs eagerly on one card and trains a chunk of trials as one batched
+runs eagerly, one process a card, and trains a chunk of trials as one batched
 computation too (``TrainTask.train_trials``), for every method and backbone,
 with the trial axis written out: the tower runs once a step on the chunk's
 T*B images, so its kernels launch once for the whole chunk, and only what
@@ -41,7 +41,16 @@ batched path is held to.  The math is the reference's:
   orders are used, one for every trial, and the chunk's trials take one
   batched step on each batch.
 
-TPU-side knobs of the config's ``TPU`` node are read and ignored, see
+In a world of several ranks (``utils.dist``) a call lays its trials and
+batches over a (trial, data, model) mesh of them as the reference does
+(``TrainTask._mesh_plan``, ``parallel.mesh``): a chunk's trials cut over
+the trial ranks, a lone trial's full batches cut over the data ranks
+(natural tails and eval remainders replicated), and with
+``TPU.MESH_MODEL`` a frozen CLIP tower's blocks cut over model ranks.  A
+world of one, or a plan of (1, 1, 1), takes the single-process code, bit
+for bit.
+
+Other TPU-side knobs of the config's ``TPU`` node are read and ignored, see
 ``IGNORED_TPU_KNOBS``.  ``TPU.FUSED_MLP`` is not read: on the card the fused
 kernel is the MLP's route for every method whose MLP weights are frozen and
 whose blocks need no bare MLP output (``UNFUSED_MLP_METHODS`` are the rest).
@@ -69,6 +78,7 @@ from ..peft.base import (
     peft_num_params,
     peft_trainable_filter,
 )
+from ..utils import dist as comm
 from ..utils.device import compute_dtype, resolve_device, to_numpy
 from .head import head_forward, init_bn_state, init_head
 from .optim import build_wd_mask, clip_grad_norm, make_optimizer, step_decay_lr
@@ -86,14 +96,12 @@ from .partition import (
 # (LayerNorm statistics in the activation dtype, for the whole run or for
 # the sweep's trials); the others change only how XLA schedules the same
 # math (remat, unrolling, layouts, a concatenated delta GEMM, folding LN2's
-# affine into c_fc), pick a kernel the port always runs, or lay trials and
-# batches over a device mesh (the port runs on one card).
+# affine into c_fc) or pick a kernel the port always runs.  The mesh knobs
+# (SWEEP_TRIALS_OVER_MESH, MESH_DATA, MESH_MODEL) are read by
+# ``TrainTask._mesh_plan``.
 IGNORED_TPU_KNOBS = {
     "FAST_LN": False,
     "FAST_LN_SWEEP": False,
-    "SWEEP_TRIALS_OVER_MESH": True,
-    "MESH_DATA": -1,
-    "MESH_MODEL": 1,
     "FOLD_LN2": False,
     "SCAN_UNROLL": 0,
     "STEP_UNROLL": 1,
@@ -108,6 +116,8 @@ IGNORED_TPU_KNOBS = {
 # MLP weights, and the adapter and Compacter hook the bare MLP output, which
 # the fused kernel never writes
 UNFUSED_MLP_METHODS = ("full_finetune", "adapter", "compacter")
+# the methods whose PEFT parameters enter through the attention's q/v delta
+ATTENTION_DELTA_METHODS = ("kadaptation", "lora")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +271,7 @@ def model_forward(
     mask: Optional[torch.Tensor] = None,
     forward_fn=None,
     trials: int = 0,
+    shard=None,
 ):
     """uint8 images -> (logits float32, bn_state).
 
@@ -282,7 +293,12 @@ def model_forward(
     trains (``full_finetune``), ``bn_state`` is (T, D), ``images_u8`` the
     trials' batches folded into one (T*B, ...), ``generator`` one generator
     per trial and ``mask`` (T, B); the tower runs once on the T*B images and
-    the logits come back (T, B, K)."""
+    the logits come back (T, B, K).
+
+    ``shard`` (a ``parallel.mesh.RowShard``) marks ``images_u8`` as this
+    rank's rows of a batch cut over a data axis: the attention delta reads
+    the whole batch (quirk 4) and the head's BN takes the whole batch's
+    statistics in training."""
     dt = static.dtype
     if forward_fn is not None:
         if images_u8.dim() != 4:
@@ -292,7 +308,7 @@ def model_forward(
         x = (x - preproc["mean"].to(dt)) / preproc["std"].to(dt)
         feats = forward_fn(bundle["clip"], x, train, generator, trials=trials)
     else:
-        feats = _encode_clip(static, bundle, images_u8, preproc, train, generator, trials)
+        feats = _encode_clip(static, bundle, images_u8, preproc, train, generator, trials, shard)
     feats = feats.float()
     if trials:
         feats = feats.view(trials, -1, feats.shape[-1])
@@ -305,16 +321,20 @@ def model_forward(
         use_bn=static.use_bn,
         normalize_feature=static.normalize_feature,
         apply_logit_scale=static.apply_logit_scale,
+        reduce=shard.total if shard is not None and train else None,
     )
 
 
 def _encode_clip(static: TaskStatic, bundle: dict, images_u8: torch.Tensor, preproc: dict,
-                 train: bool, generator, trials: int) -> torch.Tensor:
+                 train: bool, generator, trials: int, shard=None) -> torch.Tensor:
     """The CLIP visual tower's features of :func:`model_forward`'s images,
-    with the PEFT hooks of the task's method."""
+    with the PEFT hooks of the task's method (reading the whole batch under
+    a ``shard``)."""
     dt = static.dtype
-    kw = dict(spec=static.spec, peft=bundle.get("peft"),
-              hooks=make_hooks(static.peft_cfg, static.spec, train=train, trials=trials),
+    hooks = make_hooks(static.peft_cfg, static.spec, train=train, trials=trials)
+    if shard is not None and static.peft_cfg.reference_compat:
+        hooks = shard.hooks(hooks, trials)
+    kw = dict(spec=static.spec, peft=bundle.get("peft"), hooks=hooks,
               generator=generator,
               compute_dtype=dt, use_fused_mlp=static.use_fused_mlp,
               apply_proj=not static.merge_encoder_head_proj)
@@ -331,18 +351,20 @@ def _encode_clip(static: TaskStatic, bundle: dict, images_u8: torch.Tensor, prep
     return feats
 
 
-def _loss(static: TaskStatic, logits, labels, mask):
+def _loss(static: TaskStatic, logits, labels, mask, count=None):
     """Masked-mean CE (or BCE for multilabel): a scalar for (B, K) logits;
     for a batch of trials' (T, B, K), with labels and mask (T, B), each
-    trial's own masked mean, (T,)."""
+    trial's own masked mean, (T,).  ``count`` replaces the mask's count as
+    the denominator (a batch cut over a data axis: the whole batch's)."""
     if static.multilabel:
         per = (torch.clamp(logits, min=0) - logits * labels
                + torch.log1p(torch.exp(-logits.abs()))).mean(-1)
     else:
         logz = torch.logsumexp(logits, dim=-1)
         per = logz - logits.gather(-1, labels[..., None].long())[..., 0]
-    count = torch.clamp(mask.sum(-1), min=1.0)
-    return (per * mask).sum(-1) / count
+    if count is None:
+        count = mask.sum(-1)
+    return (per * mask).sum(-1) / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +387,7 @@ class TrainState(NamedTuple):
 
 
 def build_step_fn(static: TaskStatic, preproc: dict, lr_scales=None, wd_mask=None,
-                  forward_fn=None, trials: int = 0):
+                  forward_fn=None, trials: int = 0, mesh=None):
     """One training step on an explicit batch, the step of every epoch.
 
     Returns ``step(bundle, state, images, labels, lr, wd, generator) ->
@@ -377,24 +399,37 @@ def build_step_fn(static: TaskStatic, preproc: dict, lr_scales=None, wd_mask=Non
     With ``trials`` > 0 the step is a batch of T trials' (:func:`model_forward`):
     ``images`` (T*B, ...), ``labels`` (T, B), ``lr`` and ``wd`` (T,) tensors
     on the card, ``generator`` one per trial; the gradients are those of the
-    sum of the trials' losses, so each trial's parameters get its own."""
+    sum of the trials' losses, so each trial's parameters get its own.
+
+    On a ``mesh`` (``parallel.mesh.Mesh``) the step takes ``shard=`` (a
+    ``RowShard``) where its batch is this rank's rows of a batch cut over
+    the data axis: the loss divides by the whole batch's count and every
+    gradient is summed over the data axis.  Under tensor parallelism (the
+    bundle's tower cut over the model axis) the gradients of an attention
+    delta's PEFT parameters (KAdaptation's, LoRA's), of which each model
+    rank computed its heads' share, are summed over the model axis; the
+    head's, and an MLP hook's, are whole on every rank."""
     _, opt_update = make_optimizer(static.optimizer, momentum=static.momentum,
                                    nesterov=static.nesterov, lr_scales=lr_scales,
                                    wd_mask=wd_mask)
 
-    def step(bundle, state: TrainState, imgs, labs, lr, wd, generator) -> TrainState:
+    def step(bundle, state: TrainState, imgs, labs, lr, wd, generator,
+             shard=None) -> TrainState:
         params = state.params
         names = list(params)
         valid = torch.ones(labs.shape[:2] if trials else imgs.shape[:1], device=imgs.device)
+        count = None if shard is None else shard.total(valid.sum(-1))
         with torch.enable_grad():
             logits, new_bn = model_forward(static, bundle, state.bn, imgs, preproc,
                                            train=True, generator=generator, mask=valid,
-                                           forward_fn=forward_fn, trials=trials)
-            loss = _loss(static, logits, labs, valid)
+                                           forward_fn=forward_fn, trials=trials, shard=shard)
+            loss = _loss(static, logits, labs, valid, count)
             grads = torch.autograd.grad(loss.sum(), [params[n] for n in names],
                                         allow_unused=True)
         grads = {n: torch.zeros_like(params[n]) if g is None else g
                  for n, g in zip(names, grads)}
+        if mesh is not None:
+            loss = _reduce_grads(grads, loss.detach(), shard, mesh, static)
         if static.clip_grad_norm > 0:
             grads = clip_grad_norm(grads, static.clip_grad_norm, trials)
         opt_state = opt_update(grads, params, state.opt, lr, wd)
@@ -404,8 +439,25 @@ def build_step_fn(static: TaskStatic, preproc: dict, lr_scales=None, wd_mask=Non
     return step
 
 
+def _reduce_grads(grads: dict, loss: torch.Tensor, shard, mesh,
+                  static: TaskStatic) -> torch.Tensor:
+    """A mesh step's gradients summed in place: all of them over the data
+    axis where the batch was cut over it, an attention delta's PEFT ones
+    over the model axis (a method with an attention delta runs on a frozen
+    CLIP ViT tower, which a model axis always cuts:
+    ``TrainTask._tensor_parallel``).  Returns the loss, the whole batch's."""
+    from ..parallel.collectives import sum_tensors_
+
+    if shard is not None:
+        sum_tensors_(list(grads.values()) + [loss], shard.axis)
+    if static.peft_cfg.method in ATTENTION_DELTA_METHODS:
+        sum_tensors_([g for n, g in grads.items() if n.startswith("peft.")], mesh.model)
+    return loss
+
+
 def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=None,
-                   wd_mask=None, forward_fn=None, trials: int = 0):
+                   wd_mask=None, forward_fn=None, trials: int = 0, mesh=None,
+                   shard_steps: bool = True):
     """One training epoch over a split on the card.
 
     Returns ``epoch(bundle, images, labels, state, lr, wd, order=None) ->
@@ -418,9 +470,16 @@ def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=No
     each trial draws its order, then its dropout seed, from its own
     generator; a given ``order`` is one permutation for every trial or
     (T, n_train), one each; step i gathers each trial's batch i into one
-    (T*B, ...) batch."""
+    (T*B, ...) batch.
+
+    On a ``mesh`` with a data axis (and ``shard_steps``) each full step is cut
+    over it, every rank taking its rows of each trial's batch; the natural
+    tail runs whole on every rank, as the reference's replicated tail."""
+    from ..parallel.mesh import row_shard
+
     B = static.batch_size
-    step = build_step_fn(static, preproc, lr_scales, wd_mask, forward_fn, trials)
+    step = build_step_fn(static, preproc, lr_scales, wd_mask, forward_fn, trials, mesh)
+    shard = row_shard(mesh, B) if shard_steps else None
 
     def epoch(bundle, images, labels, state: TrainState, lr, wd, order=None) -> TrainState:
         gens = list(state.generator) if trials else [state.generator]
@@ -430,20 +489,23 @@ def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=No
         order = torch.as_tensor(np.array(order), dtype=torch.long).to(images.device)
         order = order.expand(len(gens), n_train)
 
-        def run_step(cols, step_i):
+        def run_step(cols, step_i, part=None):
             nonlocal state
             step_gens = [torch.Generator(device=images.device).manual_seed(s + step_i)
                          for s in drop_seeds]
-            idx = order[:, cols].reshape(-1)
+            idx = order[:, cols]
+            if part is not None:
+                idx = idx[:, part.lo:part.hi]
+            idx = idx.reshape(-1)
             imgs, labs = images.index_select(0, idx), labels.index_select(0, idx)
             if trials:
                 labs = labs.view(trials, -1, *labels.shape[1:])
-            state = step(bundle, state, imgs, labs, lr, wd,
-                         step_gens if trials else step_gens[0])
+            state = step(bundle, state, imgs, labs, lr, wd, step_gens if trials else step_gens[0],
+                         **({} if part is None else {"shard": part}))
 
         steps_full = n_train // B
         for i in range(steps_full):
-            run_step(slice(i * B, (i + 1) * B), i)
+            run_step(slice(i * B, (i + 1) * B), i, shard)
         if n_train - steps_full * B > 1:  # a size-1 tail is skipped
             run_step(slice(steps_full * B, n_train), steps_full)
         return state
@@ -451,26 +513,39 @@ def build_epoch_fn(static: TaskStatic, n_train: int, preproc: dict, lr_scales=No
     return epoch
 
 
-def build_eval_fn(static: TaskStatic, preproc: dict, forward_fn=None, trials: int = 0):
+def build_eval_fn(static: TaskStatic, preproc: dict, forward_fn=None, trials: int = 0,
+                  mesh=None, eval_chunk: int = 0):
     """``eval_chunk(bundle, bn_state, imgs) -> float32 logits`` in eval
     mode, without autograd.  With ``trials`` > 0 every trial evaluates the
     same chunk: it is repeated T times on its device (one copy), the tower
-    runs once on them all, and the logits come back (T, chunk, K)."""
+    runs once on them all, and the logits come back (T, chunk, K).
 
-    def eval_chunk(bundle, bn_state, imgs):
+    On a ``mesh`` with a data axis a full chunk of ``eval_chunk`` images is
+    cut over it and every rank's logits gathered; a shorter chunk (the
+    natural remainder) runs whole on every rank, as the reference's."""
+    from ..parallel.mesh import row_shard
+
+    def eval_chunk_fn(bundle, bn_state, imgs):
+        shard = row_shard(mesh, len(imgs)) if len(imgs) == eval_chunk else None
+        if shard is not None:
+            imgs = shard.take(imgs)
         with torch.no_grad():
             if trials:
                 imgs = imgs.unsqueeze(0).expand(trials, *imgs.shape).reshape(-1, *imgs.shape[1:])
             logits, _ = model_forward(static, bundle, bn_state, imgs, preproc, train=False,
-                                      forward_fn=forward_fn, trials=trials)
+                                      forward_fn=forward_fn, trials=trials, shard=shard)
+            if shard is not None:
+                rest = logits.shape[-2:]
+                logits = shard.gather(logits.reshape(-1, rest[-1]), max(trials, 1))
+                logits = logits.view(*((trials,) if trials else ()), -1, rest[-1])
         return logits.float()
 
-    return eval_chunk
+    return eval_chunk_fn
 
 
 def build_fit_eval_fn(static: TaskStatic, n_train: int, n_epochs: int, preproc: dict, *,
                       eval_chunk: int, n_val: int, lr_scales=None, wd_mask=None,
-                      forward_fn=None, trials: int = 0):
+                      forward_fn=None, trials: int = 0, mesh=None, shard_steps: bool = True):
     """Train ``n_epochs`` and evaluate after every epoch.
 
     Returns ``fit_eval(bundle, images, labels, val_images, state, lr_table,
@@ -481,9 +556,14 @@ def build_fit_eval_fn(static: TaskStatic, n_train: int, n_epochs: int, preproc: 
 
     With ``trials`` > 0 it is a batch of T trials' (:func:`build_epoch_fn`):
     ``lr_table`` is (T, n_epochs) and ``wd`` (T,), copied to the images'
-    device once, and ``logits`` come back (T, n_epochs, n_val, K)."""
-    epoch = build_epoch_fn(static, n_train, preproc, lr_scales, wd_mask, forward_fn, trials)
-    one_chunk = build_eval_fn(static, preproc, forward_fn, trials)
+    device once, and ``logits`` come back (T, n_epochs, n_val, K).
+
+    ``mesh`` cuts full steps and full eval chunks over its data axis
+    (:func:`build_epoch_fn`, :func:`build_eval_fn`); every rank gets every
+    logit."""
+    epoch = build_epoch_fn(static, n_train, preproc, lr_scales, wd_mask, forward_fn, trials,
+                           mesh, shard_steps)
+    one_chunk = build_eval_fn(static, preproc, forward_fn, trials, mesh, eval_chunk)
 
     def fit_eval(bundle, images, labels, val_images, state, lr_table, wd, orders=None):
         lrs = lr_table
@@ -558,6 +638,7 @@ class TrainTask:
                                            nesterov=static.nesterov)
         self.preproc = {k: torch.tensor(np.asarray(v, np.float32), device=self.device)
                         for k, v in (("mean", config.INPUT.MEAN), ("std", config.INPUT.STD))}
+        self._tp_towers = {}  # a model rank's tower a mesh shape (``_tp_tower``)
 
     # -- input path ---------------------------------------------------------
 
@@ -626,10 +707,76 @@ class TrainTask:
         return [getattr(self.clip, n) for n in ("text", "logit_scale") if hasattr(self.clip, n)]
 
     def max_parallel_trials(self) -> int:
-        """The sweep's trial chunk: TPU.SWEEP_PARALLEL_TRIALS, the trials
-        that ``train_trials`` trains as one batch on the card (one card, so
-        no mesh multiplies it)."""
-        return max(1, self.config.TPU.SWEEP_PARALLEL_TRIALS)
+        """The sweep's trial chunk: TPU.SWEEP_PARALLEL_TRIALS a card, the
+        trials that ``train_trials`` trains as one batch on each, times the
+        world's cards when trials are laid over the mesh
+        (TPU.SWEEP_TRIALS_OVER_MESH; reference trainer.py:794-801)."""
+        per_dev = max(1, self.config.TPU.SWEEP_PARALLEL_TRIALS)
+        if not bool(self.config.TPU.get("SWEEP_TRIALS_OVER_MESH", True)):
+            return per_dev
+        return per_dev * comm.world_size()
+
+    def _mesh_plan(self, n_trials: int):
+        """(mesh, n_trial, n_data): the mesh of the world's ranks for a call
+        of ``n_trials`` trials, as the reference plans its devices
+        (``pevit_tpu/train/trainer.py:745-792``).  Trials claim ranks first
+        (each trains its share, no collective); a single trial (the final
+        run) cuts its batch over a "data" axis instead (TPU.MESH_DATA: -1
+        auto, 0/1 off, >1 a cap; at least two images a rank);
+        TPU.MESH_MODEL > 1 adds a "model" axis of tensor parallelism on a
+        CLIP tower.  ``(None, 1, 1)`` when every axis collapses, and then
+        the call takes the single-process code."""
+        D = comm.world_size()
+        if D <= 1:
+            return None, 1, 1
+        tpu = self.config.TPU
+        n_m = max(1, int(tpu.get("MESH_MODEL", 1)))
+        if n_m > 1 and (self.backbone is not None or D // n_m < 1):
+            n_m = 1
+        D_td = D // n_m
+        n_t = 1
+        if bool(tpu.get("SWEEP_TRIALS_OVER_MESH", True)) and n_trials > 1:
+            n_t = min(D_td, n_trials)
+            while n_t > 1 and n_trials % n_t:
+                n_t -= 1
+        md = int(tpu.get("MESH_DATA", -1))
+        if 0 <= md <= 1:
+            n_d = 1
+        elif n_trials == 1 or md > 1:
+            n_d = D_td // n_t if md < 0 else min(D_td // n_t, md)
+        else:
+            n_d = 1
+        n_d = min(n_d, max(1, self.static.batch_size // 2))
+        if n_t == 1 and n_d == 1 and n_m == 1:
+            return None, 1, 1
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh(n_data=n_d, n_model=n_m, n_trial=n_t), n_t, n_d
+
+    def _tensor_parallel(self, mesh) -> bool:
+        """Whether the mesh's model axis cuts the tower: a frozen CLIP ViT
+        tower only (the reference shards the frozen CLIP tree; under
+        full_finetune the tower trains, and it stays whole on every rank)."""
+        return (mesh.model.size > 1 and self.backbone is None and not self._trains_tower
+                and self.static.spec.vision_rn is None)
+
+    def _tp_tower(self, mesh):
+        """The task's tower as this model rank holds it
+        (``parallel.mesh.shard_params``), built once a mesh."""
+        if mesh.shape not in self._tp_towers:
+            from ..parallel.mesh import shard_params
+
+            self._tp_towers[mesh.shape] = shard_params(self.clip, mesh,
+                                                       self.static.spec.vision.heads)
+        return self._tp_towers[mesh.shape]
+
+    @property
+    def _row_local_train(self) -> bool:
+        """Whether a train-mode forward reads each row alone but for the
+        attention delta (which :class:`RowShard` gathers): not a backbone
+        that draws train-time randomness a row (Swin's drop path), whose
+        draws depend on the whole batch; its data axis runs whole batches."""
+        return self.backbone is None or self.backbone.forward_features_train is None
 
     @property
     def batches_trials(self) -> bool:
@@ -687,13 +834,15 @@ class TrainTask:
                     logging.info("no weight decay: %s", n)
         return mask
 
-    def _fit_eval_fn(self, n_train: int, n_epochs: int, n_val: int, trials: int = 0):
+    def _fit_eval_fn(self, n_train: int, n_epochs: int, n_val: int, trials: int = 0,
+                     mesh=None):
         """:func:`build_fit_eval_fn` for one trial, or for a batch of
-        ``trials``."""
+        ``trials``, on ``mesh`` where given."""
         return build_fit_eval_fn(self.static, n_train, n_epochs, self.preproc,
                                  eval_chunk=self.eval_chunk, n_val=n_val,
                                  lr_scales=self._lr_scales(), wd_mask=self._wd_mask(),
-                                 forward_fn=self._forward_fn, trials=trials)
+                                 forward_fn=self._forward_fn, trials=trials, mesh=mesh,
+                                 shard_steps=self._row_local_train)
 
     def _labels(self, labels) -> torch.Tensor:
         dt = torch.float32 if self.static.multilabel else torch.long
@@ -719,11 +868,14 @@ class TrainTask:
         probs = _softmax(logits.cpu().numpy())
         return self._score(to_numpy(labels), probs), probs
 
-    def _evaluate_trials(self, bundle, bn_state, images_u8, labels, trials: int) -> list:
+    def _evaluate_trials(self, bundle, bn_state, images_u8, labels, trials: int,
+                         mesh=None) -> list:
         """A batch of trials (the stacked ``bundle`` and (T, D) ``bn_state``)
         over a whole split in natural-size chunks, every trial on each chunk
-        in one forward; returns each trial's (score, probs)."""
-        one_chunk = build_eval_fn(self.static, self.preproc, self._forward_fn, trials=trials)
+        in one forward (full chunks cut over ``mesh``'s data axis); returns
+        each trial's (score, probs)."""
+        one_chunk = build_eval_fn(self.static, self.preproc, self._forward_fn, trials=trials,
+                                  mesh=mesh, eval_chunk=self.eval_chunk)
         n = len(labels)
         logits = torch.cat([one_chunk(bundle, bn_state, self.prepack(images_u8[s:s + self.eval_chunk]))
                             for s in range(0, n, self.eval_chunk)], dim=1).cpu().numpy()
@@ -747,40 +899,145 @@ class TrainTask:
         trainable partition, trained bundle and state (on the batched path
         views of its slice of the stacks).  A numpy ``train_images`` above
         ``TPU.MAX_DEVICE_DATA_GB`` is streamed from host memory
-        (:meth:`_train_trials_streaming`)."""
+        (:meth:`_train_trials_streaming`).
+
+        In a world of several ranks the call lays its trials and batches
+        over the mesh :meth:`_mesh_plan` gives (:meth:`_train_trials_mesh`);
+        every rank returns every trial's result."""
+        kw = dict(end_epoch=end_epoch, begin_epoch=begin_epoch, seed=seed,
+                  keep_logits=keep_logits, log_every=log_every)
+        T = len(hparams)
+        results = [{"best_score": 0.0, "last_score": 0.0, "best_logits": None} for _ in hparams]
+        if end_epoch - begin_epoch <= 0:
+            self._keep_untrained(seed, T)
+            return results
+        mesh, _, _ = self._mesh_plan(T)
+        if mesh is not None:
+            return self._train_trials_mesh(mesh, hparams, train_images, train_labels, val_images,
+                                           val_labels, results=results, **kw)
+        batch = self._init_trials(seed, T)
+        self._train_batch(batch, hparams, train_images, train_labels, val_images, val_labels,
+                          results=results, **kw)
+        return results
+
+    def _train_batch(self, batch: "TrialBatch", hparams: list, train_images, train_labels,
+                     val_images, val_labels, *, results: list, end_epoch: int, begin_epoch: int,
+                     seed: int, keep_logits: bool, log_every: int, first: int = 0,
+                     mesh=None) -> None:
+        """Train ``batch`` (trials ``first`` .. ``first + T - 1`` of the
+        call), evaluating after every epoch, into ``results``; on ``mesh``
+        its full steps and eval chunks cut over the data axis."""
         kw = dict(end_epoch=end_epoch, begin_epoch=begin_epoch, seed=seed,
                   keep_logits=keep_logits, log_every=log_every)
         T = len(hparams)
         n_train, n_val = len(train_labels), len(val_labels)
         n_epochs = end_epoch - begin_epoch
-        results = [{"best_score": 0.0, "last_score": 0.0, "best_logits": None} for _ in hparams]
-        if n_epochs <= 0:
-            self._keep_untrained(seed, T)
-            return results
-        batch = self._init_trials(seed, T)
         if self._streams(train_images):
-            return self._train_trials_streaming(hparams, train_images, train_labels, val_images,
-                                                val_labels, results=results, batch=batch, **kw)
+            self._train_trials_streaming(hparams, train_images, train_labels, val_images,
+                                         val_labels, results=results, batch=batch, mesh=mesh,
+                                         **kw)
+            return
         images, labels = self.prepack(train_images), self._labels(train_labels)
         val = self.prepack(val_images)
         labels_np = to_numpy(val_labels)
         schedule = list(self.config.TRAIN.SCHEDULE or [])
         lr_table = [[step_decay_lr(float(lr), e, schedule) for e in range(begin_epoch, end_epoch)]
                     for lr, _ in hparams]
-        fit_eval = self._fit_eval_fn(n_train, n_epochs, n_val, T)
+        # a mesh by keyword only: the single-process call is the one it was
+        fit_eval = self._fit_eval_fn(n_train, n_epochs, n_val, T,
+                                     **({} if mesh is None else {"mesh": mesh}))
         t0 = time.perf_counter()
         state, logits = fit_eval(batch.bundle, images, labels, val, batch.state, lr_table,
                                  [float(wd) for _, wd in hparams])
         logits_np = logits.cpu().numpy()  # (T, E, n_val, K)
         run_s = time.perf_counter() - t0
         for t, res in enumerate(results):
-            self._score_epochs(t, res, logits_np[t], labels_np, begin_epoch, keep_logits,
+            self._score_epochs(first + t, res, logits_np[t], labels_np, begin_epoch, keep_logits,
                                log_every)
         if log_every:
             logging.info("=> %d trials x %d epochs in %.2fs | best: %s", T, n_epochs, run_s,
                          " ".join(f"{r['best_score']:.3f}" for r in results))
         self._keep_last(batch, state)
+
+    def _train_trials_mesh(self, mesh, hparams: list, train_images, train_labels, val_images,
+                           val_labels, *, results: list, seed: int, **kw) -> list:
+        """:meth:`train_trials` on a mesh of the world's ranks.
+
+        Trial rank i trains trials ``i * T / n_t`` .. of the call, drawn by
+        their global index (a trial gives the same result on any rank); its
+        data ranks cut each full batch, its model ranks the tower
+        (:meth:`_tensor_parallel`).  Then every rank sends its outcome and
+        one rank of each trial part its results, so that every rank returns
+        every result and takes the same decisions after.  A failure on any
+        rank raises on every rank, as the same kind: running out of card
+        memory (``torch.cuda.OutOfMemoryError``, which the sweep halves),
+        another device error (``sweep.RankDeviceError``), or anything else.
+        ``last_*`` then hold trial T-1's, broadcast from its trial rank."""
+        T, n_t = len(hparams), mesh.shape[0]
+        per = T // n_t
+        first = mesh.trial.index * per
+        local, failure = None, None
+        try:
+            if mesh.member:
+                batch = self._init_trials(seed, per, first)
+                if self._tensor_parallel(mesh):
+                    batch = batch._replace(bundle={**batch.bundle, "clip": self._tp_tower(mesh)})
+                local = results[first:first + per]
+                self._train_batch(batch, hparams[first:first + per], train_images, train_labels,
+                                  val_images, val_labels, results=local, seed=seed, first=first,
+                                  mesh=mesh, **kw)
+        except Exception as e:  # noqa: BLE001 - every rank must hear of it
+            failure = e
+        sends = mesh.member and mesh.data.index == 0 and mesh.model.index == 0
+        from .sweep import failure_kind
+
+        outcomes = comm.all_gather_object(
+            (failure_kind(failure), None if failure is None else f"{type(failure).__name__}: "
+             f"{failure}", first if sends and failure is None else None, local if sends else None))
+        for r, (kind, msg, _, _) in enumerate(outcomes):
+            if kind is not None:
+                if failure is not None:
+                    raise failure
+                raise _rank_failure(kind, r, msg)
+        for _, _, at, res in outcomes:
+            if at is not None:
+                results[at:at + len(res)] = res
+        if n_t > 1 or math.prod(mesh.shape) < comm.world_size():  # a rank lacks trial T-1
+            self._share_last(mesh, seed, T)
         return results
+
+    def _share_last(self, mesh, seed: int, n_trials: int) -> None:
+        """``last_trainable``, ``last_bundle`` and ``last_state`` of trial
+        T-1 on every rank: broadcast from the first rank of its trial part;
+        a rank that did not train it draws its bundle and copies the trained
+        values in."""
+        import torch.distributed as dist
+
+        owner = mesh.rank_of(mesh.shape[0] - 1, 0, 0)
+        payload = [None]
+        if comm.rank() == owner:
+            st = self.last_state
+            payload = [{"params": {n: p.detach().cpu() for n, p in st.params.items()},
+                        "opt": _tensor_leaves(st.opt), "bn": {k: v.cpu() for k, v in st.bn.items()},
+                        "generator": st.generator.get_state(),
+                        "loss": None if st.loss is None else st.loss.cpu()}]
+        dist.broadcast_object_list(payload, src=owner)
+        if mesh.member and mesh.trial.index == mesh.shape[0] - 1:
+            return
+        got = payload[0]
+        batch = self._init_trials(seed, 1, n_trials - 1)
+        self._keep_last(batch, batch.state)
+        st = self.last_state
+        with torch.no_grad():
+            for n, p in st.params.items():
+                p.copy_(got["params"][n])
+            for dst, src in zip(_tensor_leaves(st.opt), got["opt"]):
+                dst.copy_(src)
+            for k, v in st.bn.items():
+                v.copy_(got["bn"][k])
+        st.generator.set_state(got["generator"])
+        loss = None if got["loss"] is None else got["loss"].to(self.device)
+        self.last_state = st._replace(loss=loss)
 
     def _train_trials_serial(self, hparams: list, train_images, train_labels, val_images,
                              val_labels, *, end_epoch: int, begin_epoch: int = 0, seed: int = 0,
@@ -857,16 +1114,17 @@ class TrainTask:
         return trainable, frozen, TrainState(params, self._opt_init(params), bn,
                                              torch.Generator().manual_seed(base + 1))
 
-    def _init_trials(self, seed: int, n_trials: int) -> "TrialBatch":
-        """Trials 0..T-1 as one batch: each drawn by :meth:`init_bundle` from
-        the generators :meth:`_init_trial` seeds, then stacked
+    def _init_trials(self, seed: int, n_trials: int, first: int = 0) -> "TrialBatch":
+        """Trials ``first`` .. ``first + T - 1`` as one batch: each drawn by
+        :meth:`init_bundle` from the generators :meth:`_init_trial` seeds
+        for its index, then stacked
         (``partition.stack_trials``; each trial's modules become views of its
         slice), with a (T, D) BN state, the optimiser state of the stacked
         parameters and the trials' T generators.  Under full_finetune each
         trial's bundle holds an alias of the pretrained tower (no copy), so
         the stack is the only copy of it the batch makes."""
         trees, bundles, bns, gens = [], [], [], []
-        for t in range(n_trials):
+        for t in range(first, first + n_trials):
             base = seed * 1_000_003 + 2 * t
             tower = (alias(self.clip, self._shared_parts()),) if self._trains_tower else ()
             trainable, frozen, bn = self.init_bundle(torch.Generator().manual_seed(base), *tower)
@@ -893,17 +1151,19 @@ class TrainTask:
     def _train_trials_streaming(self, hparams, train_images: np.ndarray, train_labels,
                                 val_images, val_labels, *, results: list, begin_epoch: int,
                                 end_epoch: int, seed: int, keep_logits: bool, log_every: int,
-                                batch: Optional["TrialBatch"] = None) -> list:
+                                batch: Optional["TrialBatch"] = None, mesh=None) -> list:
         """``train_trials`` over a host-resident train split (``streaming.py``):
         the ``batch`` of trials takes one batched step on each streamed batch
         and is evaluated in one forward per val chunk after every epoch;
         without a batch (the serial path) every trial steps on each batch in
-        turn and is evaluated through :meth:`evaluate`."""
+        turn and is evaluated through :meth:`evaluate`.  On ``mesh`` each
+        data rank gathers and copies only its rows of each full batch."""
         from .streaming import StreamingEpochRunner
 
         T = len(hparams)
         runner = StreamingEpochRunner(self, lr_scales=self._lr_scales(), wd_mask=self._wd_mask(),
-                                      trials=0 if batch is None else T)
+                                      trials=0 if batch is None else T, mesh=mesh,
+                                      shard_steps=self._row_local_train)
         if batch is None:
             trials = [self._init_trial(seed, t) for t in range(T)]
             runs = [(combine(trainable, frozen), state) for trainable, frozen, state in trials]
@@ -928,7 +1188,7 @@ class TrainTask:
                           for (trainable, frozen, _), (_, state) in zip(trials, runs)]
             else:
                 scored = self._evaluate_trials(batch.bundle, runs[0][1].bn, val_images,
-                                               labels_np, T)
+                                               labels_np, T, mesh)
             for res, (score, probs) in zip(results, scored):
                 _update_result(res, score, probs, epoch == begin_epoch, keep_logits)
             if log_every and (epoch % log_every == 0 or epoch == end_epoch - 1):
@@ -950,6 +1210,27 @@ class TrialBatch(NamedTuple):
     trees: list
     bundle: dict
     state: TrainState
+
+
+def _tensor_leaves(x) -> list:
+    """The tensors of an optimiser or BN state, in a fixed order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensor_leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensor_leaves(v)]
+    return []
+
+
+def _rank_failure(kind: str, rank: int, msg: str) -> BaseException:
+    """The exception a rank raises for another rank's failure, of its kind."""
+    from .sweep import RankDeviceError
+
+    text = f"rank {rank} failed: {msg}"
+    if kind == "oom":
+        return torch.cuda.OutOfMemoryError(text)
+    return RankDeviceError(text) if kind == "device" else RuntimeError(text)
 
 
 def _trial_slice(x, t: int):

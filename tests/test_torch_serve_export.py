@@ -185,14 +185,18 @@ def test_artifact_matches_the_in_process_serving_fn(artifacts):
         np.testing.assert_array_equal(got.numpy(), serve(x).numpy())
 
 
-# forward_fn (an auxiliary backbone's forward) is ported; a mesh still
-# raises with it (tests/test_torch_backbone_probe.py serves and exports it)
-@pytest.mark.parametrize("option", [{"mesh": object()},
-                                    {"forward_fn": lambda p, x, t, g=None: x, "mesh": object()},
+# forward_fn (an auxiliary backbone's forward) is ported
+# (tests/test_torch_backbone_probe.py serves and exports it); a mesh is
+# ported too, and is refused in a world of another width
+# (tests/test_torch_parallel.py serves one); platforms has no counterpart
+@pytest.mark.parametrize("option", [{"mesh": 4},
+                                    {"forward_fn": lambda p, x, t, g=None: x, "mesh": 4},
                                     {"platforms": ("cuda",)}])
 def test_unported_options_raise(option):
     static, trainable, frozen, bn_t = _port_task()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    want = ((ValueError, "world of 4 ranks") if "mesh" in option
+            else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(want[0], match=want[1]):
         export_classifier(static, trainable, frozen, bn_t, PREPROC, image_size=RES,
                           device="cpu", **option)
 
