@@ -13,10 +13,13 @@ on):
 3. kernels: hold the attention and fused-MLP forward kernels against their
    plain PyTorch versions on the card at the serving path's shapes and
    dtypes (and at the training batch of 128; attention also at the eval
-   remainder of 8 images; fp32 attention also at a ViT-B/16 backbone's
-   batch of 64 images, N = 197), and time kernel, plain version and, where one
+   remainder of 8 images, at N = 577 (ViT-L/14 at 336 px, 16 heads, phase
+   15's batch of 32) and at N = 1025 (8 images), both dtypes; fp32
+   attention also at a ViT-B/16 backbone's batch of 64 images, N = 197),
+   and time kernel, plain version and, where one
    exists, the PyTorch library call computing the same function.  Each
-   kernel has a bf16 and an fp32 body; the dtype picks it.  The fused-MLP
+   kernel has a bf16 and an fp32 body; the dtype picks it (and in K1's
+   bf16, N picks one of two bodies, below).  The fused-MLP
    forward (K2) rows carry ``gemm_ms``, its two products as ``torch.matmul``
    calls, a yardstick the port never calls.  K1's and K2's fp32 bodies run
    three TF32 products on the tensor cores: every fp32 row of theirs, here
@@ -31,7 +34,11 @@ on):
    whose accumulation truncates toward zero fails even where its max
    error passes.  fp32 rows carry both bounds, the FMA units' (ops /
    67 TFLOP/s) and three TF32 products' (3 ops / 495), and ``bound_ms`` is
-   the lower (``bound_peak`` names it);
+   the lower (``bound_peak`` names it); and
+   K1's two bf16 bodies, the register body (N <= 257) and the long body
+   (beyond), both timed in turns at N = 50, 197 and 257 (the long body
+   from a copy of the source built beside the kernels with the register
+   body's ceiling set to 0);
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
@@ -169,8 +176,9 @@ on):
    each leaf's largest |g|, bf16 cosine >= 0.99; the final LayerNorm's
    bias, whose gradient the head's BN cancels, held as phase 7's ln_post
    bias; its scale, which the BN divides out up to its eps, in fp32
-   within 1e-2 of its own largest |g|, 4x the gap that an attention in
-   float64 rounded to float32 gives it: ``tools/fp32_grad_witness.py``);
+   within 2x the gap to the plain path, on its own size, that an
+   attention in float64 rounded to float32 gives it in the same run, the
+   witness of ``tools/fp32_grad_witness.py``);
    one 64-image forward each of ViT-B/32, DeiT-B/16 and MoCo-v3 B/16
    (features within 1e-4 of the plain path's, feature images/s);
    ``linear_probe`` on ``vitb32_DeCLIP`` with the text-initialised head
@@ -265,7 +273,23 @@ on):
    1e-3 of the largest logit of the serving fn); each rank's launches
    printed and held to its batches, the ranks' results equal; each kernel
    held against its plain version at every batch a rank gave it;
-15. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 14,
+15. CLIP ViT-L/14 at 336 px (N = 577), at full width and depth (24 x 1024,
+   16 heads): a seeded OpenAI-layout state dict with a 577-row positional
+   embedding (1.7 GB, both towers) written and read by ``load_clip`` onto
+   the card (the spec from its keys, input_resolution 336; every tensor
+   bit for bit); the bf16 KAdaptation classifier (a 64-class head fitted
+   to the 64 seeded images it serves, one class each, as phase 8's)
+   through ``make_serving_fn`` on uint8 images at batches 1, 8 and 64:
+   24 K1 and 24 K2 launches a forward, logits and top-1 against the
+   plain path (phase 4's limits), images/s at 64 and
+   K1's share of that forward from a CUDA-only profile; a bf16 KAdaptation
+   run through ``train_trials`` at batch 32 (96 train images, 3 steps, and
+   32 val images, one eval chunk; dropout 0.5): 24 K1, K2 and K3 launches
+   a step, K1 and K2 an eval chunk, the card's peak allocation, train
+   images/s, first-step fp32 gradients against the plain path at phase
+   5's limits; each kernel held against its plain version at every batch
+   each path gave it;
+16. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 15,
    summed and by path (each path's counts are zeroed just before it and read
    just after; phase 9's and the exported MAE probe's are the fresh
    process's, reported by it), the other numbers at the batch that launched
@@ -292,6 +316,7 @@ import io
 import json
 import logging
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -526,6 +551,52 @@ def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12):
             **bound_fields(4 * B * H * n * hd * esize, 4 * B * H * n * n * hd, dtype)}
 
 
+def long_body_kernel(tmp: Path):
+    """K1's library built from a copy of its source whose launcher sends
+    every bf16 N to the long body (the register body's ceiling set to 0), so
+    that the long body can be timed where the register body runs; a
+    measurement aid, never on a path."""
+    from pevit_tpu_torch.ops import attention
+    from pevit_tpu_torch.ops._build import CSRC, Kernel
+
+    shutil.copytree(CSRC, tmp / "csrc")
+    src = tmp / "csrc" / "attention_fwd.cu"
+    text, old = src.read_text(), "constexpr int MAX_SEQ_REGS = 257;"
+    if text.count(old) != 1:
+        raise AssertionError("attention_fwd.cu no longer sets MAX_SEQ_REGS = 257 once")
+    src.write_text(text.replace(old, "constexpr int MAX_SEQ_REGS = 0;"))
+    return Kernel("attention_fwd", str(src), attention.KERNEL.argtypes,
+                  replaces=attention.KERNEL.replaces)
+
+
+def time_bf16_bodies(gen, long_only, n, batch=SERVE_BATCH, heads: int = 12) -> dict:
+    """K1's two bf16 bodies at one N <= 257: the register body (what the
+    launcher runs there) and the long body (``long_only``), each held
+    against the plain version and timed in turns (register, long, long,
+    register; the mean of each one's two medians), beside SDPA."""
+    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref
+    from pevit_tpu_torch.tools.attention_bodies import launching
+
+    q, k, v = (torch.randn(batch, n, heads, 64, device="cuda", generator=gen) * s
+               for s in (0.25, 0.25, 1.0))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    t = lambda x: x.transpose(1, 2)
+    want = t(attention_ref(t(q), t(k), t(v)))
+    with launching(long_only):
+        err = check_close(f"attention_fwd long body N={n}", attention_fwd(q, k, v), want,
+                          2e-2, 2e-2)
+    turns = {"register": [], "long": []}
+    for body in ("register", "long", "long", "register"):
+        with launching(long_only) if body == "long" else contextlib.nullcontext():
+            turns[body].append(time_ms(lambda: attention_fwd(q, k, v)))
+    qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
+    return {"shape": f"B*H={batch}*{heads} N={n} hd=64", "long_max_abs_err": err,
+            "register_ms": statistics.mean(turns["register"]),
+            "long_ms": statistics.mean(turns["long"]), "turns_ms": turns,
+            "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, scale=1.0))}
+
+
 def check_fused_mlp(gen, dtype, c, rows):
     from pevit_tpu_torch.ops.fused_mlp import fused_mlp_fwd, fused_mlp_residual_ref
 
@@ -661,7 +732,10 @@ def seed_peft(peft, gen, method: str, scale: float = 0.5) -> None:
         seed_baseline(peft, gen, method)
 
 
-def build_classifier(seed: int, method: str = "kadaptation", num_classes: int = 100):
+def build_classifier(seed: int, method: str = "kadaptation", num_classes: int = 100,
+                     tower: tuple = None):
+    """A classifier on a seeded ViT-B/32 tower, or on ``tower`` = (clip,
+    spec) where given."""
     from pevit_tpu_torch.core import CLIPSpec, init_clip_params
     from pevit_tpu_torch.data import CLIP_MEAN, CLIP_STD
     from pevit_tpu_torch.peft import PeftConfig, init_peft
@@ -669,11 +743,12 @@ def build_classifier(seed: int, method: str = "kadaptation", num_classes: int = 
     from pevit_tpu_torch.train.trainer import UNFUSED_MLP_METHODS, TaskStatic
 
     gen = torch.Generator().manual_seed(seed)
-    spec = CLIPSpec.vit_b32()
+    clip, spec = tower or (None, CLIPSpec.vit_b32())
     cfg = PeftConfig(method=method)
     static = TaskStatic(spec=spec, peft_cfg=cfg, num_classes=num_classes,
                         use_fused_mlp=method not in UNFUSED_MLP_METHODS)
-    clip = init_clip_params(gen, spec, device="cuda")
+    if clip is None:
+        clip = init_clip_params(gen, spec, device="cuda")
     peft = init_peft(gen, cfg, spec, device="cuda")
     seed_peft(peft, gen, method)
     head = init_head(gen, static.head_dim, static.num_classes, device="cuda")
@@ -816,10 +891,11 @@ TRAIN_FACTOR_SCALE = 0.1
 
 
 def make_task(clip, dtype_name: str, dropout_p: float, method: str = "kadaptation", *,
-              batch: int = TRAIN_BATCH, tpu: dict = None):
-    """A ViT-B/32 task of ``method`` (KAdaptation unless given) through the
-    config entry points, on the given frozen tower, whose bundles carry
-    seeded non-zero factors (``seed_peft``); ``tpu`` sets TPU knobs."""
+              batch: int = TRAIN_BATCH, tpu: dict = None, spec=None):
+    """A ViT-B/32 task (of ``spec`` where given) of ``method``
+    (KAdaptation unless given) through the config entry points, on the
+    given frozen tower, whose bundles carry seeded non-zero factors
+    (``seed_peft``); ``tpu`` sets TPU knobs."""
     from pevit_tpu_torch.config import get_default_config
     from pevit_tpu_torch.core import CLIPSpec
     from pevit_tpu_torch.peft import PeftConfig
@@ -833,7 +909,7 @@ def make_task(clip, dtype_name: str, dropout_p: float, method: str = "kadaptatio
     for k, v in (tpu or {}).items():
         cfg.TPU[k] = v
     cfg.freeze()
-    static = TaskStatic.from_config(cfg, CLIPSpec.vit_b32(),
+    static = TaskStatic.from_config(cfg, spec or CLIPSpec.vit_b32(),
                                     PeftConfig(method=method, kadapt_dropout_p=dropout_p))
     task = TrainTask(cfg, static, clip, device="cuda")
     init = task.init_bundle
@@ -861,22 +937,23 @@ def train_data(prototypes, rng) -> tuple:
     return noisy(train_labels), train_labels, noisy(val_labels), val_labels
 
 
-def train_run(task, data, kernels) -> dict:
+def train_run(task, data, kernels, epochs: int = TRAIN_EPOCHS) -> dict:
     """The main training path, with launch counts read around it."""
     images, labels, val, val_labels = data
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
     res = task.train_trials([(TRAIN_LR, TRAIN_WD)], images, labels, val, val_labels,
-                            end_epoch=TRAIN_EPOCHS, keep_logits=True)
+                            end_epoch=epochs, keep_logits=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
     n_train, n_val, B = len(labels), len(val_labels), task.static.batch_size
-    steps = TRAIN_EPOCHS * (n_train // B + (n_train % B > 1))
-    chunks = TRAIN_EPOCHS * -(-n_val // task.eval_chunk)
-    want = {"attention_fwd": 12 * (steps + chunks), "fused_mlp_fwd": 12 * (steps + chunks),
-            "fused_mlp_bwd": 12 * steps}
+    steps = epochs * (n_train // B + (n_train % B > 1))
+    chunks = epochs * -(-n_val // task.eval_chunk)
+    layers = task.static.spec.vision.layers
+    want = {"attention_fwd": layers * (steps + chunks), "fused_mlp_fwd": layers * (steps + chunks),
+            "fused_mlp_bwd": layers * steps}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want} for {steps} train steps and "
                              f"{chunks} eval chunks")
@@ -966,6 +1043,9 @@ def compare_grads(task, images, labels, dtype, vanishing: tuple = (),
     out = {"dtype": str(dtype).split(".")[-1], "leaves": len(worst),
            "zero_by_quirk_1": len(unused),
            ("max_rel_gap" if dtype == torch.float32 else "min_cosine"): worst[name], "at": name}
+    if fp32_limits and dtype == torch.float32:
+        out["held_to_limits"] = {n: {"gap": worst[n], "limit": limit}
+                                 for n, limit in fp32_limits.items()}
     if vanishing:
         scale = max(want[n].abs().max().item() for n in worst)
         sizes = {n: max(got[n].abs().max().item(), want[n].abs().max().item()) / scale
@@ -975,6 +1055,29 @@ def compare_grads(task, images, labels, dtype, vanishing: tuple = (),
                                  "largest |g|, want <= 1e-3")
         out["vanishing_rel_size"] = sizes
     return out
+
+
+@contextlib.contextmanager
+def rounded_f64_attention():
+    """The plain path, with the blocks' attention computed in float64
+    (forward and backward) and rounded to float32: as sound a float32
+    attention as there is, the witness of what rounding alone moves."""
+    from pevit_tpu_torch.core import layers
+
+    with plain_path():
+        layers.attention_core = lambda q, k, v: attention_f64(q, k, v).to(q.dtype)
+        yield
+
+
+def witness_gaps(task, images, labels, names) -> dict:
+    """Each leaf of ``names``: the gap of its fp32 first-step gradient under
+    :func:`rounded_f64_attention` to the plain path's, on its own size (max
+    |g - g_plain| / max |g_plain|)."""
+    with plain_path():
+        want = first_step_grads(task, images, labels)
+    with rounded_f64_attention():
+        got = first_step_grads(task, images, labels)
+    return {n: ((got[n] - want[n]).abs().max() / want[n].abs().max()).item() for n in names}
 
 
 def compare_whole_run(task, data) -> dict:
@@ -1215,7 +1318,7 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
 
 
 def kernel_report(kernels, launches: dict, table: dict) -> list:
-    """The ``kernels`` line: launches summed over the paths of phases 6 to 13
+    """The ``kernels`` line: launches summed over the paths of phases 6 to 15
     (each read around its own run); the other numbers at the batch that
     launched the kernel most (the larger batch on a tie); every path's
     batches under ``by_shape``."""
@@ -2166,9 +2269,12 @@ VIT_VANISHING = ("clip.norm.bias",)
 # ... and its scale multiplies each feature by one factor, which the BN
 # divides out up to its eps (1e-5): that gradient is about 1e-5 of the
 # tower's largest and mostly rounding, so an attention computed in float64
-# and rounded to float32 moves it 2.5e-3 of its own size against cuBLAS's
-# (tools/fp32_grad_witness.py); it is held to 4x that reading
-VIT_FP32_LIMITS = {"clip.norm.scale": 1e-2}
+# and rounded to float32 moves it by ~2.5e-3 of its own size against
+# cuBLAS's (tools/fp32_grad_witness.py).  The kernel's gap on it is held to
+# WITNESS_FACTOR x that witness's gap, measured in the same run on the same
+# batch (``witness_gaps``)
+VIT_WITNESSED = ("clip.norm.scale",)
+WITNESS_FACTOR = 2.0
 
 
 def aux_argv(tmp: Path, model: str, *options, epochs=AUX_EPOCHS) -> list:
@@ -2341,8 +2447,15 @@ def aux_vit(kernels, gen, card: str, tmp: Path, rng) -> tuple:
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         variant = copy.copy(ftask)
         variant.static = dataclasses.replace(ftask.static, compute_dtype=dtype_name)
-        ft["first_step_grads"].append(compare_grads(variant, images, labels, dtype,
-                                                    VIT_VANISHING, VIT_FP32_LIMITS))
+        limits = None
+        if dtype == torch.float32:
+            witness = witness_gaps(variant, images, labels, VIT_WITNESSED)
+            limits = {n: WITNESS_FACTOR * gap for n, gap in witness.items()}
+        grads = compare_grads(variant, images, labels, dtype, VIT_VANISHING, limits)
+        if limits:
+            for n, held in grads["held_to_limits"].items():
+                held["witness_gap"] = witness[n]
+        ft["first_step_grads"].append(grads)
     out["vit_finetune"] = ft
     del ftask, task
 
@@ -2867,8 +2980,13 @@ def device_busy_ms(fn) -> tuple:
         wall = (time.perf_counter() - t0) * 1e3
     # the raw events: an epoch holds ~10^5 kernels, too many to parse into
     # the profiler's function events in the time limit
-    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
+    return wall, busy_ms([e for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == DeviceType.CUDA])
+
+
+def busy_ms(events) -> float:
+    """The union of the device events' intervals, in ms."""
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events)
     if not spans:
         raise RuntimeError("the profiler recorded no device activity")
     total, (lo, hi) = 0, spans[0]
@@ -2877,7 +2995,7 @@ def device_busy_ms(fn) -> tuple:
             total, lo, hi = total + hi - lo, s, e
         else:
             hi = max(hi, e)
-    return wall, (total + hi - lo) / 1e6
+    return (total + hi - lo) / 1e6
 
 
 def stream_full(kernels, clip, prototypes, rng, card: str) -> tuple:
@@ -3917,6 +4035,186 @@ def mesh_cards_main(device: str = "cuda") -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 15. CLIP ViT-L/14 at 336 px (N = 577), served and trained
+# ---------------------------------------------------------------------------
+
+L336_SEED = 13
+L336_CLASSES = 64  # = the largest served batch: one class an image
+L336_SERVE_BATCHES = (1, 8, 64)
+# 96 train images at batch 32 (3 steps, one epoch) and 32 val images (one
+# eval chunk), noisy copies of the prototypes
+L336_TRAIN, L336_VAL, L336_BATCH = 96, 32, 32
+
+
+def vitl14_336():
+    """OpenAI's CLIP ViT-L/14@336px: ViT-L/14 at 336 px, 24^2 + 1 = 577 tokens."""
+    from pevit_tpu_torch.core import CLIPSpec
+
+    base = CLIPSpec.vit_l14()
+    return dataclasses.replace(base, vision=dataclasses.replace(base.vision,
+                                                                input_resolution=336))
+
+
+def load_vitl14_336(tmp: Path) -> tuple:
+    """A seeded ViT-L/14@336px CLIP (both towers) written as an OpenAI-layout
+    state dict and read back by ``load_clip`` onto the card: the spec from
+    the checkpoint's keys (input_resolution 336 from the 577-row positional
+    embedding), every tensor bit for bit.  Returns (clip, spec, summary)."""
+    from pevit_tpu_torch.ckpt import clip_to_state_dict, load_clip
+    from pevit_tpu_torch.core import init_clip_params
+
+    want_spec = vitl14_336()
+    t0 = time.perf_counter()
+    src = init_clip_params(torch.Generator().manual_seed(L336_SEED), want_spec, device="cuda")
+    path = tmp / "ViT-L-14-336px.pt"
+    sd = clip_to_state_dict(src)
+    rows = sd["visual.positional_embedding"].shape[0]
+    if rows != want_spec.vision.seq_len:
+        raise AssertionError(f"{rows} positions, want {want_spec.vision.seq_len}")
+    torch.save(sd, path)
+    del sd
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clip, spec = load_clip("ViT-L/14@336px", checkpoint_path=str(path), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if spec != want_spec:  # input_resolution 336, N = 577
+        raise AssertionError(f"loaded {spec}, want {want_spec}")
+    got, want = clip.state_dict(), src.state_dict()
+    bad = [k for k, t in want.items() if k not in got or not torch.equal(got[k], t)]
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"ViT-L/14@336px: {len(bad)} of {len(want)} tensors differ, "
+                             f"e.g. {bad[:3]}")
+    summary = {"write_s": write_s, "load_s": load_s, "file_bytes": path.stat().st_size,
+               "tensors": len(want), "input_resolution": spec.vision.input_resolution,
+               "tokens": spec.vision.seq_len}
+    path.unlink()
+    return clip, spec, summary
+
+
+def kernel_share(fn, name: str) -> dict:
+    """Device ms of ``fn`` under a CUDA-only profiler trace: the card's busy
+    time (the union of its kernel and copy intervals) and the time of the
+    kernels whose name holds ``name``, and that share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy = busy_ms(events)
+    own = sum(e.end_ns() - e.start_ns() for e in events if name in e.name()) / 1e6
+    return {"busy_ms": busy, f"{name}_ms": own, "share": own / busy}
+
+
+def l336_batches(spec, train: dict, evals: dict, fused_mlp_bwd: bool) -> dict:
+    """A bf16 KAdaptation path's batches on the tower of ``spec``."""
+    v = spec.vision
+    return {"dtype": "bfloat16", "train": collections.Counter(train),
+            "evals": collections.Counter(evals), "layers": v.layers, "width": v.width,
+            "tokens": v.seq_len, "heads": v.heads, "fused_mlp": True,
+            "fused_mlp_bwd": fused_mlp_bwd}
+
+
+def l336_serve(kernels, clip, spec, rng) -> tuple:
+    """The bf16 KAdaptation classifier through ``make_serving_fn`` on uint8
+    images at 336 px: a K1 and a K2 launch a block (24) a forward at each
+    batch of L336_SERVE_BATCHES; logits and top-1 against the plain path on the card
+    at each (``compare_plain``); images/s at the largest; K1's share of a
+    forward there from a CUDA-only profile.  Returns (summary, launches,
+    batches, prototypes)."""
+    from pevit_tpu_torch.serve import make_serving_fn
+
+    static, trainable, frozen, bn, preproc = build_classifier(
+        L336_SEED, num_classes=L336_CLASSES, tower=(clip, spec))
+    res = spec.vision.input_resolution
+    # the served batch, one class per image, its head fitted to it (as
+    # phase 8's): the logits separate the classes by the tower's features,
+    # so a top-1 comparison tests the kernels and not near-ties
+    prototypes = rng.integers(0, 256, (L336_CLASSES, res, res, 3), dtype=np.uint8)
+    fit_prototype_head(static, trainable, frozen, bn, preproc, prototypes)
+    serve = make_serving_fn(static, trainable, frozen, bn, preproc, device="cuda")
+    n = max(L336_SERVE_BATCHES)
+    images = torch.from_numpy(prototypes[:n]).cuda()
+    labels = torch.arange(n).cuda()
+    serve(images[:1])  # warm-up
+    torch.cuda.synchronize()
+    layers = spec.vision.layers
+    want = {"attention_fwd": layers, "fused_mlp_fwd": layers, "fused_mlp_bwd": 0}
+    reset_launches(kernels)
+    for b in L336_SERVE_BATCHES:
+        before = read_launches(kernels)
+        logits = serve(images[:b])
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in read_launches(kernels).items()}
+        if got != want or logits.shape != (b, L336_CLASSES):
+            raise AssertionError(f"ViT-L/14@336 forward of {b}: launches {got}, want {want}; "
+                                 f"logits {tuple(logits.shape)}")
+    launches = read_launches(kernels)
+    checks = {b: compare_plain(serve, images[:b], labels[:b], torch.bfloat16)
+              for b in L336_SERVE_BATCHES}
+    ms = time_ms(lambda: serve(images), reps=5)
+    share = kernel_share(lambda: serve(images), "attention_fwd")
+    summary = {"launches": launches, "vs_plain": checks, "forward_ms": ms,
+               "images_per_s": n / ms * 1e3, "k1_share_of_forward": share}
+    return (summary, launches, l336_batches(spec, {}, {b: 1 for b in L336_SERVE_BATCHES}, False),
+            prototypes)
+
+
+def l336_train(kernels, clip, spec, prototypes, rng) -> tuple:
+    """A bf16 KAdaptation run at batch 32 (dropout 0.5): 3 steps and one
+    eval chunk through ``train_trials``, 24 K1, K2 and K3 launches a step
+    (K1 and K2 also an eval chunk), the card's peak allocation; train
+    images/s; first-step fp32 gradients against the plain path at phase 5's
+    limits.  Returns (summary, launches, batches)."""
+    def noisy(n):
+        labels = np.arange(n) % L336_CLASSES
+        noise = rng.integers(-8, 9, (n,) + prototypes.shape[1:], dtype=np.int16)
+        return np.clip(prototypes[labels].astype(np.int16) + noise, 0, 255).astype(np.uint8), \
+            labels
+
+    data = (*noisy(L336_TRAIN), *noisy(L336_VAL))
+    task = make_task(clip, "bfloat16", dropout_p=0.5, batch=L336_BATCH, spec=spec)
+    torch.cuda.reset_peak_memory_stats()
+    run = train_run(task, data, kernels, epochs=1)  # the launches held exact
+    peak = torch.cuda.max_memory_allocated()
+    ips = train_throughput(task, data)
+    grads = compare_grads(make_task(clip, "float32", 0.0, batch=L336_BATCH, spec=spec),
+                          data[0][:L336_BATCH], data[1][:L336_BATCH], torch.float32)
+    summary = {**run, "peak_allocated_gb": peak / 1e9, "train_images_per_s": ips,
+               "first_step_grads": grads}
+    batches = l336_batches(spec, {L336_BATCH: run["train_steps"]},
+                           {L336_VAL: run["eval_chunks"]}, True)
+    return summary, run["launches"], batches
+
+
+def run_vitl14_336(kernels, gen, card: str) -> tuple:
+    """Phase 15: the 336 px checkpoint, serving and training, then every
+    kernel against its plain version at each batch each path gave it."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(L336_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_l336_") as tmp:
+        clip, spec, ckpt = load_vitl14_336(Path(tmp))
+    print(f"vitl14_336 checkpoint: {json.dumps(ckpt)} [{card}]", flush=True)
+    serve, serve_launches, serve_batches, prototypes = l336_serve(kernels, clip, spec, rng)
+    print(f"vitl14_336 serving bf16: {json.dumps(serve)} [{card}]", flush=True)
+    train, train_launches, train_batches = l336_train(kernels, clip, spec, prototypes, rng)
+    print(f"vitl14_336 training bf16 batch {L336_BATCH}: {json.dumps(train)} [{card}]",
+          flush=True)
+    del clip
+    launches = {"vitl14_336_serve": serve_launches, "vitl14_336_train": train_launches}
+    table = path_kernel_rows(gen, "vitl14_336_serve", serve_batches)
+    for name, rows_ in path_kernel_rows(gen, "vitl14_336_train", train_batches).items():
+        table[name] += rows_
+    for name, rows_ in table.items():
+        for r in rows_:
+            print(f"vitl14_336 kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    return launches, table, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a CUDA card",
@@ -3934,9 +4232,16 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build
+    # 2. build (and, beside the kernels, K1 with the long bf16 body at every
+    # N, phase 3's yardstick of its two bf16 bodies)
+    from pevit_tpu_torch.ops._build import _finish
+
     t0 = time.perf_counter()
+    bodies_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_k1_")
+    long_only = long_body_kernel(Path(bodies_dir.name))
+    long_build = long_only.start_build()
     logs = build_all(KERNELS)
+    _finish(long_build)
     print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         print("\n".join(ptxas_summary(name, log)), flush=True)
@@ -3948,6 +4253,9 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         for n in (50, 197, 257):
             table["attention_fwd"].append(check_attention(gen, dtype, n))
+        # ViT-L/14 at 336 px (16 heads) at phase 15's training batch, and N = 1025
+        for n, batch in ((577, L336_BATCH), (1025, 8)):
+            table["attention_fwd"].append(check_attention(gen, dtype, n, batch, 16))
         for c in (768, 1024):
             table["fused_mlp_fwd"].append(check_fused_mlp(gen, dtype, c, rows))
     for batch in (TRAIN_BATCH, EVAL_REMAINDER):
@@ -3967,6 +4275,12 @@ def main() -> int:
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    # K1's bf16 bodies where both run: the launcher takes the register body
+    # up to N = 257, where it is the faster
+    for n in (50, 197, 257):
+        print(f"kernel attention_fwd bf16 bodies {json.dumps(time_bf16_bodies(gen, long_only, n))}"
+              f" [{card}]", flush=True)
+    bodies_dir.cleanup()
     idle = [r["shape"] for rows_ in table.values() for r in rows_
             if r["dtype"] == "float32" and not r["tf32_engaged"]]
     if idle:
@@ -4091,13 +4405,18 @@ def main() -> int:
     mesh_launches, mesh_table, seconds = run_mesh(KERNELS, gen, card, clip, prototypes)
     print(f"phase 14: {seconds:.1f} s", flush=True)
 
-    # 15. report
+    # 15. CLIP ViT-L/14 at 336 px (N = 577): the checkpoint, serving and
+    # training at full width
+    l336_launches, l336_table, seconds = run_vitl14_336(KERNELS, gen, card)
+    print(f"phase 15: {seconds:.1f} s", flush=True)
+
+    # 16. report
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
                 **aux_launches, **stream_launches, **trial_launches_, **axis_launches,
-                **mesh_launches}
+                **mesh_launches, **l336_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
              + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
-             + axis_table[name] + mesh_table[name] for name in command_table}
+             + axis_table[name] + mesh_table[name] + l336_table[name] for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))

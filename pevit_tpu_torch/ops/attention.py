@@ -40,11 +40,13 @@ KERNEL = Kernel(
     replaces="pevit_tpu/ops/attention.py:40",
 )
 HEAD_DIM = 64
-MAX_SEQ = 257
-# the launchers count the grid's blocks in a 32-bit int: one per (batch,
-# head) in bf16, per (batch, head, 64-query tile) in fp32; every pointer
-# offset is 64-bit
-QUERY_TILE_F32 = 64
+# every N >= 1 is taken: bf16 runs its register body (one block per (batch,
+# head), S rows in registers) up to MAX_SEQ_REGS tokens and its long body
+# beyond, fp32 one body; all but the register body launch a block per
+# (batch, head, 64-query tile); the launchers count the grid's blocks in a
+# 32-bit int, every pointer offset is 64-bit
+MAX_SEQ_REGS = 257
+QUERY_TILE = 64
 MAX_BLOCKS = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,7 +70,8 @@ def rows_aligned(offset: int, strides, itemsize: int) -> bool:
 
 def check_grid(B: int, H: int, N: int, dtype) -> None:
     """The batch a launch can take: its grid's blocks at most ``MAX_BLOCKS``."""
-    blocks = B * H * (-(-N // QUERY_TILE_F32) if dtype == torch.float32 else 1)
+    regs = dtype == torch.bfloat16 and N <= MAX_SEQ_REGS
+    blocks = B * H * (1 if regs else -(-N // QUERY_TILE))
     if blocks > MAX_BLOCKS:
         raise KernelInputError(f"attention kernel takes at most {MAX_BLOCKS} blocks, got {blocks} "
                                f"(B={B}, H={H}, N={N}, {dtype})")
@@ -77,10 +80,10 @@ def check_grid(B: int, H: int, N: int, dtype) -> None:
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on (B, N, H, 64) CUDA tensors, which may be strided
     views (e.g. of a packed qkv projection) with unit stride inside a head
-    and rows that :func:`rows_aligned` accepts.  The dtype picks the
-    kernel's body; both run on the tensor cores, float32 by a three-product
-    TF32 split that keeps float32 accuracy.  Returns a contiguous
-    (B, N, H, 64) tensor."""
+    and rows that :func:`rows_aligned` accepts, at any N >= 1.  The dtype
+    picks the kernel's body; both run on the tensor cores, float32 by a
+    three-product TF32 split that keeps float32 accuracy.  Returns a
+    contiguous (B, N, H, 64) tensor."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise KernelInputError("attention_fwd takes CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -94,8 +97,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     B, N, H, hd = q.shape
     if hd != HEAD_DIM:
         raise KernelInputError(f"attention kernel takes head_dim {HEAD_DIM}, got {hd}")
-    if not 0 < N <= MAX_SEQ:
-        raise KernelInputError(f"attention kernel takes 1 <= N <= {MAX_SEQ}, got {N}")
+    if B < 1 or H < 1 or N < 1:
+        raise KernelInputError(f"attention kernel takes B, H, N >= 1, got {tuple(q.shape)}")
     check_grid(B, H, N, q.dtype)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise KernelInputError("attention kernel needs unit stride along head_dim")

@@ -8,22 +8,25 @@
 // online softmax that normalises at the end would round differently in
 // bf16); the product accumulates in float32 and the output is rounded once.
 //
-// What bounds it on an H100: at ViT shapes (N = 50..257, hd = 64) the work
-// is ~4*N*hd operations per query row against 4 * N * hd * elem bytes of
-// q, k, v and out per head, i.e. ~N/elem_bytes operations per byte: 25 at
-// N = 50 in bf16, far below the ~295 the card needs to be compute-bound.  So
-// the bound is memory traffic (each of q, k, v, out read or written once).
-// In float32 the three TF32 products of each product (below) make the
-// operations bound about as large as the bytes bound at N = 197.  Both
-// bodies stage rows of q, k and v in shared memory by 16-byte copies, and
-// take q, k and v with (batch, token, head) strides, so the wrapper passes
-// (B, N, H, hd) views of the packed qkv projection without copies.  The
-// dtype picks the body; neither falls back to the other.
+// What bounds it on an H100: the work is ~4*N*hd operations per query row
+// against 4 * N * hd * elem bytes of q, k, v and out per head, i.e. ~N/elem
+// bytes operations per byte: 25 at N = 50 in bf16, ~288 at N = 577, where
+// it meets the ~295 at which the card turns compute-bound.  So at ViT-B
+// shapes the bound is memory traffic (each of q, k, v, out read or written
+// once), and at ViT-L/14 @ 336 px (N = 577) the two bounds meet.  In
+// float32 the three TF32 products of each product (below) make the
+// operations bound about as large as the bytes bound at N = 197.  Every
+// body stages rows of q, k and v in shared memory by 16-byte copies, and
+// takes q, k and v with (batch, token, head) strides, so the wrapper passes
+// (B, N, H, hd) views of the packed qkv projection without copies.  Every
+// N >= 1 is taken: the dtype picks the body, and in bf16 N does (the
+// register body up to N = 257, where it is the faster, the long body
+// beyond); no body falls back to another.
 //
-// bfloat16 body (tensor cores): one block per (batch, head), which reads
-// the head's rows of q, k and v exactly once.  Bytes bound the kernel, so
-// the design aims
-// to keep the arithmetic off the critical path and the loads wide:
+// bfloat16 register body, N <= 257 (tensor cores): one block per (batch,
+// head), which reads the head's rows of q, k and v exactly once.  Bytes
+// bound the kernel at these lengths, so the design aims to keep the
+// arithmetic off the critical path and the loads wide:
 //   * staging: q, k and v rows (128 contiguous bytes each) go to shared
 //     memory by 16-byte cp.async, with the 16-byte chunks of a row XOR-
 //     swizzled by (row & 7) so that ldmatrix reads are free of bank
@@ -42,7 +45,32 @@
 // 272) that is 136 per lane; P V consumes it 16 keys at a time.  ptxas
 // fits the largest instantiations in 255 registers without spills, so one
 // pass over K suffices (no second pass that recomputes S).  The key count
-// is rounded up to one of four instantiations (NP = 64, 128, 208, 272).
+// is rounded up to one of four instantiations (NP = 64, 128, 208, 272),
+// and no more fit: a longer row of S does not.
+//
+// bfloat16 long body, N > 257 (tensor cores, the same mma.sync, ldmatrix,
+// swizzle and output staging as the register body).  The rounding point
+// rules out a one-pass online softmax: p must be normalised by the row's
+// final sum before it is rounded.  So the body holds one chunk's S (64
+// keys, 32 floats a lane) and walks the keys three times: the exact row
+// max, then the float32 row sum l of exp(s - max) (which differs from the
+// reference's only in its order: each lane sums its columns, then the
+// quad's 4 lanes by shuffles), then p = exp(s - max) / l, rounded to bf16,
+// and O += P V.  The recomputed Q K^T costs operations, not bytes, and
+// the ceiling on N is gone:
+//   * grid: one block per (batch, head, tile of 64 query rows), 4 warps, a
+//     warp per 16 query rows, so a head's queries spread over several SMs;
+//     a warp whose rows all lie past N only takes part in the block's
+//     copies and barriers;
+//   * keys and values in chunks of 64 rows by 16-byte cp.async into two
+//     swizzled buffers (K alone in the first two passes), the copies of
+//     the next chunk in flight during the products of this one; each pass
+//     starts on the chunk the last one ended on and keeps its S;
+//   * p's division is a product by the correctly rounded 1 / l and its
+//     exact residual (Markstein), the correctly rounded quotient;
+//   * 40 KB of static shared memory; at ViT-B lengths it is slower than the
+//     register body (three walks over the keys, two exponentials a logit),
+//     so it runs only where that one cannot.
 //
 // float32 body (tensor cores, 3xTF32: tf32x3.cuh).  TF32 mma.sync m16n8k8
 // with each product split in three, so it stays float32-class (not TF32:
@@ -92,6 +120,9 @@ namespace {
 constexpr int HD = 64;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
+constexpr int QROWS = WARPS * 16;  // query rows a block (the fp32 and the long bf16 body)
+// the longest sequence the bf16 register body takes (its S row in registers)
+constexpr int MAX_SEQ_REGS = 257;
 
 // ---------------------------------------------------------------------------
 // bfloat16 body (tensor cores); its copy and quad helpers serve both bodies
@@ -278,11 +309,216 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 body for N > 257 (tensor cores, keys in chunks, three passes)
+// ---------------------------------------------------------------------------
+
+constexpr int KCHUNK = 64;         // keys per chunk
+constexpr int TILE = KCHUNK * HD;  // bf16 elements of one 64-row tile
+static_assert(QROWS == KCHUNK, "q, k and v tiles share one staging routine");
+
+// rows [r0, r0 + 64) of one head into a swizzled 64-row tile; rows at or
+// past N are zero (a zero v row keeps p = 0 from meeting garbage, which may
+// be NaN; a zero k row keeps the logits finite before the mask)
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long sn, int r0,
+                                           int N) {
+  for (int e = threadIdx.x; e < KCHUNK * 8; e += THREADS) {
+    const int r = e >> 3, c = e & 7;
+    bf16* d = dst + swz(r, c);
+    if (r0 + r < N)
+      cp_async16(smem_u32(d), src + (r0 + r) * sn + c * 8);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// e / l rounded to nearest from rl, the correctly rounded 1 / l: a product
+// and its exact residual (Markstein's correction) give the correctly
+// rounded quotient wherever it is a normal float, as e / l would, in three
+// instructions instead of a division's dozen
+__device__ __forceinline__ float div_rn(float e, float l, float rl) {
+  const float q = e * rl;
+  return fmaf(fmaf(-q, l, e), rl, q);
+}
+
+// One block per (batch, head, tile of 64 query rows), a warp per 16 rows.
+// Three passes over the key chunks: 0 the row max m (exact: a max does not
+// depend on order), 1 the row sum l of exp(s - m) in float32, 2 p = exp(s -
+// m) / l rounded to bf16 and O += P V.  Pass 1 walks the chunks backwards,
+// so each pass starts on the chunk the last one ended on and takes its S
+// from registers instead of recomputing it.  The chunks stream through two
+// buffers by cp.async, the copies of iteration i + 1 in flight during the
+// products of iteration i (K alone in passes 0 and 1, K and V in pass 2).
+// It takes any N; the launcher gives it N > 257.
+__global__ void __launch_bounds__(THREADS, 4)
+attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ out, int H, int N,
+                        int q_tiles, long long qsb, long long qsn, long long qsh,
+                        long long ksb, long long ksn, long long ksh,
+                        long long vsb, long long vsn, long long vsh) {
+  __shared__ __align__(128) bf16 q_s[TILE];
+  __shared__ __align__(128) bf16 kv_s[2][2 * TILE];  // a buffer: K rows, then V rows
+
+  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int r0 = qt * QROWS;
+  const bf16* kh = k + b * ksb + h * ksh;
+  const bf16* vh = v + b * vsb + h * vsh;
+  const int C = (N + KCHUNK - 1) / KCHUNK;
+  const int iters = 3 * C;
+  // the chunk iteration it works on; whether it takes S from the one before
+  auto chunk_of = [C](int it) {
+    const int c = it % C;
+    return it / C == 1 ? C - 1 - c : c;
+  };
+  auto reuses = [C](int it) { return it == C || it == 2 * C; };
+  auto stage = [&](int it) {  // what iteration it reads, into buffer it & 1
+    bf16* dst = kv_s[it & 1];
+    const int c = chunk_of(it);
+    if (!reuses(it)) stage_tile(dst, kh, ksn, c * KCHUNK, N);
+    if (it >= 2 * C) stage_tile(dst + TILE, vh, vsn, c * KCHUNK, N);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  stage_tile(q_s, q + b * qsb + h * qsh, qsn, r0, N);
+  stage(0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const bool active = r0 + warp * 16 < N;  // uniform across the warp
+
+  // Q fragments: 4 steps of 16 along hd
+  uint32_t qa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(qa[kk], smem_u32(q_s + swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))));
+
+  // a lane holds rows g (s[j][0..1]) and g + 8 (s[j][2..3]) of the warp's
+  // 16, columns 8j + 2t and 8j + 2t + 1 of the chunk; m and l per row, l
+  // the lane's part until pass 1 ends, then rl = 1 / l
+  float s[KCHUNK / 8][4], o[HD / 8][4];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, rl0 = 0.f, rl1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    if (it > 0) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      // iteration it's tiles have landed, and every warp is done with the
+      // buffer that iteration it - 1 read
+      __syncthreads();
+    }
+    if (it + 1 < iters) stage(it + 1);
+    if (!active) continue;
+    const int pass = it / C, c = chunk_of(it);
+    // 16-key tiles holding a key < N
+    const int kt_n = min(KCHUNK / 16, (N - c * KCHUNK + 15) >> 4);
+    const bf16* ks = kv_s[it & 1];
+
+    if (!reuses(it)) {
+      // S = Q K^T over the chunk: n8 tile j covers keys 8j..8j+7
+#pragma unroll
+      for (int j = 0; j < KCHUNK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KCHUNK / 16; ++kt) {
+        if (kt >= kt_n) continue;
+        const int r = kt * 16 + (lane & 7) + ((lane >> 4) << 3);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, smem_u32(ks + swz(r, 2 * kk + ((lane >> 3) & 1))));
+          mma_16816(s[2 * kt], qa[kk], kb[0], kb[1]);
+          mma_16816(s[2 * kt + 1], qa[kk], kb[2], kb[3]);
+        }
+      }
+      if ((c + 1) * KCHUNK > N) {  // the last chunk: key columns past N to -inf
+#pragma unroll
+        for (int j = 0; j < KCHUNK / 8; ++j) {
+          const int col = c * KCHUNK + 8 * j + 2 * t;
+          if (col >= N) s[j][0] = s[j][2] = -INFINITY;
+          if (col + 1 >= N) s[j][1] = s[j][3] = -INFINITY;
+        }
+      }
+    }
+
+    if (pass == 0) {
+#pragma unroll
+      for (int j = 0; j < KCHUNK / 8; ++j) {
+        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+      }
+      if (it == C - 1) {
+        m0 = quad_max(m0);  // every row holds a key < N: finite
+        m1 = quad_max(m1);
+      }
+    } else if (pass == 1) {
+#pragma unroll
+      for (int j = 0; j < KCHUNK / 8; ++j) {
+        if (j >= 2 * kt_n) continue;  // every key past N: exp gives 0
+        l0 += expf(s[j][0] - m0) + expf(s[j][1] - m0);
+        l1 += expf(s[j][2] - m1) + expf(s[j][3] - m1);
+      }
+      if (it == 2 * C - 1) {
+        l0 = quad_sum(l0);
+        l1 = quad_sum(l1);
+        rl0 = __frcp_rn(l0);
+        rl1 = __frcp_rn(l1);
+      }
+    } else {
+      // O += P V, 16 keys at a time; p normalised in float32, then rounded
+      // to bf16, which is exactly the A fragment of the product
+      const bf16* vs = ks + TILE;
+#pragma unroll
+      for (int kt = 0; kt < KCHUNK / 16; ++kt) {
+        if (kt >= kt_n) continue;
+        float p[2][4];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float* sj = s[2 * kt + h2];
+          p[h2][0] = div_rn(expf(sj[0] - m0), l0, rl0);
+          p[h2][1] = div_rn(expf(sj[1] - m0), l0, rl0);
+          p[h2][2] = div_rn(expf(sj[2] - m1), l1, rl1);
+          p[h2][3] = div_rn(expf(sj[3] - m1), l1, rl1);
+        }
+        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                                pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+        const int r = kt * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+        for (int dn = 0; dn < 4; ++dn) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, smem_u32(vs + swz(r, 2 * dn + (lane >> 4))));
+          mma_16816(o[2 * dn], pa, vb[0], vb[1]);
+          mma_16816(o[2 * dn + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  // round once, stage in this warp's own q rows, 16-byte stores
+  const int w0 = warp * 16 + (lane >> 2), w1 = w0 + 8;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(q_s + swz(w0, j) + 2 * t) = pack_bf16(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(q_s + swz(w1, j) + 2 * t) = pack_bf16(o[j][2], o[j][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = lane + 32 * i;
+    const int r = warp * 16 + (e >> 3), cc = e & 7;
+    if (r0 + r < N)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * N + r0 + r) * H + h) * HD + cc * 8) =
+          *reinterpret_cast<const uint4*>(q_s + swz(r, cc));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 body (tensor cores, 3xTF32)
 // ---------------------------------------------------------------------------
 
 constexpr int LD32 = HD + 4;         // row stride of the float32 tiles, floats
-constexpr int QROWS = WARPS * 16;    // query rows per block
 constexpr int KC = 32;               // keys per chunk
 constexpr int BUF32 = 2 * KC * LD32; // floats of one chunk buffer: K rows, then V rows
 static_assert(QROWS * LD32 <= BUF32, "the q tile is staged in the second chunk buffer");
@@ -472,6 +708,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   return (int)cudaGetLastError();
 }
 
+int launch_bf16_long(const void* q, const void* k, const void* v, void* out, int B, int H,
+                     int N, long long qsb, long long qsn, long long qsh, long long ksb,
+                     long long ksn, long long ksh, long long vsb, long long vsn, long long vsh,
+                     cudaStream_t stream) {
+  const int q_tiles = (N + QROWS - 1) / QROWS;
+  attention_fwd_bf16_long<<<B * H * q_tiles, THREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), H, N, q_tiles, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh);
+  return (int)cudaGetLastError();
+}
+
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
                long long qsb, long long qsn, long long qsh, long long ksb, long long ksn,
                long long ksh, long long vsb, long long vsn, long long vsh, cudaStream_t stream) {
@@ -488,23 +735,31 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v: (B, N, H, 64) with the given
 // element strides for batch, token and head (unit stride inside a head);
-// out: contiguous (B, N, H, 64); 1 <= N <= 257.  Both bodies copy 16-byte
+// out: contiguous (B, N, H, 64); any N >= 1.  Both bodies copy 16-byte
 // chunks of rows, so every base pointer must be 16-byte aligned and every
-// stride a multiple of 16 bytes (8 bf16 or 4 float32 elements).  Returns the
-// CUDA error code (0 = launched).
+// stride a multiple of 16 bytes (8 bf16 or 4 float32 elements).  The grid
+// (one block per (batch, head) for the bf16 register body at N <= 257, per
+// (batch, head, 64-query tile) otherwise) holds at most 2^31 - 1 blocks.
+// Returns the CUDA error code (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype,
                              int B, int H, int N, long long qsb, long long qsn, long long qsh,
                              long long ksb, long long ksn, long long ksh, long long vsb,
                              long long vsn, long long vsh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 1 || N > 257) return (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || N < 1) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool regs = dtype == 1 && N <= MAX_SEQ_REGS;
+  const long long blocks = (long long)B * H * (regs ? 1 : (N + QROWS - 1) / QROWS);
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   const long long chunk = dtype == 0 ? 4 : 8;  // elements in 16 bytes
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) ||
       ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & (chunk - 1)))
     return (int)cudaErrorMisalignedAddress;
   if (dtype == 0)
     return launch_f32(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);
+  if (!regs)
+    return launch_bf16_long(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn,
+                            vsh, s);
   const int kt = (N + 15) / 16;
   if (kt <= 4)
     return launch_bf16<4>(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);

@@ -1,0 +1,161 @@
+"""K1 (the attention kernel) against other versions of its source, timed in
+turns on one CUDA card.
+
+    python -m pevit_tpu_torch.tools.attention_bodies --against LABEL=DIR [LABEL=DIR ...]
+        [--out FILE]
+
+Each ``DIR`` holds another ``attention_fwd.cu`` with the same C interface
+(with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
+earlier commit unpacked by ``git archive``.  Every source is built by
+``nvcc`` (ptxas registers and spills printed), then, in bfloat16 at head
+width 64 and 12 heads, at each (N, batch) of ``SHAPES``, each version is
+held against the plain version (``attention_ref``, within 2e-2) and timed
+through the wrapper ``attention_fwd`` in turns, the others, this, this, the
+others in reverse (median CUDA-event ms of each turn, the mean of a
+version's two turns), beside ``scaled_dot_product_attention`` on
+contiguous copies, a yardstick the port never calls.  A version that refuses a shape (a launch
+error) is reported as refusing it.  One JSON line a shape; the card's name
+and power limit first.  It needs a CUDA card and exits non-zero without
+one, or if a version disagrees with the plain version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+# (N, batches): ViT-B/32 (N = 50) at the serving batch, the training batch
+# and the batches the smoke's paths give it (eval remainders, trial-folded
+# chunks), ViT-B/16 (197) and ViT-L/14 (257) at 64 and 256, and the lengths
+# only this source's body takes
+SHAPES = ((50, (8, 32, 128, 256, 1280)), (197, (32, 64, 256)), (257, (32, 64, 256)),
+          (577, (32, 64)), (1025, (8,)))
+HEADS = 12
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` in ms, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def launching(kernel):
+    """The wrapper ``attention_fwd`` with ``kernel``'s library in place of
+    the package's, for the duration."""
+    from pevit_tpu_torch.ops import attention
+
+    saved = attention.KERNEL
+    attention.KERNEL = kernel
+    try:
+        yield
+    finally:
+        attention.KERNEL = saved
+
+
+def run_shape(versions: dict, n: int, batch: int, gen) -> dict:
+    from pevit_tpu_torch.ops._build import KernelLaunchError
+    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref
+
+    q, k, v = (torch.randn(batch, n, HEADS, 64, device="cuda", generator=gen) * s
+               for s in (0.25, 0.25, 1.0))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    t = lambda x: x.transpose(1, 2)
+    want = t(attention_ref(t(q), t(k), t(v))).float()
+    row = {"N": n, "batch": batch, "heads": HEADS, "dtype": "bfloat16"}
+    takes = {}
+    for name, kernel in versions.items():
+        with launching(kernel):
+            try:
+                got = attention_fwd(q, k, v).float()
+                torch.cuda.synchronize()
+            except KernelLaunchError as e:
+                row[f"{name}_refuses"] = str(e)
+                continue
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
+            raise AssertionError(f"{name} at N={n} batch {batch}: max abs err {err}")
+        row[f"{name}_max_abs_err"] = err
+        takes[name] = kernel
+    turns = {name: [] for name in takes}
+    others = [name for name in takes if name != "this"]
+    for name in others + ["this", "this"] + others[::-1]:
+        with launching(takes[name]):
+            turns[name].append(time_ms(lambda: attention_fwd(q, k, v)))
+    for name, ms in turns.items():
+        row[f"{name}_ms"] = statistics.mean(ms)
+        row[f"{name}_turns_ms"] = ms
+    qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
+    row["sdpa_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, scale=1.0))
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", required=True, nargs="+", metavar="LABEL=DIR",
+                    help="directories holding other attention_fwd.cu sources and headers")
+    ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("attention_bodies: CUDA is not available; this tool runs on a CUDA card",
+              file=sys.stderr)
+        return 1
+    from pevit_tpu_torch.ops import attention
+    from pevit_tpu_torch.ops._build import Kernel, _finish
+
+    versions = {"this": attention.KERNEL}
+    for item in args.against:
+        label, _, where = item.partition("=")
+        src = Path(where).resolve() / "attention_fwd.cu"
+        if not where or label in versions or not src.is_file():
+            raise SystemExit(f"--against {item}: want a new LABEL=DIR with attention_fwd.cu")
+        versions[label] = Kernel("attention_fwd", str(src), attention.KERNEL.argtypes,
+                                 replaces=attention.KERNEL.replaces)
+    card = card_line()
+    print(card, flush=True)
+    builds = {label: kernel.start_build() for label, kernel in versions.items()}
+    for label, build in builds.items():
+        log = _finish(build)  # "" where the library was built before
+        print(f"built {label}: {versions[label].library_path().name}", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {label}: {line.strip()}", flush=True)
+    lines = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, batches in SHAPES:
+        for batch in batches:
+            row = run_shape(versions, n, batch, gen)
+            line = json.dumps({**row, "card": card})
+            print(line, flush=True)
+            lines.append(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

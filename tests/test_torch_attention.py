@@ -100,7 +100,7 @@ class _OperatorSpy(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _tiny_serving_task(dtype: str, method: str = "kadaptation"):
+def _tiny_serving_task(dtype: str, method: str = "kadaptation", res: int = 64, patch: int = 16):
     from pevit_tpu_torch.core import clip as pc
     from pevit_tpu_torch.peft import PeftConfig, init_peft
     from pevit_tpu_torch.train import init_bn_state, init_head, partition, trainable_pred
@@ -108,7 +108,7 @@ def _tiny_serving_task(dtype: str, method: str = "kadaptation"):
 
     gen = torch.Generator().manual_seed(0)
     spec = pc.CLIPSpec(embed_dim=32,
-                       vision=pc.VisionSpec(input_resolution=64, patch_size=16, width=128,
+                       vision=pc.VisionSpec(input_resolution=res, patch_size=patch, width=128,
                                             layers=2, heads=2, output_dim=32),
                        text=pc.TextSpec(context_length=8, vocab_size=64, width=32, heads=2,
                                         layers=1, output_dim=32))
@@ -125,11 +125,11 @@ def _tiny_serving_task(dtype: str, method: str = "kadaptation"):
     return static, trainable, frozen, init_bn_state(static.head_dim, device="cpu"), preproc
 
 
-def _serving_forward(dtype):
+def _serving_forward(dtype, res: int = 64, patch: int = 16):
     from pevit_tpu_torch.serve import make_serving_fn
 
-    serve = make_serving_fn(*_tiny_serving_task(dtype), device="cpu")
-    images = np.random.default_rng(0).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    serve = make_serving_fn(*_tiny_serving_task(dtype, res=res, patch=patch), device="cpu")
+    images = np.random.default_rng(0).integers(0, 256, (3, res, res, 3), dtype=np.uint8)
     return lambda: serve(images)
 
 
@@ -168,6 +168,8 @@ def _declip_tower_forward():
 
 CALLERS = {"clip_block_fp32": lambda: _serving_forward("float32"),
            "clip_block_bf16": lambda: _serving_forward("bfloat16"),
+           # N = 290, past the 257 tokens of ViT-L/14 at 224 px
+           "clip_block_bf16_long_seq": lambda: _serving_forward("bfloat16", res=68, patch=4),
            "timm_vit": _timm_vit_forward, "declip_tower": _declip_tower_forward,
            "exported_fp32": _exported_forward}
 

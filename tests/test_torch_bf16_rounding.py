@@ -70,7 +70,7 @@ def _qkv(n, seed):
     return tuple(_bf16(s * rng.standard_normal((2, 3, n, 64))) for s in (0.5, 0.5, 1.0))
 
 
-@pytest.mark.parametrize("n", [5, 50, 197])
+@pytest.mark.parametrize("n", [5, 50, 197, 258, 577, 1025])
 def test_attention_ref_bf16_matches_pallas_kernel(n):
     q, k, v = _qkv(n, seed=n)
     want = _numpy(ja._fused(_jax(q), _jax(k), _jax(v), True))  # interpret mode
@@ -79,7 +79,7 @@ def test_attention_ref_bf16_matches_pallas_kernel(n):
     _assert_same_rounding(got, want)
 
 
-@pytest.mark.parametrize("n", [5, 50, 197])
+@pytest.mark.parametrize("n", [5, 50, 197, 577])
 def test_attention_unrounded_p_is_told_apart(n):
     """Control: p left in float32 (no rounding before PV) changes the
     output in many elements, so the check above pins the rounding point."""

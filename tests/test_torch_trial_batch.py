@@ -448,20 +448,27 @@ def test_kernel_wrappers_take_the_trial_folded_shapes():
     """The largest shapes a shipped YAML gives the kernels with
     TPU.SWEEP_PARALLEL_TRIALS up to 16 pass the wrappers' shape rules: a
     train step of 16 trials x 128 images and an eval chunk of 16 x 512 on
-    ViT-L/14 (N = 257, F = 4096); R x F passes 2^31 there, which the kernels
-    index in 64 bits.  Beyond the grid's limits the wrappers raise
-    KernelInputError before any launch."""
+    ViT-L/14 (N = 257, F = 4096), and at 336 px (N = 577); R x F passes
+    2^31 there, which the kernels index in 64 bits.  Beyond the grid's
+    limits the wrappers raise KernelInputError before any launch."""
     tokens, heads, hidden = 257, 16, 4096  # vitl14_CLIP.yaml
     for images in (16 * 128, 16 * 512):
         mlp_ops.check_rows("fused_mlp_fwd", images * tokens)
         for dtype in (torch.float32, torch.bfloat16):
-            attn_ops.check_grid(images, heads, tokens, dtype)
+            for n in (tokens, 577):
+                attn_ops.check_grid(images, heads, n, dtype)
     assert 16 * 512 * tokens * hidden > 2 ** 31
     mlp_ops.check_rows("fused_mlp_bwd", mlp_ops.MAX_ROWS)
     with pytest.raises(KernelInputError, match="rows"):
         mlp_ops.check_rows("fused_mlp_bwd", mlp_ops.MAX_ROWS + 1)
-    # fp32 takes a block per 64 queries: 5 for N = 257, bf16 one per head
+    # fp32 takes a block per 64 queries: 5 for N = 257; bf16 one per head
+    # up to N = 257 and a block per 64 queries beyond: 10 for N = 577
     B = attn_ops.MAX_BLOCKS // (heads * 5) + 1
     attn_ops.check_grid(B, heads, tokens, torch.bfloat16)
     with pytest.raises(KernelInputError, match="blocks"):
         attn_ops.check_grid(B, heads, tokens, torch.float32)
+    B = attn_ops.MAX_BLOCKS // (heads * 10)
+    for dtype in (torch.float32, torch.bfloat16):
+        attn_ops.check_grid(B, heads, 577, dtype)
+        with pytest.raises(KernelInputError, match="blocks"):
+            attn_ops.check_grid(B + 1, heads, 577, dtype)
