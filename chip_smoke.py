@@ -49,6 +49,15 @@ on):
    same float32-class check against a float64 run of the plain backward;
    K2 in bf16 at R = 5800 and 400 too; and the attention core's plain
    backward timed at N = 50, batch 128;
+3c. the kernels at the shapes beyond ViT-B's, each against its plain
+   version and timed beside SDPA or ``gemm_ms`` and its bound (fp32 rows
+   through the float32-class check, which prints whether the TF32
+   control engaged): K1 at head widths 20 (zero-padded to 24 in bf16), 32,
+   80, 128 and 256, at N = 197 (64 images of 16 heads, logits of one
+   spread at every width) in both dtypes and at N = 577 (32 images) in
+   bf16, its long body; K2 and K3 at C = 192, 200, 384, 1280, 1408 with F
+   = 4C and at (100, 300), which the wrappers zero-pad to whole 16-byte
+   rows, both dtypes, at R = 32 x 257;
 4. serving: a full-width ViT-B/32 KAdaptation classifier (random weights
    from a seed, non-zero adaptation factors, random BN statistics, a
    100-class head fitted to 100 seeded prototype images) behind
@@ -278,7 +287,8 @@ on):
    embedding (1.7 GB, both towers) written and read by ``load_clip`` onto
    the card (the spec from its keys, input_resolution 336; every tensor
    bit for bit); the bf16 KAdaptation classifier (a 64-class head fitted
-   to the 64 seeded images it serves, one class each, as phase 8's)
+   to the seeded images it serves, one class each, as phase 8's, refitted
+   at each batch to the images' features in batches of that size)
    through ``make_serving_fn`` on uint8 images at batches 1, 8 and 64:
    24 K1 and 24 K2 launches a forward, logits and top-1 against the
    plain path (phase 4's limits), images/s at 64 and
@@ -289,12 +299,29 @@ on):
    images/s, first-step fp32 gradients against the plain path at phase
    5's limits; each kernel held against its plain version at every batch
    each path gave it;
-16. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 15,
-   summed and by path (each path's counts are zeroed just before it and read
-   just after; phase 9's and the exported MAE probe's are the fresh
-   process's, reported by it), the other numbers at the batch that launched
-   the kernel most, every path's batches under ``by_shape``; then the
-   ``{"ok": true, ...}`` line last.
+16. ViT-H/14 at full width and depth from seeded weights, each model
+   built from the MODEL.SPEC a user would give it: (a) CLIP ViT-H/14
+   (vision 1280 x 32 layers of 20 heads of 64, patch 14, N = 257; text
+   1024 x 24): the bf16 KAdaptation classifier served as phase 15's at
+   batches 1, 8 and 64 (32 K1 and 32 K2 a forward, top-1 agreement with
+   the plain path 1.0, images/s, K1's and K2's shares of a forward) and
+   trained at batch 32 (3 steps, one eval chunk; 32 K1, K2 and K3 a step;
+   peak allocation, train images/s, each kernel's share of a step from a
+   CUDA-only profile, fp32 first-step gradients within 1e-3 of each leaf's
+   largest |g|); (b) MAE ViT-H/14 (EMBED_DIM 1280, DEPTH 32, NUM_HEADS 16:
+   heads of 80, the global pool) through ``get_model``: a 64-image fp32
+   feature forward (32 K1 a forward on its fp32 body, no K2) within 1e-4
+   of the plain path's and its feature images/s, then one
+   ``full_finetune`` step at batch 16 through ``train_trials`` with
+   first-step gradients held as phase 10's ViT-B/16 finetune (the float64
+   witness for the final LayerNorm's scale included); each kernel held
+   against its plain version at every batch each path gave it;
+17. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 16,
+   summed, by path and by body (each path's counts are zeroed just before
+   it and read just after; phase 9's and the exported MAE probe's are the
+   fresh process's, reported by it), the other numbers at the batch that
+   launched the kernel most, every path's batches (and the body each ran)
+   under ``by_shape``; then the ``{"ok": true, ...}`` line last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
 
@@ -352,10 +379,12 @@ def entry_tag(entry: str) -> str:
     rest = entry[m.end() + len(name):]
     if not rest.startswith("I"):
         return name
-    targs = rest[1:rest.index("E")]
+    targs = rest[1:rest.index("EE") + 1]
     types = {"13__nv_bfloat16": "bf16", "f": "float", "t": "uint16", "j": "uint32"}
     args = [types[t] for t in re.findall(r"^(13__nv_bfloat16|f|t|j)", targs)]
-    return f"{name}<{', '.join(args + re.findall(r'Li(\d+)', targs))}>"
+    literals = [("true" if v == "1" else "false") if kind == "b" else v
+                for kind, v in re.findall(r"L([ib])(\d+)", targs)]
+    return f"{name}<{', '.join(args + literals)}>"
 
 
 def ptxas_summary(name: str, log: str) -> list:
@@ -526,12 +555,15 @@ def check_close(name, got, want, rtol, atol) -> float:
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12):
-    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref
+def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12, hd: int = 64):
+    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
 
-    B, H, hd = batch, heads, 64
+    B, H = batch, heads
+    # logits of one spread (std 0.5) at every head width: q and k entries of
+    # std (0.25 / hd) ** 0.25, 0.25 at hd 64
+    qk = (0.25 / hd) ** 0.25
     q, k, v = (torch.randn(B, n, H, hd, device="cuda", generator=gen) * s
-               for s in (0.25, 0.25, 1.0))
+               for s in (qk, qk, 1.0))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     t = lambda x: x.transpose(1, 2)
     plain = lambda: t(attention_ref(t(q), t(k), t(v)))
@@ -546,6 +578,7 @@ def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12):
     library = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
     esize = torch.finfo(dtype).bits // 8
     return {"shape": f"B*H={B}*{H} N={n} hd={hd}", "dtype": str(dtype).split(".")[-1],
+            "body": launch_plan(B, n, H, hd, dtype).body,
             "max_abs_err": err, **accuracy, "ms": time_ms(lambda: attention_fwd(q, k, v)),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library),
             **bound_fields(4 * B * H * n * hd * esize, 4 * B * H * n * n * hd, dtype)}
@@ -597,10 +630,10 @@ def time_bf16_bodies(gen, long_only, n, batch=SERVE_BATCH, heads: int = 12) -> d
                 qh, kh, vh, scale=1.0))}
 
 
-def check_fused_mlp(gen, dtype, c, rows):
+def check_fused_mlp(gen, dtype, c, rows, f: int = 0):
     from pevit_tpu_torch.ops.fused_mlp import fused_mlp_fwd, fused_mlp_residual_ref
 
-    f = 4 * c
+    f = f or 4 * c
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     x = r(rows, c).to(dtype)
     ln_s, ln_b = 1 + 0.1 * r(c), 0.1 * r(c)
@@ -626,20 +659,21 @@ def check_fused_mlp(gen, dtype, c, rows):
     g = torch.randn(rows, f, device="cuda").to(dtype)
     gemms = lambda: (u @ wfc, g @ wproj)
     return {"shape": f"R={rows} C={c} F={f}", "dtype": str(dtype).split(".")[-1],
+            "body": "f32" if dtype == torch.float32 else "bf16",
             "max_abs_err": err, **accuracy, "ms": time_ms(lambda: fused_mlp_fwd(*args), reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_residual_ref(*args), reps=5),
             "library_ms": None, "gemm_ms": time_ms(gemms, reps=5),
             **bound_fields(n_bytes, 4 * rows * c * f, dtype)}
 
 
-def check_fused_mlp_bwd(gen, dtype, c, rows):
+def check_fused_mlp_bwd(gen, dtype, c, rows, f: int = 0):
     """K3 against its plain backward (same rounding points) and, in fp32,
     against torch autograd of the plain forward and through
     :func:`fp32_class` against a float64 run of the plain backward."""
     from pevit_tpu_torch.ops.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_ref,
                                                fused_mlp_residual_ref)
 
-    f = 4 * c
+    f = f or 4 * c
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     x, dy = r(rows, c).to(dtype), r(rows, c).to(dtype)
     ln_s, ln_b = 1 + 0.1 * r(c), 0.1 * r(c)
@@ -651,7 +685,7 @@ def check_fused_mlp_bwd(gen, dtype, c, rows):
     rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     err = check_close(f"fused_mlp_bwd C={c} {dtype}", got, want, rtol, atol)
     row = {"shape": f"R={rows} C={c} F={f}", "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err}
+           "body": "f32" if dtype == torch.float32 else "bf16", "max_abs_err": err}
     if dtype == torch.float32:
         xg = x.clone().requires_grad_()
         y = fused_mlp_residual_ref(xg, ln_s, ln_b, wfc, bfc, wproj, bproj)
@@ -684,6 +718,34 @@ def time_attention_bwd(gen, dtype, n, batch):
     return {"shape": f"B*H={batch}*{H} N={n} hd={hd}", "dtype": str(dtype).split(".")[-1],
             "plain_ms": time_ms(lambda: attention_bwd_ref(q, k, v, g)),
             **bound_fields(7 * batch * n * H * hd * esize, 10 * batch * H * n * n * hd, dtype)}
+
+
+# 3c's shapes: K1 at head widths 20 (zero-padded to 24 in bf16), 32, 80 (MAE
+# ViT-H/14), 128 and 256, at N = 197 (64 images of 16 heads) in both dtypes
+# and at N = 577 (32 images) in bf16, its long body; K2 and K3 at the model
+# widths of ViT-Ti (192), ViT-S (384), ViT-H (1280) and ViT-g (1408) with F
+# = 4C, a tail case (200, 800) that fills no tile, and a width that fills
+# no 16-byte chunk (100, 300, zero-padded), both dtypes, at R = 32 x 257
+# (phase 16's training batch)
+SHAPE_HEAD_DIMS = (20, 32, 80, 128, 256)
+SHAPE_WIDTHS = ((192, 768), (200, 800), (384, 1536), (1280, 5120), (1408, 5632), (100, 300))
+SHAPE_ROWS = 32 * 257
+
+
+def check_kernel_shapes(gen) -> dict:
+    """3c: every kernel against its plain version at the shapes beyond
+    ViT-B's (``SHAPE_HEAD_DIMS``, ``SHAPE_WIDTHS``), timed beside SDPA or
+    ``gemm_ms`` and its bound; fp32 rows through :func:`fp32_class`."""
+    table = {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    for hd in SHAPE_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            table["attention_fwd"].append(check_attention(gen, dtype, 197, AUX_BATCH, 16, hd))
+        table["attention_fwd"].append(check_attention(gen, torch.bfloat16, 577, 32, 16, hd))
+    for c, f in SHAPE_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            table["fused_mlp_fwd"].append(check_fused_mlp(gen, dtype, c, SHAPE_ROWS, f))
+            table["fused_mlp_bwd"].append(check_fused_mlp_bwd(gen, dtype, c, SHAPE_ROWS, f))
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -761,13 +823,17 @@ def build_classifier(seed: int, method: str = "kadaptation", num_classes: int = 
     return static, trainable, frozen, bn, preproc
 
 
-def fit_prototype_head(static, trainable, frozen, bn, preproc, prototypes) -> None:
+def fit_prototype_head(static, trainable, frozen, bn, preproc, prototypes,
+                       chunk: int = 0) -> None:
     """Give the head one class per prototype image, in place: logit_c(x) =
     (z(x) - m) . d_c, where z is the BN'd feature, m the prototypes' mean z
     and d_c prototype c's unit deviation from it (a nearest-centroid head,
     as a head initialised from class embeddings is).  Its logits separate
     classes, so a top-1 comparison tests the kernels and not bf16 rounding
-    between near-tied random logits."""
+    between near-tied random logits.  KAdaptation's scramble makes a row's
+    features depend on its batch: ``chunk`` (all at once unless given) is
+    the batch the prototypes' features are taken in, that of the batch
+    whose logits are then compared."""
     from pevit_tpu_torch.serve import make_serving_fn
     from pevit_tpu_torch.train import Head
 
@@ -777,7 +843,8 @@ def fit_prototype_head(static, trainable, frozen, bn, preproc, prototypes) -> No
         probe.linear.kernel.copy_(torch.eye(dim))  # logits = the BN'd features
     feats = make_serving_fn(dataclasses.replace(static, compute_dtype="float32"),
                             {**trainable, "head": probe}, frozen, bn, preproc, device="cuda")
-    z = feats(prototypes)
+    step = chunk or len(prototypes)
+    z = torch.cat([feats(prototypes[i:i + step]) for i in range(0, len(prototypes), step)])
     m = z.mean(0)
     d = (z - m) / (z - m).norm(dim=-1, keepdim=True)
     head = trainable["head"]
@@ -1304,9 +1371,10 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
     dtype, tokens, width = getattr(torch, batches["dtype"]), batches["tokens"], batches["width"]
     rows = {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
     heads = batches.get("heads", 12)  # a model rank's heads under tensor parallelism
+    hd = batches.get("head_dim", 64)
     for b in sorted(set(train) | set(evals)):
         n = {"path": path, "images": b, "launches": layers * (train[b] + evals[b])}
-        rows["attention_fwd"].append({**check_attention(gen, dtype, tokens, b, heads), **n})
+        rows["attention_fwd"].append({**check_attention(gen, dtype, tokens, b, heads, hd), **n})
         if batches["fused_mlp"]:
             rows["fused_mlp_fwd"].append({**check_fused_mlp(gen, dtype, width, b * tokens), **n})
     if batches["fused_mlp_bwd"]:
@@ -1318,10 +1386,11 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
 
 
 def kernel_report(kernels, launches: dict, table: dict) -> list:
-    """The ``kernels`` line: launches summed over the paths of phases 6 to 15
-    (each read around its own run); the other numbers at the batch that
-    launched the kernel most (the larger batch on a tie); every path's
-    batches under ``by_shape``."""
+    """The ``kernels`` line: launches summed over the paths of phases 6 to 16
+    (each read around its own run) and by body (each path's rows name the
+    body its launches ran); the other numbers at the batch that launched the
+    kernel most (the larger batch on a tie); every path's batches under
+    ``by_shape``."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_peak", "library_ms")
     report = []
     for k in kernels:
@@ -1330,14 +1399,18 @@ def kernel_report(kernels, launches: dict, table: dict) -> list:
         main_row = max(rows_, key=lambda r: (r["launches"], r["images"]))
         if sum(r["launches"] for r in rows_) != total:
             raise AssertionError(f"{k.name}: the paths' batches do not add up to its launches")
+        by_body = collections.Counter()
+        for r in rows_:
+            by_body[r["body"]] += r["launches"]
         report.append({"name": k.name, "route": "cuda",
                        "source": str(k.source.relative_to(REPO)),
                        "replaces": k.replaces, "launches": total,
                        "launches_by_path": {p: n[k.name] for p, n in launches.items()},
+                       "launches_by_body": dict(by_body),
                        **{key: main_row[key] for key in keys}, "shape": main_row["shape"],
                        "dtype": main_row["dtype"],
-                       "by_shape": [{key: r[key] for key in ("path", "images", "dtype", "shape",
-                                                              "launches") + keys}
+                       "by_shape": [{key: r[key] for key in ("path", "images", "dtype", "body",
+                                                              "shape", "launches") + keys}
                                     for r in rows_]})
     return report
 
@@ -2336,11 +2409,13 @@ def run_aux_command(kernels, module, argv: list, batches_of) -> tuple:
     return summary, task, data, config, batches
 
 
-def aux_forward(kernels, backbone, res: int, rng, *, tokens: int, fused: bool) -> tuple:
-    """One forward of ``backbone`` at AUX_BATCH on the card: its launches
-    (12 K1 a forward, and 12 K2 where ``fused``), features finite and
-    within 1e-4 of the plain path's, and feature images/s (median of 5
-    timed forwards after warm-up).  Returns (summary, batches)."""
+def aux_forward(kernels, backbone, res: int, rng, *, tokens: int, fused: bool,
+                layers: int = 12, width: int = 768, heads: int = 12) -> tuple:
+    """One forward of ``backbone`` (``layers`` blocks of ``width``, in
+    ``heads`` heads) at AUX_BATCH on the card: its launches (a K1 a block a
+    forward, and a K2 where ``fused``), features finite and within 1e-4 of
+    the plain path's, and feature images/s (median of 5 timed forwards
+    after warm-up).  Returns (summary, batches)."""
     x = torch.from_numpy(rng.standard_normal((AUX_BATCH, res, res, 3)).astype(np.float32)).cuda()
     fwd = lambda: backbone.forward_features(backbone.params, x)
     with torch.no_grad():
@@ -2352,8 +2427,9 @@ def aux_forward(kernels, backbone, res: int, rng, *, tokens: int, fused: bool) -
             want = fwd()
         ms = time_ms(fwd, reps=5)
     batches = {"dtype": "float32", "train": collections.Counter(),
-               "evals": collections.Counter({AUX_BATCH: 1}), "layers": 12, "width": 768,
-               "tokens": tokens, "fused_mlp": fused, "fused_mlp_bwd": False}
+               "evals": collections.Counter({AUX_BATCH: 1}), "layers": layers, "width": width,
+               "heads": heads, "head_dim": width // heads, "tokens": tokens, "fused_mlp": fused,
+               "fused_mlp_bwd": False}
     if launches != expected_launches(batches):
         raise AssertionError(f"{backbone.name} forward: launches {launches}, "
                              f"want {expected_launches(batches)}")
@@ -4093,10 +4169,20 @@ def load_vitl14_336(tmp: Path) -> tuple:
     return clip, spec, summary
 
 
-def kernel_share(fn, name: str) -> dict:
+# the kernels of each of K1-K3 by name, for a profile's shares: K2's and
+# K3's GEMMs and K3's own row passes and transposes (the LayerNorm row
+# pass, which both run, apart)
+KERNEL_GROUPS = {"attention_fwd": ("attention_fwd",),
+                 "fused_mlp_fwd": ("gemm_fc_", "gemm_proj_"),
+                 "fused_mlp_bwd": ("gemm_dh_", "gemm_du_", "ln_bwd_rows", "transpose_kernel"),
+                 "ln_rows": ("ln_rows_kernel",)}
+
+
+def kernel_share(fn, groups: dict) -> dict:
     """Device ms of ``fn`` under a CUDA-only profiler trace: the card's busy
-    time (the union of its kernel and copy intervals) and the time of the
-    kernels whose name holds ``name``, and that share."""
+    time (the union of its kernel and copy intervals) and, for each group
+    of ``groups`` ({label: name parts}), the time of the kernels whose name
+    holds one of its parts, and that share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4106,88 +4192,118 @@ def kernel_share(fn, name: str) -> dict:
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
     busy = busy_ms(events)
-    own = sum(e.end_ns() - e.start_ns() for e in events if name in e.name()) / 1e6
-    return {"busy_ms": busy, f"{name}_ms": own, "share": own / busy}
+    out = {"busy_ms": busy}
+    for label, parts in groups.items():
+        own = sum(e.end_ns() - e.start_ns() for e in events
+                  if any(part in e.name() for part in parts)) / 1e6
+        out.update({f"{label}_ms": own, f"{label}_share": own / busy})
+    return out
 
 
-def l336_batches(spec, train: dict, evals: dict, fused_mlp_bwd: bool) -> dict:
+def tower_batches(spec, train: dict, evals: dict, fused_mlp_bwd: bool) -> dict:
     """A bf16 KAdaptation path's batches on the tower of ``spec``."""
     v = spec.vision
     return {"dtype": "bfloat16", "train": collections.Counter(train),
             "evals": collections.Counter(evals), "layers": v.layers, "width": v.width,
-            "tokens": v.seq_len, "heads": v.heads, "fused_mlp": True,
-            "fused_mlp_bwd": fused_mlp_bwd}
+            "tokens": v.seq_len, "heads": v.heads, "head_dim": v.width // v.heads,
+            "fused_mlp": True, "fused_mlp_bwd": fused_mlp_bwd}
 
 
-def l336_serve(kernels, clip, spec, rng) -> tuple:
-    """The bf16 KAdaptation classifier through ``make_serving_fn`` on uint8
-    images at 336 px: a K1 and a K2 launch a block (24) a forward at each
-    batch of L336_SERVE_BATCHES; logits and top-1 against the plain path on the card
-    at each (``compare_plain``); images/s at the largest; K1's share of a
-    forward there from a CUDA-only profile.  Returns (summary, launches,
-    batches, prototypes)."""
+def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: tuple,
+                what: str) -> tuple:
+    """The bf16 KAdaptation classifier on the tower ``clip`` through
+    ``make_serving_fn`` on uint8 images: a K1 and a K2 launch a block a
+    forward at each of ``batches``; logits and top-1 against the plain path
+    on the card at each (``compare_plain``), the head fitted to the
+    prototypes' features in batches of that size; images/s at the largest;
+    K1's and K2's shares of a forward there from a CUDA-only profile.
+    Returns (summary, launches, batches, prototypes)."""
     from pevit_tpu_torch.serve import make_serving_fn
 
     static, trainable, frozen, bn, preproc = build_classifier(
-        L336_SEED, num_classes=L336_CLASSES, tower=(clip, spec))
+        seed, num_classes=classes, tower=(clip, spec))
     res = spec.vision.input_resolution
     # the served batch, one class per image, its head fitted to it (as
     # phase 8's): the logits separate the classes by the tower's features,
     # so a top-1 comparison tests the kernels and not near-ties
-    prototypes = rng.integers(0, 256, (L336_CLASSES, res, res, 3), dtype=np.uint8)
-    fit_prototype_head(static, trainable, frozen, bn, preproc, prototypes)
+    prototypes = rng.integers(0, 256, (classes, res, res, 3), dtype=np.uint8)
     serve = make_serving_fn(static, trainable, frozen, bn, preproc, device="cuda")
-    n = max(L336_SERVE_BATCHES)
+    n = max(batches)
     images = torch.from_numpy(prototypes[:n]).cuda()
     labels = torch.arange(n).cuda()
     serve(images[:1])  # warm-up
     torch.cuda.synchronize()
     layers = spec.vision.layers
     want = {"attention_fwd": layers, "fused_mlp_fwd": layers, "fused_mlp_bwd": 0}
-    reset_launches(kernels)
-    for b in L336_SERVE_BATCHES:
+    launches, checks = collections.Counter(), {}
+    for b in sorted(batches):  # the largest last: the timed batch
+        fit_prototype_head(static, trainable, frozen, bn, preproc, prototypes, chunk=b)
         before = read_launches(kernels)
         logits = serve(images[:b])
         torch.cuda.synchronize()
         got = {k: v - before[k] for k, v in read_launches(kernels).items()}
-        if got != want or logits.shape != (b, L336_CLASSES):
-            raise AssertionError(f"ViT-L/14@336 forward of {b}: launches {got}, want {want}; "
+        if got != want or logits.shape != (b, classes):
+            raise AssertionError(f"{what} forward of {b}: launches {got}, want {want}; "
                                  f"logits {tuple(logits.shape)}")
-    launches = read_launches(kernels)
-    checks = {b: compare_plain(serve, images[:b], labels[:b], torch.bfloat16)
-              for b in L336_SERVE_BATCHES}
+        launches.update(got)
+        checks[b] = compare_plain(serve, images[:b], labels[:b], torch.bfloat16)
+    launches = {k.name: launches[k.name] for k in kernels}
     ms = time_ms(lambda: serve(images), reps=5)
-    share = kernel_share(lambda: serve(images), "attention_fwd")
+    groups = {k: KERNEL_GROUPS[k] for k in ("attention_fwd", "fused_mlp_fwd", "ln_rows")}
+    share = kernel_share(lambda: serve(images), groups)
     summary = {"launches": launches, "vs_plain": checks, "forward_ms": ms,
-               "images_per_s": n / ms * 1e3, "k1_share_of_forward": share}
-    return (summary, launches, l336_batches(spec, {}, {b: 1 for b in L336_SERVE_BATCHES}, False),
+               "images_per_s": n / ms * 1e3, "kernel_shares_of_forward": share}
+    return (summary, launches, tower_batches(spec, {}, {b: 1 for b in batches}, False),
             prototypes)
 
 
-def l336_train(kernels, clip, spec, prototypes, rng) -> tuple:
-    """A bf16 KAdaptation run at batch 32 (dropout 0.5): 3 steps and one
-    eval chunk through ``train_trials``, 24 K1, K2 and K3 launches a step
-    (K1 and K2 also an eval chunk), the card's peak allocation; train
-    images/s; first-step fp32 gradients against the plain path at phase 5's
-    limits.  Returns (summary, launches, batches)."""
+def step_shares(task, data) -> dict:
+    """Each kernel's share of a bf16 train step's device time (one epoch of
+    3 full batches on the bundle the main run trained, under a CUDA-only
+    profile, after a warm-up epoch), and the step's wall ms."""
+    from pevit_tpu_torch.train import build_epoch_fn
+
+    n = 3 * task.static.batch_size
+    images = task.prepack(data[0][:n])
+    labels = torch.as_tensor(data[1][:n]).cuda()
+    epoch = build_epoch_fn(task.static, n, task.preproc)
+    state = epoch(task.last_bundle, images, labels, task.last_state, TRAIN_LR, TRAIN_WD)
+    torch.cuda.synchronize()
+    shares = kernel_share(
+        lambda: epoch(task.last_bundle, images, labels, state, TRAIN_LR, TRAIN_WD),
+        KERNEL_GROUPS)
+    return {**shares, "steps": 3, "busy_ms_per_step": shares["busy_ms"] / 3}
+
+
+def tower_train(kernels, clip, spec, prototypes, rng, *, classes: int, n_train: int,
+                n_val: int, batch: int, shares: bool = False) -> tuple:
+    """A bf16 KAdaptation run at ``batch`` (dropout 0.5): the steps of
+    ``n_train`` images and one eval chunk of ``n_val`` through
+    ``train_trials``, a K1, K2 and K3 launch a block a step (K1 and K2 also
+    an eval chunk), the card's peak allocation; train images/s; with
+    ``shares`` each kernel's share of a step (``step_shares``); first-step
+    fp32 gradients against the plain path at phase 5's limits.  Returns
+    (summary, launches, batches)."""
     def noisy(n):
-        labels = np.arange(n) % L336_CLASSES
+        labels = np.arange(n) % classes
         noise = rng.integers(-8, 9, (n,) + prototypes.shape[1:], dtype=np.int16)
         return np.clip(prototypes[labels].astype(np.int16) + noise, 0, 255).astype(np.uint8), \
             labels
 
-    data = (*noisy(L336_TRAIN), *noisy(L336_VAL))
-    task = make_task(clip, "bfloat16", dropout_p=0.5, batch=L336_BATCH, spec=spec)
+    data = (*noisy(n_train), *noisy(n_val))
+    task = make_task(clip, "bfloat16", dropout_p=0.5, batch=batch, spec=spec)
     torch.cuda.reset_peak_memory_stats()
     run = train_run(task, data, kernels, epochs=1)  # the launches held exact
     peak = torch.cuda.max_memory_allocated()
     ips = train_throughput(task, data)
-    grads = compare_grads(make_task(clip, "float32", 0.0, batch=L336_BATCH, spec=spec),
-                          data[0][:L336_BATCH], data[1][:L336_BATCH], torch.float32)
-    summary = {**run, "peak_allocated_gb": peak / 1e9, "train_images_per_s": ips,
-               "first_step_grads": grads}
-    batches = l336_batches(spec, {L336_BATCH: run["train_steps"]},
-                           {L336_VAL: run["eval_chunks"]}, True)
+    summary = {**run, "peak_allocated_gb": peak / 1e9, "train_images_per_s": ips}
+    if shares:
+        summary["kernel_shares_of_a_step"] = step_shares(task, data)
+    del task
+    summary["first_step_grads"] = compare_grads(
+        make_task(clip, "float32", 0.0, batch=batch, spec=spec), data[0][:batch],
+        data[1][:batch], torch.float32)
+    batches = tower_batches(spec, {batch: run["train_steps"]}, {n_val: run["eval_chunks"]}, True)
     return summary, run["launches"], batches
 
 
@@ -4199,9 +4315,13 @@ def run_vitl14_336(kernels, gen, card: str) -> tuple:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_l336_") as tmp:
         clip, spec, ckpt = load_vitl14_336(Path(tmp))
     print(f"vitl14_336 checkpoint: {json.dumps(ckpt)} [{card}]", flush=True)
-    serve, serve_launches, serve_batches, prototypes = l336_serve(kernels, clip, spec, rng)
+    serve, serve_launches, serve_batches, prototypes = tower_serve(
+        kernels, clip, spec, rng, seed=L336_SEED, classes=L336_CLASSES,
+        batches=L336_SERVE_BATCHES, what="ViT-L/14@336")
     print(f"vitl14_336 serving bf16: {json.dumps(serve)} [{card}]", flush=True)
-    train, train_launches, train_batches = l336_train(kernels, clip, spec, prototypes, rng)
+    train, train_launches, train_batches = tower_train(
+        kernels, clip, spec, prototypes, rng, classes=L336_CLASSES, n_train=L336_TRAIN,
+        n_val=L336_VAL, batch=L336_BATCH)
     print(f"vitl14_336 training bf16 batch {L336_BATCH}: {json.dumps(train)} [{card}]",
           flush=True)
     del clip
@@ -4213,6 +4333,192 @@ def run_vitl14_336(kernels, gen, card: str) -> tuple:
         for r in rows_:
             print(f"vitl14_336 kernel {name} {json.dumps(r)} [{card}]", flush=True)
     return launches, table, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# 16. ViT-H/14: CLIP's tower (C = 1280, K2 and K3 at the new width) and
+# MAE's (heads of 80, K1's fp32 body at the new head width)
+# ---------------------------------------------------------------------------
+
+H14_SEED = 17
+H14_RES = 224
+# the published widths: LAION's open CLIP ViT-H-14 (its vision and text
+# towers and embedding) and MAE's ViT-H/14 (timm's vit_huge_patch14_224)
+CLIP_H14 = {"width": 1280, "layers": 32, "patch": 14, "text_width": 1024, "text_heads": 16,
+            "text_layers": 24, "embed": 1024}
+MAE_H14 = {"width": 1280, "layers": 32, "heads": 16, "patch": 14}
+H14_CLASSES = 64  # = the largest served batch: one class an image
+H14_SERVE_BATCHES = (1, 8, 64)
+# 96 train images at batch 32 (3 steps, one epoch) and 32 val images (one
+# eval chunk), noisy copies of the prototypes, as phase 15's
+H14_TRAIN, H14_VAL, H14_BATCH = 96, 32, 32
+# MAE's finetune step and its gradients: 16 train and 16 val images
+MAE_FT_BATCH = 16
+MAE_FT_RATE = (1e-5, 1e-4)  # (lr, wd) at the finetune command's scale
+
+
+def h14_tokens(patch: int) -> int:
+    return (H14_RES // patch) ** 2 + 1
+
+
+def clip_h14_config():
+    """CLIP ViT-H/14 as a user's MODEL.SPEC gives it (``CLIP_H14``: the
+    vision tower of LAION's open ViT-H-14, width 1280, 32 layers, patch 14;
+    its text tower 1024 wide, 24 layers of 16 heads; embedding 1024), at
+    224 px, merged as the commands merge a model YAML: by the reference's
+    rule the vision tower has 1280 // 64 = 20 heads of 64."""
+    cfg = aux_config("vitb32_CLIP.yaml", "TRAIN.IMAGE_SIZE", f"[{H14_RES},{H14_RES}]")
+    cfg.defrost()
+    cfg.MODEL.NAME = "ViT-H/14"
+    spec, h = cfg.MODEL.SPEC, CLIP_H14
+    spec.EMBED_DIM = h["embed"]
+    spec.VISION.WIDTH, spec.VISION.LAYERS, spec.VISION.PATCH_SIZE = h["width"], h["layers"], \
+        h["patch"]
+    spec.TEXT.WIDTH, spec.TEXT.HEADS, spec.TEXT.LAYERS = h["text_width"], h["text_heads"], \
+        h["text_layers"]
+    cfg.freeze()
+    return cfg
+
+
+def mae_h14_config(*opts):
+    """MAE ViT-H/14 (``MAE_H14``: the MAE paper's and timm's
+    ``vit_huge_patch14_224``, EMBED_DIM 1280, DEPTH 32, NUM_HEADS 16, patch
+    14, the global pool) as a user's MODEL.SPEC gives it under an ``mae_``
+    name, at 224 px: heads of 80."""
+    cfg = aux_config("mae_vitb16.yaml", "TRAIN.IMAGE_SIZE", f"[{H14_RES},{H14_RES}]", *opts)
+    cfg.defrost()
+    cfg.MODEL.NAME = "mae_vit_huge_patch14"
+    spec, h = cfg.MODEL.SPEC, MAE_H14
+    spec.EMBED_DIM, spec.DEPTH, spec.NUM_HEADS, spec.PATCH_SIZE = h["width"], h["layers"], \
+        h["heads"], h["patch"]
+    spec.GLOBAL_POOL = True
+    cfg.freeze()
+    return cfg
+
+
+def clip_h14(kernels, gen, card: str, rng) -> tuple:
+    """16a: CLIP ViT-H/14 from its spec, seeded weights on the card;
+    serving at batches 1, 8, 64 and training at batch 32, as phase 15 (32
+    K1 and K2 a forward, 32 K1, K2 and K3 a step), with each kernel's share
+    of a train step.  Returns (summaries, launches, table)."""
+    from pevit_tpu_torch.core import CLIPSpec, init_clip_params
+
+    spec = CLIPSpec.from_config(clip_h14_config())
+    v, h = spec.vision, CLIP_H14
+    if (v.width, v.layers, v.heads, v.seq_len) != (h["width"], h["layers"], h["width"] // 64,
+                                                   h14_tokens(h["patch"])):
+        raise AssertionError(f"CLIP ViT-H/14 spec {spec}")
+    t0 = time.perf_counter()
+    clip = init_clip_params(torch.Generator().manual_seed(H14_SEED), spec, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params_m": sum(p.numel() for p in clip.parameters()) / 1e6}
+    out["serve"], serve_launches, serve_batches, prototypes = tower_serve(
+        kernels, clip, spec, rng, seed=H14_SEED, classes=H14_CLASSES, batches=H14_SERVE_BATCHES,
+        what="CLIP ViT-H/14")
+    out["train"], train_launches, train_batches = tower_train(
+        kernels, clip, spec, prototypes, rng, classes=H14_CLASSES, n_train=H14_TRAIN,
+        n_val=H14_VAL, batch=H14_BATCH, shares=True)
+    del clip
+    torch.cuda.empty_cache()
+    table = path_kernel_rows(gen, "clip_h14_serve", serve_batches)
+    for name, rows_ in path_kernel_rows(gen, "clip_h14_train", train_batches).items():
+        table[name] += rows_
+    return out, {"clip_h14_serve": serve_launches, "clip_h14_train": train_launches}, table
+
+
+def mae_h14(kernels, gen, card: str, rng) -> tuple:
+    """16b: MAE ViT-H/14 through ``get_model`` from its spec (seeded
+    weights); a 64-image feature forward (32 K1 a forward on the fp32 body
+    at hd 80, no K2) within 1e-4 of the plain path's; one ``full_finetune``
+    step through ``train_trials`` (16 images, one eval chunk of 16: 32 K1
+    each) and first-step gradients kernel vs plain path as phase 10's
+    ViT-B/16 finetune (bf16 cosine >= 0.99, fp32 within 1e-3 of each leaf's
+    largest |g|, the final LayerNorm's bias vanishing and its scale held to
+    WITNESS_FACTOR x the float64 witness).  Returns (summaries, launches,
+    table)."""
+    from pevit_tpu_torch.core import CLIPSpec
+    from pevit_tpu_torch.models import get_model
+    from pevit_tpu_torch.peft import PeftConfig
+    from pevit_tpu_torch.train import TaskStatic, TrainTask
+
+    cfg = mae_h14_config("DATASET.NUM_CLASSES", str(MAE_FT_BATCH),
+                         "TRAIN.BATCH_SIZE_PER_GPU", str(MAE_FT_BATCH))
+    t0 = time.perf_counter()
+    mae = get_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params_m": sum(p.numel() for p in mae.params.parameters()) / 1e6}
+    h = MAE_H14
+    tokens = h14_tokens(h["patch"])
+    out["features"], forward_batches = aux_forward(kernels, mae, H14_RES, rng, tokens=tokens,
+                                                   fused=False, layers=h["layers"],
+                                                   width=h["width"], heads=h["heads"])
+
+    static = TaskStatic.from_config(cfg, CLIPSpec.from_config(cfg),
+                                    PeftConfig(method="full_finetune"), feat_dim=mae.feat_dim)
+    task = TrainTask(cfg, static, None, device="cuda", backbone=mae)
+    n = 2 * MAE_FT_BATCH
+    images = rng.integers(0, 256, (n, H14_RES, H14_RES, 3), dtype=np.uint8)
+    labels = np.arange(n) % MAE_FT_BATCH
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with recorded_calls([]) as calls:
+        res = task.train_trials([MAE_FT_RATE], images[:MAE_FT_BATCH], labels[:MAE_FT_BATCH],
+                                images[MAE_FT_BATCH:], labels[MAE_FT_BATCH:], end_epoch=1,
+                                keep_logits=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    step_batches = aux_batches(task, calls, tokens, fused_mlp=False, layers=h["layers"])
+    step_batches.update(width=h["width"], heads=h["heads"], head_dim=h["width"] // h["heads"])
+    if launches != expected_launches(step_batches) or not np.isfinite(res[0]["best_logits"]).all():
+        raise AssertionError(f"MAE ViT-H/14 finetune step: launches {launches}, want "
+                             f"{expected_launches(step_batches)}, or non-finite logits")
+    ft = {"launches": launches, "seconds": seconds, "train_step_images": dict(step_batches["train"]),
+          "eval_chunk_images": dict(step_batches["evals"]), "first_step_grads": []}
+    x, y = images[:MAE_FT_BATCH], labels[:MAE_FT_BATCH]
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        variant = copy.copy(task)
+        variant.static = dataclasses.replace(task.static, compute_dtype=dtype_name)
+        limits = None
+        if dtype == torch.float32:
+            witness = witness_gaps(variant, x, y, VIT_WITNESSED)
+            limits = {n: WITNESS_FACTOR * gap for n, gap in witness.items()}
+        grads = compare_grads(variant, x, y, dtype, VIT_VANISHING, limits)
+        if limits:
+            for n, held in grads["held_to_limits"].items():
+                held["witness_gap"] = witness[n]
+        ft["first_step_grads"].append(grads)
+    out["finetune"] = ft
+    del task, mae
+    torch.cuda.empty_cache()
+    table = path_kernel_rows(gen, "mae_h14_forward", forward_batches)
+    for name, rows_ in path_kernel_rows(gen, "mae_h14_finetune", step_batches).items():
+        table[name] += rows_
+    return (out, {"mae_h14_forward": out["features"]["launches"], "mae_h14_finetune": launches},
+            table)
+
+
+def run_vith14(kernels, gen, card: str) -> tuple:
+    """Phase 16: CLIP ViT-H/14 (16a) and MAE ViT-H/14 (16b) at full width
+    and depth on the card, then every kernel against its plain version at
+    each batch each path gave it."""
+    t0, steps = time.perf_counter(), {}
+    rng = np.random.default_rng(H14_SEED)
+    clip, clip_launches, table = clip_h14(kernels, gen, card, rng)
+    print(f"clip_h14: {json.dumps(clip)} [{card}]", flush=True)
+    steps["clip"] = time.perf_counter() - t0
+    mae, mae_launches, mae_table = mae_h14(kernels, gen, card, rng)
+    print(f"mae_h14: {json.dumps(mae)} [{card}]", flush=True)
+    steps["mae"] = time.perf_counter() - t0 - steps["clip"]
+    for name, rows_ in mae_table.items():
+        table[name] += rows_
+    for name, rows_ in table.items():
+        for r in rows_:
+            print(f"vith14 kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    print(f"phase 16 seconds by step: {json.dumps(steps)}", flush=True)
+    return {**clip_launches, **mae_launches}, table, time.perf_counter() - t0
 
 
 def main() -> int:
@@ -4287,6 +4593,13 @@ def main() -> int:
         raise AssertionError(f"the TF32 control ran in float32 at phase 3's rows {idle}")
     attn_bwd = time_attention_bwd(gen, torch.bfloat16, 50, TRAIN_BATCH)
     print(f"plain attention_bwd_ref {json.dumps(attn_bwd)} [{card}]", flush=True)
+
+    # 3c. the kernels at the shapes beyond ViT-B's: head widths, model widths
+    t0 = time.perf_counter()
+    for name, rows_ in check_kernel_shapes(gen).items():
+        for r in rows_:
+            print(f"kernel shapes {name} {json.dumps(r)} [{card}]", flush=True)
+    print(f"phase 3c: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. serving
     static, trainable, frozen, bn, preproc = build_classifier(seed=0)
@@ -4410,13 +4723,19 @@ def main() -> int:
     l336_launches, l336_table, seconds = run_vitl14_336(KERNELS, gen, card)
     print(f"phase 15: {seconds:.1f} s", flush=True)
 
-    # 16. report
+    # 16. ViT-H/14: CLIP's tower at C = 1280 and MAE's heads of 80, served
+    # and trained at full width
+    h14_launches, h14_table, seconds = run_vith14(KERNELS, gen, card)
+    print(f"phase 16: {seconds:.1f} s", flush=True)
+
+    # 17. report
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
                 **aux_launches, **stream_launches, **trial_launches_, **axis_launches,
-                **mesh_launches, **l336_launches}
+                **mesh_launches, **l336_launches, **h14_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
              + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
-             + axis_table[name] + mesh_table[name] + l336_table[name] for name in command_table}
+             + axis_table[name] + mesh_table[name] + l336_table[name] + h14_table[name]
+             for name in command_table}
     report = kernel_report(KERNELS, launches, table)
     print(card)
     print(json.dumps({"kernels": report}))

@@ -23,6 +23,7 @@ Both operators have fake versions for tracing and FLOP formulas for
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -36,19 +37,66 @@ _L = ctypes.c_longlong
 KERNEL = Kernel(
     "attention_fwd",
     "attention_fwd.cu",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
     replaces="pevit_tpu/ops/attention.py:40",
 )
-HEAD_DIM = 64
-# every N >= 1 is taken: bf16 runs its register body (one block per (batch,
-# head), S rows in registers) up to MAX_SEQ_REGS tokens and its long body
-# beyond, fp32 one body; all but the register body launch a block per
-# (batch, head, 64-query tile); the launchers count the grid's blocks in a
-# 32-bit int, every pointer offset is 64-bit
+# every N >= 1 and every hd from 1 to MAX_HEAD_DIM is taken.  bf16 runs its
+# register body (one block per (batch, head), S rows in registers) up to
+# MAX_SEQ_REGS tokens at hd <= REG_WIDTH and its long body otherwise, fp32
+# one body; all but the register body launch a block per (batch, head,
+# 64-query tile, chunk of at most COLUMN_CHUNK output columns).  A body is
+# built for a head width of BODY_WIDTHS (hd rounded up; the kernel stages
+# the columns past hd as zeros), and the kernel takes hd in whole 16-byte
+# chunks: the wrapper zero-pads any other hd, as the reference pads hd to
+# a multiple of 8.  The launchers count the grid's blocks in a 32-bit int;
+# every pointer offset is 64-bit
 MAX_SEQ_REGS = 257
+REG_WIDTH = 64
+BODY_WIDTHS = (64, 80, 96, 128, 256)
+MAX_HEAD_DIM = BODY_WIDTHS[-1]
+COLUMN_CHUNK = 128
 QUERY_TILE = 64
 MAX_BLOCKS = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernel runs one call: ``body`` ("bf16_regs", "bf16_long" or
+    "f32"), the head width ``width`` its instantiation is built for, the
+    head width ``hd`` it is handed (the caller's, or zero-padded to whole
+    16-byte chunks) and its grid's ``blocks``."""
+
+    body: str
+    width: int
+    hd: int
+    blocks: int
+
+
+def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
+    """The body, instantiation, padded head width and grid of a launch on
+    (B, N, H, hd) tensors of ``dtype``, as ``csrc/attention_fwd.cu``'s
+    launcher chooses them; raises :class:`KernelInputError` on a shape it
+    cannot take."""
+    if dtype not in _DTYPE_CODES:
+        raise KernelInputError(f"attention kernel takes {list(_DTYPE_CODES)}, got {dtype}")
+    if B < 1 or H < 1 or N < 1:
+        raise KernelInputError(f"attention kernel takes B, H, N >= 1, got {(B, N, H, hd)}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise KernelInputError(f"attention kernel takes 1 <= hd <= {MAX_HEAD_DIM}, got {hd}")
+    chunk = 4 if dtype == torch.float32 else 8  # elements in 16 bytes
+    padded = -(-hd // chunk) * chunk
+    width = next(w for w in BODY_WIDTHS if w >= padded)
+    if dtype == torch.bfloat16 and N <= MAX_SEQ_REGS and padded <= REG_WIDTH:
+        body, blocks = "bf16_regs", B * H
+    else:
+        body = "bf16_long" if dtype == torch.bfloat16 else "f32"
+        columns = min(width, COLUMN_CHUNK)
+        blocks = B * H * -(-N // QUERY_TILE) * -(-padded // columns)
+    if blocks > MAX_BLOCKS:
+        raise KernelInputError(f"attention kernel takes at most {MAX_BLOCKS} blocks, got {blocks} "
+                               f"(B={B}, H={H}, N={N}, hd={hd}, {dtype})")
+    return LaunchPlan(body, width, padded, blocks)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -61,29 +109,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
 
 
 def rows_aligned(offset: int, strides, itemsize: int) -> bool:
-    """Whether the kernel can copy a (B, N, H, 64) operand's rows in 16-byte
+    """Whether the kernel can copy a (B, N, H, hd) operand's rows in 16-byte
     chunks: its address ``offset`` (in bytes) and its batch, token and head
     strides ``strides`` (in elements of ``itemsize`` bytes) all multiples of
-    16 bytes.  Both bodies require it."""
+    16 bytes.  Every body requires it."""
     return offset % 16 == 0 and all(st * itemsize % 16 == 0 for st in strides)
 
 
-def check_grid(B: int, H: int, N: int, dtype) -> None:
-    """The batch a launch can take: its grid's blocks at most ``MAX_BLOCKS``."""
-    regs = dtype == torch.bfloat16 and N <= MAX_SEQ_REGS
-    blocks = B * H * (1 if regs else -(-N // QUERY_TILE))
-    if blocks > MAX_BLOCKS:
-        raise KernelInputError(f"attention kernel takes at most {MAX_BLOCKS} blocks, got {blocks} "
-                               f"(B={B}, H={H}, N={N}, {dtype})")
+def check_grid(B: int, H: int, N: int, dtype, hd: int = REG_WIDTH) -> None:
+    """The batch a launch can take: the grid of the body that runs
+    (:func:`launch_plan`) at most ``MAX_BLOCKS`` blocks."""
+    launch_plan(B, N, H, hd, dtype)
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel on (B, N, H, 64) CUDA tensors, which may be strided
+    """The CUDA kernel on (B, N, H, hd) CUDA tensors, which may be strided
     views (e.g. of a packed qkv projection) with unit stride inside a head
-    and rows that :func:`rows_aligned` accepts, at any N >= 1.  The dtype
-    picks the kernel's body; both run on the tensor cores, float32 by a
-    three-product TF32 split that keeps float32 accuracy.  Returns a
-    contiguous (B, N, H, 64) tensor."""
+    and rows that :func:`rows_aligned` accepts, at any N >= 1 and 1 <= hd
+    <= 256.  An hd that does not fill whole 16-byte chunks is zero-padded
+    into aligned copies first (:func:`launch_plan`).  The dtype picks the
+    kernel's body; both run on the tensor cores, float32 by a three-product
+    TF32 split that keeps float32 accuracy.  Returns a contiguous (B, N, H,
+    hd) tensor."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise KernelInputError("attention_fwd takes CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -95,22 +142,20 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         raise KernelInputError(f"q, k, v must share a dtype in {list(_DTYPE_CODES)}, got "
                                f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, N, H, hd = q.shape
-    if hd != HEAD_DIM:
-        raise KernelInputError(f"attention kernel takes head_dim {HEAD_DIM}, got {hd}")
-    if B < 1 or H < 1 or N < 1:
-        raise KernelInputError(f"attention kernel takes B, H, N >= 1, got {tuple(q.shape)}")
-    check_grid(B, H, N, q.dtype)
+    plan = launch_plan(B, N, H, hd, q.dtype)
+    if plan.hd != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, plan.hd - hd)) for t in (q, k, v))
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise KernelInputError("attention kernel needs unit stride along head_dim")
     if not all(rows_aligned(t.data_ptr(), t.stride()[:3], t.element_size()) for t in (q, k, v)):
         raise KernelInputError("the attention kernel copies rows in 16-byte chunks: q, k, v need "
                                "16-byte aligned base pointers and batch, token and head strides "
                                "that are multiples of 16 bytes")
-    out = torch.empty((B, N, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, N, H, plan.hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  _DTYPE_CODES[q.dtype], B, H, N, *strides, stream_ptr(q))
-    return out
+                  _DTYPE_CODES[q.dtype], B, H, N, plan.hd, *strides, stream_ptr(q))
+    return out if plan.hd == hd else out[..., :hd].contiguous()
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

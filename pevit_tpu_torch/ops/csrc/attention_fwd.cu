@@ -19,15 +19,34 @@
 // body stages rows of q, k and v in shared memory by 16-byte copies, and
 // takes q, k and v with (batch, token, head) strides, so the wrapper passes
 // (B, N, H, hd) views of the packed qkv projection without copies.  Every
-// N >= 1 is taken: the dtype picks the body, and in bf16 N does (the
-// register body up to N = 257, where it is the faster, the long body
-// beyond); no body falls back to another.
+// N >= 1 is taken: the dtype picks the body, and in bf16 N and hd do (the
+// register body up to N = 257 at hd <= 64, where it is the faster, the long
+// body otherwise); no body falls back to another.
 //
-// bfloat16 register body, N <= 257 (tensor cores): one block per (batch,
-// head), which reads the head's rows of q, k and v exactly once.  Bytes
-// bound the kernel at these lengths, so the design aims to keep the
+// Head widths.  The reference takes any hd (it pads hd to a multiple of 8
+// for its lanes).  Here every body is built for a head width W, hd rounded
+// up to the next of 64, 80, 96, 128 and 256 (all multiples of the mma
+// k-step of 16), and the launcher passes hd: columns [hd, W) of q, k and v
+// are staged as zeros, which leaves every logit as it is (a zero column of
+// q meets a zero column of k) and only adds output columns that are never
+// stored, so the result is the reference's at every hd.  hd must fill
+// whole 16-byte chunks (a multiple of 8 in bf16, of 4 in float32); the
+// wrapper zero-pads any other hd, as the reference does.  The register
+// body is built for W = 64 only; a wider head goes to the query-tiled
+// bodies at every N.  Their output is cut into chunks of at most 128
+// columns, one block a chunk (two at hd > 128): a block recomputes S over
+// the whole hd for its chunk of v's columns, which is exact, since p does
+// not depend on v, and keeps a block's accumulators within its registers.
+// A tile of rows a multiple of 64 elements wide keeps the XOR swizzle of
+// 16-byte chunks by (row & 7); other widths (80, 96) pad each row by 16
+// bytes, an odd number of 16-byte chunks, so that 8 consecutive rows'
+// chunks of one column still meet 8 distinct bank groups (Tile below).
+//
+// bfloat16 register body, N <= 257, hd <= 64 (tensor cores): one block per
+// (batch, head), which reads the head's rows of q, k and v exactly once.
+// Bytes bound the kernel at these lengths, so the design aims to keep the
 // arithmetic off the critical path and the loads wide:
-//   * staging: q, k and v rows (128 contiguous bytes each) go to shared
+//   * staging: q, k and v rows (128 bytes each at W = 64) go to shared
 //     memory by 16-byte cp.async, with the 16-byte chunks of a row XOR-
 //     swizzled by (row & 7) so that ldmatrix reads are free of bank
 //     conflicts; the keys are padded to a multiple of 16 (NP) with zero
@@ -46,46 +65,50 @@
 // fits the largest instantiations in 255 registers without spills, so one
 // pass over K suffices (no second pass that recomputes S).  The key count
 // is rounded up to one of four instantiations (NP = 64, 128, 208, 272),
-// and no more fit: a longer row of S does not.
+// and no more fit: a longer row of S does not, nor a wider head's
+// fragments beside it.
 //
-// bfloat16 long body, N > 257 (tensor cores, the same mma.sync, ldmatrix,
-// swizzle and output staging as the register body).  The rounding point
-// rules out a one-pass online softmax: p must be normalised by the row's
-// final sum before it is rounded.  So the body holds one chunk's S (64
-// keys, 32 floats a lane) and walks the keys three times: the exact row
+// bfloat16 long body, N > 257 or hd > 64 (tensor cores, the same mma.sync,
+// ldmatrix, tiles and output staging as the register body).  The rounding
+// point rules out a one-pass online softmax: p must be normalised by the
+// row's final sum before it is rounded.  So the body holds one chunk's S
+// (64 keys, 32 floats a lane) and walks the keys three times: the exact row
 // max, then the float32 row sum l of exp(s - max) (which differs from the
 // reference's only in its order: each lane sums its columns, then the
 // quad's 4 lanes by shuffles), then p = exp(s - max) / l, rounded to bf16,
 // and O += P V.  The recomputed Q K^T costs operations, not bytes, and
 // the ceiling on N is gone:
-//   * grid: one block per (batch, head, tile of 64 query rows), 4 warps, a
-//     warp per 16 query rows, so a head's queries spread over several SMs;
-//     a warp whose rows all lie past N only takes part in the block's
-//     copies and barriers;
+//   * grid: one block per (batch, head, tile of 64 query rows, chunk of
+//     output columns), 4 warps, a warp per 16 query rows, so a head's
+//     queries spread over several SMs; a warp whose rows all lie past N
+//     only takes part in the block's copies and barriers;
 //   * keys and values in chunks of 64 rows by 16-byte cp.async into two
-//     swizzled buffers (K alone in the first two passes), the copies of
-//     the next chunk in flight during the products of this one; each pass
-//     starts on the chunk the last one ended on and keeps its S;
+//     buffers (K alone in the first two passes), the copies of the next
+//     chunk in flight during the products of this one; each pass starts on
+//     the chunk the last one ended on and keeps its S;
 //   * p's division is a product by the correctly rounded 1 / l and its
 //     exact residual (Markstein), the correctly rounded quotient;
-//   * 40 KB of static shared memory; at ViT-B lengths it is slower than the
-//     register body (three walks over the keys, two exponentials a logit),
-//     so it runs only where that one cannot.
+//   * 40 KB of shared memory at W = 64 (80 KB at 128, 128 KB at 256); at
+//     ViT-B lengths it is slower than the register body (three walks over
+//     the keys, two exponentials a logit), so it runs only where that one
+//     cannot.
 //
 // float32 body (tensor cores, 3xTF32: tf32x3.cuh).  TF32 mma.sync m16n8k8
 // with each product split in three, so it stays float32-class (not TF32:
 // see tf32x3.cuh).  The split triples the products and adds the splits and
 // the rounded adds of the partial sums, so instruction throughput and
 // latency bound the body, not bytes; it is built for warps in flight:
-//   * grid: one block per (batch, head, tile of 64 query rows), 4 warps, a
-//     warp per 16 query rows; a warp whose rows all lie past N only takes
-//     part in the block's copies and barriers;
-//   * q: the block's rows staged by 16-byte cp.async, then each warp's
-//     fragments split once into registers (64 of them);
+//   * grid: one block per (batch, head, tile of 64 query rows, chunk of
+//     output columns), 4 warps, a warp per 16 query rows; a warp whose rows
+//     all lie past N only takes part in the block's copies and barriers;
+//   * q: the block's rows staged by 16-byte cp.async, then, up to W = 96,
+//     each warp's fragments split once into registers (W of them); wider
+//     heads keep the q tile in shared memory and split its fragments as
+//     they are used;
 //   * keys in chunks of 32 through two shared-memory buffers (K rows, then V
-//     rows, 16-byte cp.async, a row stride of 68 floats so that the 32 lanes
-//     of a 32-bit fragment load hit 32 banks; rows past N zero): the copies
-//     of chunk c + 1 overlap the products of chunk c;
+//     rows, 16-byte cp.async, a row stride of W + 4 floats so that the 32
+//     lanes of a 32-bit fragment load hit 32 banks; rows past N zero): the
+//     copies of chunk c + 1 overlap the products of chunk c;
 //   * per chunk: S = Q K^T, 8-key tiles that hold no key below N skipped
 //     and padded columns set to -inf; an online softmax in float32 with
 //     quad shuffles (running row max m, sum l, the output rescaled by
@@ -99,30 +122,35 @@
 //     before the product because it rounds p to v's type there; in float32
 //     that rounding is the identity, so dividing once at the end differs
 //     only in float32 rounding.
-// One kernel takes every N, in 34 KB of shared memory and registers for two
-// blocks an SM (three would leave ptxas too few, and it spills).  Keeping
-// the whole (16 x N) S tile in registers, as the bf16 body does, would take
-// over 200 registers at N = 197 on top of the split's, and keys in chunks
-// spend them on q's fragments instead, split once.
+// One kernel a head width takes every N, in 34 KB of shared memory at W =
+// 64 and registers for two blocks an SM (three would leave ptxas too few,
+// and it spills).  Keeping the whole (16 x N) S tile in registers, as the
+// bf16 body does, would take over 200 registers at N = 197 on top of the
+// split's, and keys in chunks spend them on q's fragments instead, split
+// once.
 
-// Above 48 KB of dynamic shared memory the bf16 launcher raises the
-// kernel's limit with cudaFuncSetAttribute first.
+// The launchers raise each kernel's dynamic shared memory limit with
+// cudaFuncSetAttribute before its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tf32x3.cuh"
 
 namespace {
 
-constexpr int HD = 64;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int QROWS = WARPS * 16;  // query rows a block (the fp32 and the long bf16 body)
 // the longest sequence the bf16 register body takes (its S row in registers)
 constexpr int MAX_SEQ_REGS = 257;
+constexpr int REG_WIDTH = 64;      // the one head width the register body is built for
+constexpr int MAX_HD = 256;
+constexpr int COL_CHUNK = 128;     // output columns a query-tiled block computes, at most
 
 // ---------------------------------------------------------------------------
 // bfloat16 body (tensor cores); its copy and quad helpers serve both bodies
@@ -166,8 +194,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// element offset of 16-byte chunk c (0..7) of row r in a swizzled 64-wide tile
-__device__ __forceinline__ int swz(int r, int c) { return r * HD + ((c ^ (r & 7)) << 3); }
+// A bf16 shared tile whose rows hold W elements (W a multiple of 16): rows
+// a multiple of 64 wide XOR-swizzle their 16-byte chunks by (row & 7)
+// within each 128-byte group; other rows are padded by one 16-byte chunk.
+template <int W>
+struct Tile {
+  static constexpr bool XOR = W % 64 == 0;
+  static constexpr int LD = XOR ? W : W + 8;  // row stride, elements
+  static constexpr int CHUNKS = W / 8;        // 16-byte chunks a row
+  // element offset of 16-byte chunk c of row r
+  __device__ static __forceinline__ int at(int r, int c) {
+    return XOR ? r * W + (((c & ~7) | ((c ^ r) & 7)) << 3) : r * LD + (c << 3);
+  }
+};
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -178,38 +217,44 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// rows [0, N) of one head into a swizzled (NP x 64) tile, rows [N, NP) zero
-template <int NP>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long sn, int N) {
-  for (int e = threadIdx.x; e < NP * 8; e += THREADS) {
-    const int r = e >> 3, c = e & 7;
-    bf16* d = dst + swz(r, c);
-    if (r < N)
-      cp_async16(smem_u32(d), src + r * sn + c * 8);
+// rows [r0, r0 + rows) and columns [col0, col0 + W) of one head into a
+// (rows x W) tile; rows at or past N and columns at or past hd are zero (a
+// zero v row keeps p = 0 from meeting garbage, which may be NaN; a zero k
+// row keeps the logits finite before the mask; zero columns of q and k
+// leave the logits as they are)
+template <int W>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long sn, int r0,
+                                           int rows, int N, int col0, int hd) {
+  for (int e = threadIdx.x; e < rows * Tile<W>::CHUNKS; e += THREADS) {
+    const int r = e / Tile<W>::CHUNKS, c = e - r * Tile<W>::CHUNKS;
+    bf16* d = dst + Tile<W>::at(r, c);
+    if (r0 + r < N && col0 + c * 8 < hd)
+      cp_async16(smem_u32(d), src + (r0 + r) * sn + col0 + c * 8);
     else
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// KT: 16-key tiles held in registers (NP = 16 KT >= N)
+// KT: 16-key tiles held in registers (NP = 16 KT >= N); hd <= 64
 template <int KT>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, int H, int N,
+                   const bf16* __restrict__ v, bf16* __restrict__ out, int H, int N, int hd,
                    long long qsb, long long qsn, long long qsh,
                    long long ksb, long long ksn, long long ksh,
                    long long vsb, long long vsn, long long vsh) {
   constexpr int NP = 16 * KT;
+  typedef Tile<REG_WIDTH> T;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + NP * HD;
-  bf16* v_s = k_s + NP * HD;
+  bf16* k_s = q_s + NP * T::LD;
+  bf16* v_s = k_s + NP * T::LD;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
-  stage_rows<NP>(q_s, q + b * qsb + h * qsh, qsn, N);
-  stage_rows<NP>(k_s, k + b * ksb + h * ksh, ksn, N);
-  stage_rows<NP>(v_s, v + b * vsb + h * vsh, vsn, N);
+  stage_tile<REG_WIDTH>(q_s, q + b * qsb + h * qsh, qsn, 0, NP, N, 0, hd);
+  stage_tile<REG_WIDTH>(k_s, k + b * ksb + h * ksh, ksn, 0, NP, N, 0, hd);
+  stage_tile<REG_WIDTH>(v_s, v + b * vsb + h * vsh, vsn, 0, NP, N, 0, hd);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
@@ -222,7 +267,7 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const int r = qt * 16 + (lane & 15);
-      ldmatrix_x4(qa[kk], smem_u32(q_s + swz(r, 2 * kk + (lane >> 4))));
+      ldmatrix_x4(qa[kk], smem_u32(q_s + T::at(r, 2 * kk + (lane >> 4))));
     }
 
     // S = Q K^T: n8 tile j covers keys 8j..8j+7
@@ -235,7 +280,7 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, smem_u32(k_s + swz(r, 2 * kk + ((lane >> 3) & 1))));
+        ldmatrix_x4(kb, smem_u32(k_s + T::at(r, 2 * kk + ((lane >> 3) & 1))));
         mma_16816(s[2 * kt], qa[kk], kb[0], kb[1]);
         mma_16816(s[2 * kt + 1], qa[kk], kb[2], kb[3]);
       }
@@ -282,54 +327,52 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dn = 0; dn < 4; ++dn) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, smem_u32(v_s + swz(r, 2 * dn + (lane >> 4))));
+        ldmatrix_x4_trans(vb, smem_u32(v_s + T::at(r, 2 * dn + (lane >> 4))));
         mma_16816(o[2 * dn], pa, vb[0], vb[1]);
         mma_16816(o[2 * dn + 1], pa, vb[2], vb[3]);
       }
     }
 
-    // round once, stage in this warp's own q rows, 16-byte stores
+    // round once, stage in this warp's own q rows, 16-byte stores of the
+    // columns below hd
     __syncwarp();
     const int r0 = qt * 16 + (lane >> 2), r1 = r0 + 8;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<uint32_t*>(q_s + swz(r0, j) + 2 * t) = pack_bf16(o[j][0], o[j][1]);
-      *reinterpret_cast<uint32_t*>(q_s + swz(r1, j) + 2 * t) = pack_bf16(o[j][2], o[j][3]);
+      *reinterpret_cast<uint32_t*>(q_s + T::at(r0, j) + 2 * t) = pack_bf16(o[j][0], o[j][1]);
+      *reinterpret_cast<uint32_t*>(q_s + T::at(r1, j) + 2 * t) = pack_bf16(o[j][2], o[j][3]);
     }
     __syncwarp();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int e = lane + 32 * i;
       const int r = qt * 16 + (e >> 3), c = e & 7;
-      if (r < N)
-        *reinterpret_cast<uint4*>(out + (((size_t)b * N + r) * H + h) * HD + c * 8) =
-            *reinterpret_cast<const uint4*>(q_s + swz(r, c));
+      if (r < N && c * 8 < hd)
+        *reinterpret_cast<uint4*>(out + (((size_t)b * N + r) * H + h) * hd + c * 8) =
+            *reinterpret_cast<const uint4*>(q_s + T::at(r, c));
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 body for N > 257 (tensor cores, keys in chunks, three passes)
+// bfloat16 body for N > 257 or hd > 64 (tensor cores, keys in chunks, three
+// passes)
 // ---------------------------------------------------------------------------
 
 constexpr int KCHUNK = 64;         // keys per chunk
-constexpr int TILE = KCHUNK * HD;  // bf16 elements of one 64-row tile
 static_assert(QROWS == KCHUNK, "q, k and v tiles share one staging routine");
 
-// rows [r0, r0 + 64) of one head into a swizzled 64-row tile; rows at or
-// past N are zero (a zero v row keeps p = 0 from meeting garbage, which may
-// be NaN; a zero k row keeps the logits finite before the mask)
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long sn, int r0,
-                                           int N) {
-  for (int e = threadIdx.x; e < KCHUNK * 8; e += THREADS) {
-    const int r = e >> 3, c = e & 7;
-    bf16* d = dst + swz(r, c);
-    if (r0 + r < N)
-      cp_async16(smem_u32(d), src + (r0 + r) * sn + c * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
+// The long body's shared memory at head width W and DV output columns a
+// block: the q tile, then two buffers of a K tile and a V tile; and its
+// blocks an SM for ptxas (W = 64 fits four in 128 registers; wider heads
+// hold more fragments).
+template <int W, int DV>
+struct LongBody {
+  static constexpr int QT = KCHUNK * Tile<W>::LD;   // elements of the q tile and a K tile
+  static constexpr int VT = KCHUNK * Tile<DV>::LD;  // elements of a V tile
+  static constexpr size_t SMEM = (size_t)(QT + 2 * (QT + VT)) * sizeof(bf16);
+  static constexpr int MIN_BLOCKS = W == 64 ? 4 : W <= 96 ? 3 : 2;
+};
 
 // e / l rounded to nearest from rl, the correctly rounded 1 / l: a product
 // and its exact residual (Markstein's correction) give the correctly
@@ -340,27 +383,36 @@ __device__ __forceinline__ float div_rn(float e, float l, float rl) {
   return fmaf(fmaf(-q, l, e), rl, q);
 }
 
-// One block per (batch, head, tile of 64 query rows), a warp per 16 rows.
-// Three passes over the key chunks: 0 the row max m (exact: a max does not
-// depend on order), 1 the row sum l of exp(s - m) in float32, 2 p = exp(s -
-// m) / l rounded to bf16 and O += P V.  Pass 1 walks the chunks backwards,
-// so each pass starts on the chunk the last one ended on and takes its S
-// from registers instead of recomputing it.  The chunks stream through two
-// buffers by cp.async, the copies of iteration i + 1 in flight during the
-// products of iteration i (K alone in passes 0 and 1, K and V in pass 2).
-// It takes any N; the launcher gives it N > 257.
-__global__ void __launch_bounds__(THREADS, 4)
+// One block per (batch, head, tile of 64 query rows, chunk of DV output
+// columns), a warp per 16 rows.  Three passes over the key chunks: 0 the
+// row max m (exact: a max does not depend on order), 1 the row sum l of
+// exp(s - m) in float32, 2 p = exp(s - m) / l rounded to bf16 and O += P V.
+// Pass 1 walks the chunks backwards, so each pass starts on the chunk the
+// last one ended on and takes its S from registers instead of recomputing
+// it.  The chunks stream through two buffers by cp.async, the copies of
+// iteration i + 1 in flight during the products of iteration i (K alone in
+// passes 0 and 1, K and V in pass 2).  It takes any N; the launcher gives
+// it N > 257, or any N at hd > 64.
+template <int W, int DV>
+__global__ void __launch_bounds__(THREADS, (LongBody<W, DV>::MIN_BLOCKS))
 attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ out, int H, int N,
-                        int q_tiles, long long qsb, long long qsn, long long qsh,
+                        int hd, int q_tiles, int col_chunks,
+                        long long qsb, long long qsn, long long qsh,
                         long long ksb, long long ksn, long long ksh,
                         long long vsb, long long vsn, long long vsh) {
-  __shared__ __align__(128) bf16 q_s[TILE];
-  __shared__ __align__(128) bf16 kv_s[2][2 * TILE];  // a buffer: K rows, then V rows
+  typedef Tile<W> TQ;
+  typedef Tile<DV> TV;
+  typedef LongBody<W, DV> L;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  // buffer i: a K tile, then a V tile
+  auto kv_s = [&](int i) { return q_s + L::QT + (i & 1) * (L::QT + L::VT); };
 
-  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
+  const int dc = blockIdx.x % col_chunks, tile = blockIdx.x / col_chunks;
+  const int bh = tile / q_tiles, qt = tile - bh * q_tiles;
   const int b = bh / H, h = bh - b * H;
-  const int r0 = qt * QROWS;
+  const int r0 = qt * QROWS, d0 = dc * DV;
   const bf16* kh = k + b * ksb + h * ksh;
   const bf16* vh = v + b * vsb + h * vsh;
   const int C = (N + KCHUNK - 1) / KCHUNK;
@@ -372,14 +424,14 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   auto reuses = [C](int it) { return it == C || it == 2 * C; };
   auto stage = [&](int it) {  // what iteration it reads, into buffer it & 1
-    bf16* dst = kv_s[it & 1];
+    bf16* dst = kv_s(it);
     const int c = chunk_of(it);
-    if (!reuses(it)) stage_tile(dst, kh, ksn, c * KCHUNK, N);
-    if (it >= 2 * C) stage_tile(dst + TILE, vh, vsn, c * KCHUNK, N);
+    if (!reuses(it)) stage_tile<W>(dst, kh, ksn, c * KCHUNK, KCHUNK, N, 0, hd);
+    if (it >= 2 * C) stage_tile<DV>(dst + L::QT, vh, vsn, c * KCHUNK, KCHUNK, N, d0, hd);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
 
-  stage_tile(q_s, q + b * qsb + h * qsh, qsn, r0, N);
+  stage_tile<W>(q_s, q + b * qsb + h * qsh, qsn, r0, QROWS, N, 0, hd);
   stage(0);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -388,19 +440,19 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t = lane & 3;
   const bool active = r0 + warp * 16 < N;  // uniform across the warp
 
-  // Q fragments: 4 steps of 16 along hd
-  uint32_t qa[4][4];
+  // Q fragments: W / 16 steps of 16 along hd
+  uint32_t qa[W / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(qa[kk], smem_u32(q_s + swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))));
+  for (int kk = 0; kk < W / 16; ++kk)
+    ldmatrix_x4(qa[kk], smem_u32(q_s + TQ::at(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))));
 
   // a lane holds rows g (s[j][0..1]) and g + 8 (s[j][2..3]) of the warp's
   // 16, columns 8j + 2t and 8j + 2t + 1 of the chunk; m and l per row, l
   // the lane's part until pass 1 ends, then rl = 1 / l
-  float s[KCHUNK / 8][4], o[HD / 8][4];
+  float s[KCHUNK / 8][4], o[DV / 8][4];
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, rl0 = 0.f, rl1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < DV / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
   for (int it = 0; it < iters; ++it) {
     if (it > 0) {
@@ -414,7 +466,7 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int pass = it / C, c = chunk_of(it);
     // 16-key tiles holding a key < N
     const int kt_n = min(KCHUNK / 16, (N - c * KCHUNK + 15) >> 4);
-    const bf16* ks = kv_s[it & 1];
+    const bf16* ks = kv_s(it);
 
     if (!reuses(it)) {
       // S = Q K^T over the chunk: n8 tile j covers keys 8j..8j+7
@@ -425,9 +477,9 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (kt >= kt_n) continue;
         const int r = kt * 16 + (lane & 7) + ((lane >> 4) << 3);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < W / 16; ++kk) {
           uint32_t kb[4];
-          ldmatrix_x4(kb, smem_u32(ks + swz(r, 2 * kk + ((lane >> 3) & 1))));
+          ldmatrix_x4(kb, smem_u32(ks + TQ::at(r, 2 * kk + ((lane >> 3) & 1))));
           mma_16816(s[2 * kt], qa[kk], kb[0], kb[1]);
           mma_16816(s[2 * kt + 1], qa[kk], kb[2], kb[3]);
         }
@@ -468,7 +520,7 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
       // O += P V, 16 keys at a time; p normalised in float32, then rounded
       // to bf16, which is exactly the A fragment of the product
-      const bf16* vs = ks + TILE;
+      const bf16* vs = ks + L::QT;
 #pragma unroll
       for (int kt = 0; kt < KCHUNK / 16; ++kt) {
         if (kt >= kt_n) continue;
@@ -485,9 +537,9 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
         const int r = kt * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-        for (int dn = 0; dn < 4; ++dn) {
+        for (int dn = 0; dn < DV / 16; ++dn) {
           uint32_t vb[4];
-          ldmatrix_x4_trans(vb, smem_u32(vs + swz(r, 2 * dn + (lane >> 4))));
+          ldmatrix_x4_trans(vb, smem_u32(vs + TV::at(r, 2 * dn + (lane >> 4))));
           mma_16816(o[2 * dn], pa, vb[0], vb[1]);
           mma_16816(o[2 * dn + 1], pa, vb[2], vb[3]);
         }
@@ -496,21 +548,24 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   if (!active) return;
 
-  // round once, stage in this warp's own q rows, 16-byte stores
+  // round once, stage in this warp's own q rows, 16-byte stores of the
+  // chunk's columns below hd
   const int w0 = warp * 16 + (lane >> 2), w1 = w0 + 8;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(q_s + swz(w0, j) + 2 * t) = pack_bf16(o[j][0], o[j][1]);
-    *reinterpret_cast<uint32_t*>(q_s + swz(w1, j) + 2 * t) = pack_bf16(o[j][2], o[j][3]);
+  for (int j = 0; j < DV / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(q_s + TQ::at(w0, j) + 2 * t) = pack_bf16(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(q_s + TQ::at(w1, j) + 2 * t) = pack_bf16(o[j][2], o[j][3]);
   }
   __syncwarp();
+  static_assert(16 * TV::CHUNKS % 32 == 0, "a warp's rows fill whole rounds of 32 lanes");
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 16 * TV::CHUNKS / 32; ++i) {
     const int e = lane + 32 * i;
-    const int r = warp * 16 + (e >> 3), cc = e & 7;
-    if (r0 + r < N)
-      *reinterpret_cast<uint4*>(out + (((size_t)b * N + r0 + r) * H + h) * HD + cc * 8) =
-          *reinterpret_cast<const uint4*>(q_s + swz(r, cc));
+    const int r = warp * 16 + e / TV::CHUNKS, cc = e % TV::CHUNKS;
+    const int col = d0 + cc * 8;
+    if (r0 + r < N && col < hd)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * N + r0 + r) * H + h) * hd + col) =
+          *reinterpret_cast<const uint4*>(q_s + TQ::at(r, cc));
   }
 }
 
@@ -518,23 +573,35 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // float32 body (tensor cores, 3xTF32)
 // ---------------------------------------------------------------------------
 
-constexpr int LD32 = HD + 4;         // row stride of the float32 tiles, floats
 constexpr int KC = 32;               // keys per chunk
-constexpr int BUF32 = 2 * KC * LD32; // floats of one chunk buffer: K rows, then V rows
-static_assert(QROWS * LD32 <= BUF32, "the q tile is staged in the second chunk buffer");
 
-// two chunk buffers; the q tile is staged in the second before its first use
-constexpr size_t SMEM_F32 = (size_t)2 * BUF32 * sizeof(float);
+// The float32 body's layout at head width W and DV output columns a block:
+// row strides of W + 4 and DV + 4 floats; a chunk buffer holds KC K rows,
+// then KC V rows; up to W = 96 the q tile is staged in the second chunk
+// buffer before its first use and split into registers, beyond it keeps a
+// region of its own after the two buffers.
+template <int W, int DV>
+struct F32Body {
+  static constexpr int LDK = W + 4, LDV = DV + 4;
+  static constexpr int BUF = KC * LDK + KC * LDV;  // floats of one chunk buffer
+  static constexpr bool Q_REGS = W <= 96;
+  static constexpr size_t SMEM = (size_t)(2 * BUF + (Q_REGS ? 0 : QROWS * LDK)) * sizeof(float);
+  static_assert(!Q_REGS || QROWS * LDK <= BUF, "the q tile is staged in the second chunk buffer");
+};
 
-// rows [r0, r0 + rows) of one head into a (rows x LD32) float32 tile; rows
-// at or past N are zero
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, long long sn, int r0,
-                                               int rows, int N) {
-  for (int e = threadIdx.x; e < rows * (HD / 4); e += THREADS) {
-    const int r = e >> 4, c = e & 15;
-    float* d = dst + r * LD32 + c * 4;
-    if (r0 + r < N)
-      cp_async16(smem_u32(d), src + (r0 + r) * sn + c * 4);
+// rows [r0, r0 + rows) and columns [col0, col0 + W) of one head into a
+// (rows x W) float32 tile of row stride ld; rows at or past N and columns at
+// or past hd are zero
+template <int W>
+__device__ __forceinline__ void stage_rows_f32(float* dst, int ld, const float* src,
+                                               long long sn, int r0, int rows, int N, int col0,
+                                               int hd) {
+  constexpr int CH = W / 4;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
+    const int r = e / CH, c = e - r * CH;
+    float* d = dst + r * ld + c * 4;
+    if (r0 + r < N && col0 + c * 4 < hd)
+      cp_async16(smem_u32(d), src + (r0 + r) * sn + col0 + c * 4);
     else
       *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -543,8 +610,9 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, lon
 // o += P V over one 8-key step whose P accumulators are p: a lane holds
 // keys 2t and 2t + 1 of the step, which A's k-indices t and t + 4 stand
 // for, and V's B fragment rows are read in that order from vr (key 2t of
-// the step, column g)
-__device__ __forceinline__ void pv_step(float (&o)[HD / 8][4], const float (&p)[4],
+// the step, column g), rows LDV floats apart
+template <int DV, int LDV>
+__device__ __forceinline__ void pv_step(float (&o)[DV / 8][4], const float (&p)[4],
                                         const float* vr) {
   uint32_t a_hi[4], a_lo[4];
   split_tf32(p[0], a_hi[0], a_lo[0]);  // row g,     key 2t
@@ -552,36 +620,51 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 8][4], const float (&p)[
   split_tf32(p[1], a_hi[2], a_lo[2]);  // row g,     key 2t + 1
   split_tf32(p[3], a_hi[3], a_lo[3]);  // row g + 8, key 2t + 1
 #pragma unroll
-  for (int dn = 0; dn < HD / 8; ++dn) {
+  for (int dn = 0; dn < DV / 8; ++dn) {
     uint32_t b_hi[2], b_lo[2];
-    split_tf32(vr[8 * dn], b_hi[0], b_lo[0]);         // key 2t, column 8 dn + g
-    split_tf32(vr[LD32 + 8 * dn], b_hi[1], b_lo[1]);  // key 2t + 1
+    split_tf32(vr[8 * dn], b_hi[0], b_lo[0]);        // key 2t, column 8 dn + g
+    split_tf32(vr[LDV + 8 * dn], b_hi[1], b_lo[1]);  // key 2t + 1
     mma_tf32x3(o[dn], a_hi, a_lo, b_hi, b_lo);
   }
 }
 
+// the A fragment (rows g and g + 8, columns t and t + 4) of the q tile at
+// qw (row g, column t), split
+__device__ __forceinline__ void split_q(const float* qw, int ld, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_tf32(qw[0], hi[0], lo[0]);
+  split_tf32(qw[8 * ld], hi[1], lo[1]);
+  split_tf32(qw[4], hi[2], lo[2]);
+  split_tf32(qw[8 * ld + 4], hi[3], lo[3]);
+}
+
+template <int W, int DV>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int H, int N,
-                  int q_tiles, long long qsb, long long qsn, long long qsh,
+                  const float* __restrict__ v, float* __restrict__ out, int H, int N, int hd,
+                  int q_tiles, int col_chunks, long long qsb, long long qsn, long long qsh,
                   long long ksb, long long ksn, long long ksh,
                   long long vsb, long long vsn, long long vsh) {
+  typedef F32Body<W, DV> L;
+  constexpr int LDK = L::LDK, LDV = L::LDV;
   extern __shared__ __align__(16) unsigned char smem[];
   float* buf = reinterpret_cast<float*>(smem);
+  float* q_s = buf + (L::Q_REGS ? 1 : 2) * L::BUF;
 
-  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x - bh * q_tiles;
+  const int dc = blockIdx.x % col_chunks, tile = blockIdx.x / col_chunks;
+  const int bh = tile / q_tiles, qt = tile - bh * q_tiles;
   const int b = bh / H, h = bh - b * H;
-  const int r0 = qt * QROWS;
+  const int r0 = qt * QROWS, d0 = dc * DV;
   const float* kh = k + b * ksb + h * ksh;
   const float* vh = v + b * vsb + h * vsh;
   const int chunks = (N + KC - 1) / KC;
   auto stage_chunk = [&](int c) {
-    float* dst = buf + (c & 1) * BUF32;
-    stage_rows_f32(dst, kh, ksn, c * KC, KC, N);
-    stage_rows_f32(dst + KC * LD32, vh, vsn, c * KC, KC, N);
+    float* dst = buf + (c & 1) * L::BUF;
+    stage_rows_f32<W>(dst, LDK, kh, ksn, c * KC, KC, N, 0, hd);
+    stage_rows_f32<DV>(dst + KC * LDK, LDV, vh, vsn, c * KC, KC, N, d0, hd);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  stage_rows_f32(buf + BUF32, q + b * qsb + h * qsh, qsn, r0, QROWS, N);
+  stage_rows_f32<W>(q_s, LDK, q + b * qsb + h * qsh, qsn, r0, QROWS, N, 0, hd);
   stage_chunk(0);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -589,25 +672,21 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const bool active = r0 + warp * 16 < N;  // uniform across the warp
+  const float* qw = q_s + (warp * 16 + g) * LDK + t;
 
-  // the warp's q fragments, split once: k-step kk of 8 along hd
-  uint32_t q_hi[HD / 8][4], q_lo[HD / 8][4];
-  {
-    const float* qw = buf + BUF32 + (warp * 16 + g) * LD32 + t;
+  // the warp's q fragments, split once: k-step kk of 8 along hd (up to W =
+  // 96; a wider q tile stays in shared memory)
+  uint32_t q_hi[L::Q_REGS ? W / 8 : 1][4], q_lo[L::Q_REGS ? W / 8 : 1][4];
+  if constexpr (L::Q_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk) {
-      split_tf32(qw[8 * kk], q_hi[kk][0], q_lo[kk][0]);
-      split_tf32(qw[8 * LD32 + 8 * kk], q_hi[kk][1], q_lo[kk][1]);
-      split_tf32(qw[8 * kk + 4], q_hi[kk][2], q_lo[kk][2]);
-      split_tf32(qw[8 * LD32 + 8 * kk + 4], q_hi[kk][3], q_lo[kk][3]);
-    }
+    for (int kk = 0; kk < W / 8; ++kk) split_q(qw + 8 * kk, LDK, q_hi[kk], q_lo[kk]);
   }
 
   // online softmax over chunks of KC keys: m the running row max, l the
   // lane's part of the row sum of exp(s - m), o the unnormalised output
-  float o[HD / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < HD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (int dn = 0; dn < DV / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   for (int c = 0; c < chunks; ++c) {
@@ -616,24 +695,45 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (c + 1 < chunks) stage_chunk(c + 1);  // into the buffer chunk c - 1 (or q) held
     if (!active) continue;
-    const float* kc = buf + (c & 1) * BUF32;
-    const float* vc = kc + KC * LD32;
+    const float* kc = buf + (c & 1) * L::BUF;
+    const float* vc = kc + KC * LDK;
     const int nt = min(KC / 8, (N - c * KC + 7) / 8);  // 8-key tiles holding a key < N
 
     // S = Q K^T over the chunk; tile j holds keys 8j..8j+7 of the chunk, a
     // lane rows g and g + 8, columns 2t and 2t + 1
     float s[KC / 8][4];
+    if constexpr (L::Q_REGS) {
 #pragma unroll
-    for (int j = 0; j < KC / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      if (j >= nt) continue;
-      const float* kw = kc + (8 * j + g) * LD32 + t;
+      for (int j = 0; j < KC / 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        if (j >= nt) continue;
+        const float* kw = kc + (8 * j + g) * LDK + t;
 #pragma unroll
-      for (int kk = 0; kk < HD / 8; ++kk) {
-        uint32_t b_hi[2], b_lo[2];
-        split_tf32(kw[8 * kk], b_hi[0], b_lo[0]);
-        split_tf32(kw[8 * kk + 4], b_hi[1], b_lo[1]);
-        mma_tf32x3(s[j], q_hi[kk], q_lo[kk], b_hi, b_lo);
+        for (int kk = 0; kk < W / 8; ++kk) {
+          uint32_t b_hi[2], b_lo[2];
+          split_tf32(kw[8 * kk], b_hi[0], b_lo[0]);
+          split_tf32(kw[8 * kk + 4], b_hi[1], b_lo[1]);
+          mma_tf32x3(s[j], q_hi[kk], q_lo[kk], b_hi, b_lo);
+        }
+      }
+    } else {
+      // each k-step's q fragment split once for the chunk's 8-key tiles;
+      // every tile still sums its k-steps in order
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < W / 8; ++kk) {
+        uint32_t a_hi[4], a_lo[4];
+        split_q(qw + 8 * kk, LDK, a_hi, a_lo);
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+          if (j >= nt) continue;
+          const float* kw = kc + (8 * j + g) * LDK + t + 8 * kk;
+          uint32_t b_hi[2], b_lo[2];
+          split_tf32(kw[0], b_hi[0], b_lo[0]);
+          split_tf32(kw[4], b_hi[1], b_lo[1]);
+          mma_tf32x3(s[j], a_hi, a_lo, b_hi, b_lo);
+        }
       }
     }
 
@@ -654,7 +754,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
-    for (int dn = 0; dn < HD / 8; ++dn) {
+    for (int dn = 0; dn < DV / 8; ++dn) {
       o[dn][0] *= a0;
       o[dn][1] *= a0;
       o[dn][2] *= a1;
@@ -671,10 +771,10 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // O += P V
-    const float* vw = vc + 2 * t * LD32 + g;
+    const float* vw = vc + 2 * t * LDV + g;
 #pragma unroll
     for (int j = 0; j < KC / 8; ++j)
-      if (j < nt) pv_step(o, s[j], vw + 8 * j * LD32);
+      if (j < nt) pv_step<DV, LDV>(o, s[j], vw + 8 * j * LDV);
   }
   if (!active) return;
 
@@ -682,50 +782,96 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   l1 = quad_sum(l1);
   const int row0 = r0 + warp * 16 + g, row1 = row0 + 8;
 #pragma unroll
-  for (int dn = 0; dn < HD / 8; ++dn) {
-    const int col = 8 * dn + 2 * t;
+  for (int dn = 0; dn < DV / 8; ++dn) {
+    const int col = d0 + 8 * dn + 2 * t;
+    if (col >= hd) continue;
     if (row0 < N)
-      *reinterpret_cast<float2*>(out + (((size_t)b * N + row0) * H + h) * HD + col) =
+      *reinterpret_cast<float2*>(out + (((size_t)b * N + row0) * H + h) * hd + col) =
           make_float2(o[dn][0] / l0, o[dn][1] / l0);
     if (row1 < N)
-      *reinterpret_cast<float2*>(out + (((size_t)b * N + row1) * H + h) * HD + col) =
+      *reinterpret_cast<float2*>(out + (((size_t)b * N + row1) * H + h) * hd + col) =
           make_float2(o[dn][2] / l1, o[dn][3] / l1);
   }
 }
 
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  int B, H, N, hd;
+  long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh;
+  cudaStream_t stream;
+};
+
+// the head width a query-tiled body is built for: hd rounded up to the next
+// of 64, 80, 96, 128 and 256
+int body_width(int hd) {
+  return hd <= 64 ? 64 : hd <= 80 ? 80 : hd <= 96 ? 96 : hd <= 128 ? 128 : 256;
+}
+
+template <typename Fn>
+int with_width(int hd, Fn&& f) {
+  switch (body_width(hd)) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return f(std::integral_constant<int, 256>{});
+  }
+}
+
+// output columns a block of a query-tiled body at head width W computes
+constexpr int col_width(int W) { return W < COL_CHUNK ? W : COL_CHUNK; }
+
+// (q_tiles, col_chunks) of a query-tiled launch
+inline int q_tiles_of(int N) { return (N + QROWS - 1) / QROWS; }
+inline int col_chunks_of(int hd) { return (hd + col_width(body_width(hd)) - 1) / col_width(body_width(hd)); }
+
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <int KT>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
-                long long qsb, long long qsn, long long qsh, long long ksb, long long ksn,
-                long long ksh, long long vsb, long long vsn, long long vsh,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)3 * 16 * KT * HD * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_bf16<KT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_fwd_bf16<KT><<<B * H, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh);
+int launch_bf16(const Args& a) {
+  const size_t smem = (size_t)3 * 16 * KT * Tile<REG_WIDTH>::LD * sizeof(bf16);
+  int err = set_smem(attention_fwd_bf16<KT>, smem);
+  if (err != 0) return err;
+  attention_fwd_bf16<KT><<<a.B * a.H, THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.H, a.N, a.hd, a.qsb, a.qsn,
+      a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh);
   return (int)cudaGetLastError();
 }
 
-int launch_bf16_long(const void* q, const void* k, const void* v, void* out, int B, int H,
-                     int N, long long qsb, long long qsn, long long qsh, long long ksb,
-                     long long ksn, long long ksh, long long vsb, long long vsn, long long vsh,
-                     cudaStream_t stream) {
-  const int q_tiles = (N + QROWS - 1) / QROWS;
-  attention_fwd_bf16_long<<<B * H * q_tiles, THREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), H, N, q_tiles, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh);
+template <int W>
+int launch_bf16_long(const Args& a) {
+  constexpr int DV = col_width(W);
+  const int q_tiles = q_tiles_of(a.N), col_chunks = col_chunks_of(a.hd);
+  const size_t smem = LongBody<W, DV>::SMEM;
+  int err = set_smem(attention_fwd_bf16_long<W, DV>, smem);
+  if (err != 0) return err;
+  attention_fwd_bf16_long<W, DV><<<a.B * a.H * q_tiles * col_chunks, THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.H, a.N, a.hd, q_tiles,
+      col_chunks, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh);
   return (int)cudaGetLastError();
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
-               long long qsb, long long qsn, long long qsh, long long ksb, long long ksn,
-               long long ksh, long long vsb, long long vsn, long long vsh, cudaStream_t stream) {
-  const int q_tiles = (N + QROWS - 1) / QROWS;
-  attention_fwd_f32<<<B * H * q_tiles, THREADS, SMEM_F32, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), H, N, q_tiles, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh);
+template <int W>
+int launch_f32(const Args& a) {
+  constexpr int DV = col_width(W);
+  const int q_tiles = q_tiles_of(a.N), col_chunks = col_chunks_of(a.hd);
+  const size_t smem = F32Body<W, DV>::SMEM;
+  int err = set_smem(attention_fwd_f32<W, DV>, smem);
+  if (err != 0) return err;
+  attention_fwd_f32<W, DV><<<a.B * a.H * q_tiles * col_chunks, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.H, a.N, a.hd, q_tiles,
+      col_chunks, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh);
   return (int)cudaGetLastError();
 }
 
@@ -733,39 +879,41 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v: (B, N, H, 64) with the given
+// dtype: 0 = float32, 1 = bfloat16.  q, k, v: (B, N, H, hd) with the given
 // element strides for batch, token and head (unit stride inside a head);
-// out: contiguous (B, N, H, 64); any N >= 1.  Both bodies copy 16-byte
-// chunks of rows, so every base pointer must be 16-byte aligned and every
-// stride a multiple of 16 bytes (8 bf16 or 4 float32 elements).  The grid
-// (one block per (batch, head) for the bf16 register body at N <= 257, per
-// (batch, head, 64-query tile) otherwise) holds at most 2^31 - 1 blocks.
-// Returns the CUDA error code (0 = launched).
+// out: contiguous (B, N, H, hd); any N >= 1, 1 <= hd <= 256 with hd a
+// multiple of 8 elements in bfloat16 and of 4 in float32 (16 bytes: ops/
+// attention.py zero-pads any other hd).  Every body copies 16-byte chunks
+// of rows, so every base pointer must be 16-byte aligned and every stride a
+// multiple of 16 bytes (8 bf16 or 4 float32 elements).  The grid (one
+// block per (batch, head) for the bf16 register body at N <= 257 and hd <=
+// 64, per (batch, head, 64-query tile, chunk of at most 128 output columns)
+// otherwise) holds at most 2^31 - 1 blocks.  Returns the CUDA error code
+// (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype,
-                             int B, int H, int N, long long qsb, long long qsn, long long qsh,
-                             long long ksb, long long ksn, long long ksh, long long vsb,
-                             long long vsn, long long vsh, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || H < 1 || N < 1) return (int)cudaErrorInvalidValue;
+                             int B, int H, int N, int hd, long long qsb, long long qsn,
+                             long long qsh, long long ksb, long long ksn, long long ksh,
+                             long long vsb, long long vsn, long long vsh, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || hd < 1 || hd > MAX_HD) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool regs = dtype == 1 && N <= MAX_SEQ_REGS;
-  const long long blocks = (long long)B * H * (regs ? 1 : (N + QROWS - 1) / QROWS);
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   const long long chunk = dtype == 0 ? 4 : 8;  // elements in 16 bytes
+  if (hd % chunk != 0) return (int)cudaErrorInvalidValue;
+  const bool regs = dtype == 1 && N <= MAX_SEQ_REGS && hd <= REG_WIDTH;
+  const long long blocks =
+      (long long)B * H * (regs ? 1 : (long long)q_tiles_of(N) * col_chunks_of(hd));
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) ||
       ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & (chunk - 1)))
     return (int)cudaErrorMisalignedAddress;
+  const Args a{q, k, v, out, B, H, N, hd, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);
+    return with_width(hd, [&](auto w) { return launch_f32<decltype(w)::value>(a); });
   if (!regs)
-    return launch_bf16_long(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn,
-                            vsh, s);
+    return with_width(hd, [&](auto w) { return launch_bf16_long<decltype(w)::value>(a); });
   const int kt = (N + 15) / 16;
-  if (kt <= 4)
-    return launch_bf16<4>(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);
-  if (kt <= 8)
-    return launch_bf16<8>(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);
-  if (kt <= 13)
-    return launch_bf16<13>(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);
-  return launch_bf16<17>(q, k, v, out, B, H, N, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, s);
+  if (kt <= 4) return launch_bf16<4>(a);
+  if (kt <= 8) return launch_bf16<8>(a);
+  if (kt <= 13) return launch_bf16<13>(a);
+  return launch_bf16<17>(a);
 }

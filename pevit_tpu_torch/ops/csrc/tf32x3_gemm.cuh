@@ -9,7 +9,10 @@
 // of the next stages overlap this one's products.  A is row-major (R x K, K
 // contiguous; rows past R are clamped on load and never stored); B is
 // row-major (K x N, N contiguous): the forward's weights as they lie, the
-// backward's transposed copies.  Each operand element is split into its
+// backward's transposed copies.  Any K and N that fill whole 16-byte
+// chunks are taken: the chunks past K (of A and B) and past N (of B) are
+// zero-filled in shared memory and never read, and the epilogues store no
+// column past N.  Each operand element is split into its
 // TF32 hi and lo parts in registers as its fragment is loaded from shared
 // memory (32-bit loads: A tiles are padded to a row stride of 36 floats and
 // B tiles to 16 NT + 8, so that the 32 lanes of a fragment load hit 32
@@ -39,6 +42,11 @@ __host__ __device__ constexpr int x3_ldb() { return NT * X3_WN * 8 + 8; }
 template <int NT>
 __host__ __device__ constexpr int x3_stage() { return X3_BM * X3_LDA + X3_BK * x3_ldb<NT>(); }
 
+// whether a GEMM over K with N output columns in tiles of 16 NT has a
+// partial last k-step or column tile (the TAILS instantiations)
+template <int NT = X3_NT>
+bool x3_tails(int K, int N) { return K % X3_BK != 0 || N % (NT * X3_WN * 8) != 0; }
+
 // dynamic shared memory of a kernel running x3_gemm_mainloop: 105 KB at
 // NT = 8, 81 KB at NT = 4
 template <int NT = X3_NT>
@@ -59,17 +67,20 @@ __device__ __forceinline__ int x3_col(int ni, int j) {
 
 // acc[mi][ni] (this thread's part of the block's 128 x 16 NT tile, placed
 // as x3_row and x3_col<NT> say) = A[row0 .. row0 + 128, :K] . B[:K, n0 ..
-// n0 + 16 NT]; K a multiple of X3_BK, every row of A and B 16-byte aligned,
-// and K x ldb below 2^31.  UNROLL k-steps of 8 are unrolled together.
-template <int NT, int UNROLL = 1>
+// n0 + 16 NT] of N columns; K and N multiples of 4 (every row of A and B
+// 16-byte aligned), and K x ldb below 2^31.  UNROLL k-steps of 8 are
+// unrolled together.  With TAILS (``x3_tails``) a last k-step past K and
+// columns past N are zero-filled; without, K and N fill whole tiles.
+template <int NT, int UNROLL, bool TAILS>
 __device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][NT][4],
                                                  const float* __restrict__ a, long long lda,
                                                  const float* __restrict__ b, long long ldb,
-                                                 int row0, int R, int n0, int K, float* smem) {
+                                                 int row0, int R, int n0, int N, int K,
+                                                 float* smem) {
   static_assert(NT == 4 || NT == 8, "tiles of 64 or 128 columns");
   constexpr int BN = NT * X3_WN * 8, LDB = x3_ldb<NT>(), STAGE = x3_stage<NT>();
   constexpr int B_SHIFT = NT == 8 ? 5 : 4;      // log2 of a B row's 16-byte chunks
-  const int ksteps = K / X3_BK;
+  const int ksteps = TAILS ? (K + X3_BK - 1) / X3_BK : K / X3_BK;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int warp = threadIdx.x >> 5, wm = warp / X3_WN, wn = warp % X3_WN;
 #pragma unroll
@@ -84,6 +95,7 @@ __device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][NT][4],
   const float* a_tile = a + row0 * lda;
   const float* b_tile = b + n0;
   const int rows = R - row0, lda32 = (int)lda, ldb32 = (int)ldb;
+  [[maybe_unused]] const int cols = N - n0;
   auto load_stage = [&](int ks) {
     float* sa = smem + (ks % X3_STAGES) * STAGE;
     float* sb = sa + X3_BM * X3_LDA;
@@ -92,14 +104,25 @@ __device__ __forceinline__ void x3_gemm_mainloop(float (&acc)[X3_MT][NT][4],
     for (int i = 0; i < X3_BM * X3_BK / 4 / X3_THREADS; ++i) {  // 128 rows x 8 chunks
       const int e = threadIdx.x + i * X3_THREADS;
       const int r = e >> 3, c = e & 7;
-      cp_async16(smem_u32(sa + r * X3_LDA + c * 4),
-                 a_tile + (min(r, rows - 1) * lda32 + k0 + c * 4));
+      const int at = min(r, rows - 1) * lda32 + k0 + c * 4;
+      if constexpr (TAILS) {
+        const bool valid = k0 + c * 4 < K;
+        cp_async16_zfill(smem_u32(sa + r * X3_LDA + c * 4), a_tile + (valid ? at : 0), valid);
+      } else {
+        cp_async16(smem_u32(sa + r * X3_LDA + c * 4), a_tile + at);
+      }
     }
 #pragma unroll
     for (int i = 0; i < X3_BK * BN / 4 / X3_THREADS; ++i) {  // 32 rows x BN / 4 chunks
       const int e = threadIdx.x + i * X3_THREADS;
       const int r = e >> B_SHIFT, c = e & (BN / 4 - 1);
-      cp_async16(smem_u32(sb + r * LDB + c * 4), b_tile + ((k0 + r) * ldb32 + c * 4));
+      if constexpr (TAILS) {
+        const bool valid = k0 + r < K && c * 4 < cols;
+        cp_async16_zfill(smem_u32(sb + r * LDB + c * 4),
+                         b_tile + (valid ? (k0 + r) * ldb32 + c * 4 : 0), valid);
+      } else {
+        cp_async16(smem_u32(sb + r * LDB + c * 4), b_tile + ((k0 + r) * ldb32 + c * 4));
+      }
     }
   };
 #pragma unroll

@@ -40,22 +40,24 @@ _I = ctypes.c_int
 KERNEL = Kernel(
     "fused_mlp_fwd",
     "fused_mlp_fwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     replaces="pevit_tpu/ops/fused_mlp.py:63",
 )
 BWD_KERNEL = Kernel(
     "fused_mlp_bwd",
     "fused_mlp_bwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     replaces="pevit_tpu/ops/fused_mlp.py:122",
 )
-WIDTHS = (256, 512, 768, 1024)
-HIDDEN_MULTIPLE = 128
-# Both kernels' GEMMs give each 128-row tile of the R rows one block row of
-# the grid's y dimension, which CUDA caps at 65535; their index products
-# (row x C, row x F, in elements and bytes) are 64-bit, so R x F may pass
-# 2^31 (a chunk of 16 trials' 512-image eval chunks on ViT-L/14 is
-# R = 2,105,344 rows, R x F = 8.6e9).
+# Both kernels take any C and F (the reference's Pallas kernels pad only
+# the rows): their GEMMs zero-fill the tails of the last tiles, and they
+# copy 16-byte chunks of rows, so C and F must fill whole chunks; the
+# wrappers zero-pad any other width (``padded_widths``), and the kernels'
+# LayerNorm counts the caller's C.  Both kernels' GEMMs give each 128-row
+# tile of the R rows one block row of the grid's y dimension, which CUDA
+# caps at 65535; their index products (row x C, row x F, in elements and
+# bytes) are 64-bit, so R x F may pass 2^31 (a chunk of 16 trials'
+# 512-image eval chunks on ViT-L/14 is R = 2,105,344 rows, R x F = 8.6e9).
 MAX_ROWS = 65535 * 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WEIGHTS = ("ln_scale", "ln_bias", "wfc", "bfc", "wproj", "bproj")
@@ -116,10 +118,8 @@ def _check(name, x, weights: dict) -> tuple:
         raise KernelInputError("ln scale and bias must be float32")
     C = x.shape[-1]
     F = weights["wfc"].shape[-1]
-    if C not in WIDTHS:
-        raise KernelInputError(f"fused MLP kernel takes C in {WIDTHS}, got {C}")
-    if F % HIDDEN_MULTIPLE:
-        raise KernelInputError(f"fused MLP kernel takes F a multiple of {HIDDEN_MULTIPLE}, got {F}")
+    if C < 1 or F < 1:
+        raise KernelInputError(f"{name} takes C, F >= 1, got C={C}, F={F}")
     shapes = {"wfc": (C, F), "bfc": (F,), "wproj": (F, C), "bproj": (C,),
               "ln_scale": (C,), "ln_bias": (C,)}
     for n, t in weights.items():
@@ -140,11 +140,41 @@ def check_rows(name: str, R: int) -> None:
                                f"got {R}")
 
 
+def padded_widths(dtype, C: int, F: int) -> tuple:
+    """(C, F) each rounded up to whole 16-byte rows of ``dtype``: the
+    widths a launch runs at.  The wrappers zero-pad x (and dy), the weights
+    and the LayerNorm's scale and bias to them where they differ."""
+    chunk = 4 if dtype == torch.float32 else 8  # elements in 16 bytes
+    return -(-C // chunk) * chunk, -(-F // chunk) * chunk
+
+
+def _layout(regions) -> list:
+    """[(name, offset, bytes)]: the regions in order, each starting at the
+    next multiple of 16 bytes after the last, as the kernels' ``Scratch``
+    carves them."""
+    out, at = [], 0
+    for name, nbytes in regions:
+        out.append((name, at, nbytes))
+        at += -(-nbytes // 16) * 16
+    return out
+
+
+def _total(layout) -> int:
+    _, offset, nbytes = layout[-1]
+    return offset + -(-nbytes // 16) * 16
+
+
+def fwd_workspace_layout(dtype, R: int, C: int, F: int) -> list:
+    """The forward launch's scratch as ``csrc/fused_mlp_fwd.cu`` carves it:
+    u (R x C) and then g (R x F), in x's dtype (float32 or bf16), each
+    region 16-byte aligned."""
+    size = 4 if dtype == torch.float32 else 2
+    return _layout([("u", R * C * size), ("g", R * F * size)])
+
+
 def fwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
-    """Scratch of one forward launch, laid out as ``csrc/fused_mlp_fwd.cu``
-    carves it: u (R x C) and then g (R x F), in x's dtype (float32 or
-    bf16)."""
-    return (R * C + R * F) * (4 if dtype == torch.float32 else 2)
+    """Bytes of :func:`fwd_workspace_layout`."""
+    return _total(fwd_workspace_layout(dtype, R, C, F))
 
 
 def _check_aligned(name, *tensors):
@@ -154,42 +184,69 @@ def _check_aligned(name, *tensors):
                                "aligned base pointers")
 
 
+def _padded(rows: tuple, weights: dict, C: int, F: int, Cp: int, Fp: int) -> tuple:
+    """``rows`` (each (R, C)) and ``weights`` zero-padded to the widths (Cp,
+    Fp): every padded row and column is zero, so every padded unit computes
+    zero, and the LayerNorm, which counts C, sees the caller's rows."""
+    pad = torch.nn.functional.pad
+    dc, df = Cp - C, Fp - F
+    cols = {"ln_scale": (0, dc), "ln_bias": (0, dc), "bfc": (0, df), "bproj": (0, dc),
+            "wfc": (0, df, 0, dc), "wproj": (0, dc, 0, df)}
+    return (tuple(pad(t, (0, dc)) for t in rows),
+            {n: pad(t, cols[n]) for n, t in weights.items()})
+
+
 def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-5):
     """The forward CUDA kernel.  x: contiguous (..., C) in float32 or
     bfloat16; wfc (C, F), bfc (F,), wproj (F, C), bproj (C,) in x's dtype;
-    ln scale and bias float32 (C,).  C in ``WIDTHS``, F a multiple of 128.
-    The dtype picks the kernel's body; both run their GEMMs on the tensor
-    cores, float32 by a three-product TF32 split that keeps float32
-    accuracy, and both need 16-byte aligned wfc and wproj (bfloat16 x too).
-    The scratch (:func:`fwd_workspace_bytes`) is allocated here."""
+    ln scale and bias float32 (C,); any C, F >= 1 (widths that do not fill
+    whole 16-byte rows run zero-padded, :func:`padded_widths`).  The dtype
+    picks the kernel's body; both run their GEMMs on the tensor cores,
+    float32 by a three-product TF32 split that keeps float32 accuracy, and
+    both need 16-byte aligned wfc and wproj (bfloat16 x too).  The scratch
+    (:func:`fwd_workspace_bytes`) is allocated here."""
     weights = dict(zip(_WEIGHTS, (ln_scale, ln_bias, wfc, bfc, wproj, bproj)))
     R, C, F = _check("fused_mlp_fwd", x, weights)
-    _check_aligned("fused MLP forward", wfc, wproj, *((x,) if x.dtype == torch.bfloat16 else ()))
-    y = torch.empty_like(x)
-    work = torch.empty(fwd_workspace_bytes(x.dtype, R, C, F), dtype=torch.uint8, device=x.device)
-    KERNEL.launch(x.data_ptr(), *(t.data_ptr() for t in weights.values()), work.data_ptr(),
-                  y.data_ptr(), _DTYPE_CODES[x.dtype], R, C, F, float(eps), stream_ptr(x))
-    return y
+    Cp, Fp = padded_widths(x.dtype, C, F)
+    xk = x
+    if (Cp, Fp) != (C, F):
+        (xk,), weights = _padded((x.reshape(R, C),), weights, C, F, Cp, Fp)
+    _check_aligned("fused MLP forward", weights["wfc"], weights["wproj"],
+                   *((xk,) if x.dtype == torch.bfloat16 else ()))
+    y = torch.empty_like(xk)
+    work = torch.empty(fwd_workspace_bytes(x.dtype, R, Cp, Fp), dtype=torch.uint8,
+                       device=x.device)
+    KERNEL.launch(xk.data_ptr(), *(t.data_ptr() for t in weights.values()), work.data_ptr(),
+                  y.data_ptr(), _DTYPE_CODES[x.dtype], R, Cp, Fp, C, float(eps), stream_ptr(x))
+    return y if Cp == C else y[:, :C].reshape(x.shape)
+
+
+def bwd_workspace_layout(dtype, R: int, C: int, F: int) -> list:
+    """The backward launch's scratch as ``csrc/fused_mlp_bwd.cu`` carves it,
+    each region 16-byte aligned.  float32: Wfc^T, Wproj^T, u, dh and du,
+    all float32, and (mean, rstd) per row (~137 MB at R = 6400, C = 768,
+    F = 3072).  bfloat16: Wfc^T, u and dh (bf16), du (float32) and (mean,
+    rstd) per row."""
+    if dtype == torch.float32:
+        return _layout([("wfc_t", F * C * 4), ("wproj_t", C * F * 4), ("u", R * C * 4),
+                        ("dh", R * F * 4), ("du", R * C * 4), ("stats", R * 8)])
+    return _layout([("wfc_t", F * C * 2), ("u", R * C * 2), ("dh", R * F * 2),
+                    ("du", R * C * 4), ("stats", R * 8)])
 
 
 def bwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
-    """Scratch of one backward launch, laid out as ``csrc/fused_mlp_bwd.cu``
-    carves it.  float32: Wfc^T, Wproj^T, u, dh and du, all float32, and
-    (mean, rstd) per row (~137 MB at R = 6400, C = 768, F = 3072).
-    bfloat16: Wfc^T, u and dh (bf16), du (float32) and (mean, rstd) per row."""
-    if dtype == torch.float32:
-        return (2 * C * F + 2 * R * C + R * F) * 4 + R * 8
-    return (C * F + R * C + R * F) * 2 + R * C * 4 + R * 8
+    """Bytes of :func:`bwd_workspace_layout`."""
+    return _total(bwd_workspace_layout(dtype, R, C, F))
 
 
 def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     """The backward CUDA kernel: dx of the fused residual MLP.  dy and x:
     contiguous (..., C) of one shape and dtype; the weights as for
-    :func:`fused_mlp_fwd` (no bproj).  The dtype picks the kernel's body;
-    both run their GEMMs on the tensor cores, float32 by a three-product
-    TF32 split that keeps float32 accuracy, and both need 16-byte aligned
-    dy, x, wfc and wproj.  The scratch (:func:`bwd_workspace_bytes`) is
-    allocated here."""
+    :func:`fused_mlp_fwd` (no bproj), any C and F as there.  The dtype
+    picks the kernel's body; both run their GEMMs on the tensor cores,
+    float32 by a three-product TF32 split that keeps float32 accuracy, and
+    both need 16-byte aligned dy, x, wfc and wproj.  The scratch
+    (:func:`bwd_workspace_bytes`) is allocated here."""
     weights = dict(zip(_WEIGHTS[:5], (ln_scale, ln_bias, wfc, bfc, wproj)))
     R, C, F = _check("fused_mlp_bwd", x, weights)
     if not (dy.is_cuda and dy.device == x.device and dy.is_contiguous()):
@@ -197,13 +254,18 @@ def fused_mlp_bwd(dy, x, ln_scale, ln_bias, wfc, bfc, wproj, eps: float = 1e-5):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise KernelInputError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
                                f"{tuple(x.shape)} {x.dtype}")
-    _check_aligned("fused MLP backward", dy, x, wfc, wproj)
-    dx = torch.empty_like(x)
-    work = torch.empty(bwd_workspace_bytes(x.dtype, R, C, F), dtype=torch.uint8, device=x.device)
-    BWD_KERNEL.launch(dy.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in weights.values()),
-                      work.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], R, C, F,
+    Cp, Fp = padded_widths(x.dtype, C, F)
+    dyk, xk = dy, x
+    if (Cp, Fp) != (C, F):
+        (dyk, xk), weights = _padded((dy.reshape(R, C), x.reshape(R, C)), weights, C, F, Cp, Fp)
+    _check_aligned("fused MLP backward", dyk, xk, weights["wfc"], weights["wproj"])
+    dx = torch.empty_like(xk)
+    work = torch.empty(bwd_workspace_bytes(x.dtype, R, Cp, Fp), dtype=torch.uint8,
+                       device=x.device)
+    BWD_KERNEL.launch(dyk.data_ptr(), xk.data_ptr(), *(t.data_ptr() for t in weights.values()),
+                      work.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], R, Cp, Fp, C,
                       float(eps), stream_ptr(x))
-    return dx
+    return dx if Cp == C else dx[:, :C].reshape(x.shape)
 
 
 @torch.library.custom_op("pevit_tpu_torch::fused_mlp_fwd", mutates_args=())

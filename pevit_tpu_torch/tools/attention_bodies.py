@@ -5,7 +5,7 @@ turns on one CUDA card.
         [--out FILE]
 
 Each ``DIR`` holds another ``attention_fwd.cu`` with the same C interface
-(with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
+(hd an argument; with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
 earlier commit unpacked by ``git archive``.  Every source is built by
 ``nvcc`` (ptxas registers and spills printed), then, in bfloat16 at head
 width 64 and 12 heads, at each (N, batch) of ``SHAPES``, each version is

@@ -143,10 +143,10 @@ def _exported_forward():
     return lambda: call(images)
 
 
-def _timm_vit_forward():
+def _timm_vit_forward(width: int = 128):
     from pevit_tpu_torch.models import vit as pv
 
-    spec = pv.ViTSpec(input_resolution=32, patch_size=16, width=128, layers=2, heads=2)
+    spec = pv.ViTSpec(input_resolution=32, patch_size=16, width=width, layers=2, heads=2)
     vit = pv.init_vit_params(torch.Generator().manual_seed(2), spec, device="cpu")
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 32, 32, 3), np.float32))
     return lambda: pv.vit_forward_features(vit, x, spec=spec)
@@ -171,13 +171,17 @@ CALLERS = {"clip_block_fp32": lambda: _serving_forward("float32"),
            # N = 290, past the 257 tokens of ViT-L/14 at 224 px
            "clip_block_bf16_long_seq": lambda: _serving_forward("bfloat16", res=68, patch=4),
            "timm_vit": _timm_vit_forward, "declip_tower": _declip_tower_forward,
+           # heads of 80, MAE ViT-H/14's width (the fp32 body built for 80)
+           "timm_vit_hd80": lambda: _timm_vit_forward(width=160),
            "exported_fp32": _exported_forward}
 
 
 @pytest.mark.parametrize("caller", sorted(CALLERS))
 def test_every_caller_hands_the_kernels_aligned_rows(caller):
     """Run on the CPU, a path hands the operators the same views it hands
-    them on the card: each attention call's q, k and v must pass
+    them on the card: each attention call's q, k and v, at the caller's own
+    head width, must be handed to the kernel as they are (a head width in
+    whole 16-byte chunks, which the wrapper need not pad) and pass
     :func:`rows_aligned` (the kernel raises otherwise), and each fused-MLP
     call's weight matrices must be 16-byte aligned."""
     forward = CALLERS[caller]()
@@ -189,11 +193,12 @@ def test_every_caller_hands_the_kernels_aligned_rows(caller):
     assert all(not k.is_contiguous() for q, k, v in attention)
     for q, k, v in attention:
         for t in (q, k, v):
-            assert t.shape[-1] == ta.HEAD_DIM and t.stride(-1) == 1
+            B, N, H, hd = t.shape
+            assert ta.launch_plan(B, N, H, hd, t.dtype).hd == hd and t.stride(-1) == 1
             assert ta.rows_aligned(t.data_ptr(), t.stride()[:3], t.element_size()), \
                 (caller, t.shape, t.stride(), t.data_ptr() % 16)
     mlp = [args for name, args in spy.calls if name == "fused_mlp_fwd"]
-    assert len(mlp) == (0 if caller == "timm_vit" else 2)
+    assert len(mlp) == (0 if caller.startswith("timm_vit") else 2)
     for x, ln_s, ln_b, wfc, bfc, wproj, bproj, eps in mlp:
         assert wfc.data_ptr() % 16 == 0 and wproj.data_ptr() % 16 == 0
 

@@ -115,16 +115,26 @@ def _jax_perm(key):
 
 def test_kadaptation_step_on_a_tower_of_290_tokens():
     assert PORT_TINY.vision.seq_len == 290
+    kadaptation_step_matches(TINY, PORT_TINY)
+
+
+def kadaptation_step_matches(tiny: CLIPSpec, port_tiny, lr: float = LR) -> None:
+    """One fp32 KAdaptation SGD step at ``lr`` with live factors on the
+    tower of ``tiny`` (the reference's spec) and ``port_tiny`` (the
+    port's): the eval logits and every trained parameter within TOL of each
+    one's largest magnitude, the reference's ``build_fit_eval_fn`` against
+    the port's; every leaf the forward reads moved by more than 100 x TOL."""
+    res = tiny.vision.input_resolution
     cfg = _cfg(jax_defaults)
-    static = jt.TaskStatic.from_config(cfg, TINY, PeftConfig(method="kadaptation",
+    static = jt.TaskStatic.from_config(cfg, tiny, PeftConfig(method="kadaptation",
                                                               kadapt_dropout_p=0.0))
-    task = jt.TrainTask(cfg, static, init_clip_params(jax.random.PRNGKey(0), TINY))
+    task = jt.TrainTask(cfg, static, init_clip_params(jax.random.PRNGKey(0), tiny))
     trainable, frozen, bn = task.init_bundle(jax.random.PRNGKey(1))
     rng = np.random.default_rng(3)
     layers = trainable["peft"]["layers"]
     for name in ("q_left", "q_right", "v_left", "v_right", "b"):  # live factors and bias
         layers[name] = jnp.asarray(0.1 * rng.standard_normal(layers[name].shape), jnp.float32)
-    images = rng.integers(0, 256, (B + N_VAL, RES, RES, 3), dtype=np.uint8)
+    images = rng.integers(0, 256, (B + N_VAL, res, res, 3), dtype=np.uint8)
     labels = rng.integers(0, K, (B,)).astype(np.int32)
     train, val = images[:B], images[B:]
 
@@ -135,13 +145,13 @@ def test_kadaptation_step_on_a_tower_of_290_tokens():
     key = jax.random.PRNGKey(2)
     state, want_logits = fit_eval(frozen, task.prepack(train), jnp.asarray(labels),
                                   task.prepack(val), (trainable, opt_init(trainable), bn, key),
-                                  jnp.full((1,), LR, jnp.float32), jnp.float32(WD))
+                                  jnp.full((1,), lr, jnp.float32), jnp.float32(WD))
 
     pcfg = _cfg(get_default_config)
     peft_cfg = PortPeftConfig(method="kadaptation", kadapt_dropout_p=0.0)
-    pstatic = TaskStatic.from_config(pcfg, PORT_TINY, peft_cfg)
+    pstatic = TaskStatic.from_config(pcfg, port_tiny, peft_cfg)
     bundle, bn_t = bridge.from_jax(jax.tree.map(np.asarray, jcombine(trainable, frozen)),
-                                   jax.tree.map(np.asarray, bn), PORT_TINY, peft_cfg,
+                                   jax.tree.map(np.asarray, bn), port_tiny, peft_cfg,
                                    device="cpu")
     ptask = TrainTask(pcfg, pstatic, bundle["clip"], device="cpu")
     params = trainable_params(partition(bundle, trainable_pred(pstatic))[0])
@@ -150,7 +160,7 @@ def test_kadaptation_step_on_a_tower_of_290_tokens():
     fe = build_fit_eval_fn(pstatic, B, 1, ptask.preproc, eval_chunk=64, n_val=N_VAL)
     pstate = TrainState(params, p_init(params), bn_t, torch.Generator().manual_seed(0))
     pstate, logits = fe(bundle, ptask.prepack(train), torch.from_numpy(labels).long(),
-                        ptask.prepack(val), pstate, [LR], WD, orders=[_jax_perm(key)])
+                        ptask.prepack(val), pstate, [lr], WD, orders=[_jax_perm(key)])
     assert logits.shape == (1, N_VAL, K) and torch.isfinite(pstate.loss)
     _close(logits[0].numpy(), np.asarray(want_logits[0]), "val logits after the step")
     got = _flat(bridge._tree_to_jax(params))

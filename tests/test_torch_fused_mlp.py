@@ -67,8 +67,13 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert tf.KERNEL.launches == before
 
 
+# the four widths the kernels took before any C did, and the widths of
+# ViT-Ti, ViT-S, ViT-H and ViT-g and a tail width (200) that fills no tile
+WORKSPACE_WIDTHS = [256, 512, 768, 1024, 192, 200, 384, 1280, 1408]
+
+
 @pytest.mark.parametrize("R", [1, 400, 5800, 12800])
-@pytest.mark.parametrize("width", tf.WIDTHS)
+@pytest.mark.parametrize("width", WORKSPACE_WIDTHS)
 def test_fwd_workspace_bytes(R, width):
     """Both bodies carve u (R x C) and then g (R x F) in x's dtype, and g's
     16-byte loads need it to start aligned."""
@@ -77,3 +82,4 @@ def test_fwd_workspace_bytes(R, width):
         u, g = R * width * size, R * F * size
         assert tf.fwd_workspace_bytes(dtype, R, width, F) == u + g
         assert u % 16 == 0
+        assert [off for _, off, _ in tf.fwd_workspace_layout(dtype, R, width, F)] == [0, u]

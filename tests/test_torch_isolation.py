@@ -79,7 +79,8 @@ def test_config_and_tokenizer_work_without_the_cards_missing_packages():
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tools/fp32_check_mutants.py",
                                   "tools/fp32_grad_witness.py", "tools/profile_port_step.py",
                                   "tools/k3_fp32_variants.py",
-                                  "tools/fp32_train_throughput.py"] + [
+                                  "tools/fp32_train_throughput.py",
+                                  "tools/fp32_logit_spread.py", "tools/kernel_ab.py"] + [
     str(p.relative_to(REPO)) for p in sorted((REPO / "pevit_tpu_torch").rglob("*.py"))])
 def test_no_forbidden_import_statement(path):
     assert not _imported_roots(REPO / path) & set(FORBIDDEN)

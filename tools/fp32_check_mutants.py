@@ -62,10 +62,10 @@ VARIANTS = {
     "chain": (ALL, [("tf32x3.cuh", _SPLIT, _SPLIT.replace("(d, ", "(acc, "))]),
     "k1_pairs": (("attention_fwd",), [
         ("attention_fwd.cu",
-         "void pv_step(float (&o)[HD / 8][4], const float (&p)[4],\n"
+         "void pv_step(float (&o)[DV / 8][4], const float (&p)[4],\n"
          "                                        const float* vr) {\n",
-         "void pv_step(float (&o)[HD / 8][4], const float (&p)[4],\n"
-         "                                        const float* vr, float (&pd)[HD / 8][4],\n"
+         "void pv_step(float (&o)[DV / 8][4], const float (&p)[4],\n"
+         "                                        const float* vr, float (&pd)[DV / 8][4],\n"
          "                                        bool first, bool last) {\n"),
         ("attention_fwd.cu", "    mma_tf32x3(o[dn], a_hi, a_lo, b_hi, b_lo);\n",
          "    if (first) pd[dn][0] = pd[dn][1] = pd[dn][2] = pd[dn][3] = 0.f;\n"
@@ -73,19 +73,19 @@ VARIANTS = {
          "    mma_tf32(pd[dn], a_hi, b_lo[0], b_lo[1]);\n"
          "    mma_tf32(pd[dn], a_hi, b_hi[0], b_hi[1]);\n"
          "    if (last) for (int i = 0; i < 4; ++i) o[dn][i] += pd[dn][i];\n"),
-        ("attention_fwd.cu", "    const float* vw = vc + 2 * t * LD32 + g;\n",
-         "    const float* vw = vc + 2 * t * LD32 + g;\n    float pdv[HD / 8][4];\n"),
-        ("attention_fwd.cu", "      if (j < nt) pv_step(o, s[j], vw + 8 * j * LD32);\n",
-         "      if (j < nt) pv_step(o, s[j], vw + 8 * j * LD32, pdv, (j & 1) == 0,\n"
-         "                          (j & 1) == 1 || j + 1 == nt);\n"),
-        ("attention_fwd.cu", "      const float* kw = kc + (8 * j + g) * LD32 + t;\n",
-         "      const float* kw = kc + (8 * j + g) * LD32 + t;\n      float pd[4];\n"),
-        ("attention_fwd.cu", "        mma_tf32x3(s[j], q_hi[kk], q_lo[kk], b_hi, b_lo);\n",
-         "        if ((kk & 1) == 0) pd[0] = pd[1] = pd[2] = pd[3] = 0.f;\n"
-         "        mma_tf32(pd, q_lo[kk], b_hi[0], b_hi[1]);\n"
-         "        mma_tf32(pd, q_hi[kk], b_lo[0], b_lo[1]);\n"
-         "        mma_tf32(pd, q_hi[kk], b_hi[0], b_hi[1]);\n"
-         "        if (kk & 1) for (int i = 0; i < 4; ++i) s[j][i] += pd[i];\n"),
+        ("attention_fwd.cu", "    const float* vw = vc + 2 * t * LDV + g;\n",
+         "    const float* vw = vc + 2 * t * LDV + g;\n    float pdv[DV / 8][4];\n"),
+        ("attention_fwd.cu", "      if (j < nt) pv_step<DV, LDV>(o, s[j], vw + 8 * j * LDV);\n",
+         "      if (j < nt) pv_step<DV, LDV>(o, s[j], vw + 8 * j * LDV, pdv, (j & 1) == 0,\n"
+         "                                   (j & 1) == 1 || j + 1 == nt);\n"),
+        ("attention_fwd.cu", "        const float* kw = kc + (8 * j + g) * LDK + t;\n",
+         "        const float* kw = kc + (8 * j + g) * LDK + t;\n        float pd[4];\n"),
+        ("attention_fwd.cu", "          mma_tf32x3(s[j], q_hi[kk], q_lo[kk], b_hi, b_lo);\n",
+         "          if ((kk & 1) == 0) pd[0] = pd[1] = pd[2] = pd[3] = 0.f;\n"
+         "          mma_tf32(pd, q_lo[kk], b_hi[0], b_hi[1]);\n"
+         "          mma_tf32(pd, q_hi[kk], b_lo[0], b_lo[1]);\n"
+         "          mma_tf32(pd, q_hi[kk], b_hi[0], b_hi[1]);\n"
+         "          if (kk & 1) for (int i = 0; i < 4; ++i) s[j][i] += pd[i];\n"),
     ]),
     "k3_pairs": (("fused_mlp_fwd", "fused_mlp_bwd"), [
         ("tf32x3_gemm.cuh", "      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;\n",

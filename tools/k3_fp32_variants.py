@@ -44,8 +44,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 SRC = "fused_mlp_bwd.cu"
-ONE_STEP = [(SRC, "x3_gemm_mainloop<DH_NT, 2>(dgelu", "x3_gemm_mainloop<DH_NT, 1>(dgelu"),
-            (SRC, "x3_gemm_mainloop<DU_NT, 2>", "x3_gemm_mainloop<DU_NT, 1>")]
+ONE_STEP = [(SRC, "x3_gemm_mainloop<DH_NT, 2, TAILS>(dgelu",
+             "x3_gemm_mainloop<DH_NT, 1, TAILS>(dgelu"),
+            (SRC, "x3_gemm_mainloop<DU_NT, 2, TAILS>", "x3_gemm_mainloop<DU_NT, 1, TAILS>")]
 VARIANTS = {
     "shipped": [],
     "du_wide": [(SRC, "constexpr int DU_NT = 4;", "constexpr int DU_NT = 8;"), ONE_STEP[1]],
@@ -125,7 +126,7 @@ def main() -> int:
                            dtype=torch.uint8, device="cuda")
         dx = torch.empty_like(x)
         argv = (dy.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in args[2:]),
-                work.data_ptr(), dx.data_ptr(), 0, rows, c, f, 1e-5,
+                work.data_ptr(), dx.data_ptr(), 0, rows, c, f, c, 1e-5,
                 torch.cuda.current_stream().cuda_stream)
         u, dh = r(rows, c), r(rows, f)
 
