@@ -35,10 +35,12 @@ on):
    error passes.  fp32 rows carry both bounds, the FMA units' (ops /
    67 TFLOP/s) and three TF32 products' (3 ops / 495), and ``bound_ms`` is
    the lower (``bound_peak`` names it); and
-   K1's two bf16 bodies, the register body (N <= 257) and the long body
-   (beyond), both timed in turns at N = 50, 197 and 257 (the long body
-   from a copy of the source built beside the kernels with the register
-   body's ceiling set to 0);
+   K1's three bf16 bodies, the register body (N <= 257 at hd <= 64), the
+   body with the S tile in shared memory (beyond, up to 640 tokens at hd
+   <= 64) and the three-walk long body, all timed in turns at N = 50, 197
+   and 257 (the other two from copies of the source built beside the
+   kernels, one with the register body's ceiling set to 0, one with the
+   shared-memory body's ceiling set to 0 too);
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
@@ -57,7 +59,13 @@ on):
    spread at every width) in both dtypes and at N = 577 (32 images) in
    bf16, its long body; K2 and K3 at C = 192, 200, 384, 1280, 1408 with F
    = 4C and at (100, 300), which the wrappers zero-pad to whole 16-byte
-   rows, both dtypes, at R = 32 x 257;
+   rows, both dtypes, at R = 32 x 257; and K1's shared-memory body (hd
+   64) at N = 50, 197, 257, 577, its longest N (640), one more and 1025
+   (16 heads, batches 256 to 8), held against the plain version (2e-2, and
+   every element within one bf16 ulp, at most 1% differing, the rule of
+   ``tests/test_torch_bf16_rounding.py``) and by that rule against the
+   three-walk body on the same inputs, timed in turns with it beside
+   SDPA;
 4. serving: a full-width ViT-B/32 KAdaptation classifier (random weights
    from a seed, non-zero adaptation factors, random BN statistics, a
    100-class head fitted to 100 seeded prototype images) behind
@@ -342,6 +350,7 @@ import importlib
 import io
 import json
 import logging
+import math
 import re
 import shutil
 import statistics
@@ -584,48 +593,82 @@ def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12, hd: int =
             **bound_fields(4 * B * H * n * hd * esize, 4 * B * H * n * n * hd, dtype)}
 
 
-def long_body_kernel(tmp: Path):
-    """K1's library built from a copy of its source whose launcher sends
-    every bf16 N to the long body (the register body's ceiling set to 0), so
-    that the long body can be timed where the register body runs; a
-    measurement aid, never on a path."""
+def k1_variant(tmp: Path, label: str, **consts):
+    """K1's library built from a copy of its source with some ``constexpr``
+    constants of ``attention_fwd.cu`` set otherwise (``MAX_SEQ_REGS=0``
+    sends every bf16 N past the register body, ``SMEM_MAX_SEQ=0`` every bf16
+    shape past the shared-memory body to the three-walk long body), so that
+    a body can be timed where the launcher runs another; a measurement aid,
+    never on a path."""
     from pevit_tpu_torch.ops import attention
     from pevit_tpu_torch.ops._build import CSRC, Kernel
 
-    shutil.copytree(CSRC, tmp / "csrc")
-    src = tmp / "csrc" / "attention_fwd.cu"
-    text, old = src.read_text(), "constexpr int MAX_SEQ_REGS = 257;"
-    if text.count(old) != 1:
-        raise AssertionError("attention_fwd.cu no longer sets MAX_SEQ_REGS = 257 once")
-    src.write_text(text.replace(old, "constexpr int MAX_SEQ_REGS = 0;"))
+    shutil.copytree(CSRC, tmp / label)
+    src = tmp / label / "attention_fwd.cu"
+    text = src.read_text()
+    for name, value in consts.items():
+        pattern = re.compile(rf"constexpr (int|bool) {name} = [^;]+;")
+        if len(pattern.findall(text)) != 1:
+            raise AssertionError(f"attention_fwd.cu no longer sets the constexpr {name} once")
+        value = str(value).lower() if isinstance(value, bool) else str(value)
+        text = pattern.sub(lambda m: f"constexpr {m.group(1)} {name} = {value};", text)
+    src.write_text(text)
     return Kernel("attention_fwd", str(src), attention.KERNEL.argtypes,
                   replaces=attention.KERNEL.replaces)
 
 
-def time_bf16_bodies(gen, long_only, n, batch=SERVE_BATCH, heads: int = 12) -> dict:
-    """K1's two bf16 bodies at one N <= 257: the register body (what the
-    launcher runs there) and the long body (``long_only``), each held
-    against the plain version and timed in turns (register, long, long,
+def k1_bodies(tmp: Path) -> dict:
+    """Phase 3's aids: K1 with its bf16 shapes at hd <= 64 sent to the
+    shared-memory body up to its longest N ("smem": no register body) and
+    every bf16 shape to the three-walk long body ("long")."""
+    return {"smem": k1_variant(tmp, "smem", MAX_SEQ_REGS=0),
+            "long": k1_variant(tmp, "long", MAX_SEQ_REGS=0, SMEM_MAX_SEQ=0)}
+
+
+def qkv_bf16(gen, batch, n, heads, hd):
+    """bf16 q, k, v (B, N, H, hd) whose logits spread with std 0.5 at every
+    head width."""
+    qk = (0.25 / hd) ** 0.25
+    return tuple((torch.randn(batch, n, heads, hd, device="cuda", generator=gen) * s).bfloat16()
+                 for s in (qk, qk, 1.0))
+
+
+def bf16_ulp_diff(got, old) -> dict:
+    """``got`` against ``old`` by the same-rounding rule of
+    ``tests/test_torch_bf16_rounding.py``: every element within one bf16 ulp
+    at ``old``'s largest magnitude, at most 1% of them differing."""
+    got, old = got.float(), old.float()
+    ulp = 2.0 ** (math.floor(math.log2(old.abs().max().item())) - 7)
+    diff = (got - old).abs()
+    return {"max_diff_ulps": diff.max().item() / ulp,
+            "share_differing": (diff > 0).float().mean().item()}
+
+
+def time_bf16_bodies(gen, bodies: dict, n, batch=SERVE_BATCH, heads: int = 12) -> dict:
+    """K1's three bf16 bodies at one N <= 257, hd 64: the register body
+    (what the launcher runs there up to MAX_SEQ_REGS), the shared-memory
+    body and the three-walk long body (``bodies``), each held against the
+    plain version and timed in turns (register, smem, long, long, smem,
     register; the mean of each one's two medians), beside SDPA."""
     from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref
     from pevit_tpu_torch.tools.attention_bodies import launching
 
-    q, k, v = (torch.randn(batch, n, heads, 64, device="cuda", generator=gen) * s
-               for s in (0.25, 0.25, 1.0))
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    q, k, v = qkv_bf16(gen, batch, n, heads, 64)
     t = lambda x: x.transpose(1, 2)
     want = t(attention_ref(t(q), t(k), t(v)))
-    with launching(long_only):
-        err = check_close(f"attention_fwd long body N={n}", attention_fwd(q, k, v), want,
-                          2e-2, 2e-2)
-    turns = {"register": [], "long": []}
-    for body in ("register", "long", "long", "register"):
-        with launching(long_only) if body == "long" else contextlib.nullcontext():
-            turns[body].append(time_ms(lambda: attention_fwd(q, k, v)))
+    row = {"shape": f"B*H={batch}*{heads} N={n} hd=64"}
+    for name, kernel in bodies.items():
+        with launching(kernel):
+            row[f"{name}_max_abs_err"] = check_close(f"attention_fwd {name} body N={n}",
+                                                     attention_fwd(q, k, v), want, 2e-2, 2e-2)
+    order = ["register", *bodies]
+    turns = {name: [] for name in order}
+    for name in order + order[::-1]:
+        with launching(bodies[name]) if name in bodies else contextlib.nullcontext():
+            turns[name].append(time_ms(lambda: attention_fwd(q, k, v)))
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
-    return {"shape": f"B*H={batch}*{heads} N={n} hd=64", "long_max_abs_err": err,
-            "register_ms": statistics.mean(turns["register"]),
-            "long_ms": statistics.mean(turns["long"]), "turns_ms": turns,
+    return {**row, **{f"{name}_ms": statistics.mean(ms) for name, ms in turns.items()},
+            "turns_ms": turns,
             "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, scale=1.0))}
 
@@ -746,6 +789,67 @@ def check_kernel_shapes(gen) -> dict:
             table["fused_mlp_fwd"].append(check_fused_mlp(gen, dtype, c, SHAPE_ROWS, f))
             table["fused_mlp_bwd"].append(check_fused_mlp_bwd(gen, dtype, c, SHAPE_ROWS, f))
     return table
+
+
+# 3c's rows of K1's shared-memory body (hd 64): the lengths of ViT-B/32
+# (50), ViT-B/16 (197), ViT-L/14 (257), ViT-L/14 at 336 px (577) and 1025,
+# and the longest N it takes and one more (the three-walk body's first); 16
+# heads, a batch for each N
+SMEM_BATCHES = {50: 256, 197: 64, 257: 64, 577: 32, 1025: 8}
+LIMIT_BATCH = 16
+
+
+def check_smem_body(gen, bodies: dict) -> list:
+    """3c: K1's shared-memory body ("smem" of ``bodies``, which also takes
+    the shapes the launcher gives the register body) at hd 64 and each N of
+    ``SMEM_BATCHES``, its limit and one more, held against the plain version
+    (2e-2, and by :func:`bf16_ulp_diff`, which ``attention_ref``'s rounding
+    point makes exact up to the sum's order) and by :func:`bf16_ulp_diff`
+    against the three-walk body ("long") on the same inputs, and timed in
+    turns (smem, long, long, smem) beside the plain version, SDPA and its
+    bound; ``launcher_body`` names the body the launcher runs at the shape.
+    Past the limit both run the three-walk body: the rows show the route."""
+    from pevit_tpu_torch.ops.attention import (SMEM_MAX_SEQ, attention_fwd, attention_ref,
+                                               launch_plan)
+    from pevit_tpu_torch.tools.attention_bodies import launching
+
+    rows = []
+    t = lambda x: x.transpose(1, 2)
+    w = 64
+    shapes = {**SMEM_BATCHES, SMEM_MAX_SEQ: LIMIT_BATCH, SMEM_MAX_SEQ + 1: LIMIT_BATCH}
+    for n, batch in sorted(shapes.items()):
+        q, k, v = qkv_bf16(gen, batch, n, 16, w)
+        plain = lambda: t(attention_ref(t(q), t(k), t(v)))
+        outs = {}
+        for name in ("smem", "long"):
+            with launching(bodies[name]):
+                outs[name] = attention_fwd(q, k, v)
+        want = plain()
+        torch.cuda.synchronize()
+        what = f"attention_fwd smem body W={w} N={n}"
+        err = check_close(what, outs["smem"], want, 2e-2, 2e-2)
+        same = {"plain": bf16_ulp_diff(outs["smem"], want),
+                "long": bf16_ulp_diff(outs["smem"], outs["long"])}
+        for against, d in same.items():
+            if d["max_diff_ulps"] > 1 or d["share_differing"] > 0.01:
+                raise AssertionError(f"{what}: against the {against} version {d}")
+        turns = {"smem": [], "long": []}
+        for name in ("smem", "long", "long", "smem"):
+            with launching(bodies[name]):
+                turns[name].append(time_ms(lambda: attention_fwd(q, k, v)))
+        qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+        rows.append({"shape": f"B*H={batch}*16 N={n} hd={w}", "dtype": "bfloat16",
+                     "body": "bf16_smem" if n <= SMEM_MAX_SEQ else "bf16_long",
+                     "launcher_body": launch_plan(batch, n, 16, w, torch.bfloat16).body,
+                     "max_abs_err": err, "ulps_against": same,
+                     "ms": statistics.mean(turns["smem"]),
+                     "long_ms": statistics.mean(turns["long"]), "turns_ms": turns,
+                     "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(sdpa),
+                     **bound_fields(8 * batch * 16 * n * w, 4 * batch * 16 * n * n * w,
+                                    torch.bfloat16)})
+        del q, k, v, outs, want, qh, kh, vh
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4530,7 +4634,8 @@ def main() -> int:
     from pevit_tpu_torch.serve import InferencePipeline, make_serving_fn
     from pevit_tpu_torch.utils.device import resolve_device
 
-    # 1. card
+    # 1. card (every phase prints its seconds, for comparing runs)
+    start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     resolve_device("cuda")
@@ -4538,21 +4643,24 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build (and, beside the kernels, K1 with the long bf16 body at every
-    # N, phase 3's yardstick of its two bf16 bodies)
+    # 2. build (and, beside the kernels, K1 with its bf16 shapes sent to the
+    # shared-memory body and to the three-walk body, phase 3's aids), every
+    # nvcc started together
     from pevit_tpu_torch.ops._build import _finish
 
     t0 = time.perf_counter()
     bodies_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_k1_")
-    long_only = long_body_kernel(Path(bodies_dir.name))
-    long_build = long_only.start_build()
+    bodies = k1_bodies(Path(bodies_dir.name))
+    aid_builds = [kernel.start_build() for kernel in bodies.values()]
     logs = build_all(KERNELS)
-    _finish(long_build)
+    for build in aid_builds:
+        _finish(build)
     print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         print("\n".join(ptxas_summary(name, log)), flush=True)
 
     # 3. kernels
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = SERVE_BATCH * 50
     table = {"attention_fwd": [], "fused_mlp_fwd": [], "fused_mlp_bwd": []}
@@ -4581,27 +4689,31 @@ def main() -> int:
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)
-    # K1's bf16 bodies where both run: the launcher takes the register body
-    # up to N = 257, where it is the faster
+    # K1's bf16 bodies where all three run: the launcher takes the register
+    # body up to MAX_SEQ_REGS
     for n in (50, 197, 257):
-        print(f"kernel attention_fwd bf16 bodies {json.dumps(time_bf16_bodies(gen, long_only, n))}"
+        print(f"kernel attention_fwd bf16 bodies {json.dumps(time_bf16_bodies(gen, bodies, n))}"
               f" [{card}]", flush=True)
-    bodies_dir.cleanup()
     idle = [r["shape"] for rows_ in table.values() for r in rows_
             if r["dtype"] == "float32" and not r["tf32_engaged"]]
     if idle:
         raise AssertionError(f"the TF32 control ran in float32 at phase 3's rows {idle}")
     attn_bwd = time_attention_bwd(gen, torch.bfloat16, 50, TRAIN_BATCH)
     print(f"plain attention_bwd_ref {json.dumps(attn_bwd)} [{card}]", flush=True)
+    print(f"phases 3, 3b: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3c. the kernels at the shapes beyond ViT-B's: head widths, model widths
     t0 = time.perf_counter()
     for name, rows_ in check_kernel_shapes(gen).items():
         for r in rows_:
             print(f"kernel shapes {name} {json.dumps(r)} [{card}]", flush=True)
+    for r in check_smem_body(gen, bodies):
+        print(f"kernel smem body {json.dumps(r)} [{card}]", flush=True)
+    bodies_dir.cleanup()
     print(f"phase 3c: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. serving
+    t0 = time.perf_counter()
     static, trainable, frozen, bn, preproc = build_classifier(seed=0)
     res = static.spec.vision.input_resolution
     rng = np.random.default_rng(0)
@@ -4634,8 +4746,10 @@ def main() -> int:
     pipe.run(stream)
     print(f"throughput bf16 batch {SERVE_BATCH}: {pipe.throughput} images/s [{card}]",
           flush=True)
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 5. training
+    t0 = time.perf_counter()
     clip = frozen["clip"]
     data = train_data(prototypes, rng)
     task = make_task(clip, "bfloat16", dropout_p=0.5)
@@ -4662,9 +4776,11 @@ def main() -> int:
               flush=True)
     run32 = compare_whole_run(make_task(clip, "float32", 0.0), data)
     print(f"whole-run val logits kernel vs plain path: {json.dumps(run32)} [{card}]", flush=True)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cmd_") as cmd_tmp:
         # 6. the command, then every kernel at the batches it gave each one
+        t0 = time.perf_counter()
         command = run_command(KERNELS, Path(cmd_tmp))
         batches = command.pop("batches")
         print(f"command kronecker_adaptation_clip: {json.dumps(command)} [{card}]", flush=True)
@@ -4672,6 +4788,7 @@ def main() -> int:
         for name, rows_ in command_table.items():
             for r in rows_:
                 print(f"command kernel {name} {json.dumps(r)} [{card}]", flush=True)
+        print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
         # 7. the other entry points: checkpoint, zero-shot, linear probe,
         # finetune, native resize
@@ -4737,6 +4854,7 @@ def main() -> int:
              + axis_table[name] + mesh_table[name] + l336_table[name] + h14_table[name]
              for name in command_table}
     report = kernel_report(KERNELS, launches, table)
+    print(f"script: {time.perf_counter() - start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

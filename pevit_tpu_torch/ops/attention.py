@@ -42,14 +42,16 @@ KERNEL = Kernel(
 )
 # every N >= 1 and every hd from 1 to MAX_HEAD_DIM is taken.  bf16 runs its
 # register body (one block per (batch, head), S rows in registers) up to
-# MAX_SEQ_REGS tokens at hd <= REG_WIDTH and its long body otherwise, fp32
-# one body; all but the register body launch a block per (batch, head,
-# 64-query tile, chunk of at most COLUMN_CHUNK output columns).  A body is
-# built for a head width of BODY_WIDTHS (hd rounded up; the kernel stages
-# the columns past hd as zeros), and the kernel takes hd in whole 16-byte
-# chunks: the wrapper zero-pads any other hd, as the reference pads hd to
-# a multiple of 8.  The launchers count the grid's blocks in a 32-bit int;
-# every pointer offset is 64-bit
+# MAX_SEQ_REGS tokens at hd <= REG_WIDTH, there its body with the S tile in
+# shared memory (a block per (batch, head, 64-query tile)) up to
+# SMEM_MAX_SEQ tokens, and its three-walk long body otherwise; fp32 runs one
+# body.  The long body and fp32 launch a block per (batch, head, 64-query
+# tile, chunk of at most COLUMN_CHUNK output columns).  A body is built for
+# a head width of BODY_WIDTHS (hd rounded up; the kernel stages the columns
+# past hd as zeros), and the kernel takes hd in whole 16-byte chunks: the
+# wrapper zero-pads any other hd, as the reference pads hd to a multiple of
+# 8.  The launchers count the grid's blocks in a 32-bit int; every pointer
+# offset is 64-bit
 MAX_SEQ_REGS = 257
 REG_WIDTH = 64
 BODY_WIDTHS = (64, 80, 96, 128, 256)
@@ -58,14 +60,17 @@ COLUMN_CHUNK = 128
 QUERY_TILE = 64
 MAX_BLOCKS = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the longest N of the bf16 body with the S tile in shared memory (hd <=
+# REG_WIDTH, past MAX_SEQ_REGS), as csrc/attention_fwd.cu sets it
+SMEM_MAX_SEQ = 640
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How the kernel runs one call: ``body`` ("bf16_regs", "bf16_long" or
-    "f32"), the head width ``width`` its instantiation is built for, the
-    head width ``hd`` it is handed (the caller's, or zero-padded to whole
-    16-byte chunks) and its grid's ``blocks``."""
+    """How the kernel runs one call: ``body`` ("bf16_regs", "bf16_smem",
+    "bf16_long" or "f32"), the head width ``width`` its instantiation is
+    built for, the head width ``hd`` it is handed (the caller's, or
+    zero-padded to whole 16-byte chunks) and its grid's ``blocks``."""
 
     body: str
     width: int
@@ -89,6 +94,8 @@ def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
     width = next(w for w in BODY_WIDTHS if w >= padded)
     if dtype == torch.bfloat16 and N <= MAX_SEQ_REGS and padded <= REG_WIDTH:
         body, blocks = "bf16_regs", B * H
+    elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM_MAX_SEQ:
+        body, blocks = "bf16_smem", B * H * -(-N // QUERY_TILE)
     else:
         body = "bf16_long" if dtype == torch.bfloat16 else "f32"
         columns = min(width, COLUMN_CHUNK)

@@ -15,13 +15,16 @@
 // shapes the bound is memory traffic (each of q, k, v, out read or written
 // once), and at ViT-L/14 @ 336 px (N = 577) the two bounds meet.  In
 // float32 the three TF32 products of each product (below) make the
-// operations bound about as large as the bytes bound at N = 197.  Every
-// body stages rows of q, k and v in shared memory by 16-byte copies, and
-// takes q, k and v with (batch, token, head) strides, so the wrapper passes
+// operations bound about as large as the bytes bound at N = 197.  The
+// bodies stage rows of q, k and v in shared memory by 16-byte copies (the
+// shared-memory body K and V by TMA boxes, q straight into registers), and
+// take q, k and v with (batch, token, head) strides, so the wrapper passes
 // (B, N, H, hd) views of the packed qkv projection without copies.  Every
 // N >= 1 is taken: the dtype picks the body, and in bf16 N and hd do (the
-// register body up to N = 257 at hd <= 64, where it is the faster, the long
-// body otherwise); no body falls back to another.
+// register body up to N = 257 at hd <= 64, where it is the faster; at hd
+// <= 64 the body with the S tile in shared memory from 258 up to 640
+// tokens, where its tile fits; the three-walk long body otherwise), chosen
+// by shape; no body falls back to another.
 //
 // Head widths.  The reference takes any hd (it pads hd to a multiple of 8
 // for its lanes).  Here every body is built for a head width W, hd rounded
@@ -68,7 +71,7 @@
 // and no more fit: a longer row of S does not, nor a wider head's
 // fragments beside it.
 //
-// bfloat16 long body, N > 257 or hd > 64 (tensor cores, the same mma.sync,
+// bfloat16 long body, hd > 64 or N > 640 (tensor cores, the same mma.sync,
 // ldmatrix, tiles and output staging as the register body).  The rounding
 // point rules out a one-pass online softmax: p must be normalised by the
 // row's final sum before it is rounded.  So the body holds one chunk's S
@@ -88,10 +91,40 @@
 //     the chunk the last one ended on and keeps its S;
 //   * p's division is a product by the correctly rounded 1 / l and its
 //     exact residual (Markstein), the correctly rounded quotient;
-//   * 40 KB of shared memory at W = 64 (80 KB at 128, 128 KB at 256); at
-//     ViT-B lengths it is slower than the register body (three walks over
-//     the keys, two exponentials a logit), so it runs only where that one
-//     cannot.
+//   * 40 KB of shared memory at W = 64 (80 KB at 128, 128 KB at 256); it
+//     computes Q K^T about 2.8 times a key and exp twice a logit, so it runs
+//     only where neither body above does.
+//
+// bfloat16 body with the S tile in shared memory (Hopper's wgmma), the
+// reference's own design brought to the card: `_pallas_forward` keeps a
+// (b, h) S tile in VMEM, computes S once, the exact max, e = exp(s - m)
+// once, p = e / sum(e) rounded, then P V.  Here a block of two warpgroups
+// owns 64 query rows and keeps their float32 S tile (64 x N, rounded up to
+// items of 128 keys) in shared memory: at most 640 keys beside the K / V
+// ring and the row statistics in 227 KB.  It is built for hd <= 64 (W =
+// 64), where CLIP ViT-L/14 at 336 px runs it, past the register body's
+// 257 tokens: no configuration runs bf16 attention with wider heads (CLIP's
+// heads are 64 wide, the auxiliary backbones run in float32), so those keep
+// the three-walk body.  One Q K^T and one
+// expf a logit, both products on wgmma, the numeric contract of the
+// three-walk body (the exact row max, a float32 l, p normalised before it
+// is rounded) with l's sum split between the warpgroups and O's between
+// their keys.  What bounds it: not bytes (0.045 ms of q, k, v and out at
+// (32, 577, 16, 64)) nor the tensor cores (0.044 ms), but each SM's issue
+// slots and shared memory: one expf (eight instructions and a MUFU op) a
+// logit, S written, read and written again as e, read once more (16 bytes
+// a logit), and a block that fills an SM's shared memory, so nothing but
+// its own two warpgroups hides a wait.  The design does what it can about
+// that: each warpgroup streams its own half of every item through a ring
+// of four stages by TMA, one thread issuing its boxes (issuing
+// a cp.async a thread cost as much as the loads' latency), and waits on its
+// own named barrier, so the two drift apart and one's arithmetic runs
+// beside the other's products; walk 1 stores one item's S while the next
+// item's product runs; walk 2 writes e over s (a second expf in walk 3
+// instead was slower at every shape measured); the next items' copies are
+// issued after the products they would wait behind; wgmma's register
+// operands are written only outside a product's flight (else ptxas
+// serializes every wgmma).
 //
 // float32 body (tensor cores, 3xTF32: tf32x3.cuh).  TF32 mma.sync m16n8k8
 // with each product split in three, so it stays float32-class (not TF32:
@@ -132,6 +165,7 @@
 // The launchers raise each kernel's dynamic shared memory limit with
 // cudaFuncSetAttribute before its launch.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -140,6 +174,7 @@
 #include <type_traits>
 
 #include "tf32x3.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -153,18 +188,10 @@ constexpr int MAX_HD = 256;
 constexpr int COL_CHUNK = 128;     // output columns a query-tiled block computes, at most
 
 // ---------------------------------------------------------------------------
-// bfloat16 body (tensor cores); its copy and quad helpers serve both bodies
+// bfloat16 body (tensor cores); its copy and quad helpers serve the bf16
+// bodies (bf16, smem_u32, cp_async16 and the wgmma descriptors come from
+// wgmma_gemm.cuh)
 // ---------------------------------------------------------------------------
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -570,6 +597,405 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 body with the S tile in shared memory (wgmma), hd <= 64 and
+// MAX_SEQ_REGS < N <= SMEM_MAX_SEQ
+// ---------------------------------------------------------------------------
+
+constexpr int SMEM_BUDGET = 232448;  // shared memory a block may use on Hopper (227 KB)
+// the longest N the body takes, five items of S (ops/attention.py mirrors
+// it; the static_assert below holds the layout to SMEM_BUDGET there)
+constexpr int SMEM_MAX_SEQ = 640;
+
+// The body's layout at head width 64: the ring, 1024-byte aligned for the
+// 128-byte swizzle, of STAGES stages, each an item of KI keys of K or V
+// (128-byte rows in 64-row slabs of 8 KB); the float32 S tile of 64 query
+// rows by N keys rounded up to whole items; each warpgroup's row max and
+// row sum; the ring's mbarriers, a stage's for each warpgroup
+struct SmemBody {
+  static constexpr int W = REG_WIDTH;
+  static constexpr int KI = 128;                 // keys of an item
+  static constexpr int WGS = 2;                  // consumer warpgroups
+  static constexpr int KW = KI / WGS;            // a warpgroup's keys of an item
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE = KI * W * 2;       // bytes of a stage
+  static constexpr int S_ITEM = QROWS * KI * 4;  // bytes of an item of S
+  static constexpr int STATS = 2 * WGS * QROWS * 4;
+  static constexpr int SLACK = 1024;
+  static constexpr size_t bytes(int N) {
+    return SLACK + STAGES * STAGE + (size_t)((N + KI - 1) / KI) * S_ITEM + STATS +
+           8 * STAGES * WGS;
+  }
+};
+static_assert(SmemBody::bytes(SMEM_MAX_SEQ) <= SMEM_BUDGET, "the S tile fits at SMEM_MAX_SEQ");
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B), "r"(scale_d));
+}
+
+// The ring's copies: TMA boxes of 64 columns (128 bytes) by a warpgroup's
+// rows of an item, written in the 128-byte swizzle that wgmma_desc /
+// wgmma_desc_mn name (a K item: Q K^T's B, K-major; a V item: P V's B,
+// MN-major), rows at or past N and columns at or past hd zero-filled by the
+// copy; each completes on its stage's mbarrier for the warpgroup.  One
+// thread issues a warpgroup's boxes, so no thread spends issue slots on
+// addresses or copies
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a (64 columns x rows) box at (column, head, row, batch) of a (B, N, H, hd)
+// tensor's map into shared memory at dst
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, uint32_t bar, int col,
+                                        int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// Keeps the compiler from moving the definition of a wgmma's register
+// operand past this point, into the wgmma's pipeline stage
+__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// The arguments of a launch of the shared-memory body but the K and V
+// tensor maps
+struct SmemArgs {
+  const bf16* q;
+  bf16* out;
+  int H, N, hd, q_tiles;
+  long long qsb, qsn, qsh;
+};
+
+// A warp's q fragments of a tile (W / 16 steps of 16 along hd, as
+// mma.m16n8k16's A) straight from device memory, 4 bytes a load, while the
+// first items stream in; rows at or past N and columns at or past hd zero
+// mma.m16n8k16's A) straight from device memory, 4 bytes a load, while the
+// first items stream in; rows at or past N and columns at or past hd zero
+__device__ __forceinline__ void load_q(const SmemArgs& a, int tile,
+                                       uint32_t (&qa)[SmemBody::W / 16][4]) {
+  const int bh = tile / a.q_tiles, qt = tile - bh * a.q_tiles, b = bh / a.H, h = bh - b * a.H;
+  const bf16* qh = a.q + b * a.qsb + h * a.qsh;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int ra = qt * QROWS + (threadIdx.x % THREADS >> 5) * 16 + (lane >> 2), rb = ra + 8;
+  auto at = [&](int r, int c) {
+    return r < a.N && c < a.hd ? *reinterpret_cast<const uint32_t*>(qh + r * a.qsn + c) : 0u;
+  };
+#pragma unroll
+  for (int kk = 0; kk < SmemBody::W / 16; ++kk) {
+    const int c0 = 16 * kk + 2 * t, c1 = c0 + 8;
+    qa[kk][0] = at(ra, c0);
+    qa[kk][1] = at(rb, c0);
+    qa[kk][2] = at(ra, c1);
+    qa[kk][3] = at(rb, c1);
+  }
+}
+
+// item i of a tile (its K items 0..C-1, then its V items) of batch b and
+// head h: this warpgroup's rows of it into its stage, by its thread 0, each
+// warpgroup streaming its own keys
+__device__ __forceinline__ void load_item(const CUtensorMap& kmap, const CUtensorMap& vmap, int b,
+                                          int h, int C, int i, uint32_t ring, uint32_t bars) {
+  typedef SmemBody L;
+  const int wg = threadIdx.x / THREADS;
+  if (threadIdx.x % THREADS != 0) return;
+  const uint32_t dst = ring + (i % L::STAGES) * L::STAGE + wg * L::KW * 128;
+  const uint32_t bar = bars + (i % L::STAGES * 2 + wg) * 8;
+  const int row = (i < C ? i : i - C) * L::KI + wg * L::KW;
+  mbar_expect(bar, L::KW * 128);
+  tma_box(dst, i < C ? kmap : vmap, bar, 0, h, row, b);
+}
+
+// One block per (batch, head, tile of 64 query rows) of two warpgroups:
+// warpgroup w takes keys [w KW, (w + 1) KW) of every item of KI keys, so
+// both work on every item the ring holds, and each SM scheduler has two
+// warps to switch between.  The ring streams items in order: the K items
+// 0..C-1, then the V items 0..C-1, each issued STAGES - 1 items ahead.
+// Walk 1: S = Q K^T an item (wgmma m64n64k16, q in registers, read from
+// device memory as the first items stream in), the keys past N at -inf,
+// the running row max, S stored in float32; the two warpgroups' maxima meet
+// in shared memory.  Walk 2, on chip only: e = exp(s - m) written over s,
+// and each warpgroup's float32 row sum (items backwards, a lane's columns,
+// the quad), the two added in shared memory (warpgroup 0's first), l's
+// reciprocal rounded once.  Walk 3: p = e / l correctly rounded, rounded to
+// bf16 into wgmma's A registers, O += P V over the warpgroup's keys;
+// warpgroup 1's O is added to warpgroup 0's through shared memory.  A
+// thread's S values are its own accumulators, so the tile is stored thread
+// by thread (a float4 a lane, 512 contiguous bytes a warp) and read back by
+// the same thread.  In walk 1 an item's product runs while the thread
+// stores the item before it (two register buffers); walk 3 computes p only
+// once the product before has been waited for, since a register operand
+// written while a product is in flight makes ptxas serialize every wgmma.
+__global__ void __launch_bounds__(SmemBody::WGS * THREADS, 1)
+attention_fwd_bf16_smem(const SmemArgs a, const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  typedef SmemBody L;
+  constexpr int W = L::W, KI = L::KI, KW = L::KW;
+  const int H = a.H, N = a.N, hd = a.hd;
+  const uint32_t ring = aligned_smem(smem);
+  unsigned char* ring_p = smem + (ring - smem_u32(smem));
+  const int C = (N + KI - 1) / KI;
+  float4* s_tile = reinterpret_cast<float4*>(ring_p + L::STAGES * L::STAGE);
+  float* stats = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s_tile) + C * L::S_ITEM);
+  const uint32_t bars = smem_u32(stats) + L::STATS;  // [stage][warpgroup]
+
+  const int tile = blockIdx.x;
+  const int bh = tile / a.q_tiles, qt = tile - bh * a.q_tiles;
+  const int b = bh / H, h = bh - b * H;
+  const int r0 = qt * QROWS;
+  const int items = 2 * C;
+  const int wg = threadIdx.x / THREADS, tid = threadIdx.x % THREADS;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int row0 = warp * 16 + (lane >> 2), row1 = row0 + 8;  // a lane's rows of the tile
+  // this warpgroup's float4 j of item c's S
+  auto s_at = [&](int c, int j) -> float4& {
+    return s_tile[(c * (KI / 8) + wg * (KW / 8) + j) * THREADS + tid];
+  };
+  const uint32_t wg_rows = wg * KW * 128;  // where this warpgroup's rows start in a stage
+
+  // the top of item i: the warpgroup's rows have landed (its stage's
+  // mbarrier, a phase a use), and its warps are done with the item before.
+  // Each warpgroup waits only for its own warps (named barrier 1 + wg), so
+  // the two drift apart and one's arithmetic runs beside the other's
+  // products
+  auto arrive = [&](int i) {
+    mbar_wait(bars + (i % L::STAGES * 2 + wg) * 8, i / L::STAGES & 1);
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(THREADS) : "memory");
+    return ring + (i % L::STAGES) * L::STAGE + wg_rows;
+  };
+  // once item i's products are issued: item i + STAGES - 1 into the stage
+  // of the item before, its copies in flight while the tensor cores run
+  auto refill = [&](int i) {
+    if (i + L::STAGES - 1 < items)
+      load_item(kmap, vmap, b, h, C, i + L::STAGES - 1, ring, bars);
+  };
+
+  // the barriers, the first items, and each warp's q fragments into
+  // registers
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * L::STAGES; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < L::STAGES - 1 && i < items; ++i)
+    load_item(kmap, vmap, b, h, C, i, ring, bars);
+  uint32_t qa[W / 16][4];
+  load_q(a, tile, qa);
+
+  // walk 1.  A lane holds rows row0 (s[4j], s[4j + 1]) and row1 (s[4j + 2],
+  // s[4j + 3]), keys wg KW + 8j + 2t and + 1 of the item
+  float sa[KW / 2] = {}, sb[KW / 2] = {};
+  float m0 = -INFINITY, m1 = -INFINITY;
+  auto qk = [&](int c, float (&s)[KW / 2]) {  // wait for item c - 1's product, issue c's
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    const uint32_t st = arrive(c);
+    uint64_t desc[W / 16];
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk) {
+      desc[kk] = wgmma_desc(st + kk * 32);
+      asm volatile("" : "+l"(desc[kk])::"memory");
+    }
+#pragma unroll
+    for (int i = 0; i < KW / 2; ++i) fence_operand(s[i]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk) wgmma_m64n64k16_rs<0>(s, qa[kk], desc[kk], kk);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    refill(c);
+  };
+  // item c's S, its product waited for; only wgmma defines the accumulators
+  // (an instruction that wrote them while another product is in flight would
+  // make ptxas serialize every wgmma), so the mask goes into copies
+  auto keep = [&](int c, float (&s)[KW / 2]) {
+#pragma unroll
+    for (int i = 0; i < KW / 2; ++i) fence_operand(s[i]);
+    const int col0 = c * KI + wg * KW + 2 * t;  // the lane's first key
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j) {
+      const bool in0 = col0 + 8 * j < N, in1 = col0 + 8 * j + 1 < N;  // keys past N: -inf
+      const float4 x = make_float4(in0 ? s[4 * j] : -INFINITY, in1 ? s[4 * j + 1] : -INFINITY,
+                                   in0 ? s[4 * j + 2] : -INFINITY,
+                                   in1 ? s[4 * j + 3] : -INFINITY);
+      m0 = fmaxf(m0, fmaxf(x.x, x.y));
+      m1 = fmaxf(m1, fmaxf(x.z, x.w));
+      s_at(c, j) = x;
+    }
+  };
+  for (int c = 0; c < C; c += 2) {
+    qk(c, sa);
+    if (c > 0) keep(c - 1, sb);
+    if (c + 1 < C) {
+      qk(c + 1, sb);
+      keep(c, sa);
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  if (C & 1)
+    keep(C - 1, sa);
+  else
+    keep(C - 1, sb);
+  // the row max over both warpgroups' keys (exact: a max does not depend on
+  // order; every row holds a key < N, so it is finite)
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  if (t == 0) {
+    stats[wg * QROWS + row0] = m0;
+    stats[wg * QROWS + row1] = m1;
+  }
+  __syncthreads();
+  m0 = fmaxf(stats[row0], stats[QROWS + row0]);
+  m1 = fmaxf(stats[row1], stats[QROWS + row1]);
+
+  // walk 2.  Keys past N hold -inf and give e = 0, which leaves l as it is
+  float l0 = 0.f, l1 = 0.f;
+  for (int c = C - 1; c >= 0; --c) {
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j) {
+      float4& x = s_at(c, j);
+      const float4 e = make_float4(expf(x.x - m0), expf(x.y - m0), expf(x.z - m1),
+                                   expf(x.w - m1));
+      l0 += e.x + e.y;
+      l1 += e.z + e.w;
+      x = e;
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (t == 0) {
+    stats[(2 + wg) * QROWS + row0] = l0;
+    stats[(2 + wg) * QROWS + row1] = l1;
+  }
+  __syncthreads();
+  l0 = stats[2 * QROWS + row0] + stats[3 * QROWS + row0];  // warpgroup 0's first
+  l1 = stats[2 * QROWS + row1] + stats[3 * QROWS + row1];
+  const float rl0 = __frcp_rn(l0), rl1 = __frcp_rn(l1);
+
+  // walk 3
+  float o[W / 2];
+  uint32_t pa[KW / 16][4];
+  // p of the warpgroup's 16-key step kt: keys 16kt + 2t.. (rows row0, row1)
+  // and 16kt + 8 + 2t.., which is exactly its A fragment
+  auto probs = [&](int c) {
+#pragma unroll
+    for (int kt = 0; kt < KW / 16; ++kt) {
+      const float4 x = s_at(c, 2 * kt), y = s_at(c, 2 * kt + 1);
+      pa[kt][0] = pack_bf16(div_rn(x.x, l0, rl0), div_rn(x.y, l0, rl0));
+      pa[kt][1] = pack_bf16(div_rn(x.z, l1, rl1), div_rn(x.w, l1, rl1));
+      pa[kt][2] = pack_bf16(div_rn(y.x, l0, rl0), div_rn(y.y, l0, rl0));
+      pa[kt][3] = pack_bf16(div_rn(y.z, l1, rl1), div_rn(y.w, l1, rl1));
+    }
+  };
+  // issue item i's product from pa (keys past N give p = 0 against zero
+  // rows of v: exact zeros)
+  auto pv = [&](int i) {
+    const uint32_t st = arrive(i);
+    uint64_t desc[KW / 16];
+#pragma unroll
+    for (int kt = 0; kt < KW / 16; ++kt) {
+      desc[kt] = wgmma_desc_mn(st + kt * 16 * 128);
+      asm volatile("" : "+l"(desc[kt])::"memory");
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_reg(pa[kt][r]);
+    }
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) fence_operand(o[j]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kt = 0; kt < KW / 16; ++kt) wgmma_m64n64k16_rs<1>(o, pa[kt], desc[kt], 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    refill(i);
+  };
+#pragma unroll
+  for (int j = 0; j < W / 2; ++j) o[j] = 0.f;
+  for (int c = 0; c < C; ++c) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    probs(c);
+    pv(C + c);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < W / 2; ++j) fence_operand(o[j]);
+
+  // warpgroup 1's O into the S tile, which is done with (thread by
+  // thread), added to warpgroup 0's; warpgroup 0 rounds once, stages its
+  // rows in the same room, and stores the columns below hd in 16-byte
+  // chunks
+  float4* o_x = s_tile;
+  __syncthreads();  // both warpgroups are done with the S tile
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+      o_x[j * THREADS + tid] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const float4 x = o_x[j * THREADS + tid];
+      o[4 * j] += x.x;
+      o[4 * j + 1] += x.y;
+      o[4 * j + 2] += x.z;
+      o[4 * j + 3] += x.w;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");  // warpgroup 0 read o_x
+    typedef Tile<W> TO;
+    bf16* o_s = reinterpret_cast<bf16*>(s_tile);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(o_s + TO::at(row0, j) + 2 * t) =
+          pack_bf16(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(o_s + TO::at(row1, j) + 2 * t) =
+          pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 16 * TO::CHUNKS / 32; ++i) {
+      const int e = lane + 32 * i;
+      const int r = warp * 16 + e / TO::CHUNKS, cc = e % TO::CHUNKS;
+      const int col = cc * 8;
+      if (r0 + r < N && col < hd)
+        *reinterpret_cast<uint4*>(a.out + (((size_t)b * N + r0 + r) * H + h) * hd + col) =
+            *reinterpret_cast<const uint4*>(o_s + TO::at(r, cc));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 body (tensor cores, 3xTF32)
 // ---------------------------------------------------------------------------
 
@@ -861,6 +1287,67 @@ int launch_bf16_long(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query,
+// so the library links against nothing but the runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+int encode_tiled(EncodeTiledFn* fn) {
+  static EncodeTiledFn found_fn = nullptr;
+  if (found_fn == nullptr) {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const int err = (int)cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &entry, 12000,
+                                                          cudaEnableDefault, &found);
+#else
+    const int err =
+        (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
+#endif
+    if (err != 0) return err;
+    if (found != cudaDriverEntryPointSuccess || entry == nullptr) return (int)cudaErrorNotSupported;
+    found_fn = reinterpret_cast<EncodeTiledFn>(entry);
+  }
+  *fn = found_fn;
+  return 0;
+}
+
+// the TMA map of a (B, N, H, hd) bf16 operand with (batch, token, head)
+// element strides sb, sn, sh: boxes of 64 columns by `rows` tokens of one
+// head, in the 128-byte swizzle; columns past hd and tokens past N read as
+// zeros
+int head_map(CUtensorMap* map, const void* base, const Args& a, long long sb, long long sn,
+             long long sh, int rows) {
+  EncodeTiledFn encode;
+  const int err = encode_tiled(&encode);
+  if (err != 0) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)a.hd, (cuuint64_t)a.H, (cuuint64_t)a.N, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int launch_bf16_smem(const Args& a) {
+  const int q_tiles = q_tiles_of(a.N);
+  const size_t smem = SmemBody::bytes(a.N);
+  int err = set_smem(attention_fwd_bf16_smem, smem);
+  if (err != 0) return err;
+  const SmemArgs sa{static_cast<const bf16*>(a.q), static_cast<bf16*>(a.out), a.H, a.N, a.hd,
+                    q_tiles, a.qsb, a.qsn, a.qsh};
+  CUtensorMap kmap, vmap;
+  if ((err = head_map(&kmap, a.k, a, a.ksb, a.ksn, a.ksh, SmemBody::KW)) != 0) return err;
+  if ((err = head_map(&vmap, a.v, a, a.vsb, a.vsn, a.vsh, SmemBody::KW)) != 0) return err;
+  attention_fwd_bf16_smem<<<a.B * a.H * q_tiles, SmemBody::WGS * THREADS, smem, a.stream>>>(
+      sa, kmap, vmap);
+  return (int)cudaGetLastError();
+}
+
 template <int W>
 int launch_f32(const Args& a) {
   constexpr int DV = col_width(W);
@@ -875,8 +1362,6 @@ int launch_f32(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v: (B, N, H, hd) with the given
@@ -886,10 +1371,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // attention.py zero-pads any other hd).  Every body copies 16-byte chunks
 // of rows, so every base pointer must be 16-byte aligned and every stride a
 // multiple of 16 bytes (8 bf16 or 4 float32 elements).  The grid (one
-// block per (batch, head) for the bf16 register body at N <= 257 and hd <=
-// 64, per (batch, head, 64-query tile, chunk of at most 128 output columns)
-// otherwise) holds at most 2^31 - 1 blocks.  Returns the CUDA error code
-// (0 = launched).
+// block per (batch, head) for the bf16 register body at N <= MAX_SEQ_REGS
+// and hd <= 64, per (batch, head, 64-query tile) for the bf16 body with S
+// in shared memory beyond, up to SMEM_MAX_SEQ at hd <= 64, per (batch,
+// head, 64-query tile, chunk of at most 128 output columns) otherwise)
+// holds at most 2^31 - 1 blocks.  Returns the CUDA error code (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype,
                              int B, int H, int N, int hd, long long qsb, long long qsn,
                              long long qsh, long long ksb, long long ksn, long long ksh,
@@ -899,8 +1385,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
   const long long chunk = dtype == 0 ? 4 : 8;  // elements in 16 bytes
   if (hd % chunk != 0) return (int)cudaErrorInvalidValue;
   const bool regs = dtype == 1 && N <= MAX_SEQ_REGS && hd <= REG_WIDTH;
+  const bool in_smem = dtype == 1 && !regs && hd <= REG_WIDTH && N <= SMEM_MAX_SEQ;
   const long long blocks =
-      (long long)B * H * (regs ? 1 : (long long)q_tiles_of(N) * col_chunks_of(hd));
+      (long long)B * H *
+      (regs ? 1 : (long long)q_tiles_of(N) * (in_smem ? 1 : col_chunks_of(hd)));
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) ||
       ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & (chunk - 1)))
@@ -909,6 +1397,7 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     return with_width(hd, [&](auto w) { return launch_f32<decltype(w)::value>(a); });
+  if (in_smem) return launch_bf16_smem(a);
   if (!regs)
     return with_width(hd, [&](auto w) { return launch_bf16_long<decltype(w)::value>(a); });
   const int kt = (N + 15) / 16;

@@ -7,9 +7,10 @@ turns on one CUDA card.
 Each ``DIR`` holds another ``attention_fwd.cu`` with the same C interface
 (hd an argument; with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
 earlier commit unpacked by ``git archive``.  Every source is built by
-``nvcc`` (ptxas registers and spills printed), then, in bfloat16 at head
-width 64 and 12 heads, at each (N, batch) of ``SHAPES``, each version is
-held against the plain version (``attention_ref``, within 2e-2) and timed
+``nvcc`` (ptxas registers and spills printed), then, in bfloat16 at each
+(N, head width, heads, batch) of ``SHAPES`` (logits of std 0.5 at every
+width), each version is held against the plain version
+(``attention_ref``, within 2e-2) and timed
 through the wrapper ``attention_fwd`` in turns, the others, this, this, the
 others in reverse (median CUDA-event ms of each turn, the mean of a
 version's two turns), beside ``scaled_dot_product_attention`` on
@@ -31,13 +32,14 @@ from pathlib import Path
 
 import torch
 
-# (N, batches): ViT-B/32 (N = 50) at the serving batch, the training batch
-# and the batches the smoke's paths give it (eval remainders, trial-folded
-# chunks), ViT-B/16 (197) and ViT-L/14 (257) at 64 and 256, and the lengths
-# only this source's body takes
-SHAPES = ((50, (8, 32, 128, 256, 1280)), (197, (32, 64, 256)), (257, (32, 64, 256)),
-          (577, (32, 64)), (1025, (8,)))
-HEADS = 12
+# (N, hd, heads, batches): at hd 64 and 12 heads ViT-B/32 (N = 50) at the
+# serving batch, the training batch and the batches the smoke's paths give
+# it (eval remainders, trial-folded chunks), ViT-B/16 (197) and ViT-L/14
+# (257) at 64 and 256, ViT-L/14 at 336 px (577) and 1025; the wider heads
+# 80, 128 and 256 at 16 heads, N = 197 and 577
+SHAPES = ((50, 64, 12, (8, 32, 128, 256, 1280)), (197, 64, 12, (32, 64, 256)),
+          (257, 64, 12, (32, 64, 256)), (577, 64, 12, (32, 64)), (1025, 64, 12, (8,)),
+          *((n, hd, 16, (batch,)) for hd in (80, 128, 256) for n, batch in ((197, 64), (577, 32))))
 
 
 def card_line() -> str:
@@ -75,16 +77,18 @@ def launching(kernel):
         attention.KERNEL = saved
 
 
-def run_shape(versions: dict, n: int, batch: int, gen) -> dict:
+def run_shape(versions: dict, n: int, hd: int, heads: int, batch: int, gen) -> dict:
     from pevit_tpu_torch.ops._build import KernelLaunchError
-    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref
+    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
 
-    q, k, v = (torch.randn(batch, n, HEADS, 64, device="cuda", generator=gen) * s
-               for s in (0.25, 0.25, 1.0))
+    qk = (0.25 / hd) ** 0.25
+    q, k, v = (torch.randn(batch, n, heads, hd, device="cuda", generator=gen) * s
+               for s in (qk, qk, 1.0))
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     t = lambda x: x.transpose(1, 2)
     want = t(attention_ref(t(q), t(k), t(v))).float()
-    row = {"N": n, "batch": batch, "heads": HEADS, "dtype": "bfloat16"}
+    row = {"N": n, "hd": hd, "batch": batch, "heads": heads, "dtype": "bfloat16",
+           "this_body": launch_plan(batch, n, heads, hd, torch.bfloat16).body}
     takes = {}
     for name, kernel in versions.items():
         with launching(kernel):
@@ -145,9 +149,9 @@ def main(argv=None) -> int:
                 print(f"ptxas {label}: {line.strip()}", flush=True)
     lines = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, batches in SHAPES:
+    for n, hd, heads, batches in SHAPES:
         for batch in batches:
-            row = run_shape(versions, n, batch, gen)
+            row = run_shape(versions, n, hd, heads, batch, gen)
             line = json.dumps({**row, "card": card})
             print(line, flush=True)
             lines.append(line)

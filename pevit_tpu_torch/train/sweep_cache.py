@@ -63,7 +63,12 @@ _VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CAC
 #      and grouped convolutions, and a shared backbone's kernels run at the
 #      chunk's folded shapes, so their trials round differently from the
 #      serial ones that version 4 cached.
-SEMANTICS_VERSION = 5
+#   6  bf16 attention at heads of up to 64 from 258 tokens up to 640 runs
+#      the body with the S tile in shared memory: the row sum is added up
+#      in another order (two warpgroups' halves) and P V in two halves, so
+#      a bf16 output there can differ by an ulp from the three-walk body's
+#      (CLIP ViT-L/14 at 336 px).
+SEMANTICS_VERSION = 6
 
 
 def _dtype_name(arr) -> str:

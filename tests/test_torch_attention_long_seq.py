@@ -4,7 +4,10 @@ CPU at toy width:
 * the plain attention at N = 258, 577 (CLIP ViT-L/14 at 336 px) and 1025
   against the reference's Pallas kernel in interpret mode, float32 at rtol
   1e-5 / atol 1e-6 (``test_torch_bf16_rounding.py`` holds the bf16
-  rounding point at these lengths);
+  rounding point at these lengths); and in bfloat16, by that file's
+  same-rounding rule, at every head width at the longest N of K1's
+  shared-memory body (hd <= 64) and one more, where the three-walk body
+  takes over;
 * a toy CLIP tower with N = 290 (68 px, patch 4, width 128, 2 layers of 2
   heads of 64): KAdaptation's eval logits and trained parameters after one
   SGD step, fp32, against the reference's ``build_fit_eval_fn``, within
@@ -40,6 +43,7 @@ from pevit_tpu_torch.train import (TaskStatic, TrainState, TrainTask, build_fit_
                                    make_optimizer, partition, trainable_params,
                                    trainable_pred)
 
+from .test_torch_bf16_rounding import _assert_same_rounding, _bf16, _jax, _numpy
 from .test_torch_bridge import bnhd_layout  # noqa: F401  (autouse fixture)
 
 LONG = [258, 577, 1025]
@@ -57,6 +61,19 @@ def test_ref_matches_pallas_kernel_at_long_sequences(n):
     want = ja._pallas_forward(*map(jnp.asarray, (q, k, v)), interpret=True)
     got = ta.attention_ref(*map(torch.from_numpy, (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("width,n", [(w, ta.SMEM_MAX_SEQ + extra)
+                                     for w in ta.BODY_WIDTHS for extra in (0, 1)])
+def test_ref_bf16_matches_pallas_kernel_at_smem_limits(width, n):
+    """One image of two heads whose logits spread with std 0.5."""
+    rng = np.random.default_rng(width + n)
+    s = (0.25 / width) ** 0.25
+    q, k, v = (_bf16(scale * rng.standard_normal((1, 2, n, width))) for scale in (s, s, 1.0))
+    want = _numpy(ja._pallas_forward(_jax(q), _jax(k), _jax(v), interpret=True))
+    got = ta.attention_ref(q, k, v)
+    assert got.dtype == torch.bfloat16
+    _assert_same_rounding(got, want)
 
 
 # ---------------------------------------------------------------------------

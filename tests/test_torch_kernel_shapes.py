@@ -14,6 +14,10 @@
   the blocks of the body that runs; every scratch region starts 16-byte
   aligned; the wrappers' zero-padding of a width that fills no 16-byte
   chunk computes the unpadded MLP and its backward (float64);
+* K1's bf16 body with the S tile in shared memory: which body runs at each
+  (N, W) and its grid, its longest N mirrored from ``attention_fwd.cu``,
+  where a ``static_assert`` holds its shared memory within the card's
+  232,448 bytes a block;
 * both model families at toy width against the reference at 1e-5: a timm
   ViT with heads of 80 (EMBED_DIM 160, NUM_HEADS 2, DEPTH 2) from its
   MODEL.SPEC, its features and its first-step ``full_finetune``
@@ -22,6 +26,7 @@
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +45,7 @@ from pevit_tpu_torch.core import clip as pc
 from pevit_tpu_torch.models import get_model
 from pevit_tpu_torch.ops import attention as ta
 from pevit_tpu_torch.ops import fused_mlp as tf
-from pevit_tpu_torch.ops._build import KernelInputError
+from pevit_tpu_torch.ops._build import CSRC, KernelInputError
 from pevit_tpu_torch.peft.base import PeftConfig as PortPeftConfig
 from pevit_tpu_torch.train import TaskStatic, TrainTask, model_forward, partition
 from pevit_tpu_torch.train import trainable_params, trainable_pred
@@ -137,15 +142,17 @@ def test_every_head_width_has_a_launch_plan(dtype):
     <= 64, and the grid of the body that runs."""
     chunk = 128 // torch.finfo(dtype).bits  # elements in 16 bytes
     for hd in range(1, ta.MAX_HEAD_DIM + 1):
-        for n in (1, 50, 197, 257, 258, 577):
+        for n in (1, 50, 197, 257, 258, 577, 640, 641, 769, 1025):
             plan = ta.launch_plan(3, n, 5, hd, dtype)
             assert plan.hd % chunk == 0 and hd <= plan.hd < hd + chunk
             assert plan.width == min(w for w in ta.BODY_WIDTHS if w >= plan.hd)
-            regs = dtype == torch.bfloat16 and n <= ta.MAX_SEQ_REGS and plan.hd <= 64
-            assert plan.body == ("bf16_regs" if regs else
-                                 "bf16_long" if dtype == torch.bfloat16 else "f32")
-            columns = -(-plan.hd // min(plan.width, ta.COLUMN_CHUNK))
-            assert columns == (2 if plan.hd > 128 else 1)
+            bf16 = dtype == torch.bfloat16
+            regs = bf16 and n <= ta.MAX_SEQ_REGS and plan.hd <= 64
+            in_smem = bf16 and not regs and plan.hd <= 64 and n <= ta.SMEM_MAX_SEQ
+            assert plan.body == ("bf16_regs" if regs else "bf16_smem" if in_smem else
+                                 "bf16_long" if bf16 else "f32")
+            columns = 1 if in_smem else -(-plan.hd // min(plan.width, ta.COLUMN_CHUNK))
+            assert columns == (2 if plan.hd > 128 and not in_smem else 1)
             assert plan.blocks == 15 * (1 if regs else -(-n // ta.QUERY_TILE) * columns)
     for hd in (0, ta.MAX_HEAD_DIM + 1):
         with pytest.raises(KernelInputError, match="hd"):
@@ -154,13 +161,57 @@ def test_every_head_width_has_a_launch_plan(dtype):
 
 @pytest.mark.parametrize("n,hd,dtype,blocks_per_head", [
     (197, 64, torch.bfloat16, 1), (197, 80, torch.bfloat16, 4), (197, 80, torch.float32, 4),
-    (577, 256, torch.bfloat16, 20), (257, 200, torch.float32, 10), (50, 20, torch.bfloat16, 1)])
+    (577, 64, torch.bfloat16, 10), (641, 64, torch.bfloat16, 11), (577, 256, torch.bfloat16, 20),
+    (257, 200, torch.float32, 10), (50, 20, torch.bfloat16, 1)])
 def test_check_grid_counts_the_body_that_runs(n, hd, dtype, blocks_per_head):
     """The largest batch of 16 heads a launch takes, and one more image."""
     B = ta.MAX_BLOCKS // (16 * blocks_per_head)
     ta.check_grid(B, 16, n, dtype, hd)
     with pytest.raises(KernelInputError, match="blocks"):
         ta.check_grid(B + 1, 16, n, dtype, hd)
+
+
+SMEM_LIMIT = 640
+
+
+@pytest.mark.parametrize("width", ta.BODY_WIDTHS)
+def test_smem_body_fits_every_length_it_takes(width):
+    """The launch plan sends bf16 heads of up to 64 past the register body
+    and up to the shared-memory body's limit to that body, with one block a
+    (batch, head, query tile), and N past it to the three-walk body; wider
+    heads run the three-walk body at every N past the register body's."""
+    limit = ta.SMEM_MAX_SEQ
+    assert limit == SMEM_LIMIT
+    for n in (ta.MAX_SEQ_REGS + 1, 577, limit - 1, limit):
+        plan = ta.launch_plan(2, n, 3, width, torch.bfloat16)
+        if width == ta.REG_WIDTH:
+            assert (plan.body, plan.blocks) == ("bf16_smem", 6 * -(-n // ta.QUERY_TILE))
+        else:
+            assert plan.body == "bf16_long"
+    columns = 2 if width > ta.COLUMN_CHUNK else 1
+    for n in (1, ta.MAX_SEQ_REGS, limit + 1):
+        plan = ta.launch_plan(2, n, 3, width, torch.bfloat16)
+        if width == ta.REG_WIDTH and n <= ta.MAX_SEQ_REGS:
+            assert (plan.body, plan.blocks) == ("bf16_regs", 6)
+        else:
+            assert (plan.body, plan.blocks) == ("bf16_long", 6 * -(-n // 64) * columns)
+
+
+def _cu_constant(text: str, name: str) -> int:
+    """A ``constexpr int`` of the source set to a number."""
+    (value,) = re.findall(rf"constexpr int {name} = (\d+);", text)
+    return int(value)
+
+
+def test_smem_body_mirror_matches_the_source():
+    """``ops/attention.py``'s mirror of the shared-memory body's longest N
+    (and of the register body's) holds the source's constant, and the
+    source holds the body's layout within the card's shared memory there."""
+    text = (CSRC / "attention_fwd.cu").read_text()
+    assert _cu_constant(text, "MAX_SEQ_REGS") == ta.MAX_SEQ_REGS
+    assert _cu_constant(text, "SMEM_MAX_SEQ") == ta.SMEM_MAX_SEQ
+    assert _cu_constant(text, "SMEM_BUDGET") == 232448
+    assert "static_assert(SmemBody::bytes(SMEM_MAX_SEQ) <= SMEM_BUDGET" in text
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

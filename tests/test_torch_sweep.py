@@ -349,16 +349,17 @@ def test_two_methods_in_one_output_dir_train_their_own_sweeps(tmp_path, monkeypa
 
 
 def test_semantics_version_keys_the_cache(monkeypatch):
-    """Version 5: full fine-tuning and the auxiliary backbones train a
-    chunk as one batch too, so a cache written by version 4 (their trials
-    one after another) must not replay; nor one of version 3 (every trial
-    alone) or version 2 (before the fused-MLP backward's float32 body moved
-    to the tensor cores)."""
+    """Version 6: bf16 attention at lengths and head widths the body with
+    the S tile in shared memory takes sums its row sum and P V in another
+    order, so a cache written by version 5 must not replay; nor one of
+    version 4 (full fine-tuning and the auxiliary backbones' trials one
+    after another), 3 (every trial alone) or 2 (before the fused-MLP
+    backward's float32 body moved to the tensor cores)."""
     from pevit_tpu_torch.train import sweep_cache
 
-    assert sweep_cache.SEMANTICS_VERSION == 5
+    assert sweep_cache.SEMANTICS_VERSION == 6
     cfg, data = get_default_config(), _data()
     now = sweep_fingerprint(cfg, data, 10, 0, "kadaptation")
-    for old in (4, 3, 2):
+    for old in (5, 4, 3, 2):
         monkeypatch.setattr(sweep_cache, "SEMANTICS_VERSION", old)
         assert sweep_fingerprint(cfg, data, 10, 0, "kadaptation") != now
