@@ -37,10 +37,10 @@ on):
    the lower (``bound_peak`` names it); and
    K1's three bf16 bodies, the register body (N <= 257 at hd <= 64), the
    body with the S tile in shared memory (beyond, up to 640 tokens at hd
-   <= 64) and the three-walk long body, all timed in turns at N = 50, 197
-   and 257 (the other two from copies of the source built beside the
-   kernels, one with the register body's ceiling set to 0, one with the
-   shared-memory body's ceiling set to 0 too);
+   <= 64, up to 768 with a shorter ring) and the three-walk long body, all
+   timed in turns at N = 50, 197 and 257 (the other two from copies of the
+   source built beside the kernels, one with the register body's ceiling
+   set to 0, one with the shared-memory body's ceilings set to 0 too);
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
@@ -59,10 +59,12 @@ on):
    spread at every width) in both dtypes and at N = 577 (32 images) in
    bf16, its long body; K2 and K3 at C = 192, 200, 384, 1280, 1408 with F
    = 4C and at (100, 300), which the wrappers zero-pad to whole 16-byte
-   rows, both dtypes, at R = 32 x 257; and K1's shared-memory body (hd
-   64) at N = 50, 197, 257, 577, its longest N (640), one more and 1025
-   (16 heads, batches 256 to 8), held against the plain version (2e-2, and
-   every element within one bf16 ulp, at most 1% differing, the rule of
+   rows, both dtypes, at R = 32 x 257; and K1's shared-memory bodies (hd
+   64) at N = 50, 197, 257, 577, 640, 641, 730 (20 heads, batches 64 and
+   8), 768, 769 and 1025 (16 heads, batches 256 to 8): its four-stage
+   ring, its short ring from 641, and past 768 the three-walk body, held
+   against the plain version (2e-2, and every element within one bf16
+   ulp, at most 1% differing, the rule of
    ``tests/test_torch_bf16_rounding.py``) and by that rule against the
    three-walk body on the same inputs, timed in turns with it beside
    SDPA;
@@ -322,14 +324,22 @@ on):
    of the plain path's and its feature images/s, then one
    ``full_finetune`` step at batch 16 through ``train_trials`` with
    first-step gradients held as phase 10's ViT-B/16 finetune (the float64
-   witness for the final LayerNorm's scale included); each kernel held
+   witness for the final LayerNorm's scale included); (c) CLIP ViT-H/14
+   at 378 px (DFN5B-CLIP-ViT-H-14-378's resolution: N = 730, 20 heads of
+   64 by the reference's rule) on 16a's tower with a fresh seeded 730-row
+   positional embedding, served and trained as 16a, every K1 launch on
+   the short-ring body (the launch plan at every batch, and the CUDA-only
+   profiles of a forward and of a train step, whose K1 time is all that
+   body's), fp32 first-step gradients at 16 images; each kernel held
    against its plain version at every batch each path gave it;
 17. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 16,
    summed, by path and by body (each path's counts are zeroed just before
    it and read just after; phase 9's and the exported MAE probe's are the
    fresh process's, reported by it), the other numbers at the batch that
    launched the kernel most, every path's batches (and the body each ran)
-   under ``by_shape``; then the ``{"ok": true, ...}`` line last.
+   under ``by_shape``, every body's launches and numbers under ``bodies``
+   (a body no path ran, with 3c's); then the ``{"ok": true, ...}`` line
+   last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
 
@@ -596,10 +606,10 @@ def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12, hd: int =
 def k1_variant(tmp: Path, label: str, **consts):
     """K1's library built from a copy of its source with some ``constexpr``
     constants of ``attention_fwd.cu`` set otherwise (``MAX_SEQ_REGS=0``
-    sends every bf16 N past the register body, ``SMEM_MAX_SEQ=0`` every bf16
-    shape past the shared-memory body to the three-walk long body), so that
-    a body can be timed where the launcher runs another; a measurement aid,
-    never on a path."""
+    sends every bf16 N past the register body, ``SMEM_MAX_SEQ`` and
+    ``SMEM2_MAX_SEQ`` both 0 every bf16 shape past the shared-memory body to
+    the three-walk long body), so that a body can be timed where the
+    launcher runs another; a measurement aid, never on a path."""
     from pevit_tpu_torch.ops import attention
     from pevit_tpu_torch.ops._build import CSRC, Kernel
 
@@ -622,7 +632,7 @@ def k1_bodies(tmp: Path) -> dict:
     shared-memory body up to its longest N ("smem": no register body) and
     every bf16 shape to the three-walk long body ("long")."""
     return {"smem": k1_variant(tmp, "smem", MAX_SEQ_REGS=0),
-            "long": k1_variant(tmp, "long", MAX_SEQ_REGS=0, SMEM_MAX_SEQ=0)}
+            "long": k1_variant(tmp, "long", MAX_SEQ_REGS=0, SMEM_MAX_SEQ=0, SMEM2_MAX_SEQ=0)}
 
 
 def qkv_bf16(gen, batch, n, heads, hd):
@@ -791,34 +801,45 @@ def check_kernel_shapes(gen) -> dict:
     return table
 
 
-# 3c's rows of K1's shared-memory body (hd 64): the lengths of ViT-B/32
-# (50), ViT-B/16 (197), ViT-L/14 (257), ViT-L/14 at 336 px (577) and 1025,
-# and the longest N it takes and one more (the three-walk body's first); 16
-# heads, a batch for each N
-SMEM_BATCHES = {50: 256, 197: 64, 257: 64, 577: 32, 1025: 8}
-LIMIT_BATCH = 16
+# 3c's rows of K1's shared-memory bodies (hd 64), (N, heads, batch): the
+# lengths of ViT-B/32 (50), ViT-B/16 (197), ViT-L/14 (257), ViT-L/14 at 336
+# px (577), CLIP ViT-H/14 at 378 px (730, 20 heads, at phase 16c's largest
+# and a small batch) and 1025; the longest N of each ring and one more (the
+# short ring's first, the three-walk body's first)
+SMEM_SHAPES = ((50, 16, 256), (197, 16, 64), (257, 16, 64), (577, 16, 32), (640, 16, 16),
+               (641, 16, 16), (730, 20, 64), (730, 20, 8), (768, 16, 16), (769, 16, 16),
+               (1025, 16, 8))
+
+
+def smem_body_at(n: int, heads: int, batch: int) -> str:
+    """The body the "smem" aid runs at (N, hd 64): the launcher's, but the
+    shared-memory body where the launcher runs the register body."""
+    from pevit_tpu_torch.ops.attention import MAX_SEQ_REGS, launch_plan
+
+    return "bf16_smem" if n <= MAX_SEQ_REGS else launch_plan(batch, n, heads, 64,
+                                                             torch.bfloat16).body
 
 
 def check_smem_body(gen, bodies: dict) -> list:
-    """3c: K1's shared-memory body ("smem" of ``bodies``, which also takes
-    the shapes the launcher gives the register body) at hd 64 and each N of
-    ``SMEM_BATCHES``, its limit and one more, held against the plain version
-    (2e-2, and by :func:`bf16_ulp_diff`, which ``attention_ref``'s rounding
-    point makes exact up to the sum's order) and by :func:`bf16_ulp_diff`
-    against the three-walk body ("long") on the same inputs, and timed in
-    turns (smem, long, long, smem) beside the plain version, SDPA and its
-    bound; ``launcher_body`` names the body the launcher runs at the shape.
-    Past the limit both run the three-walk body: the rows show the route."""
-    from pevit_tpu_torch.ops.attention import (SMEM_MAX_SEQ, attention_fwd, attention_ref,
-                                               launch_plan)
+    """3c: K1's shared-memory bodies ("smem" of ``bodies``, which also takes
+    the shapes the launcher gives the register body) at hd 64 and each shape
+    of ``SMEM_SHAPES``, held against the plain version (2e-2, and by
+    :func:`bf16_ulp_diff`, which ``attention_ref``'s rounding point makes
+    exact up to the sum's order) and by :func:`bf16_ulp_diff` against the
+    three-walk body ("long") on the same inputs, and timed in turns (smem,
+    long, long, smem) beside the plain version, SDPA and its bound;
+    ``launcher_body`` names the body the launcher runs at the shape.  Past
+    the short ring's limit both run the three-walk body: the rows show the
+    route."""
+    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
     from pevit_tpu_torch.tools.attention_bodies import launching
 
     rows = []
     t = lambda x: x.transpose(1, 2)
     w = 64
-    shapes = {**SMEM_BATCHES, SMEM_MAX_SEQ: LIMIT_BATCH, SMEM_MAX_SEQ + 1: LIMIT_BATCH}
-    for n, batch in sorted(shapes.items()):
-        q, k, v = qkv_bf16(gen, batch, n, 16, w)
+    for n, heads, batch in SMEM_SHAPES:
+        body = smem_body_at(n, heads, batch)
+        q, k, v = qkv_bf16(gen, batch, n, heads, w)
         plain = lambda: t(attention_ref(t(q), t(k), t(v)))
         outs = {}
         for name in ("smem", "long"):
@@ -826,7 +847,7 @@ def check_smem_body(gen, bodies: dict) -> list:
                 outs[name] = attention_fwd(q, k, v)
         want = plain()
         torch.cuda.synchronize()
-        what = f"attention_fwd smem body W={w} N={n}"
+        what = f"attention_fwd {body} W={w} N={n}"
         err = check_close(what, outs["smem"], want, 2e-2, 2e-2)
         same = {"plain": bf16_ulp_diff(outs["smem"], want),
                 "long": bf16_ulp_diff(outs["smem"], outs["long"])}
@@ -839,14 +860,14 @@ def check_smem_body(gen, bodies: dict) -> list:
                 turns[name].append(time_ms(lambda: attention_fwd(q, k, v)))
         qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
-        rows.append({"shape": f"B*H={batch}*16 N={n} hd={w}", "dtype": "bfloat16",
-                     "body": "bf16_smem" if n <= SMEM_MAX_SEQ else "bf16_long",
-                     "launcher_body": launch_plan(batch, n, 16, w, torch.bfloat16).body,
+        rows.append({"shape": f"B*H={batch}*{heads} N={n} hd={w}", "dtype": "bfloat16",
+                     "body": body,
+                     "launcher_body": launch_plan(batch, n, heads, w, torch.bfloat16).body,
                      "max_abs_err": err, "ulps_against": same,
                      "ms": statistics.mean(turns["smem"]),
                      "long_ms": statistics.mean(turns["long"]), "turns_ms": turns,
                      "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(sdpa),
-                     **bound_fields(8 * batch * 16 * n * w, 4 * batch * 16 * n * n * w,
+                     **bound_fields(8 * batch * heads * n * w, 4 * batch * heads * n * n * w,
                                     torch.bfloat16)})
         del q, k, v, outs, want, qh, kh, vh
     return rows
@@ -1489,12 +1510,14 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
     return rows
 
 
-def kernel_report(kernels, launches: dict, table: dict) -> list:
+def kernel_report(kernels, launches: dict, table: dict, body_rows: dict = None) -> list:
     """The ``kernels`` line: launches summed over the paths of phases 6 to 16
     (each read around its own run) and by body (each path's rows name the
     body its launches ran); the other numbers at the batch that launched the
     kernel most (the larger batch on a tie); every path's batches under
-    ``by_shape``."""
+    ``by_shape``; under ``bodies`` each body with its launches and the
+    numbers of its row that launched most, or, for a body no path ran, of
+    its first row in ``body_rows`` ({kernel: rows}, phase 3c's)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_peak", "library_ms")
     report = []
     for k in kernels:
@@ -1506,11 +1529,18 @@ def kernel_report(kernels, launches: dict, table: dict) -> list:
         by_body = collections.Counter()
         for r in rows_:
             by_body[r["body"]] += r["launches"]
+        bodies = {}
+        for r in sorted(rows_, key=lambda r: (r["launches"], r["images"]), reverse=True):
+            bodies.setdefault(r["body"], {"body": r["body"], "launches": by_body[r["body"]],
+                                          "shape": r["shape"], **{key: r[key] for key in keys}})
+        for r in (body_rows or {}).get(k.name, []):
+            bodies.setdefault(r["body"], {"body": r["body"], "launches": 0, "row": "3c",
+                                          "shape": r["shape"], **{key: r[key] for key in keys}})
         report.append({"name": k.name, "route": "cuda",
                        "source": str(k.source.relative_to(REPO)),
                        "replaces": k.replaces, "launches": total,
                        "launches_by_path": {p: n[k.name] for p, n in launches.items()},
-                       "launches_by_body": dict(by_body),
+                       "launches_by_body": dict(by_body), "bodies": list(bodies.values()),
                        **{key: main_row[key] for key in keys}, "shape": main_row["shape"],
                        "dtype": main_row["dtype"],
                        "by_shape": [{key: r[key] for key in ("path", "images", "dtype", "body",
@@ -4314,14 +4344,16 @@ def tower_batches(spec, train: dict, evals: dict, fused_mlp_bwd: bool) -> dict:
 
 
 def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: tuple,
-                what: str) -> tuple:
+                what: str, k1_body: tuple = ()) -> tuple:
     """The bf16 KAdaptation classifier on the tower ``clip`` through
     ``make_serving_fn`` on uint8 images: a K1 and a K2 launch a block a
     forward at each of ``batches``; logits and top-1 against the plain path
     on the card at each (``compare_plain``), the head fitted to the
     prototypes' features in batches of that size; images/s at the largest;
-    K1's and K2's shares of a forward there from a CUDA-only profile.
-    Returns (summary, launches, batches, prototypes)."""
+    K1's and K2's shares of a forward there from a CUDA-only profile (and,
+    with ``k1_body``, the name parts of the K1 body every launch must run,
+    that body's time, which must be all of K1's).  Returns (summary,
+    launches, batches, prototypes)."""
     from pevit_tpu_torch.serve import make_serving_fn
 
     static, trainable, frozen, bn, preproc = build_classifier(
@@ -4354,17 +4386,34 @@ def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: t
     launches = {k.name: launches[k.name] for k in kernels}
     ms = time_ms(lambda: serve(images), reps=5)
     groups = {k: KERNEL_GROUPS[k] for k in ("attention_fwd", "fused_mlp_fwd", "ln_rows")}
-    share = kernel_share(lambda: serve(images), groups)
+    share = kernel_share(lambda: serve(images), body_groups(groups, k1_body))
+    all_in_body(share, k1_body, f"{what} forward of {n}")
     summary = {"launches": launches, "vs_plain": checks, "forward_ms": ms,
                "images_per_s": n / ms * 1e3, "kernel_shares_of_forward": share}
     return (summary, launches, tower_batches(spec, {}, {b: 1 for b in batches}, False),
             prototypes)
 
 
-def step_shares(task, data) -> dict:
+def body_groups(groups: dict, k1_body: tuple) -> dict:
+    """``groups`` and, with ``k1_body`` (name parts), the K1 body's."""
+    return {**groups, "k1_body": k1_body} if k1_body else groups
+
+
+def all_in_body(share: dict, k1_body: tuple, what: str) -> None:
+    """With ``k1_body``, every K1 kernel of the profile ``share`` ran that
+    body: its device time is all of K1's, and not none."""
+    if k1_body and not (0 < share["k1_body_ms"] and
+                        abs(share["k1_body_ms"] - share["attention_fwd_ms"])
+                        <= 1e-6 * share["attention_fwd_ms"]):
+        raise AssertionError(f"{what}: K1 ran {share['attention_fwd_ms']} ms, of which "
+                             f"{share['k1_body_ms']} in its body {k1_body}")
+
+
+def step_shares(task, data, k1_body: tuple = ()) -> dict:
     """Each kernel's share of a bf16 train step's device time (one epoch of
     3 full batches on the bundle the main run trained, under a CUDA-only
-    profile, after a warm-up epoch), and the step's wall ms."""
+    profile, after a warm-up epoch), and the step's wall ms; with
+    ``k1_body``, K1's time all in that body."""
     from pevit_tpu_torch.train import build_epoch_fn
 
     n = 3 * task.static.batch_size
@@ -4375,18 +4424,21 @@ def step_shares(task, data) -> dict:
     torch.cuda.synchronize()
     shares = kernel_share(
         lambda: epoch(task.last_bundle, images, labels, state, TRAIN_LR, TRAIN_WD),
-        KERNEL_GROUPS)
+        body_groups(KERNEL_GROUPS, k1_body))
+    all_in_body(shares, k1_body, "a train epoch")
     return {**shares, "steps": 3, "busy_ms_per_step": shares["busy_ms"] / 3}
 
 
 def tower_train(kernels, clip, spec, prototypes, rng, *, classes: int, n_train: int,
-                n_val: int, batch: int, shares: bool = False) -> tuple:
+                n_val: int, batch: int, shares: bool = False, grad_batch: int = 0,
+                k1_body: tuple = ()) -> tuple:
     """A bf16 KAdaptation run at ``batch`` (dropout 0.5): the steps of
     ``n_train`` images and one eval chunk of ``n_val`` through
     ``train_trials``, a K1, K2 and K3 launch a block a step (K1 and K2 also
     an eval chunk), the card's peak allocation; train images/s; with
-    ``shares`` each kernel's share of a step (``step_shares``); first-step
-    fp32 gradients against the plain path at phase 5's limits.  Returns
+    ``shares`` each kernel's share of a step (``step_shares``, ``k1_body``
+    as there); first-step fp32 gradients against the plain path at phase
+    5's limits, at ``grad_batch`` images (``batch`` unless given).  Returns
     (summary, launches, batches)."""
     def noisy(n):
         labels = np.arange(n) % classes
@@ -4402,11 +4454,12 @@ def tower_train(kernels, clip, spec, prototypes, rng, *, classes: int, n_train: 
     ips = train_throughput(task, data)
     summary = {**run, "peak_allocated_gb": peak / 1e9, "train_images_per_s": ips}
     if shares:
-        summary["kernel_shares_of_a_step"] = step_shares(task, data)
+        summary["kernel_shares_of_a_step"] = step_shares(task, data, k1_body)
     del task
-    summary["first_step_grads"] = compare_grads(
-        make_task(clip, "float32", 0.0, batch=batch, spec=spec), data[0][:batch],
-        data[1][:batch], torch.float32)
+    grad_batch = grad_batch or batch
+    summary["first_step_grads"] = {**compare_grads(
+        make_task(clip, "float32", 0.0, batch=grad_batch, spec=spec), data[0][:grad_batch],
+        data[1][:grad_batch], torch.float32), "images": grad_batch}
     batches = tower_batches(spec, {batch: run["train_steps"]}, {n_val: run["eval_chunks"]}, True)
     return summary, run["launches"], batches
 
@@ -4440,14 +4493,22 @@ def run_vitl14_336(kernels, gen, card: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# 16. ViT-H/14: CLIP's tower (C = 1280, K2 and K3 at the new width) and
-# MAE's (heads of 80, K1's fp32 body at the new head width)
+# 16. ViT-H/14: CLIP's tower (C = 1280, K2 and K3 at the new width), at 378
+# px too (N = 730, K1's bf16 body past 640 tokens), and MAE's (heads of 80,
+# K1's fp32 body at the new head width)
 # ---------------------------------------------------------------------------
 
 H14_SEED = 17
 H14_RES = 224
+# DFN5B-CLIP-ViT-H-14-378's resolution (open_clip ViT-H-14-378-quickgelu):
+# 27^2 + 1 = 730 tokens; its fp32 first-step gradients at 16 images (the
+# plain path keeps float32 logits and probabilities of 32 layers, about 44
+# GB at 16 images; at the training batch of 32 they would not fit the card)
+H14_378_RES = 378
+H14_378_GRAD_BATCH = 16
 # the published widths: LAION's open CLIP ViT-H-14 (its vision and text
-# towers and embedding) and MAE's ViT-H/14 (timm's vit_huge_patch14_224)
+# towers and embedding; DFN5B's 378 px tower has the same widths) and MAE's
+# ViT-H/14 (timm's vit_huge_patch14_224)
 CLIP_H14 = {"width": 1280, "layers": 32, "patch": 14, "text_width": 1024, "text_heads": 16,
             "text_layers": 24, "embed": 1024}
 MAE_H14 = {"width": 1280, "layers": 32, "heads": 16, "patch": 14}
@@ -4461,17 +4522,18 @@ MAE_FT_BATCH = 16
 MAE_FT_RATE = (1e-5, 1e-4)  # (lr, wd) at the finetune command's scale
 
 
-def h14_tokens(patch: int) -> int:
-    return (H14_RES // patch) ** 2 + 1
+def h14_tokens(patch: int, res: int = H14_RES) -> int:
+    return (res // patch) ** 2 + 1
 
 
-def clip_h14_config():
+def clip_h14_config(res: int = H14_RES):
     """CLIP ViT-H/14 as a user's MODEL.SPEC gives it (``CLIP_H14``: the
     vision tower of LAION's open ViT-H-14, width 1280, 32 layers, patch 14;
     its text tower 1024 wide, 24 layers of 16 heads; embedding 1024), at
-    224 px, merged as the commands merge a model YAML: by the reference's
-    rule the vision tower has 1280 // 64 = 20 heads of 64."""
-    cfg = aux_config("vitb32_CLIP.yaml", "TRAIN.IMAGE_SIZE", f"[{H14_RES},{H14_RES}]")
+    ``res`` px (224 unless given), merged as the commands merge a model
+    YAML: by the reference's rule the vision tower has 1280 // 64 = 20 heads
+    of 64 (the published towers have 16 of 80)."""
+    cfg = aux_config("vitb32_CLIP.yaml", "TRAIN.IMAGE_SIZE", f"[{res},{res}]")
     cfg.defrost()
     cfg.MODEL.NAME = "ViT-H/14"
     spec, h = cfg.MODEL.SPEC, CLIP_H14
@@ -4504,7 +4566,8 @@ def clip_h14(kernels, gen, card: str, rng) -> tuple:
     """16a: CLIP ViT-H/14 from its spec, seeded weights on the card;
     serving at batches 1, 8, 64 and training at batch 32, as phase 15 (32
     K1 and K2 a forward, 32 K1, K2 and K3 a step), with each kernel's share
-    of a train step.  Returns (summaries, launches, table)."""
+    of a train step.  Returns (summaries, launches, table, tower), the
+    tower for 16c."""
     from pevit_tpu_torch.core import CLIPSpec, init_clip_params
 
     spec = CLIPSpec.from_config(clip_h14_config())
@@ -4523,12 +4586,58 @@ def clip_h14(kernels, gen, card: str, rng) -> tuple:
     out["train"], train_launches, train_batches = tower_train(
         kernels, clip, spec, prototypes, rng, classes=H14_CLASSES, n_train=H14_TRAIN,
         n_val=H14_VAL, batch=H14_BATCH, shares=True)
-    del clip
-    torch.cuda.empty_cache()
     table = path_kernel_rows(gen, "clip_h14_serve", serve_batches)
     for name, rows_ in path_kernel_rows(gen, "clip_h14_train", train_batches).items():
         table[name] += rows_
-    return out, {"clip_h14_serve": serve_launches, "clip_h14_train": train_launches}, table
+    return out, {"clip_h14_serve": serve_launches, "clip_h14_train": train_launches}, table, clip
+
+
+# the name parts (demangled or mangled) of K1's body past 640 tokens at hd
+# 64 up to SMEM2_MAX_SEQ: the shared-memory body with the short ring
+K1_SHORT_RING = ("attention_fwd_bf16_smem<2>", "attention_fwd_bf16_smemILi2E")
+
+
+def clip_h14_378(kernels, gen, card: str, rng, clip) -> tuple:
+    """16c: CLIP ViT-H/14 at 378 px from its spec (N = 730, 20 heads of
+    64), on 16a's seeded tower with a fresh seeded 730-row positional
+    embedding; served at batches 1, 8, 64 and trained at batch 32 as 16a
+    (32 K1 and K2 a forward, 32 K1, K2 and K3 a step), every K1 launch on
+    the body the launcher gives N = 730 (the short ring), which the
+    profiles of a forward and of a train step see as all of K1's time;
+    fp32 first-step gradients at H14_378_GRAD_BATCH images.  Returns
+    (summaries, launches, table)."""
+    from pevit_tpu_torch.core import CLIPSpec
+    from pevit_tpu_torch.ops.attention import launch_plan
+
+    spec = CLIPSpec.from_config(clip_h14_config(H14_378_RES))
+    v, h = spec.vision, CLIP_H14
+    if (v.width, v.layers, v.heads, v.seq_len) != (h["width"], h["layers"], h["width"] // 64,
+                                                   h14_tokens(h["patch"], H14_378_RES)):
+        raise AssertionError(f"CLIP ViT-H/14 at 378 px spec {spec}")
+    batches = {*H14_SERVE_BATCHES, H14_BATCH, H14_VAL}
+    bodies = {b: launch_plan(b, v.seq_len, v.heads, v.width // v.heads, torch.bfloat16).body
+              for b in batches}
+    if set(bodies.values()) != {"bf16_smem2"}:
+        raise AssertionError(f"K1 at N = {v.seq_len} runs {bodies}, want the short ring")
+    t0 = time.perf_counter()
+    pos = torch.randn(v.seq_len, v.width, generator=torch.Generator().manual_seed(H14_SEED + 1))
+    clip.visual.positional_embedding = torch.nn.Parameter((pos * v.width ** -0.5).cuda())
+    out = {"init_s": time.perf_counter() - t0, "tokens": v.seq_len, "heads": v.heads,
+           "k1_body": "bf16_smem2"}
+    out["serve"], serve_launches, serve_batches, prototypes = tower_serve(
+        kernels, clip, spec, rng, seed=H14_SEED, classes=H14_CLASSES, batches=H14_SERVE_BATCHES,
+        what="CLIP ViT-H/14@378", k1_body=K1_SHORT_RING)
+    out["train"], train_launches, train_batches = tower_train(
+        kernels, clip, spec, prototypes, rng, classes=H14_CLASSES, n_train=H14_TRAIN,
+        n_val=H14_VAL, batch=H14_BATCH, shares=True, grad_batch=H14_378_GRAD_BATCH,
+        k1_body=K1_SHORT_RING)
+    del clip
+    torch.cuda.empty_cache()
+    table = path_kernel_rows(gen, "clip_h14_378_serve", serve_batches)
+    for name, rows_ in path_kernel_rows(gen, "clip_h14_378_train", train_batches).items():
+        table[name] += rows_
+    return (out, {"clip_h14_378_serve": serve_launches, "clip_h14_378_train": train_launches},
+            table)
 
 
 def mae_h14(kernels, gen, card: str, rng) -> tuple:
@@ -4605,24 +4714,31 @@ def mae_h14(kernels, gen, card: str, rng) -> tuple:
 
 
 def run_vith14(kernels, gen, card: str) -> tuple:
-    """Phase 16: CLIP ViT-H/14 (16a) and MAE ViT-H/14 (16b) at full width
-    and depth on the card, then every kernel against its plain version at
-    each batch each path gave it."""
+    """Phase 16: CLIP ViT-H/14 (16a), the same at 378 px (16c, on 16a's
+    tower, before 16b frees the card for MAE) and MAE ViT-H/14 (16b) at full
+    width and depth on the card, then every kernel against its plain
+    version at each batch each path gave it."""
     t0, steps = time.perf_counter(), {}
     rng = np.random.default_rng(H14_SEED)
-    clip, clip_launches, table = clip_h14(kernels, gen, card, rng)
+    clip, clip_launches, table, tower = clip_h14(kernels, gen, card, rng)
     print(f"clip_h14: {json.dumps(clip)} [{card}]", flush=True)
     steps["clip"] = time.perf_counter() - t0
+    at378, at378_launches, at378_table = clip_h14_378(kernels, gen, card, rng, tower)
+    del tower
+    print(f"clip_h14_378: {json.dumps(at378)} [{card}]", flush=True)
+    steps["clip_378"] = time.perf_counter() - t0 - steps["clip"]
     mae, mae_launches, mae_table = mae_h14(kernels, gen, card, rng)
     print(f"mae_h14: {json.dumps(mae)} [{card}]", flush=True)
-    steps["mae"] = time.perf_counter() - t0 - steps["clip"]
-    for name, rows_ in mae_table.items():
-        table[name] += rows_
+    steps["mae"] = time.perf_counter() - t0 - steps["clip"] - steps["clip_378"]
+    for other in (at378_table, mae_table):
+        for name, rows_ in other.items():
+            table[name] += rows_
     for name, rows_ in table.items():
         for r in rows_:
             print(f"vith14 kernel {name} {json.dumps(r)} [{card}]", flush=True)
     print(f"phase 16 seconds by step: {json.dumps(steps)}", flush=True)
-    return {**clip_launches, **mae_launches}, table, time.perf_counter() - t0
+    return ({**clip_launches, **at378_launches, **mae_launches}, table,
+            time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -4707,7 +4823,8 @@ def main() -> int:
     for name, rows_ in check_kernel_shapes(gen).items():
         for r in rows_:
             print(f"kernel shapes {name} {json.dumps(r)} [{card}]", flush=True)
-    for r in check_smem_body(gen, bodies):
+    smem_rows = check_smem_body(gen, bodies)
+    for r in smem_rows:
         print(f"kernel smem body {json.dumps(r)} [{card}]", flush=True)
     bodies_dir.cleanup()
     print(f"phase 3c: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4853,7 +4970,7 @@ def main() -> int:
              + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
              + axis_table[name] + mesh_table[name] + l336_table[name] + h14_table[name]
              for name in command_table}
-    report = kernel_report(KERNELS, launches, table)
+    report = kernel_report(KERNELS, launches, table, {"attention_fwd": smem_rows})
     print(f"script: {time.perf_counter() - start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": report}))

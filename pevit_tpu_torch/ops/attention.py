@@ -44,7 +44,8 @@ KERNEL = Kernel(
 # register body (one block per (batch, head), S rows in registers) up to
 # MAX_SEQ_REGS tokens at hd <= REG_WIDTH, there its body with the S tile in
 # shared memory (a block per (batch, head, 64-query tile)) up to
-# SMEM_MAX_SEQ tokens, and its three-walk long body otherwise; fp32 runs one
+# SMEM_MAX_SEQ tokens, the same body with a shorter ring up to
+# SMEM2_MAX_SEQ, and its three-walk long body otherwise; fp32 runs one
 # body.  The long body and fp32 launch a block per (batch, head, 64-query
 # tile, chunk of at most COLUMN_CHUNK output columns).  A body is built for
 # a head width of BODY_WIDTHS (hd rounded up; the kernel stages the columns
@@ -61,16 +62,19 @@ QUERY_TILE = 64
 MAX_BLOCKS = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the longest N of the bf16 body with the S tile in shared memory (hd <=
-# REG_WIDTH, past MAX_SEQ_REGS), as csrc/attention_fwd.cu sets it
+# REG_WIDTH, past MAX_SEQ_REGS) with its ring of four stages, and with its
+# ring of two (past SMEM_MAX_SEQ), as csrc/attention_fwd.cu sets them
 SMEM_MAX_SEQ = 640
+SMEM2_MAX_SEQ = 768
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """How the kernel runs one call: ``body`` ("bf16_regs", "bf16_smem",
-    "bf16_long" or "f32"), the head width ``width`` its instantiation is
-    built for, the head width ``hd`` it is handed (the caller's, or
-    zero-padded to whole 16-byte chunks) and its grid's ``blocks``."""
+    "bf16_smem2" (the short ring), "bf16_long" or "f32"), the head width
+    ``width`` its instantiation is built for, the head width ``hd`` it is
+    handed (the caller's, or zero-padded to whole 16-byte chunks) and its
+    grid's ``blocks``."""
 
     body: str
     width: int
@@ -96,6 +100,8 @@ def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
         body, blocks = "bf16_regs", B * H
     elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM_MAX_SEQ:
         body, blocks = "bf16_smem", B * H * -(-N // QUERY_TILE)
+    elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM2_MAX_SEQ:
+        body, blocks = "bf16_smem2", B * H * -(-N // QUERY_TILE)
     else:
         body = "bf16_long" if dtype == torch.bfloat16 else "f32"
         columns = min(width, COLUMN_CHUNK)

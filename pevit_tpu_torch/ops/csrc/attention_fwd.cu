@@ -23,8 +23,9 @@
 // N >= 1 is taken: the dtype picks the body, and in bf16 N and hd do (the
 // register body up to N = 257 at hd <= 64, where it is the faster; at hd
 // <= 64 the body with the S tile in shared memory from 258 up to 640
-// tokens, where its tile fits; the three-walk long body otherwise), chosen
-// by shape; no body falls back to another.
+// tokens, where its tile fits beside a ring of four stages, and up to 768
+// with a ring of two; the three-walk long body otherwise), chosen by shape;
+// no body falls back to another.
 //
 // Head widths.  The reference takes any hd (it pads hd to a multiple of 8
 // for its lanes).  Here every body is built for a head width W, hd rounded
@@ -71,7 +72,7 @@
 // and no more fit: a longer row of S does not, nor a wider head's
 // fragments beside it.
 //
-// bfloat16 long body, hd > 64 or N > 640 (tensor cores, the same mma.sync,
+// bfloat16 long body, hd > 64 or N > 768 (tensor cores, the same mma.sync,
 // ldmatrix, tiles and output staging as the register body).  The rounding
 // point rules out a one-pass online softmax: p must be normalised by the
 // row's final sum before it is rounded.  So the body holds one chunk's S
@@ -101,9 +102,9 @@
 // once, p = e / sum(e) rounded, then P V.  Here a block of two warpgroups
 // owns 64 query rows and keeps their float32 S tile (64 x N, rounded up to
 // items of 128 keys) in shared memory: at most 640 keys beside the K / V
-// ring and the row statistics in 227 KB.  It is built for hd <= 64 (W =
-// 64), where CLIP ViT-L/14 at 336 px runs it, past the register body's
-// 257 tokens: no configuration runs bf16 attention with wider heads (CLIP's
+// ring and the row statistics in 227 KB (768 beside a shorter ring).  It
+// is built for hd <= 64 (W = 64), where CLIP ViT-L/14 at 336 px and
+// ViT-H/14 at 378 px run it, past the register body's 257 tokens: no configuration runs bf16 attention with wider heads (CLIP's
 // heads are 64 wide, the auxiliary backbones run in float32), so those keep
 // the three-walk body.  One Q K^T and one
 // expf a logit, both products on wgmma, the numeric contract of the
@@ -125,6 +126,10 @@
 // issued after the products they would wait behind; wgmma's register
 // operands are written only outside a product's flight (else ptxas
 // serializes every wgmma).
+//
+// From 641 to 768 tokens the same body keeps six items of S beside a ring
+// of two stages, which prefetches one item instead of three.  Past 768 the
+// tile of S no longer fits one block's 227 KB.
 //
 // float32 body (tensor cores, 3xTF32: tf32x3.cuh).  TF32 mma.sync m16n8k8
 // with each product split in three, so it stays float32-class (not TF32:
@@ -597,17 +602,21 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 body with the S tile in shared memory (wgmma), hd <= 64 and
-// MAX_SEQ_REGS < N <= SMEM_MAX_SEQ
+// bfloat16 body with the S tile in shared memory (wgmma), hd <= 64:
+// MAX_SEQ_REGS < N <= SMEM_MAX_SEQ with a ring of RING stages, up to
+// SMEM2_MAX_SEQ with a ring of SHORT_RING
 // ---------------------------------------------------------------------------
 
 constexpr int SMEM_BUDGET = 232448;  // shared memory a block may use on Hopper (227 KB)
-// the longest N the body takes, five items of S (ops/attention.py mirrors
-// it; the static_assert below holds the layout to SMEM_BUDGET there)
+constexpr int RING = 4, SHORT_RING = 2;  // the ring's stages: deep, and where S leaves no room
+// the longest N the body takes with each ring, five and six items of S
+// (ops/attention.py mirrors them; the static_asserts below hold each
+// layout to SMEM_BUDGET there)
 constexpr int SMEM_MAX_SEQ = 640;
+constexpr int SMEM2_MAX_SEQ = 768;
 
 // The body's layout at head width 64: the ring, 1024-byte aligned for the
-// 128-byte swizzle, of STAGES stages, each an item of KI keys of K or V
+// 128-byte swizzle, of `stages` stages, each an item of KI keys of K or V
 // (128-byte rows in 64-row slabs of 8 KB); the float32 S tile of 64 query
 // rows by N keys rounded up to whole items; each warpgroup's row max and
 // row sum; the ring's mbarriers, a stage's for each warpgroup
@@ -616,17 +625,19 @@ struct SmemBody {
   static constexpr int KI = 128;                 // keys of an item
   static constexpr int WGS = 2;                  // consumer warpgroups
   static constexpr int KW = KI / WGS;            // a warpgroup's keys of an item
-  static constexpr int STAGES = 4;
   static constexpr int STAGE = KI * W * 2;       // bytes of a stage
   static constexpr int S_ITEM = QROWS * KI * 4;  // bytes of an item of S
   static constexpr int STATS = 2 * WGS * QROWS * 4;
   static constexpr int SLACK = 1024;
-  static constexpr size_t bytes(int N) {
-    return SLACK + STAGES * STAGE + (size_t)((N + KI - 1) / KI) * S_ITEM + STATS +
-           8 * STAGES * WGS;
+  static constexpr size_t bytes(int N, int stages) {
+    return SLACK + stages * STAGE + (size_t)((N + KI - 1) / KI) * S_ITEM + STATS +
+           8 * stages * WGS;
   }
 };
-static_assert(SmemBody::bytes(SMEM_MAX_SEQ) <= SMEM_BUDGET, "the S tile fits at SMEM_MAX_SEQ");
+static_assert(SmemBody::bytes(SMEM_MAX_SEQ, RING) <= SMEM_BUDGET,
+              "the S tile fits at SMEM_MAX_SEQ");
+static_assert(SmemBody::bytes(SMEM2_MAX_SEQ, SHORT_RING) <= SMEM_BUDGET,
+              "the S tile fits at SMEM2_MAX_SEQ");
 
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -704,8 +715,6 @@ struct SmemArgs {
 // A warp's q fragments of a tile (W / 16 steps of 16 along hd, as
 // mma.m16n8k16's A) straight from device memory, 4 bytes a load, while the
 // first items stream in; rows at or past N and columns at or past hd zero
-// mma.m16n8k16's A) straight from device memory, 4 bytes a load, while the
-// first items stream in; rows at or past N and columns at or past hd zero
 __device__ __forceinline__ void load_q(const SmemArgs& a, int tile,
                                        uint32_t (&qa)[SmemBody::W / 16][4]) {
   const int bh = tile / a.q_tiles, qt = tile - bh * a.q_tiles, b = bh / a.H, h = bh - b * a.H;
@@ -728,13 +737,14 @@ __device__ __forceinline__ void load_q(const SmemArgs& a, int tile,
 // item i of a tile (its K items 0..C-1, then its V items) of batch b and
 // head h: this warpgroup's rows of it into its stage, by its thread 0, each
 // warpgroup streaming its own keys
+template <int ST>
 __device__ __forceinline__ void load_item(const CUtensorMap& kmap, const CUtensorMap& vmap, int b,
                                           int h, int C, int i, uint32_t ring, uint32_t bars) {
   typedef SmemBody L;
   const int wg = threadIdx.x / THREADS;
   if (threadIdx.x % THREADS != 0) return;
-  const uint32_t dst = ring + (i % L::STAGES) * L::STAGE + wg * L::KW * 128;
-  const uint32_t bar = bars + (i % L::STAGES * 2 + wg) * 8;
+  const uint32_t dst = ring + (i % ST) * L::STAGE + wg * L::KW * 128;
+  const uint32_t bar = bars + (i % ST * 2 + wg) * 8;
   const int row = (i < C ? i : i - C) * L::KI + wg * L::KW;
   mbar_expect(bar, L::KW * 128);
   tma_box(dst, i < C ? kmap : vmap, bar, 0, h, row, b);
@@ -744,7 +754,7 @@ __device__ __forceinline__ void load_item(const CUtensorMap& kmap, const CUtenso
 // warpgroup w takes keys [w KW, (w + 1) KW) of every item of KI keys, so
 // both work on every item the ring holds, and each SM scheduler has two
 // warps to switch between.  The ring streams items in order: the K items
-// 0..C-1, then the V items 0..C-1, each issued STAGES - 1 items ahead.
+// 0..C-1, then the V items 0..C-1, each issued ST - 1 items ahead.
 // Walk 1: S = Q K^T an item (wgmma m64n64k16, q in registers, read from
 // device memory as the first items stream in), the keys past N at -inf,
 // the running row max, S stored in float32; the two warpgroups' maxima meet
@@ -760,6 +770,7 @@ __device__ __forceinline__ void load_item(const CUtensorMap& kmap, const CUtenso
 // stores the item before it (two register buffers); walk 3 computes p only
 // once the product before has been waited for, since a register operand
 // written while a product is in flight makes ptxas serialize every wgmma.
+template <int ST>
 __global__ void __launch_bounds__(SmemBody::WGS * THREADS, 1)
 attention_fwd_bf16_smem(const SmemArgs a, const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap) {
@@ -770,7 +781,7 @@ attention_fwd_bf16_smem(const SmemArgs a, const __grid_constant__ CUtensorMap km
   const uint32_t ring = aligned_smem(smem);
   unsigned char* ring_p = smem + (ring - smem_u32(smem));
   const int C = (N + KI - 1) / KI;
-  float4* s_tile = reinterpret_cast<float4*>(ring_p + L::STAGES * L::STAGE);
+  float4* s_tile = reinterpret_cast<float4*>(ring_p + ST * L::STAGE);
   float* stats = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s_tile) + C * L::S_ITEM);
   const uint32_t bars = smem_u32(stats) + L::STATS;  // [stage][warpgroup]
 
@@ -794,26 +805,24 @@ attention_fwd_bf16_smem(const SmemArgs a, const __grid_constant__ CUtensorMap km
   // the two drift apart and one's arithmetic runs beside the other's
   // products
   auto arrive = [&](int i) {
-    mbar_wait(bars + (i % L::STAGES * 2 + wg) * 8, i / L::STAGES & 1);
+    mbar_wait(bars + (i % ST * 2 + wg) * 8, i / ST & 1);
     asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(THREADS) : "memory");
-    return ring + (i % L::STAGES) * L::STAGE + wg_rows;
+    return ring + (i % ST) * L::STAGE + wg_rows;
   };
-  // once item i's products are issued: item i + STAGES - 1 into the stage
-  // of the item before, its copies in flight while the tensor cores run
+  // once item i's products are issued: item i + ST - 1 into the stage of
+  // the item before, its copies in flight while the tensor cores run
   auto refill = [&](int i) {
-    if (i + L::STAGES - 1 < items)
-      load_item(kmap, vmap, b, h, C, i + L::STAGES - 1, ring, bars);
+    if (i + ST - 1 < items) load_item<ST>(kmap, vmap, b, h, C, i + ST - 1, ring, bars);
   };
 
   // the barriers, the first items, and each warp's q fragments into
   // registers
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2 * L::STAGES; ++i) mbar_init(bars + 8 * i);
+    for (int i = 0; i < 2 * ST; ++i) mbar_init(bars + 8 * i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int i = 0; i < L::STAGES - 1 && i < items; ++i)
-    load_item(kmap, vmap, b, h, C, i, ring, bars);
+  for (int i = 0; i < ST - 1 && i < items; ++i) load_item<ST>(kmap, vmap, b, h, C, i, ring, bars);
   uint32_t qa[W / 16][4];
   load_q(a, tile, qa);
 
@@ -1333,18 +1342,19 @@ int head_map(CUtensorMap* map, const void* base, const Args& a, long long sb, lo
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+template <int ST>
 int launch_bf16_smem(const Args& a) {
   const int q_tiles = q_tiles_of(a.N);
-  const size_t smem = SmemBody::bytes(a.N);
-  int err = set_smem(attention_fwd_bf16_smem, smem);
+  const size_t smem = SmemBody::bytes(a.N, ST);
+  int err = set_smem(attention_fwd_bf16_smem<ST>, smem);
   if (err != 0) return err;
   const SmemArgs sa{static_cast<const bf16*>(a.q), static_cast<bf16*>(a.out), a.H, a.N, a.hd,
                     q_tiles, a.qsb, a.qsn, a.qsh};
   CUtensorMap kmap, vmap;
   if ((err = head_map(&kmap, a.k, a, a.ksb, a.ksn, a.ksh, SmemBody::KW)) != 0) return err;
   if ((err = head_map(&vmap, a.v, a, a.vsb, a.vsn, a.vsh, SmemBody::KW)) != 0) return err;
-  attention_fwd_bf16_smem<<<a.B * a.H * q_tiles, SmemBody::WGS * THREADS, smem, a.stream>>>(
-      sa, kmap, vmap);
+  attention_fwd_bf16_smem<ST><<<a.B * a.H * q_tiles, SmemBody::WGS * THREADS, smem,
+                               a.stream>>>(sa, kmap, vmap);
   return (int)cudaGetLastError();
 }
 
@@ -1373,7 +1383,7 @@ int launch_f32(const Args& a) {
 // multiple of 16 bytes (8 bf16 or 4 float32 elements).  The grid (one
 // block per (batch, head) for the bf16 register body at N <= MAX_SEQ_REGS
 // and hd <= 64, per (batch, head, 64-query tile) for the bf16 body with S
-// in shared memory beyond, up to SMEM_MAX_SEQ at hd <= 64, per (batch,
+// in shared memory beyond, up to SMEM2_MAX_SEQ at hd <= 64, per (batch,
 // head, 64-query tile, chunk of at most 128 output columns) otherwise)
 // holds at most 2^31 - 1 blocks.  Returns the CUDA error code (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype,
@@ -1385,7 +1395,7 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
   const long long chunk = dtype == 0 ? 4 : 8;  // elements in 16 bytes
   if (hd % chunk != 0) return (int)cudaErrorInvalidValue;
   const bool regs = dtype == 1 && N <= MAX_SEQ_REGS && hd <= REG_WIDTH;
-  const bool in_smem = dtype == 1 && !regs && hd <= REG_WIDTH && N <= SMEM_MAX_SEQ;
+  const bool in_smem = dtype == 1 && !regs && hd <= REG_WIDTH && N <= SMEM2_MAX_SEQ;
   const long long blocks =
       (long long)B * H *
       (regs ? 1 : (long long)q_tiles_of(N) * (in_smem ? 1 : col_chunks_of(hd)));
@@ -1397,7 +1407,8 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     return with_width(hd, [&](auto w) { return launch_f32<decltype(w)::value>(a); });
-  if (in_smem) return launch_bf16_smem(a);
+  if (in_smem)
+    return N <= SMEM_MAX_SEQ ? launch_bf16_smem<RING>(a) : launch_bf16_smem<SHORT_RING>(a);
   if (!regs)
     return with_width(hd, [&](auto w) { return launch_bf16_long<decltype(w)::value>(a); });
   const int kt = (N + 15) / 16;

@@ -2,14 +2,15 @@
 turns on one CUDA card.
 
     python -m pevit_tpu_torch.tools.attention_bodies --against LABEL=DIR [LABEL=DIR ...]
-        [--out FILE]
+        [--lengths N [N ...]] [--out FILE]
 
 Each ``DIR`` holds another ``attention_fwd.cu`` with the same C interface
 (hd an argument; with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
 earlier commit unpacked by ``git archive``.  Every source is built by
 ``nvcc`` (ptxas registers and spills printed), then, in bfloat16 at each
-(N, head width, heads, batch) of ``SHAPES`` (logits of std 0.5 at every
-width), each version is held against the plain version
+(N, head width, heads, batch) of ``SHAPES`` (those of the given
+``--lengths`` only, where given; logits of std 0.5 at every width), each
+version is held against the plain version
 (``attention_ref``, within 2e-2) and timed
 through the wrapper ``attention_fwd`` in turns, the others, this, this, the
 others in reverse (median CUDA-event ms of each turn, the mean of a
@@ -35,10 +36,14 @@ import torch
 # (N, hd, heads, batches): at hd 64 and 12 heads ViT-B/32 (N = 50) at the
 # serving batch, the training batch and the batches the smoke's paths give
 # it (eval remainders, trial-folded chunks), ViT-B/16 (197) and ViT-L/14
-# (257) at 64 and 256, ViT-L/14 at 336 px (577) and 1025; the wider heads
-# 80, 128 and 256 at 16 heads, N = 197 and 577
+# (257) at 64 and 256, ViT-L/14 at 336 px (577) and 1025; the short ring's
+# first N, CLIP ViT-H/14 at 378 px (730, 20 heads) at its served and
+# trained batches, the short ring's last N and one more, and 1025, at 16
+# heads; the wider heads 80, 128 and 256 at 16 heads, N = 197 and 577
 SHAPES = ((50, 64, 12, (8, 32, 128, 256, 1280)), (197, 64, 12, (32, 64, 256)),
           (257, 64, 12, (32, 64, 256)), (577, 64, 12, (32, 64)), (1025, 64, 12, (8,)),
+          (641, 64, 16, (16,)), (730, 64, 20, (8, 32, 64)), (768, 64, 16, (16,)),
+          (769, 64, 16, (16,)), (1025, 64, 16, (8,)),
           *((n, hd, 16, (batch,)) for hd in (80, 128, 256) for n, batch in ((197, 64), (577, 32))))
 
 
@@ -121,6 +126,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", required=True, nargs="+", metavar="LABEL=DIR",
                     help="directories holding other attention_fwd.cu sources and headers")
+    ap.add_argument("--lengths", nargs="+", type=int, default=None, metavar="N",
+                    help="time only the shapes of these sequence lengths")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -150,6 +157,8 @@ def main(argv=None) -> int:
     lines = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for n, hd, heads, batches in SHAPES:
+        if args.lengths and n not in args.lengths:
+            continue
         for batch in batches:
             row = run_shape(versions, n, hd, heads, batch, gen)
             line = json.dumps({**row, "card": card})

@@ -68,7 +68,11 @@ _VOLATILE_KEYS = (("OUTPUT_DIR",), ("TPU", "CHECKPOINT_DIR"), ("TPU", "SWEEP_CAC
 #      in another order (two warpgroups' halves) and P V in two halves, so
 #      a bf16 output there can differ by an ulp from the three-walk body's
 #      (CLIP ViT-L/14 at 336 px).
-SEMANTICS_VERSION = 6
+#   7  bf16 attention at heads of up to 64 from 641 tokens up to 768 runs
+#      the shared-memory body with its short ring instead of the three-walk
+#      body: the row sum and P V are added up in another order, so a bf16
+#      output there can differ by an ulp (CLIP ViT-H/14 at 378 px).
+SEMANTICS_VERSION = 7
 
 
 def _dtype_name(arr) -> str:

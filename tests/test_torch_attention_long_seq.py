@@ -1,23 +1,31 @@
 """Sequences longer than 257 tokens, the port against the reference, on the
 CPU at toy width:
 
-* the plain attention at N = 258, 577 (CLIP ViT-L/14 at 336 px) and 1025
-  against the reference's Pallas kernel in interpret mode, float32 at rtol
-  1e-5 / atol 1e-6 (``test_torch_bf16_rounding.py`` holds the bf16
-  rounding point at these lengths); and in bfloat16, by that file's
-  same-rounding rule, at every head width at the longest N of K1's
-  shared-memory body (hd <= 64) and one more, where the three-walk body
-  takes over;
+* the plain attention at N = 258, 577 (CLIP ViT-L/14 at 336 px), 641 (the
+  short ring's first), 730 (CLIP ViT-H/14 at 378 px), 769 (the three-walk
+  body's first at hd 64) and 1025 against the reference's Pallas kernel in
+  interpret mode, float32 at rtol 1e-5 / atol 1e-6
+  (``test_torch_bf16_rounding.py`` holds the bf16 rounding point at these
+  lengths); and in bfloat16, by that file's same-rounding rule, at every
+  head width at the longest N of K1's shared-memory body with its four-stage
+  ring (hd <= 64) and one more, and at hd 64 at 730, the short ring's
+  longest N, one more (where the three-walk body takes over) and 1025;
 * a toy CLIP tower with N = 290 (68 px, patch 4, width 128, 2 layers of 2
   heads of 64): KAdaptation's eval logits and trained parameters after one
   SGD step, fp32, against the reference's ``build_fit_eval_fn``, within
   1e-5 of each one's largest magnitude;
 * an OpenAI-layout state dict at toy width with a 577-row
   ``visual.positional_embedding`` loads to ``input_resolution`` 336 in both
-  packages, with equal parameters, bit for bit.
+  packages, with equal parameters, bit for bit, and one with a 730-row
+  embedding to 378;
+* the spec of ``chip_smoke.py``'s phase 16c (CLIP ViT-H/14 from its
+  MODEL.SPEC at ``TRAIN.IMAGE_SIZE [378, 378]``) is the reference's: by the
+  reference's rule (heads = width // 64) 20 heads of 64, N = 730.
 """
 
+import argparse
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +35,8 @@ import torch
 
 from pevit_tpu.ckpt import torch_loader as jloader
 from pevit_tpu.config import get_default_config as jax_defaults
+from pevit_tpu.config import update_config as jax_update
+from pevit_tpu.core import clip as jc
 from pevit_tpu.core import CLIPSpec, TextSpec, VisionSpec, init_clip_params
 from pevit_tpu.ops import attention as ja
 from pevit_tpu.peft import PeftConfig
@@ -35,7 +45,7 @@ from pevit_tpu.train import trainer as jt
 from pevit_tpu.train.partition import combine as jcombine
 from pevit_tpu_torch import bridge
 from pevit_tpu_torch.ckpt import clip_to_state_dict, load_clip
-from pevit_tpu_torch.config import get_default_config
+from pevit_tpu_torch.config import get_default_config, update_config
 from pevit_tpu_torch.core import clip as port_clip
 from pevit_tpu_torch.ops import attention as ta
 from pevit_tpu_torch.peft.base import PeftConfig as PortPeftConfig
@@ -46,7 +56,11 @@ from pevit_tpu_torch.train import (TaskStatic, TrainState, TrainTask, build_fit_
 from .test_torch_bf16_rounding import _assert_same_rounding, _bf16, _jax, _numpy
 from .test_torch_bridge import bnhd_layout  # noqa: F401  (autouse fixture)
 
-LONG = [258, 577, 1025]
+LONG = [258, 577, 641, 730, ta.SMEM2_MAX_SEQ + 1, 1025]
+# the lengths at hd 64 past the four-stage ring's (whose first, 641, the
+# widths' cases take): CLIP ViT-H/14 at 378 px, the short ring's last and
+# one more (the three-walk body's first), 1025
+SHORT_RING_LENGTHS = [730, ta.SMEM2_MAX_SEQ, ta.SMEM2_MAX_SEQ + 1, 1025]
 
 
 def _qkv(n, seed):
@@ -63,13 +77,18 @@ def test_ref_matches_pallas_kernel_at_long_sequences(n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("width,n", [(w, ta.SMEM_MAX_SEQ + extra)
-                                     for w in ta.BODY_WIDTHS for extra in (0, 1)])
-def test_ref_bf16_matches_pallas_kernel_at_smem_limits(width, n):
+def _bf16_qkv(width, n):
     """One image of two heads whose logits spread with std 0.5."""
     rng = np.random.default_rng(width + n)
     s = (0.25 / width) ** 0.25
-    q, k, v = (_bf16(scale * rng.standard_normal((1, 2, n, width))) for scale in (s, s, 1.0))
+    return tuple(_bf16(scale * rng.standard_normal((1, 2, n, width))) for scale in (s, s, 1.0))
+
+
+@pytest.mark.parametrize("width,n", [(w, ta.SMEM_MAX_SEQ + extra)
+                                     for w in ta.BODY_WIDTHS for extra in (0, 1)]
+                         + [(ta.REG_WIDTH, n) for n in SHORT_RING_LENGTHS])
+def test_ref_bf16_matches_pallas_kernel_at_smem_limits(width, n):
+    q, k, v = _bf16_qkv(width, n)
     want = _numpy(ja._pallas_forward(_jax(q), _jax(k), _jax(v), interpret=True))
     got = ta.attention_ref(q, k, v)
     assert got.dtype == torch.bfloat16
@@ -195,24 +214,74 @@ def kadaptation_step_matches(tiny: CLIPSpec, port_tiny, lr: float = LR) -> None:
 # ---------------------------------------------------------------------------
 
 def test_a_577_position_state_dict_loads_at_336_px_in_both_packages(tmp_path):
+    loads_in_both_packages(tmp_path, "ViT-L/14@336px", 336, 577)
+
+
+def test_a_730_position_state_dict_loads_at_378_px_in_both_packages(tmp_path):
+    loads_in_both_packages(tmp_path, "ViT-H-14-378", 378, 730)
+
+
+def loads_in_both_packages(tmp_path, name: str, res: int, tokens: int) -> None:
+    """A toy OpenAI-layout state dict (patch 14, width 64) at ``res`` px:
+    ``tokens`` positions, loaded to ``res`` by both packages' loaders, the
+    parameters equal to each other and to the written ones bit for bit."""
     spec = port_clip.CLIPSpec(
         embed_dim=16,
-        vision=port_clip.VisionSpec(input_resolution=336, patch_size=14, width=64, layers=1,
+        vision=port_clip.VisionSpec(input_resolution=res, patch_size=14, width=64, layers=1,
                                     heads=1, output_dim=16),
         text=port_clip.TextSpec(context_length=8, vocab_size=64, width=32, heads=2, layers=1,
                                 output_dim=16))
     src = port_clip.init_clip_params(torch.Generator().manual_seed(4), spec, device="cpu")
     sd = clip_to_state_dict(src)
-    assert sd["visual.positional_embedding"].shape[0] == 577
-    path = tmp_path / "ViT-L-14-336px.pt"
+    assert sd["visual.positional_embedding"].shape[0] == tokens
+    path = tmp_path / f"{name.replace('/', '-')}.pt"
     torch.save(sd, path)
-    want_params, jspec = jloader.load_clip("ViT-L/14@336px", checkpoint_path=str(path))
-    clip, got_spec = load_clip("ViT-L/14@336px", checkpoint_path=str(path), device="cpu")
-    assert jspec.vision.input_resolution == got_spec.vision.input_resolution == 336
-    assert jspec.vision.seq_len == got_spec.vision.seq_len == 577
+    want_params, jspec = jloader.load_clip(name, checkpoint_path=str(path))
+    clip, got_spec = load_clip(name, checkpoint_path=str(path), device="cpu")
+    assert jspec.vision.input_resolution == got_spec.vision.input_resolution == res
+    assert jspec.vision.seq_len == got_spec.vision.seq_len == tokens
     assert got_spec.vision == spec.vision
     want = bridge.clip_from_jax(jax.tree.map(np.asarray, want_params), got_spec, device="cpu")
     got_sd, want_sd, src_sd = clip.state_dict(), want.state_dict(), src.state_dict()
     assert got_sd.keys() == want_sd.keys() == src_sd.keys()
     for name, t in want_sd.items():
         assert torch.equal(got_sd[name], t) and torch.equal(got_sd[name], src_sd[name]), name
+
+
+# ---------------------------------------------------------------------------
+# phase 16c's tower: CLIP ViT-H/14 at 378 px from its MODEL.SPEC
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def h14_378_config(make, update):
+    """``chip_smoke.clip_h14_config(378)``: the cifar-10 and ViT-B/32 YAMLs
+    merged as the commands merge them, at ``TRAIN.IMAGE_SIZE [378, 378]``,
+    MODEL.SPEC set to LAION's ViT-H-14 widths (vision 1280 x 32, patch 14;
+    text 1024 x 24 of 16 heads; embedding 1024)."""
+    cfg = make()
+    opts = ["TRAIN.IMAGE_SIZE", "[378,378]"]
+    for name in ("datasets/cifar10.yaml", "model/vitb32_CLIP.yaml"):
+        update(cfg, argparse.Namespace(cfg=str(REPO / "resources" / name), opts=opts))
+    cfg.defrost()
+    cfg.MODEL.NAME = "ViT-H/14"
+    spec = cfg.MODEL.SPEC
+    spec.EMBED_DIM = 1024
+    spec.VISION.WIDTH, spec.VISION.LAYERS, spec.VISION.PATCH_SIZE = 1280, 32, 14
+    spec.TEXT.WIDTH, spec.TEXT.HEADS, spec.TEXT.LAYERS = 1024, 16, 24
+    cfg.freeze()
+    return cfg
+
+
+def test_the_378_px_h14_spec_is_the_references():
+    """20 heads of 64, not the published tower's 16 of 80: the reference's
+    rule, which the port mirrors (ROADMAP section 3)."""
+    want = jc.CLIPSpec.from_config(h14_378_config(jax_defaults, jax_update))
+    got = port_clip.CLIPSpec.from_config(h14_378_config(get_default_config, update_config))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    v = got.vision
+    assert (v.width, v.layers, v.heads, v.patch_size, v.input_resolution, v.seq_len) == \
+        (1280, 32, 20, 14, 378, 730)
+    plan = ta.launch_plan(64, v.seq_len, v.heads, v.width // v.heads, torch.bfloat16)
+    assert plan.body == "bf16_smem2"

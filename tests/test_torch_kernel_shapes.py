@@ -14,10 +14,11 @@
   the blocks of the body that runs; every scratch region starts 16-byte
   aligned; the wrappers' zero-padding of a width that fills no 16-byte
   chunk computes the unpadded MLP and its backward (float64);
-* K1's bf16 body with the S tile in shared memory: which body runs at each
-  (N, W) and its grid, its longest N mirrored from ``attention_fwd.cu``,
-  where a ``static_assert`` holds its shared memory within the card's
-  232,448 bytes a block;
+* K1's bf16 body with the S tile in shared memory, with its four-stage
+  and its short ring: which body runs at each (N, W) and its grid, each
+  ring's longest N mirrored from ``attention_fwd.cu``, where
+  ``static_assert``s hold each layout within the card's 232,448 bytes a
+  block;
 * both model families at toy width against the reference at 1e-5: a timm
   ViT with heads of 80 (EMBED_DIM 160, NUM_HEADS 2, DEPTH 2) from its
   MODEL.SPEC, its features and its first-step ``full_finetune``
@@ -142,17 +143,20 @@ def test_every_head_width_has_a_launch_plan(dtype):
     <= 64, and the grid of the body that runs."""
     chunk = 128 // torch.finfo(dtype).bits  # elements in 16 bytes
     for hd in range(1, ta.MAX_HEAD_DIM + 1):
-        for n in (1, 50, 197, 257, 258, 577, 640, 641, 769, 1025):
+        for n in (1, 50, 197, 257, 258, 577, 640, 641, 730, 768, 769, 1025, 1280, 1281):
             plan = ta.launch_plan(3, n, 5, hd, dtype)
             assert plan.hd % chunk == 0 and hd <= plan.hd < hd + chunk
             assert plan.width == min(w for w in ta.BODY_WIDTHS if w >= plan.hd)
             bf16 = dtype == torch.bfloat16
             regs = bf16 and n <= ta.MAX_SEQ_REGS and plan.hd <= 64
-            in_smem = bf16 and not regs and plan.hd <= 64 and n <= ta.SMEM_MAX_SEQ
+            tiled = bf16 and not regs and plan.hd <= 64  # a shared-memory body
+            in_smem = tiled and n <= ta.SMEM_MAX_SEQ
+            in_smem2 = tiled and ta.SMEM_MAX_SEQ < n <= ta.SMEM2_MAX_SEQ
             assert plan.body == ("bf16_regs" if regs else "bf16_smem" if in_smem else
-                                 "bf16_long" if bf16 else "f32")
-            columns = 1 if in_smem else -(-plan.hd // min(plan.width, ta.COLUMN_CHUNK))
-            assert columns == (2 if plan.hd > 128 and not in_smem else 1)
+                                 "bf16_smem2" if in_smem2 else "bf16_long" if bf16 else "f32")
+            one = in_smem or in_smem2
+            columns = 1 if one else -(-plan.hd // min(plan.width, ta.COLUMN_CHUNK))
+            assert columns == (2 if plan.hd > 128 and not one else 1)
             assert plan.blocks == 15 * (1 if regs else -(-n // ta.QUERY_TILE) * columns)
     for hd in (0, ta.MAX_HEAD_DIM + 1):
         with pytest.raises(KernelInputError, match="hd"):
@@ -162,7 +166,9 @@ def test_every_head_width_has_a_launch_plan(dtype):
 @pytest.mark.parametrize("n,hd,dtype,blocks_per_head", [
     (197, 64, torch.bfloat16, 1), (197, 80, torch.bfloat16, 4), (197, 80, torch.float32, 4),
     (577, 64, torch.bfloat16, 10), (641, 64, torch.bfloat16, 11), (577, 256, torch.bfloat16, 20),
-    (257, 200, torch.float32, 10), (50, 20, torch.bfloat16, 1)])
+    (257, 200, torch.float32, 10), (50, 20, torch.bfloat16, 1), (730, 64, torch.bfloat16, 12),
+    (768, 64, torch.bfloat16, 12), (769, 64, torch.bfloat16, 13),
+    (1025, 64, torch.bfloat16, 17), (1281, 64, torch.bfloat16, 21)])
 def test_check_grid_counts_the_body_that_runs(n, hd, dtype, blocks_per_head):
     """The largest batch of 16 heads a launch takes, and one more image."""
     B = ta.MAX_BLOCKS // (16 * blocks_per_head)
@@ -193,6 +199,8 @@ def test_smem_body_fits_every_length_it_takes(width):
         plan = ta.launch_plan(2, n, 3, width, torch.bfloat16)
         if width == ta.REG_WIDTH and n <= ta.MAX_SEQ_REGS:
             assert (plan.body, plan.blocks) == ("bf16_regs", 6)
+        elif width == ta.REG_WIDTH:  # past the limit, the short ring
+            assert (plan.body, plan.blocks) == ("bf16_smem2", 6 * -(-n // 64))
         else:
             assert (plan.body, plan.blocks) == ("bf16_long", 6 * -(-n // 64) * columns)
 
@@ -204,14 +212,39 @@ def _cu_constant(text: str, name: str) -> int:
 
 
 def test_smem_body_mirror_matches_the_source():
-    """``ops/attention.py``'s mirror of the shared-memory body's longest N
-    (and of the register body's) holds the source's constant, and the
-    source holds the body's layout within the card's shared memory there."""
-    text = (CSRC / "attention_fwd.cu").read_text()
+    """``ops/attention.py``'s mirrors of the shared-memory bodies' longest
+    N (with each ring) and of the register body's hold the source's
+    constants, and the source holds each layout within the card's shared
+    memory at its longest N."""
+    text = " ".join((CSRC / "attention_fwd.cu").read_text().split())  # one space a gap
     assert _cu_constant(text, "MAX_SEQ_REGS") == ta.MAX_SEQ_REGS
     assert _cu_constant(text, "SMEM_MAX_SEQ") == ta.SMEM_MAX_SEQ
+    assert _cu_constant(text, "SMEM2_MAX_SEQ") == ta.SMEM2_MAX_SEQ
     assert _cu_constant(text, "SMEM_BUDGET") == 232448
-    assert "static_assert(SmemBody::bytes(SMEM_MAX_SEQ) <= SMEM_BUDGET" in text
+    assert "static_assert(SmemBody::bytes(SMEM_MAX_SEQ, RING) <= SMEM_BUDGET" in text
+    assert "static_assert(SmemBody::bytes(SMEM2_MAX_SEQ, SHORT_RING) <= SMEM_BUDGET" in text
+
+
+SHORT_RING_LIMIT = 768
+
+
+@pytest.mark.parametrize("width", ta.BODY_WIDTHS)
+def test_launch_plan_picks_the_short_ring_exactly_where_it_runs(width):
+    """bf16 heads of up to 64 from SMEM_MAX_SEQ + 1 (641) to the short
+    ring's limit (768, which takes CLIP ViT-H/14 at 378 px: N = 730) run it,
+    with one block a (batch, head, query tile), and nothing else does: past
+    it the three-walk body runs; fp32 never."""
+    assert ta.SMEM2_MAX_SEQ == SHORT_RING_LIMIT
+    columns = 2 if width > ta.COLUMN_CHUNK else 1
+    for n in range(ta.MAX_SEQ_REGS + 1, 1282):
+        plan = ta.launch_plan(2, n, 3, width, torch.bfloat16)
+        short = width == ta.REG_WIDTH and ta.SMEM_MAX_SEQ < n <= ta.SMEM2_MAX_SEQ
+        assert (plan.body == "bf16_smem2") == short, (n, plan)
+        if short:
+            assert plan.blocks == 6 * -(-n // ta.QUERY_TILE)
+        elif n > ta.SMEM2_MAX_SEQ or width > ta.REG_WIDTH:
+            assert (plan.body, plan.blocks) == ("bf16_long", 6 * -(-n // 64) * columns)
+        assert ta.launch_plan(2, n, 3, width, torch.float32).body == "f32"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
