@@ -19,7 +19,7 @@ on):
    and time kernel, plain version and, where one
    exists, the PyTorch library call computing the same function.  Each
    kernel has a bf16 and an fp32 body; the dtype picks it (and in K1's
-   bf16, N picks one of two bodies, below).  The fused-MLP
+   bf16, N and hd pick one of its bodies, below).  The fused-MLP
    forward (K2) rows carry ``gemm_ms``, its two products as ``torch.matmul``
    calls, a yardstick the port never calls.  K1's and K2's fp32 bodies run
    three TF32 products on the tensor cores: every fp32 row of theirs, here
@@ -34,13 +34,21 @@ on):
    whose accumulation truncates toward zero fails even where its max
    error passes.  fp32 rows carry both bounds, the FMA units' (ops /
    67 TFLOP/s) and three TF32 products' (3 ops / 495), and ``bound_ms`` is
-   the lower (``bound_peak`` names it); and
-   K1's three bf16 bodies, the register body (N <= 257 at hd <= 64), the
-   body with the S tile in shared memory (beyond, up to 640 tokens at hd
-   <= 64, up to 768 with a shorter ring) and the three-walk long body, all
-   timed in turns at N = 50, 197 and 257 (the other two from copies of the
-   source built beside the kernels, one with the register body's ceiling
-   set to 0, one with the shared-memory body's ceilings set to 0 too);
+   the lower (``bound_peak`` names it).  K1's rows carry ``ms`` and
+   ``library_ms`` as device time (``attention_bodies.device_ms``: calls
+   replayed from a CUDA graph) and ``call_ms``, one call's CUDA-event time,
+   the host's issue included.  Then K1's persistent bf16 body (the
+   launcher's at N <= 257 and hd <= 64) at every N <= 257 row of
+   ``attention_bodies.SHAPES`` (N = 50, 197 and 257, batches 8 to 1280):
+   held against the plain version and against the register body on the
+   same inputs (2e-2, and every element within one bf16 ulp, at most 1%
+   differing) and timed in turns with the register body, and at the
+   serving batch with the body with the S tile in shared memory and the
+   three-walk long body too (each from a copy of the source built beside
+   the kernels with its ceilings set: the register body's raised to 257,
+   the persistent body's set to 0, the shared-memory bodies' set to 0
+   too), beside SDPA and the bound, and at batch 8 each body's host
+   microseconds to enqueue a call;
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
@@ -225,12 +233,13 @@ on):
    against each trial's preloaded serial run handed the streamed orders:
    every epoch's val logits within 1e-5 of the largest (the gap printed),
    exact launches, the split's bytes crossing once an epoch for both
-   trials; (b) 28,000 images (4.21 GB) at the default 4.0 GB limit,
+   trials; (b) 28,000 images (4.21 GB) at the default 4.0 GB limit on a
+   seeded ViT-B/32 tower of 6 blocks (a cut for the time limit),
    bf16, batch 128, one trial after a warm-up: exact launches, the split's
    bytes once, the card's peak allocation during the epoch below the
    split's size, streamed train images/s beside the preloaded path's on
    the same split held on the card, and each one's device idle share from
-   a CUDA-only ``torch.profiler`` trace of a further epoch; (c)
+   a CUDA-only ``torch.profiler`` trace of each side's second epoch; (c)
    ``kronecker_adaptation_clip`` with phase 6's flags and ``--no-tuning
    True``, the train and test splits in host memory and the val split on
    the card, so the final run merges train and val on the host and
@@ -332,13 +341,28 @@ on):
    profiles of a forward and of a train step, whose K1 time is all that
    body's), fp32 first-step gradients at 16 images; each kernel held
    against its plain version at every batch each path gave it;
-17. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 16,
+17. CLIP ViT-B/16 (``vitb16_CLIP.yaml``: 12 x 768, patch 16, N = 197) at
+   full width and depth from seeded weights, in bf16, every K1 launch on
+   the persistent body (the launch plan at every batch, and the CUDA-only
+   profiles of a forward and of a train step, whose K1 time is all that
+   body's): the KAdaptation classifier served at batch 256 with its head
+   fitted to the served batch (12 K1 and 12 K2 a forward, top-1 agreement
+   with the plain path, images/s, K1's share of a forward) and trained at
+   batch 128 (3 steps, one eval chunk of 64; 12 K1, K2 and K3 a step, peak
+   allocation, train images/s, each kernel's share of a step, fp32
+   first-step gradients at 16 images within 1e-3 of each leaf's largest
+   |g|); serving and train images/s and K1's share of a forward with the
+   persistent body and with the register body (phase 3's aid) in turns;
+   each kernel held against its plain version at every batch each path
+   gave it;
+18. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 17,
    summed, by path and by body (each path's counts are zeroed just before
    it and read just after; phase 9's and the exported MAE probe's are the
    fresh process's, reported by it), the other numbers at the batch that
    launched the kernel most, every path's batches (and the body each ran)
    under ``by_shape``, every body's launches and numbers under ``bodies``
-   (a body no path ran, with 3c's); then the ``{"ok": true, ...}`` line
+   (a body no path ran, with 3c's, or, for the register body, with phase
+   3's rows at the serving batch); then the ``{"ok": true, ...}`` line
    last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
@@ -576,6 +600,7 @@ def check_close(name, got, want, rtol, atol) -> float:
 
 def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12, hd: int = 64):
     from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
+    from pevit_tpu_torch.tools.attention_bodies import device_ms
 
     B, H = batch, heads
     # logits of one spread (std 0.5) at every head width: q and k entries of
@@ -596,43 +621,28 @@ def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12, hd: int =
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
     library = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
     esize = torch.finfo(dtype).bits // 8
+    call = lambda: attention_fwd(q, k, v)
     return {"shape": f"B*H={B}*{H} N={n} hd={hd}", "dtype": str(dtype).split(".")[-1],
             "body": launch_plan(B, n, H, hd, dtype).body,
-            "max_abs_err": err, **accuracy, "ms": time_ms(lambda: attention_fwd(q, k, v)),
-            "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+            "max_abs_err": err, **accuracy, "ms": device_ms(call), "call_ms": time_ms(call),
+            "plain_ms": time_ms(plain), "library_ms": device_ms(library),
             **bound_fields(4 * B * H * n * hd * esize, 4 * B * H * n * n * hd, dtype)}
 
 
-def k1_variant(tmp: Path, label: str, **consts):
-    """K1's library built from a copy of its source with some ``constexpr``
-    constants of ``attention_fwd.cu`` set otherwise (``MAX_SEQ_REGS=0``
-    sends every bf16 N past the register body, ``SMEM_MAX_SEQ`` and
-    ``SMEM2_MAX_SEQ`` both 0 every bf16 shape past the shared-memory body to
-    the three-walk long body), so that a body can be timed where the
-    launcher runs another; a measurement aid, never on a path."""
-    from pevit_tpu_torch.ops import attention
-    from pevit_tpu_torch.ops._build import CSRC, Kernel
-
-    shutil.copytree(CSRC, tmp / label)
-    src = tmp / label / "attention_fwd.cu"
-    text = src.read_text()
-    for name, value in consts.items():
-        pattern = re.compile(rf"constexpr (int|bool) {name} = [^;]+;")
-        if len(pattern.findall(text)) != 1:
-            raise AssertionError(f"attention_fwd.cu no longer sets the constexpr {name} once")
-        value = str(value).lower() if isinstance(value, bool) else str(value)
-        text = pattern.sub(lambda m: f"constexpr {m.group(1)} {name} = {value};", text)
-    src.write_text(text)
-    return Kernel("attention_fwd", str(src), attention.KERNEL.argtypes,
-                  replaces=attention.KERNEL.replaces)
-
-
 def k1_bodies(tmp: Path) -> dict:
-    """Phase 3's aids: K1 with its bf16 shapes at hd <= 64 sent to the
-    shared-memory body up to its longest N ("smem": no register body) and
-    every bf16 shape to the three-walk long body ("long")."""
-    return {"smem": k1_variant(tmp, "smem", MAX_SEQ_REGS=0),
-            "long": k1_variant(tmp, "long", MAX_SEQ_REGS=0, SMEM_MAX_SEQ=0, SMEM2_MAX_SEQ=0)}
+    """Phase 3's aids, K1 built from copies of its source with ``constexpr``
+    ceilings set otherwise (``attention_bodies.source_variant``), so that a
+    body can be timed where the launcher runs another: its bf16 shapes at
+    hd <= 64 up to 257 tokens sent to the register body ("regs":
+    ``MAX_SEQ_REGS`` 257), to the shared-memory body up to its longest N
+    ("smem": ``TMA_MAX_SEQ`` 0), and every bf16 shape to the three-walk
+    long body ("long": the shared-memory ceilings 0 too)."""
+    from pevit_tpu_torch.tools.attention_bodies import source_variant
+
+    return {"regs": source_variant(tmp, "regs", MAX_SEQ_REGS=257),
+            "smem": source_variant(tmp, "smem", MAX_SEQ_REGS=0, TMA_MAX_SEQ=0),
+            "long": source_variant(tmp, "long", MAX_SEQ_REGS=0, TMA_MAX_SEQ=0, SMEM_MAX_SEQ=0,
+                                   SMEM2_MAX_SEQ=0)}
 
 
 def qkv_bf16(gen, batch, n, heads, hd):
@@ -654,33 +664,90 @@ def bf16_ulp_diff(got, old) -> dict:
             "share_differing": (diff > 0).float().mean().item()}
 
 
-def time_bf16_bodies(gen, bodies: dict, n, batch=SERVE_BATCH, heads: int = 12) -> dict:
-    """K1's three bf16 bodies at one N <= 257, hd 64: the register body
-    (what the launcher runs there up to MAX_SEQ_REGS), the shared-memory
-    body and the three-walk long body (``bodies``), each held against the
-    plain version and timed in turns (register, smem, long, long, smem,
-    register; the mean of each one's two medians), beside SDPA."""
-    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref
-    from pevit_tpu_torch.tools.attention_bodies import launching
+def same_rounding(what: str, got, against: dict) -> dict:
+    """:func:`bf16_ulp_diff` of ``got`` against each of ``against``
+    ({name: tensor}); raises where one is off the rule."""
+    same = {name: bf16_ulp_diff(got, old) for name, old in against.items()}
+    for name, d in same.items():
+        if d["max_diff_ulps"] > 1 or d["share_differing"] > 0.01:
+            raise AssertionError(f"{what}: against the {name} version {d}")
+    return same
+
+
+def tma_rows() -> list:
+    """Phase 3's rows of K1's persistent body: every (N, heads, batch) of
+    ``attention_bodies.SHAPES`` at hd 64 and N <= TMA_MAX_SEQ."""
+    from pevit_tpu_torch.ops.attention import TMA_MAX_SEQ
+    from pevit_tpu_torch.tools.attention_bodies import SHAPES
+
+    return [(n, heads, b) for n, hd, heads, batches in SHAPES if hd == 64 and n <= TMA_MAX_SEQ
+            for b in batches]
+
+
+def enqueue_us(fn, reps: int = 200) -> float:
+    """The host's mean microseconds to enqueue one call of ``fn`` (the
+    card idle before the first), the card's work left out."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def time_bf16_bodies(gen, bodies: dict, n, batch=SERVE_BATCH, heads: int = 12,
+                     others: tuple = ()) -> dict:
+    """K1's bf16 bodies at one N <= TMA_MAX_SEQ, hd 64: the persistent body
+    (what the launcher runs there) held against the plain version (2e-2,
+    and :func:`same_rounding`) and by :func:`same_rounding` against the
+    register body ("regs" of ``bodies``) on the same inputs, and timed in
+    turns with it (persistent, regs, ``others``..., the same backwards; the
+    mean of each one's two :func:`device_ms`), each aid of ``others``
+    ("smem", "long") held against the plain version too; beside SDPA, the
+    bound, a single call's ``time_ms`` (``call_ms``, the host's issue
+    included) and, at batch 8, each of the persistent and the register
+    body's host microseconds to enqueue a call."""
+    from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
+    from pevit_tpu_torch.tools.attention_bodies import device_ms, launching
 
     q, k, v = qkv_bf16(gen, batch, n, heads, 64)
     t = lambda x: x.transpose(1, 2)
     want = t(attention_ref(t(q), t(k), t(v)))
-    row = {"shape": f"B*H={batch}*{heads} N={n} hd=64"}
-    for name, kernel in bodies.items():
-        with launching(kernel):
-            row[f"{name}_max_abs_err"] = check_close(f"attention_fwd {name} body N={n}",
-                                                     attention_fwd(q, k, v), want, 2e-2, 2e-2)
-    order = ["register", *bodies]
+    plan = launch_plan(batch, n, heads, 64, torch.bfloat16)
+    what = f"attention_fwd {plan.body}<{plan.keys}> N={n} batch {batch}"
+    got = attention_fwd(q, k, v)
+    row = {"shape": f"B*H={batch}*{heads} N={n} hd=64", "dtype": "bfloat16", "body": plan.body,
+           "keys": plan.keys, "max_abs_err": check_close(what, got, want, 2e-2, 2e-2)}
+    outs = {}
+    for name in ("regs", *others):
+        with launching(bodies[name]):
+            outs[name] = attention_fwd(q, k, v)
+        row[f"{name}_max_abs_err"] = check_close(f"attention_fwd {name} body N={n}",
+                                                 outs[name], want, 2e-2, 2e-2)
+    row["ulps_against"] = same_rounding(what, got, {"plain": want, "regs": outs["regs"]})
+    order = ["tma", "regs", *others]
     turns = {name: [] for name in order}
     for name in order + order[::-1]:
         with launching(bodies[name]) if name in bodies else contextlib.nullcontext():
-            turns[name].append(time_ms(lambda: attention_fwd(q, k, v)))
+            turns[name].append(device_ms(lambda: attention_fwd(q, k, v)))
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
-    return {**row, **{f"{name}_ms": statistics.mean(ms) for name, ms in turns.items()},
-            "turns_ms": turns,
-            "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, scale=1.0))}
+    row.update({"ms": statistics.mean(turns["tma"]),
+                **{f"{name}_ms": statistics.mean(turns[name]) for name in order[1:]},
+                "turns_ms": turns, "regs_over_tma": statistics.mean(turns["regs"])
+                / statistics.mean(turns["tma"]),
+                "call_ms": time_ms(lambda: attention_fwd(q, k, v)),
+                "plain_ms": time_ms(lambda: t(attention_ref(t(q), t(k), t(v))), reps=5),
+                "library_ms": device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, scale=1.0)),
+                **bound_fields(8 * batch * heads * n * 64, 4 * batch * heads * n * n * 64,
+                               torch.bfloat16)})
+    if batch == 8:
+        row["enqueue_us"] = enqueue_us(lambda: attention_fwd(q, k, v))
+        with launching(bodies["regs"]):
+            row["regs_enqueue_us"] = enqueue_us(lambda: attention_fwd(q, k, v))
+    return row
 
 
 def check_fused_mlp(gen, dtype, c, rows, f: int = 0):
@@ -813,11 +880,11 @@ SMEM_SHAPES = ((50, 16, 256), (197, 16, 64), (257, 16, 64), (577, 16, 32), (640,
 
 def smem_body_at(n: int, heads: int, batch: int) -> str:
     """The body the "smem" aid runs at (N, hd 64): the launcher's, but the
-    shared-memory body where the launcher runs the register body."""
-    from pevit_tpu_torch.ops.attention import MAX_SEQ_REGS, launch_plan
+    shared-memory body where the launcher runs the persistent body."""
+    from pevit_tpu_torch.ops.attention import TMA_MAX_SEQ, launch_plan
 
-    return "bf16_smem" if n <= MAX_SEQ_REGS else launch_plan(batch, n, heads, 64,
-                                                             torch.bfloat16).body
+    return "bf16_smem" if n <= TMA_MAX_SEQ else launch_plan(batch, n, heads, 64,
+                                                            torch.bfloat16).body
 
 
 def check_smem_body(gen, bodies: dict) -> list:
@@ -827,12 +894,14 @@ def check_smem_body(gen, bodies: dict) -> list:
     :func:`bf16_ulp_diff`, which ``attention_ref``'s rounding point makes
     exact up to the sum's order) and by :func:`bf16_ulp_diff` against the
     three-walk body ("long") on the same inputs, and timed in turns (smem,
-    long, long, smem) beside the plain version, SDPA and its bound;
+    long, long, smem; the mean of each one's two :func:`device_ms`) beside
+    the plain version, SDPA (``device_ms`` too), its bound and a single
+    call's ``time_ms`` (``call_ms``, the host's issue included);
     ``launcher_body`` names the body the launcher runs at the shape.  Past
     the short ring's limit both run the three-walk body: the rows show the
     route."""
     from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
-    from pevit_tpu_torch.tools.attention_bodies import launching
+    from pevit_tpu_torch.tools.attention_bodies import device_ms, launching
 
     rows = []
     t = lambda x: x.transpose(1, 2)
@@ -857,7 +926,9 @@ def check_smem_body(gen, bodies: dict) -> list:
         turns = {"smem": [], "long": []}
         for name in ("smem", "long", "long", "smem"):
             with launching(bodies[name]):
-                turns[name].append(time_ms(lambda: attention_fwd(q, k, v)))
+                turns[name].append(device_ms(lambda: attention_fwd(q, k, v)))
+        with launching(bodies["smem"]):
+            call = time_ms(lambda: attention_fwd(q, k, v))
         qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
         rows.append({"shape": f"B*H={batch}*{heads} N={n} hd={w}", "dtype": "bfloat16",
@@ -866,7 +937,8 @@ def check_smem_body(gen, bodies: dict) -> list:
                      "max_abs_err": err, "ulps_against": same,
                      "ms": statistics.mean(turns["smem"]),
                      "long_ms": statistics.mean(turns["long"]), "turns_ms": turns,
-                     "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(sdpa),
+                     "call_ms": call, "plain_ms": time_ms(plain, reps=5),
+                     "library_ms": device_ms(sdpa),
                      **bound_fields(8 * batch * heads * n * w, 4 * batch * heads * n * n * w,
                                     torch.bfloat16)})
         del q, k, v, outs, want, qh, kh, vh
@@ -1511,7 +1583,7 @@ def path_kernel_rows(gen, path: str, batches: dict) -> dict:
 
 
 def kernel_report(kernels, launches: dict, table: dict, body_rows: dict = None) -> list:
-    """The ``kernels`` line: launches summed over the paths of phases 6 to 16
+    """The ``kernels`` line: launches summed over the paths of phases 6 to 17
     (each read around its own run) and by body (each path's rows name the
     body its launches ran); the other numbers at the batch that launched the
     kernel most (the larger batch on a tie); every path's batches under
@@ -3060,8 +3132,11 @@ STREAM_SEED = 5
 # path handed the streamed orders
 STREAM_RIGHT = (650, 160, [(1e-3, 1e-4), (3e-4, 1e-2)], 2)
 # (b) full size: 28,000 images = 4.21 GB at the default 4.0 GB limit, bf16
-# batch 128 (218 steps of 128 and a tail of 96), a 64-image val split
-STREAM_FULL, STREAM_VAL = 28_000, 64
+# batch 128 (218 steps of 128 and a tail of 96), a 64-image val split, on a
+# seeded ViT-B/32 tower of half its depth (a cut for the time limit: the
+# split cannot shrink below the limit, the depth halves each epoch's card
+# work)
+STREAM_FULL, STREAM_VAL, STREAM_FULL_LAYERS = 28_000, 64, 6
 
 
 @contextlib.contextmanager
@@ -3096,11 +3171,12 @@ def noisy_split(prototypes, n: int, rng) -> tuple:
 
 
 def stream_batches(n_train: int, n_val: int, batch: int, chunk: int, epochs: int, dtype: str,
-                   trials: int = 1) -> dict:
-    """A streamed run's batches: ``epochs`` of full batches and a natural
-    tail (one of a single image skipped), eval chunks and a natural
-    remainder, each step and chunk one launch for the batch of ``trials``
-    at ``trials`` times the images."""
+                   trials: int = 1, layers: int = 12) -> dict:
+    """A streamed run's batches on a ViT-B/32 tower of ``layers`` blocks:
+    ``epochs`` of full batches and a natural tail (one of a single image
+    skipped), eval chunks and a natural remainder, each step and chunk one
+    launch a block for the batch of ``trials`` at ``trials`` times the
+    images."""
     train, evals = collections.Counter(), collections.Counter()
     train[trials * batch] += epochs * (n_train // batch)
     if n_train % batch > 1:
@@ -3108,7 +3184,7 @@ def stream_batches(n_train: int, n_val: int, batch: int, chunk: int, epochs: int
     evals[trials * chunk] += epochs * (n_val // chunk)
     if n_val % chunk:
         evals[trials * (n_val % chunk)] += epochs
-    return {"dtype": dtype, "train": +train, "evals": +evals, "layers": 12, "width": 768,
+    return {"dtype": dtype, "train": +train, "evals": +evals, "layers": layers, "width": 768,
             "tokens": 50, "fused_mlp": True, "fused_mlp_bwd": True}
 
 
@@ -3210,16 +3286,24 @@ def busy_ms(events) -> float:
 
 def stream_full(kernels, clip, prototypes, rng, card: str) -> tuple:
     """11b: a 4.21 GB bf16 split streams by the default rule: epochs of one
-    trial (after a warm-up) beside the preloaded path on the same split
-    held on the card, streamed, preloaded, preloaded, streamed; exact
-    launches, the split's bytes once and the card's peak allocation in the
-    first; the device idle share of a further streamed and preloaded
-    epoch."""
+    trial (after a warm-up) on a seeded ViT-B/32 tower of STREAM_FULL_LAYERS
+    blocks beside the preloaded path on the same split held on the card,
+    a streamed and a preloaded epoch, then a preloaded and a streamed one
+    under a CUDA-only profile (each side's rate the mean of its two, and
+    the plain epochs' ratio apart); exact launches, the split's bytes once
+    and the card's peak allocation in the first; each side's device idle
+    share from its profiled epoch."""
+    from pevit_tpu_torch.core import CLIPSpec, init_clip_params
+
     block, block_labels = noisy_split(prototypes, 1000, rng)
     reps = STREAM_FULL // len(block)
     images, labels = np.tile(block, (reps, 1, 1, 1)), np.tile(block_labels, reps)
     val, val_labels = noisy_split(prototypes, STREAM_VAL, rng)
-    task = make_task(clip, "bfloat16", 0.5)
+    full = CLIPSpec.vit_b32()
+    spec = dataclasses.replace(full, vision=dataclasses.replace(full.vision,
+                                                                layers=STREAM_FULL_LAYERS))
+    tower = init_clip_params(torch.Generator().manual_seed(STREAM_SEED), spec, device="cuda")
+    task = make_task(tower, "bfloat16", 0.5, spec=spec)
     hp = [(TRAIN_LR, TRAIN_WD)]
     limit = float(task.config.TPU.MAX_DEVICE_DATA_GB)
     if limit != 4.0 or images.nbytes <= limit * 1e9:
@@ -3249,7 +3333,7 @@ def stream_full(kernels, clip, prototypes, rng, card: str) -> tuple:
         peak = torch.cuda.max_memory_allocated() - base
     (runner,) = runners
     batches = stream_batches(STREAM_FULL, STREAM_VAL, TRAIN_BATCH, task.eval_chunk, 1,
-                             "bfloat16")  # one trial, one epoch
+                             "bfloat16", layers=STREAM_FULL_LAYERS)  # one trial, one epoch
     if launches != expected_launches(batches):
         raise AssertionError(f"streamed epoch launches {launches}, want "
                              f"{expected_launches(batches)}")
@@ -3268,20 +3352,26 @@ def stream_full(kernels, clip, prototypes, rng, card: str) -> tuple:
     def preloaded():
         return task.train_trials(hp, dev_images, dev_labels, val, val_labels, end_epoch=1)
 
-    # streamed, preloaded, preloaded, streamed: a host-bound epoch's time
-    # moves by up to a quarter between runs, so each side's mean of two is
-    # compared
-    p_seconds = [timed(preloaded), timed(preloaded)]
-    s_seconds.append(timed(streamed))
-    s_wall, s_busy = device_busy_ms(streamed)
+    # streamed, preloaded, then preloaded and streamed under a CUDA-only
+    # profile, which gives each side's idle share: a host-bound epoch's
+    # time moves by up to a quarter between runs, so each side's mean of
+    # its plain and its profiled epoch is compared (both sides pay the
+    # profiler alike; the plain epochs' ratio is kept beside it).  Two
+    # further plain epochs would cost ~45 s of the script's time limit
+    p_seconds = [timed(preloaded)]
     p_wall, p_busy = device_busy_ms(preloaded)
+    s_wall, s_busy = device_busy_ms(streamed)
+    p_seconds.append(p_wall / 1e3)
+    s_seconds.append(s_wall / 1e3)
     del dev_images, dev_labels
     s_mean, p_mean = float(np.mean(s_seconds)), float(np.mean(p_seconds))
-    out = {"images": STREAM_FULL, "split_gb": images.nbytes / 1e9, "limit_gb": limit,
+    out = {"images": STREAM_FULL, "layers": STREAM_FULL_LAYERS,
+           "split_gb": images.nbytes / 1e9, "limit_gb": limit,
            "launches": launches, "h2d_bytes": runner.h2d_bytes, "peak_card_bytes": peak,
            "streamed_images_per_s": STREAM_FULL / s_mean,
            "preloaded_images_per_s": STREAM_FULL / p_mean,
            "streamed_over_preloaded": p_mean / s_mean,
+           "plain_streamed_over_preloaded": p_seconds[0] / s_seconds[0],
            "streamed_seconds": s_seconds, "preloaded_seconds": p_seconds,
            "split_to_card_s": h2d_s, "last_loss": loss,
            "profiled": {"streamed": {"wall_ms": s_wall, "device_busy_ms": s_busy,
@@ -4344,7 +4434,7 @@ def tower_batches(spec, train: dict, evals: dict, fused_mlp_bwd: bool) -> dict:
 
 
 def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: tuple,
-                what: str, k1_body: tuple = ()) -> tuple:
+                what: str, k1_body: tuple = (), after=None) -> tuple:
     """The bf16 KAdaptation classifier on the tower ``clip`` through
     ``make_serving_fn`` on uint8 images: a K1 and a K2 launch a block a
     forward at each of ``batches``; logits and top-1 against the plain path
@@ -4352,8 +4442,9 @@ def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: t
     prototypes' features in batches of that size; images/s at the largest;
     K1's and K2's shares of a forward there from a CUDA-only profile (and,
     with ``k1_body``, the name parts of the K1 body every launch must run,
-    that body's time, which must be all of K1's).  Returns (summary,
-    launches, batches, prototypes)."""
+    that body's time, which must be all of K1's); with ``after``, its
+    result on (serving fn, the largest batch's images) as ``after``.
+    Returns (summary, launches, batches, prototypes)."""
     from pevit_tpu_torch.serve import make_serving_fn
 
     static, trainable, frozen, bn, preproc = build_classifier(
@@ -4390,6 +4481,8 @@ def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: t
     all_in_body(share, k1_body, f"{what} forward of {n}")
     summary = {"launches": launches, "vs_plain": checks, "forward_ms": ms,
                "images_per_s": n / ms * 1e3, "kernel_shares_of_forward": share}
+    if after is not None:
+        summary["after"] = after(serve, images)
     return (summary, launches, tower_batches(spec, {}, {b: 1 for b in batches}, False),
             prototypes)
 
@@ -4431,15 +4524,16 @@ def step_shares(task, data, k1_body: tuple = ()) -> dict:
 
 def tower_train(kernels, clip, spec, prototypes, rng, *, classes: int, n_train: int,
                 n_val: int, batch: int, shares: bool = False, grad_batch: int = 0,
-                k1_body: tuple = ()) -> tuple:
+                k1_body: tuple = (), after=None) -> tuple:
     """A bf16 KAdaptation run at ``batch`` (dropout 0.5): the steps of
     ``n_train`` images and one eval chunk of ``n_val`` through
     ``train_trials``, a K1, K2 and K3 launch a block a step (K1 and K2 also
     an eval chunk), the card's peak allocation; train images/s; with
     ``shares`` each kernel's share of a step (``step_shares``, ``k1_body``
     as there); first-step fp32 gradients against the plain path at phase
-    5's limits, at ``grad_batch`` images (``batch`` unless given).  Returns
-    (summary, launches, batches)."""
+    5's limits, at ``grad_batch`` images (``batch`` unless given); with
+    ``after``, its result on (task, data) as ``after``.  Returns (summary,
+    launches, batches)."""
     def noisy(n):
         labels = np.arange(n) % classes
         noise = rng.integers(-8, 9, (n,) + prototypes.shape[1:], dtype=np.int16)
@@ -4455,6 +4549,8 @@ def tower_train(kernels, clip, spec, prototypes, rng, *, classes: int, n_train: 
     summary = {**run, "peak_allocated_gb": peak / 1e9, "train_images_per_s": ips}
     if shares:
         summary["kernel_shares_of_a_step"] = step_shares(task, data, k1_body)
+    if after is not None:
+        summary["after"] = after(task, data)
     del task
     grad_batch = grad_batch or batch
     summary["first_step_grads"] = {**compare_grads(
@@ -4741,6 +4837,118 @@ def run_vith14(kernels, gen, card: str) -> tuple:
             time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# 17. CLIP ViT-B/16 in bf16 (N = 197): K1's persistent body on the path, and
+# against the register body end to end
+# ---------------------------------------------------------------------------
+
+B16_SEED = 19
+B16_CLASSES = 256  # = the served batch: one class an image
+B16_TRAIN_CLASSES = 100  # the trained task's head (make_task's), on the first 100 prototypes
+# 384 train images at batch 128 (3 steps, one epoch) and 64 val images (one
+# eval chunk), noisy copies of the prototypes; fp32 first-step gradients at
+# 16 images (the plain path's float32 logits and probabilities of 12 layers)
+B16_TRAIN, B16_VAL, B16_GRAD_BATCH = 384, 64, 16
+
+
+def k1_tma_body(keys: int) -> tuple:
+    """The name parts (demangled or mangled) of K1's persistent body built
+    for ``keys`` keys."""
+    return (f"attention_fwd_bf16_tma<{keys}>", f"attention_fwd_bf16_tmaILi{keys}E")
+
+
+def serving_turns(regs):
+    """``tower_serve``'s ``after``: the served batch's forward with the
+    launcher's K1 (the persistent body) and with the register body
+    (``regs``, phase 3's aid) in turns (persistent, register, register,
+    persistent): images/s, the mean of each one's two medians, and K1's
+    share of a forward under each from a CUDA-only profile."""
+    from pevit_tpu_torch.tools.attention_bodies import launching
+
+    def after(serve, images):
+        turns, shares = {"tma": [], "regs": []}, {}
+        for name in ("tma", "regs", "regs", "tma"):
+            with launching(regs) if name == "regs" else contextlib.nullcontext():
+                turns[name].append(time_ms(lambda: serve(images), reps=5))
+        for name in ("tma", "regs"):
+            with launching(regs) if name == "regs" else contextlib.nullcontext():
+                shares[name] = kernel_share(lambda: serve(images),
+                                            {"attention_fwd": KERNEL_GROUPS["attention_fwd"]})
+        n = len(images)
+        return {"forward_ms_turns": turns,
+                "images_per_s": {k: n / statistics.mean(v) * 1e3 for k, v in turns.items()},
+                "k1_share_of_forward": {k: v["attention_fwd_share"] for k, v in shares.items()},
+                "k1_ms_of_forward": {k: v["attention_fwd_ms"] for k, v in shares.items()},
+                "busy_ms_of_forward": {k: v["busy_ms"] for k, v in shares.items()}}
+    return after
+
+
+def training_turns(regs):
+    """``tower_train``'s ``after``: train images/s (``train_throughput``)
+    with the persistent body and with the register body in turns, as
+    :func:`serving_turns`."""
+    from pevit_tpu_torch.tools.attention_bodies import launching
+
+    def after(task, data):
+        turns = {"tma": [], "regs": []}
+        for name in ("tma", "regs", "regs", "tma"):
+            with launching(regs) if name == "regs" else contextlib.nullcontext():
+                turns[name].append(train_throughput(task, data))
+        return {"images_per_s_turns": turns,
+                "images_per_s": {k: statistics.mean(v) for k, v in turns.items()}}
+    return after
+
+
+def run_vitb16(kernels, gen, card: str, regs) -> tuple:
+    """Phase 17: CLIP ViT-B/16 (``vitb16_CLIP.yaml``: 12 x 768, patch 16, N
+    = 197) at full width and depth from seeded weights, every K1 launch on
+    the persistent body (the launch plan at every batch, and the CUDA-only
+    profiles of a forward and a train step, whose K1 time is all that
+    body's): the bf16 KAdaptation classifier served at batch 256 (12 K1 and
+    12 K2 a forward, top-1 against the plain path, images/s, K1's share of
+    a forward) and trained at batch 128 (3 steps and one eval chunk; 12 K1,
+    K2 and K3 a step; fp32 first-step gradients at 16 images within 1e-3 of
+    each leaf's largest |g|); serving and train images/s and K1's share of
+    a forward with the persistent body and with the register body
+    (``regs``, phase 3's aid) in turns; then every kernel against its plain
+    version at each batch each path gave it."""
+    from pevit_tpu_torch.core import CLIPSpec, init_clip_params
+    from pevit_tpu_torch.ops.attention import launch_plan
+
+    t0 = time.perf_counter()
+    spec = CLIPSpec.from_config(aux_config("vitb16_CLIP.yaml"))
+    v = spec.vision
+    if (v.width, v.layers, v.heads, v.patch_size, v.seq_len) != (768, 12, 12, 16, 197):
+        raise AssertionError(f"CLIP ViT-B/16 spec {spec}")
+    plans = {b: launch_plan(b, v.seq_len, v.heads, v.width // v.heads, torch.bfloat16)
+             for b in (SERVE_BATCH, TRAIN_BATCH, B16_VAL)}
+    if {(p.body, p.keys) for p in plans.values()} != {("bf16_tma", 200)}:
+        raise AssertionError(f"K1 at N = {v.seq_len} runs {plans}, want the persistent body")
+    body = k1_tma_body(200)
+    clip = init_clip_params(torch.Generator().manual_seed(B16_SEED), spec, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "tokens": v.seq_len, "k1_body": body[0]}
+    rng = np.random.default_rng(B16_SEED)
+    out["serve"], serve_launches, serve_batches, prototypes = tower_serve(
+        kernels, clip, spec, rng, seed=B16_SEED, classes=B16_CLASSES, batches=(SERVE_BATCH,),
+        what="CLIP ViT-B/16", k1_body=body, after=serving_turns(regs))
+    out["train"], train_launches, train_batches = tower_train(
+        kernels, clip, spec, prototypes, rng, classes=B16_TRAIN_CLASSES, n_train=B16_TRAIN,
+        n_val=B16_VAL, batch=TRAIN_BATCH, shares=True, grad_batch=B16_GRAD_BATCH,
+        k1_body=body, after=training_turns(regs))
+    print(f"vitb16: {json.dumps(out)} [{card}]", flush=True)
+    del clip
+    torch.cuda.empty_cache()
+    table = path_kernel_rows(gen, "vitb16_serve", serve_batches)
+    for name, rows_ in path_kernel_rows(gen, "vitb16_train", train_batches).items():
+        table[name] += rows_
+    for name, rows_ in table.items():
+        for r in rows_:
+            print(f"vitb16 kernel {name} {json.dumps(r)} [{card}]", flush=True)
+    return ({"vitb16_serve": serve_launches, "vitb16_train": train_launches}, table,
+            time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a CUDA card",
@@ -4805,11 +5013,15 @@ def main() -> int:
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)
-    # K1's bf16 bodies where all three run: the launcher takes the register
-    # body up to MAX_SEQ_REGS
-    for n in (50, 197, 257):
-        print(f"kernel attention_fwd bf16 bodies {json.dumps(time_bf16_bodies(gen, bodies, n))}"
-              f" [{card}]", flush=True)
+    # K1's persistent body against the register body at every N <= 257 row
+    # of attention_bodies.SHAPES, and beside the shared-memory and three-walk
+    # bodies at the serving batch
+    body_rows = []
+    for n, heads, batch in tma_rows():
+        others = ("smem", "long") if batch == SERVE_BATCH else ()
+        body_rows.append(time_bf16_bodies(gen, bodies, n, batch, heads, others))
+        print(f"kernel attention_fwd bf16 bodies {json.dumps(body_rows[-1])} [{card}]",
+              flush=True)
     idle = [r["shape"] for rows_ in table.values() for r in rows_
             if r["dtype"] == "float32" and not r["tf32_engaged"]]
     if idle:
@@ -4826,7 +5038,6 @@ def main() -> int:
     smem_rows = check_smem_body(gen, bodies)
     for r in smem_rows:
         print(f"kernel smem body {json.dumps(r)} [{card}]", flush=True)
-    bodies_dir.cleanup()
     print(f"phase 3c: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. serving
@@ -4962,15 +5173,24 @@ def main() -> int:
     h14_launches, h14_table, seconds = run_vith14(KERNELS, gen, card)
     print(f"phase 16: {seconds:.1f} s", flush=True)
 
-    # 17. report
+    # 17. CLIP ViT-B/16 in bf16: K1's persistent body on the path, against
+    # the register body (phase 3's aid) in turns
+    b16_launches, b16_table, seconds = run_vitb16(KERNELS, gen, card, bodies["regs"])
+    bodies_dir.cleanup()
+    print(f"phase 17: {seconds:.1f} s", flush=True)
+
+    # 18. report (the register body, on no path, with phase 3's rows)
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
                 **aux_launches, **stream_launches, **trial_launches_, **axis_launches,
-                **mesh_launches, **l336_launches, **h14_launches}
+                **mesh_launches, **l336_launches, **h14_launches, **b16_launches}
     table = {name: command_table[name] + entry_table[name] + base_table[name]
              + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
              + axis_table[name] + mesh_table[name] + l336_table[name] + h14_table[name]
-             for name in command_table}
-    report = kernel_report(KERNELS, launches, table, {"attention_fwd": smem_rows})
+             + b16_table[name] for name in command_table}
+    regs_rows = [{**r, "body": "bf16_regs", "max_abs_err": r["regs_max_abs_err"],
+                  "ms": r["regs_ms"]} for r in body_rows if r["shape"].startswith(
+                      f"B*H={SERVE_BATCH}*")]
+    report = kernel_report(KERNELS, launches, table, {"attention_fwd": smem_rows + regs_rows})
     print(f"script: {time.perf_counter() - start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": report}))

@@ -40,20 +40,23 @@ KERNEL = Kernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
     replaces="pevit_tpu/ops/attention.py:40",
 )
-# every N >= 1 and every hd from 1 to MAX_HEAD_DIM is taken.  bf16 runs its
-# register body (one block per (batch, head), S rows in registers) up to
-# MAX_SEQ_REGS tokens at hd <= REG_WIDTH, there its body with the S tile in
-# shared memory (a block per (batch, head, 64-query tile)) up to
-# SMEM_MAX_SEQ tokens, the same body with a shorter ring up to
-# SMEM2_MAX_SEQ, and its three-walk long body otherwise; fp32 runs one
-# body.  The long body and fp32 launch a block per (batch, head, 64-query
-# tile, chunk of at most COLUMN_CHUNK output columns).  A body is built for
-# a head width of BODY_WIDTHS (hd rounded up; the kernel stages the columns
-# past hd as zeros), and the kernel takes hd in whole 16-byte chunks: the
-# wrapper zero-pads any other hd, as the reference pads hd to a multiple of
-# 8.  The launchers count the grid's blocks in a 32-bit int; every pointer
-# offset is 64-bit
-MAX_SEQ_REGS = 257
+# every N >= 1 and every hd from 1 to MAX_HEAD_DIM is taken.  bf16 at hd <=
+# REG_WIDTH runs its persistent body (one block an SM walking the (batch,
+# head)s, S rows in wgmma's accumulators) up to TMA_MAX_SEQ tokens, there
+# its body with the S tile in shared memory (a block per (batch, head,
+# 64-query tile)) up to SMEM_MAX_SEQ tokens, the same body with a shorter
+# ring up to SMEM2_MAX_SEQ, and its three-walk long body otherwise; its
+# register body (a block per (batch, head)) takes N <= MAX_SEQ_REGS, which
+# is 0: no shape, and phase 3 of chip_smoke.py times it in turns from a copy
+# of the source with the ceiling raised.  fp32 runs one body.  The long body
+# and fp32 launch a block per (batch, head, 64-query tile, chunk of at most
+# COLUMN_CHUNK output columns).  A body is built for a head width of
+# BODY_WIDTHS (hd rounded up; the kernel stages the columns past hd as
+# zeros), and the kernel takes hd in whole 16-byte chunks: the wrapper
+# zero-pads any other hd, as the reference pads hd to a multiple of 8.  The
+# launchers count the grid's blocks (the persistent body its work items, B
+# * H) in a 32-bit int; every pointer offset is 64-bit
+MAX_SEQ_REGS = 0
 REG_WIDTH = 64
 BODY_WIDTHS = (64, 80, 96, 128, 256)
 MAX_HEAD_DIM = BODY_WIDTHS[-1]
@@ -61,8 +64,17 @@ COLUMN_CHUNK = 128
 QUERY_TILE = 64
 MAX_BLOCKS = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the longest N of the persistent body, the key counts its S rows are built
+# for (N rounded up to the next), and its consumer warpgroups a block, as
+# csrc/attention_fwd.cu sets them
+TMA_MAX_SEQ = 257
+TMA_KEYS = (56, 64, 128, 200, 264)
+TMA_CONSUMERS = 2
+# the SMs of an H100 SXM: the persistent body's grid in launch_plan, one
+# block an SM (the launcher asks the device for its count)
+H100_SMS = 132
 # the longest N of the bf16 body with the S tile in shared memory (hd <=
-# REG_WIDTH, past MAX_SEQ_REGS) with its ring of four stages, and with its
+# REG_WIDTH, past TMA_MAX_SEQ) with its ring of four stages, and with its
 # ring of two (past SMEM_MAX_SEQ), as csrc/attention_fwd.cu sets them
 SMEM_MAX_SEQ = 640
 SMEM2_MAX_SEQ = 768
@@ -70,23 +82,25 @@ SMEM2_MAX_SEQ = 768
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How the kernel runs one call: ``body`` ("bf16_regs", "bf16_smem",
-    "bf16_smem2" (the short ring), "bf16_long" or "f32"), the head width
-    ``width`` its instantiation is built for, the head width ``hd`` it is
-    handed (the caller's, or zero-padded to whole 16-byte chunks) and its
-    grid's ``blocks``."""
+    """How the kernel runs one call: ``body`` ("bf16_tma" (the persistent
+    body), "bf16_regs", "bf16_smem", "bf16_smem2" (the short ring),
+    "bf16_long" or "f32"), the head width ``width`` its instantiation is
+    built for, the head width ``hd`` it is handed (the caller's, or
+    zero-padded to whole 16-byte chunks), its grid's ``blocks`` and, for the
+    persistent body, the key count ``keys`` of its instantiation (else 0)."""
 
     body: str
     width: int
     hd: int
     blocks: int
+    keys: int = 0
 
 
 def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
     """The body, instantiation, padded head width and grid of a launch on
-    (B, N, H, hd) tensors of ``dtype``, as ``csrc/attention_fwd.cu``'s
-    launcher chooses them; raises :class:`KernelInputError` on a shape it
-    cannot take."""
+    (B, N, H, hd) tensors of ``dtype`` on an H100 SXM, as
+    ``csrc/attention_fwd.cu``'s launcher chooses them; raises
+    :class:`KernelInputError` on a shape it cannot take."""
     if dtype not in _DTYPE_CODES:
         raise KernelInputError(f"attention kernel takes {list(_DTYPE_CODES)}, got {dtype}")
     if B < 1 or H < 1 or N < 1:
@@ -96,8 +110,11 @@ def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
     chunk = 4 if dtype == torch.float32 else 8  # elements in 16 bytes
     padded = -(-hd // chunk) * chunk
     width = next(w for w in BODY_WIDTHS if w >= padded)
+    keys, items = 0, B * H
     if dtype == torch.bfloat16 and N <= MAX_SEQ_REGS and padded <= REG_WIDTH:
-        body, blocks = "bf16_regs", B * H
+        body, blocks = "bf16_regs", items
+    elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= TMA_MAX_SEQ:
+        body, blocks, keys = "bf16_tma", min(H100_SMS, items), next(k for k in TMA_KEYS if k >= N)
     elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM_MAX_SEQ:
         body, blocks = "bf16_smem", B * H * -(-N // QUERY_TILE)
     elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM2_MAX_SEQ:
@@ -106,10 +123,11 @@ def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
         body = "bf16_long" if dtype == torch.bfloat16 else "f32"
         columns = min(width, COLUMN_CHUNK)
         blocks = B * H * -(-N // QUERY_TILE) * -(-padded // columns)
-    if blocks > MAX_BLOCKS:
-        raise KernelInputError(f"attention kernel takes at most {MAX_BLOCKS} blocks, got {blocks} "
+    units = items if keys else blocks  # the persistent body counts its (batch, head)s
+    if units > MAX_BLOCKS:
+        raise KernelInputError(f"attention kernel takes at most {MAX_BLOCKS} blocks, got {units} "
                                f"(B={B}, H={H}, N={N}, hd={hd}, {dtype})")
-    return LaunchPlan(body, width, padded, blocks)
+    return LaunchPlan(body, width, padded, blocks, keys)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,15 @@
 // shared-memory body K and V by TMA boxes, q straight into registers), and
 // take q, k and v with (batch, token, head) strides, so the wrapper passes
 // (B, N, H, hd) views of the packed qkv projection without copies.  Every
-// N >= 1 is taken: the dtype picks the body, and in bf16 N and hd do (the
-// register body up to N = 257 at hd <= 64, where it is the faster; at hd
-// <= 64 the body with the S tile in shared memory from 258 up to 640
-// tokens, where its tile fits beside a ring of four stages, and up to 768
-// with a ring of two; the three-walk long body otherwise), chosen by shape;
-// no body falls back to another.
+// N >= 1 is taken: the dtype picks the body, and in bf16 N and hd do (at
+// hd <= 64 the persistent body up to N = 257; the body with the S tile in
+// shared memory from 258 up to 640 tokens, where its tile fits beside a
+// ring of four stages, and up to 768 with a ring of two; the three-walk
+// long body otherwise), chosen by shape; no body falls back to another.
+// The register body takes N <= MAX_SEQ_REGS, which is 0: the persistent
+// body is faster at every shape timed (chip_smoke.py phase 3), and the
+// register body stays only as the yardstick it is timed against there, in
+// a copy of this source with the ceiling raised.
 //
 // Head widths.  The reference takes any hd (it pads hd to a multiple of 8
 // for its lanes).  Here every body is built for a head width W, hd rounded
@@ -46,8 +49,9 @@
 // bytes, an odd number of 16-byte chunks, so that 8 consecutive rows'
 // chunks of one column still meet 8 distinct bank groups (Tile below).
 //
-// bfloat16 register body, N <= 257, hd <= 64 (tensor cores): one block per
-// (batch, head), which reads the head's rows of q, k and v exactly once.
+// bfloat16 register body, N <= MAX_SEQ_REGS (0; up to 257 in phase 3's
+// copy), hd <= 64 (tensor cores): one block per (batch, head), which reads
+// the head's rows of q, k and v exactly once.
 // Bytes bound the kernel at these lengths, so the design aims to keep the
 // arithmetic off the critical path and the loads wide:
 //   * staging: q, k and v rows (128 bytes each at W = 64) go to shared
@@ -71,6 +75,47 @@
 // is rounded up to one of four instantiations (NP = 64, 128, 208, 272),
 // and no more fit: a longer row of S does not, nor a wider head's
 // fragments beside it.
+//
+// bfloat16 persistent body, N <= 257, hd <= 64 (Hopper's TMA, wgmma,
+// mbarriers and setmaxnreg), for the S rows that fit a warpgroup's wgmma
+// accumulators: 64 query rows by up to 264 keys is 132 floats a thread.
+// What bounds it: bytes at N = 50 (q, k, v and out once each: 0.0235 ms at
+// batch 256 x 12 heads), each SM's issue slots above (a logit takes the
+// row max, s - m, expf, the sum, the correctly rounded quotient's three
+// instructions and half a pack; the tensor cores' products are the
+// smaller part).  The design
+// against the register body's losses (a block of 4 warps a head that
+// loads, waits, then computes; 2 blocks an SM; a division a logit):
+//   * persistent: one block an SM walks the (batch, head) items, items
+//     blockIdx.x + i gridDim.x, so a block's loads and products overlap
+//     across items and its start-up is paid once;
+//   * warp-specialised: warpgroup 0 gives up its registers (setmaxnreg 24)
+//     and one of its threads issues each item's TMA boxes (its query tiles
+//     of 64 rows, its K and V rows, tokens past N and columns past hd
+//     zero-filled: a zero v row keeps p = 0 from meeting garbage) into a
+//     ring of full / empty mbarriers, as many stages as 227 KB hold (two at
+//     200 and 264 keys, eight at 56); two consumer warpgroups take the
+//     rest (setmaxnreg 240) and the item's query tiles in turn (at N <= 64
+//     each its own items), so one's softmax runs beside the other's
+//     products and waits;
+//   * S = Q K^T by wgmma with q and K from shared memory (products of at
+//     most 128 keys, the descriptors formed where they are issued so that
+//     none is held across the softmax), in the accumulators, which hold a
+//     lane's keys as mma.sync's do: the row max, the sum in the register
+//     body's order (a lane's columns, then the quad), e = expf(s - m) once,
+//     p = e / l correctly rounded (1 / l once a row and the Markstein
+//     residual a logit) and packed to bf16 as P V's A fragments: the
+//     register body's numbers bit for bit (phase 3 counts the elements that
+//     differ);
+//   * keys past N masked only in the 8-key groups at or past the next
+//     smaller instantiation's key count (N exceeds it), instantiations at
+//     56, 64, 128, 200 and 264 keys (N = 50, 197, 257 take 56, 200, 264);
+//   * O = P V by wgmma (V as it lies, MN-major), rounded once, staged in
+//     the tile's own q rows and stored in 16-byte chunks.
+// Measured and not taken (PERF.md, section 6): the consumers taking turns at
+// the tensor cores on named barriers (slower: one warpgroup's softmax
+// alone leaves the issue slots idle), three consumers (they spill at 200
+// and 264 keys and gain at most a few percent below).
 //
 // bfloat16 long body, hd > 64 or N > 768 (tensor cores, the same mma.sync,
 // ldmatrix, tiles and output staging as the register body).  The rounding
@@ -104,7 +149,7 @@
 // items of 128 keys) in shared memory: at most 640 keys beside the K / V
 // ring and the row statistics in 227 KB (768 beside a shorter ring).  It
 // is built for hd <= 64 (W = 64), where CLIP ViT-L/14 at 336 px and
-// ViT-H/14 at 378 px run it, past the register body's 257 tokens: no configuration runs bf16 attention with wider heads (CLIP's
+// ViT-H/14 at 378 px run it, past the persistent body's 257 tokens: no configuration runs bf16 attention with wider heads (CLIP's
 // heads are 64 wide, the auxiliary backbones run in float32), so those keep
 // the three-walk body.  One Q K^T and one
 // expf a logit, both products on wgmma, the numeric contract of the
@@ -175,7 +220,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include "tf32x3.cuh"
@@ -186,8 +233,10 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int QROWS = WARPS * 16;  // query rows a block (the fp32 and the long bf16 body)
-// the longest sequence the bf16 register body takes (its S row in registers)
-constexpr int MAX_SEQ_REGS = 257;
+// the longest sequence the bf16 register body takes (its S row in
+// registers): none, the persistent body takes them (a copy of this source
+// with 257 here is phase 3's yardstick)
+constexpr int MAX_SEQ_REGS = 0;
 constexpr int REG_WIDTH = 64;      // the one head width the register body is built for
 constexpr int MAX_HD = 256;
 constexpr int COL_CHUNK = 128;     // output columns a query-tiled block computes, at most
@@ -603,7 +652,7 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // bfloat16 body with the S tile in shared memory (wgmma), hd <= 64:
-// MAX_SEQ_REGS < N <= SMEM_MAX_SEQ with a ring of RING stages, up to
+// TMA_MAX_SEQ < N <= SMEM_MAX_SEQ with a ring of RING stages, up to
 // SMEM2_MAX_SEQ with a ring of SHORT_RING
 // ---------------------------------------------------------------------------
 
@@ -667,8 +716,11 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 // copy; each completes on its stage's mbarrier for the warpgroup.  One
 // thread issues a warpgroup's boxes, so no thread spends issue slots on
 // addresses or copies
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
@@ -1005,6 +1057,464 @@ attention_fwd_bf16_smem(const SmemArgs a, const __grid_constant__ CUtensorMap km
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 persistent body (wgmma, TMA, warp-specialised), hd <= 64,
+// MAX_SEQ_REGS < N <= TMA_MAX_SEQ
+// ---------------------------------------------------------------------------
+
+// the longest N of the persistent body (ops/attention.py mirrors it)
+constexpr int TMA_MAX_SEQ = 257;
+// the key counts the body is built for (ops/attention.py mirrors them): N
+// rounded up to the next
+constexpr int TMA_KEYS[] = {56, 64, 128, 200, 264};
+// consumer warpgroups a block (a third leaves too few registers for S at
+// 200 keys and more), and setmaxnreg's counts: the producer's least, the
+// consumers' the rest of an SM's 65,536 registers (a multiple of 8, at
+// most 240)
+constexpr int CONSUMERS = 2;
+constexpr int TMA_THREADS = (1 + CONSUMERS) * THREADS;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_FIT = (65536 - PRODUCER_REGS * THREADS) / (CONSUMERS * THREADS) / 8 * 8;
+constexpr int CONSUMER_REGS = CONSUMER_FIT < 240 ? CONSUMER_FIT : 240;
+
+// wgmma m64nNk16, A and B K-major in shared memory (the 128-byte swizzle),
+// float32 accumulators d (N / 2 a thread); ACC: add to d, else d = A B
+template <int N, bool ACC>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8, false>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8, true>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16, false>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16, true>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, false>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, true>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, false>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, true>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128, false>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]),
+        "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]),
+        "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]),
+        "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128, true>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+// S = Q K^T of a query tile over keys [OFF, NK), NK a multiple of 8: one
+// wgmma of at most 128 keys after another into s's columns, q's descriptor
+// da, dk the descriptor of K's row 0.  A descriptor's low bits hold its
+// address / 16, so an offset into the tile is added to it (the callers
+// form da and dk where the products are issued, so that no descriptor is
+// held in registers across the softmax)
+template <int NK, bool ACC, int OFF = 0>
+__device__ __forceinline__ void qk_product(float (&s)[NK / 2], uint64_t da, uint64_t dk) {
+  if constexpr (OFF < NK) {
+    constexpr int R = NK - OFF;
+    constexpr int C = R >= 128 ? 128 : R >= 64 ? 64 : R >= 32 ? 32 : R >= 16 ? 16 : 8;
+    wgmma_ss<C, ACC>(s + OFF / 2, da, dk + OFF * 128 / 16);
+    qk_product<NK, ACC, OFF + C>(s, da, dk);
+  }
+}
+
+// The persistent body's layout for S rows of NK keys (N <= NK, a multiple
+// of 8): a stage holds an item's (a (batch, head)'s) query tiles, then its
+// K rows and its V rows padded to P V's k-steps of 16 (NKP), 128 bytes a
+// row in the 128-byte swizzle; as many stages as 227 KB hold, at most 8;
+// then a full and an empty mbarrier a stage
+// the largest key count the body is built for below nk (0 for the first)
+constexpr int keys_below(int nk) {
+  int below = 0;
+  for (int k : TMA_KEYS) below = k < nk ? k : below;
+  return below;
+}
+
+template <int NK>
+struct TmaBody {
+  static constexpr int W = REG_WIDTH;
+  // N > keys_below(NK): the keys below it are all below N, unmasked
+  static constexpr int MASK_FROM = keys_below(NK) / 8 * 8;
+  static constexpr int QT = (NK + QROWS - 1) / QROWS;       // query tiles an item, at most
+  static constexpr int NKP = (NK + 15) / 16 * 16;           // K and V rows a stage
+  static constexpr int KV_BOX = NKP <= 256 ? NKP : NKP / 2;  // a TMA box's rows: at most 256
+  static constexpr int Q_BYTES = QT * QROWS * 128;
+  static constexpr int KV_BYTES = NKP * 128;
+  static constexpr int STAGE = Q_BYTES + 2 * KV_BYTES;
+  static constexpr int SLACK = 1024;                         // the ring's 1024-byte alignment
+  static constexpr int FIT = (SMEM_BUDGET - SLACK) / (STAGE + 16);
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr size_t SMEM = SLACK + (size_t)STAGES * (STAGE + 16);
+  static_assert(NK % 8 == 0 && NK <= 272 && NKP % KV_BOX == 0 && KV_BOX % 8 == 0, "NK");
+  static_assert(STAGES >= 2 && SMEM <= SMEM_BUDGET, "two stages fit");
+};
+
+// The arguments of a launch of the persistent body but its tensor maps
+struct TmaArgs {
+  bf16* out;
+  int H, N, hd, items;  // items: B * H
+};
+
+// One block an SM walks items blockIdx.x, blockIdx.x + gridDim.x, ... (an
+// item a (batch, head): item = b H + h) in order, and its warpgroups walk
+// them together.  Warpgroup 0 is the producer: it gives up its registers
+// (setmaxnreg) and one thread issues each item's TMA boxes (its query
+// tiles, its K and V rows; tokens past N and columns past hd come in as
+// zeros) into the ring, ahead of the consumers wherever a stage is free.
+// The CONSUMERS warpgroups after it take the query tiles of the walk in
+// turn, tile k of the block's walk to consumer k % CONSUMERS (at N <= 64 an
+// item holds one tile, so each takes its own items; above, they split an
+// item's tiles; tests/test_torch_attention_tma.py mirrors the walk).  For
+// a tile a consumer computes
+//   S = Q K^T (wgmma, q and K from shared memory; the 64 x NK float32 tile
+//     in its accumulators, NK / 2 a thread), the keys past N at -inf;
+//   the exact row max and the float32 row sum of e = exp(s - m) by quad
+//     shuffles (a lane holds rows g and g + 8 of its warp's 16, keys 8j +
+//     2t and + 1 as mma.sync's accumulators hold them, so the sum runs in
+//     the register body's order);
+//   p = e / l correctly rounded (1 / l rounded once a row, then a product
+//     and its Markstein residual a logit), rounded to bf16 straight into
+//     wgmma's A fragments;
+//   O = P V (wgmma, P from registers, V from shared memory as it lies:
+//     MN-major), rounded once, staged in the tile's own q rows and stored
+//     in 16-byte chunks, rows past N and columns past hd left out.
+// A consumer waits for every item (its full mbarrier) and, done with its
+// tiles, releases the stage (the empty mbarrier, a warp's arrival each).
+// The consumers run free of each other: turns at the tensor cores on named
+// barriers, one's softmax beside the other's products, were slower
+// (PERF.md, section 6).
+template <int NK>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+attention_fwd_bf16_tma(const TmaArgs a, const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap) {
+  typedef TmaBody<NK> L;
+  constexpr int ST = L::STAGES, KT = L::NKP / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t ring = aligned_smem(smem);
+  unsigned char* ring_p = smem + (ring - smem_u32(smem));
+  const uint32_t full = ring + ST * L::STAGE, empty = full + 8 * ST;
+  const int N = a.N, H = a.H;
+  const int q_tiles = (N + QROWS - 1) / QROWS;
+  const int wg = threadIdx.x / THREADS, tid = threadIdx.x % THREADS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s);
+      mbar_init(empty + 8 * s, CONSUMERS * WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid != 0) return;
+    const uint32_t bytes = q_tiles * QROWS * 128 + 2 * L::KV_BYTES;
+    int it = 0;
+    for (int item = blockIdx.x; item < a.items; item += gridDim.x, ++it) {
+      const int s = it % ST, use = it / ST;
+      if (use > 0) mbar_wait(empty + 8 * s, (use - 1) & 1);  // the consumers are done with it
+      const int b = item / H, h = item - b * H;
+      const uint32_t st = ring + s * L::STAGE, bar = full + 8 * s;
+      mbar_expect(bar, bytes);
+      for (int t = 0; t < q_tiles; ++t) tma_box(st + t * QROWS * 128, qmap, bar, 0, h, t * QROWS, b);
+#pragma unroll
+      for (int r = 0; r < L::NKP; r += L::KV_BOX) {
+        tma_box(st + L::Q_BYTES + r * 128, kmap, bar, 0, h, r, b);
+        tma_box(st + L::Q_BYTES + L::KV_BYTES + r * 128, vmap, bar, 0, h, r, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = wg - 1;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int row0 = warp * 16 + (lane >> 2), row1 = row0 + 8;  // a lane's rows of a tile
+  int k = 0, it = 0;
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x, ++it) {
+    const int s = it % ST;
+    mbar_wait(full + 8 * s, (it / ST) & 1);
+    const int b = item / H, h = item - b * H;
+    const uint32_t st = ring + s * L::STAGE;
+    const uint32_t ks = st + L::Q_BYTES, vs = ks + L::KV_BYTES;
+    for (int qt = 0; qt < q_tiles; ++qt, ++k) {
+      if (k % CONSUMERS != c) continue;
+      const uint32_t qs = st + qt * QROWS * 128;
+
+      // S = Q K^T
+      float sc[NK / 2];
+      uint64_t dq = wgmma_desc(qs), dk = wgmma_desc(ks);
+      asm volatile("" : "+l"(dq), "+l"(dk));
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      qk_product<NK, false>(sc, dq, dk);
+#pragma unroll
+      for (int kk = 1; kk < L::W / 16; ++kk)  // 32 bytes a k-step of 16
+        qk_product<NK, true>(sc, dq + kk * 2, dk + kk * 2);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < NK / 2; ++i) fence_operand(sc[i]);
+
+      // the softmax: keys past N at -inf (only keys from MASK_FROM on may
+      // be), the exact row max, e = exp(s - m) once, the float32 row sum
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j) {
+        if (8 * j >= L::MASK_FROM) {
+          const int col = 8 * j + 2 * t;
+          if (col >= N) sc[4 * j] = sc[4 * j + 2] = -INFINITY;
+          if (col + 1 >= N) sc[4 * j + 1] = sc[4 * j + 3] = -INFINITY;
+        }
+        m0 = fmaxf(m0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        m1 = fmaxf(m1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      m0 = quad_max(m0);  // every row holds a key < N: finite
+      m1 = quad_max(m1);
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j) {
+        sc[4 * j] = expf(sc[4 * j] - m0);
+        sc[4 * j + 1] = expf(sc[4 * j + 1] - m0);
+        sc[4 * j + 2] = expf(sc[4 * j + 2] - m1);
+        sc[4 * j + 3] = expf(sc[4 * j + 3] - m1);
+        l0 += sc[4 * j] + sc[4 * j + 1];
+        l1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      const float rl0 = __frcp_rn(l0), rl1 = __frcp_rn(l1);
+      // p of 16-key step kt: keys 16kt + 2t.. and 16kt + 8 + 2t.. of rows
+      // row0 and row1, exactly its A fragment; keys past NK give p = 0
+      uint32_t pa[KT][4];
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int j = 2 * kt + h2;
+          if (j < NK / 8) {
+            pa[kt][2 * h2] = pack_bf16(div_rn(sc[4 * j], l0, rl0), div_rn(sc[4 * j + 1], l0, rl0));
+            pa[kt][2 * h2 + 1] =
+                pack_bf16(div_rn(sc[4 * j + 2], l1, rl1), div_rn(sc[4 * j + 3], l1, rl1));
+          } else {
+            pa[kt][2 * h2] = pa[kt][2 * h2 + 1] = 0u;
+          }
+        }
+      }
+
+      // O = P V (keys past N: p = 0 against zero rows of v, exact zeros)
+      float o[L::W / 2];
+#pragma unroll
+      for (int j = 0; j < L::W / 2; ++j) o[j] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) fence_reg(pa[kt][r]);
+#pragma unroll
+      for (int j = 0; j < L::W / 2; ++j) fence_operand(o[j]);
+      uint64_t dv = wgmma_desc_mn(vs);
+      asm volatile("" : "+l"(dv));
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)  // 16 rows of 128 bytes a k-step
+        wgmma_m64n64k16_rs<1>(o, pa[kt], dv + kt * 16 * 128 / 16, 1);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < L::W / 2; ++j) fence_operand(o[j]);
+
+      // round once, stage in the tile's own q rows (this warp's 16), store
+      // the rows below N and the columns below hd in 16-byte chunks
+      typedef Tile<L::W> TO;
+      bf16* o_s = reinterpret_cast<bf16*>(ring_p + (qs - ring));
+#pragma unroll
+      for (int j = 0; j < L::W / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(o_s + TO::at(row0, j) + 2 * t) = pack_bf16(o[4 * j], o[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(o_s + TO::at(row1, j) + 2 * t) =
+            pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 16 * TO::CHUNKS / 32; ++i) {
+        const int e = lane + 32 * i;
+        const int r = warp * 16 + e / TO::CHUNKS, cc = e % TO::CHUNKS;
+        const int row = qt * QROWS + r;
+        if (row < N && cc * 8 < a.hd)
+          *reinterpret_cast<uint4*>(a.out + (((size_t)b * N + row) * H + h) * a.hd + cc * 8) =
+              *reinterpret_cast<const uint4*>(o_s + TO::at(r, cc));
+      }
+    }
+    // the stage back to the producer: this warp's staging stores ordered
+    // before the next item's TMA writes there
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 body (tensor cores, 3xTF32)
 // ---------------------------------------------------------------------------
 
@@ -1326,9 +1836,37 @@ int encode_tiled(EncodeTiledFn* fn) {
 // the TMA map of a (B, N, H, hd) bf16 operand with (batch, token, head)
 // element strides sb, sn, sh: boxes of 64 columns by `rows` tokens of one
 // head, in the 128-byte swizzle; columns past hd and tokens past N read as
-// zeros
+// zeros.  The last maps encoded are kept, keyed by all that goes into
+// them, so that a call on the tensors of an earlier one (the caching
+// allocator hands a model's layers the same buffers) skips the encoding,
+// which is most of a launch's host time
 int head_map(CUtensorMap* map, const void* base, const Args& a, long long sb, long long sn,
              long long sh, int rows) {
+  struct Key {
+    const void* base;
+    long long sb, sn, sh;
+    int B, H, N, hd, rows;
+  };
+  struct Entry {
+    Key key;
+    CUtensorMap map;
+  };
+  static std::mutex lock;
+  static Entry kept[32];
+  static int used = 0, next = 0;
+  Key key;
+  memset(&key, 0, sizeof key);  // padding too: keys compare bytewise
+  key.base = base;
+  key.sb = sb, key.sn = sn, key.sh = sh;
+  key.B = a.B, key.H = a.H, key.N = a.N, key.hd = a.hd, key.rows = rows;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (int i = 0; i < used; ++i)
+      if (memcmp(&kept[i].key, &key, sizeof key) == 0) {
+        *map = kept[i].map;
+        return 0;
+      }
+  }
   EncodeTiledFn encode;
   const int err = encode_tiled(&encode);
   if (err != 0) return err;
@@ -1339,7 +1877,12 @@ int head_map(CUtensorMap* map, const void* base, const Args& a, long long sb, lo
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> hold(lock);
+  kept[next] = Entry{key, *map};
+  next = (next + 1) % 32;
+  used = used < 32 ? used + 1 : 32;
+  return 0;
 }
 
 template <int ST>
@@ -1355,6 +1898,38 @@ int launch_bf16_smem(const Args& a) {
   if ((err = head_map(&vmap, a.v, a, a.vsb, a.vsn, a.vsh, SmemBody::KW)) != 0) return err;
   attention_fwd_bf16_smem<ST><<<a.B * a.H * q_tiles, SmemBody::WGS * THREADS, smem,
                                a.stream>>>(sa, kmap, vmap);
+  return (int)cudaGetLastError();
+}
+
+// the SMs of the current device, the persistent body's grid at most
+int sm_count(int* n) {
+  static int counts[64] = {};  // by device, once asked
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev < 64 && counts[dev] > 0) {
+    *n = counts[dev];
+    return 0;
+  }
+  err = (int)cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == 0 && dev < 64) counts[dev] = *n;
+  return err;
+}
+
+template <int NK>
+int launch_bf16_tma(const Args& a) {
+  typedef TmaBody<NK> L;
+  int err = set_smem(attention_fwd_bf16_tma<NK>, L::SMEM);
+  int sms = 0;
+  if (err == 0) err = sm_count(&sms);
+  if (err != 0) return err;
+  const TmaArgs ta{static_cast<bf16*>(a.out), a.H, a.N, a.hd, a.B * a.H};
+  CUtensorMap qmap, kmap, vmap;
+  if ((err = head_map(&qmap, a.q, a, a.qsb, a.qsn, a.qsh, QROWS)) != 0) return err;
+  if ((err = head_map(&kmap, a.k, a, a.ksb, a.ksn, a.ksh, L::KV_BOX)) != 0) return err;
+  if ((err = head_map(&vmap, a.v, a, a.vsb, a.vsn, a.vsh, L::KV_BOX)) != 0) return err;
+  attention_fwd_bf16_tma<NK><<<ta.items < sms ? ta.items : sms, TMA_THREADS, L::SMEM,
+                               a.stream>>>(ta, qmap, kmap, vmap);
   return (int)cudaGetLastError();
 }
 
@@ -1382,10 +1957,12 @@ int launch_f32(const Args& a) {
 // of rows, so every base pointer must be 16-byte aligned and every stride a
 // multiple of 16 bytes (8 bf16 or 4 float32 elements).  The grid (one
 // block per (batch, head) for the bf16 register body at N <= MAX_SEQ_REGS
-// and hd <= 64, per (batch, head, 64-query tile) for the bf16 body with S
-// in shared memory beyond, up to SMEM2_MAX_SEQ at hd <= 64, per (batch,
-// head, 64-query tile, chunk of at most 128 output columns) otherwise)
-// holds at most 2^31 - 1 blocks.  Returns the CUDA error code (0 = launched).
+// and hd <= 64; one block an SM, at most B * H, for the persistent body up
+// to TMA_MAX_SEQ, which counts its B * H items; per (batch, head, 64-query
+// tile) for the bf16 body with S in shared memory beyond, up to
+// SMEM2_MAX_SEQ at hd <= 64; per (batch, head, 64-query tile, chunk of at
+// most 128 output columns) otherwise) holds at most 2^31 - 1 blocks or
+// items.  Returns the CUDA error code (0 = launched).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype,
                              int B, int H, int N, int hd, long long qsb, long long qsn,
                              long long qsh, long long ksb, long long ksn, long long ksh,
@@ -1394,11 +1971,13 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const long long chunk = dtype == 0 ? 4 : 8;  // elements in 16 bytes
   if (hd % chunk != 0) return (int)cudaErrorInvalidValue;
-  const bool regs = dtype == 1 && N <= MAX_SEQ_REGS && hd <= REG_WIDTH;
-  const bool in_smem = dtype == 1 && !regs && hd <= REG_WIDTH && N <= SMEM2_MAX_SEQ;
+  const bool narrow = dtype == 1 && hd <= REG_WIDTH;  // bf16 heads of up to 64
+  const bool regs = narrow && N <= MAX_SEQ_REGS;
+  const bool tma = narrow && !regs && N <= TMA_MAX_SEQ;
+  const bool in_smem = narrow && !regs && !tma && N <= SMEM2_MAX_SEQ;
   const long long blocks =
       (long long)B * H *
-      (regs ? 1 : (long long)q_tiles_of(N) * (in_smem ? 1 : col_chunks_of(hd)));
+      (regs || tma ? 1 : (long long)q_tiles_of(N) * (in_smem ? 1 : col_chunks_of(hd)));
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) ||
       ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & (chunk - 1)))
@@ -1407,6 +1986,13 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     return with_width(hd, [&](auto w) { return launch_f32<decltype(w)::value>(a); });
+  if (tma) {
+    if (N <= 56) return launch_bf16_tma<56>(a);
+    if (N <= 64) return launch_bf16_tma<64>(a);
+    if (N <= 128) return launch_bf16_tma<128>(a);
+    if (N <= 200) return launch_bf16_tma<200>(a);
+    return launch_bf16_tma<264>(a);
+  }
   if (in_smem)
     return N <= SMEM_MAX_SEQ ? launch_bf16_smem<RING>(a) : launch_bf16_smem<SHORT_RING>(a);
   if (!regs)

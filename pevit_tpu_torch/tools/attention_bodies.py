@@ -1,24 +1,30 @@
 """K1 (the attention kernel) against other versions of its source, timed in
 turns on one CUDA card.
 
-    python -m pevit_tpu_torch.tools.attention_bodies --against LABEL=DIR [LABEL=DIR ...]
-        [--lengths N [N ...]] [--out FILE]
+    python -m pevit_tpu_torch.tools.attention_bodies [--against LABEL=DIR ...]
+        [--set LABEL:NAME=VALUE[,NAME=VALUE] ...] [--lengths N [N ...]] [--out FILE]
 
 Each ``DIR`` holds another ``attention_fwd.cu`` with the same C interface
 (hd an argument; with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
-earlier commit unpacked by ``git archive``.  Every source is built by
+earlier commit unpacked by ``git archive``.  Each ``--set`` builds a copy of
+this tree's source with ``constexpr`` constants set otherwise (e.g.
+``regs:MAX_SEQ_REGS=257`` sends bf16 N <= 257 to the register body,
+``three:CONSUMERS=3`` gives the persistent body three consumer warpgroups),
+a design choice timed against the source as it is.  Every source is built by
 ``nvcc`` (ptxas registers and spills printed), then, in bfloat16 at each
 (N, head width, heads, batch) of ``SHAPES`` (those of the given
 ``--lengths`` only, where given; logits of std 0.5 at every width), each
 version is held against the plain version
 (``attention_ref``, within 2e-2) and timed
 through the wrapper ``attention_fwd`` in turns, the others, this, this, the
-others in reverse (median CUDA-event ms of each turn, the mean of a
-version's two turns), beside ``scaled_dot_product_attention`` on
-contiguous copies, a yardstick the port never calls.  A version that refuses a shape (a launch
-error) is reported as refusing it.  One JSON line a shape; the card's name
-and power limit first.  It needs a CUDA card and exits non-zero without
-one, or if a version disagrees with the plain version.
+others in reverse (``device_ms``: the median device time of a call
+replayed from a CUDA graph, so that the host's time to issue it stays out;
+the mean of a version's two turns), beside ``scaled_dot_product_attention``
+on contiguous copies, a yardstick the port never calls.  A version that
+refuses a shape (a launch error) is reported as refusing it.  One JSON line
+a shape; the card's name and power limit first.  It needs a CUDA card and
+exits non-zero without one, or if a version disagrees with the plain
+version.
 """
 
 from __future__ import annotations
@@ -26,9 +32,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
@@ -53,19 +62,50 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` in ms, after warm-up."""
-    for _ in range(warmup):
-        fn()
+def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
+    """Median device ms of one call of ``fn``: ``calls`` calls captured in a
+    CUDA graph and replayed between CUDA events after a warm-up, so that
+    the host's time to issue a call (tens of microseconds through a
+    wrapper) stays out of the card's."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        graph.replay()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / calls)
+    del graph
     return statistics.median(times)
+
+
+def source_variant(tmp: Path, label: str, **consts):
+    """K1 built from a copy of this tree's ``csrc`` in ``tmp / label`` with
+    ``constexpr`` constants of ``attention_fwd.cu`` set otherwise (each set
+    exactly once there); a measurement aid, never on a path."""
+    from pevit_tpu_torch.ops import attention
+    from pevit_tpu_torch.ops._build import CSRC, Kernel
+
+    shutil.copytree(CSRC, tmp / label)
+    src = tmp / label / "attention_fwd.cu"
+    text = src.read_text()
+    for name, value in consts.items():
+        pattern = re.compile(rf"constexpr (int|bool) {name} = [^;]+;")
+        if len(pattern.findall(text)) != 1:
+            raise AssertionError(f"attention_fwd.cu no longer sets the constexpr {name} once")
+        value = str(value).lower() if isinstance(value, bool) else str(value)
+        text = pattern.sub(lambda m: f"constexpr {m.group(1)} {name} = {value};", text)
+    src.write_text(text)
+    return Kernel("attention_fwd", str(src), attention.KERNEL.argtypes,
+                  replaces=attention.KERNEL.replaces)
 
 
 @contextlib.contextmanager
@@ -112,20 +152,22 @@ def run_shape(versions: dict, n: int, hd: int, heads: int, batch: int, gen) -> d
     others = [name for name in takes if name != "this"]
     for name in others + ["this", "this"] + others[::-1]:
         with launching(takes[name]):
-            turns[name].append(time_ms(lambda: attention_fwd(q, k, v)))
+            turns[name].append(device_ms(lambda: attention_fwd(q, k, v)))
     for name, ms in turns.items():
         row[f"{name}_ms"] = statistics.mean(ms)
         row[f"{name}_turns_ms"] = ms
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
-    row["sdpa_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+    row["sdpa_ms"] = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, scale=1.0))
     return row
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", required=True, nargs="+", metavar="LABEL=DIR",
+    ap.add_argument("--against", nargs="+", default=[], metavar="LABEL=DIR",
                     help="directories holding other attention_fwd.cu sources and headers")
+    ap.add_argument("--set", nargs="+", default=[], metavar="LABEL:NAME=VALUE[,NAME=VALUE]",
+                    help="copies of this tree's source with constexpr constants set otherwise")
     ap.add_argument("--lengths", nargs="+", type=int, default=None, metavar="N",
                     help="time only the shapes of these sequence lengths")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
@@ -145,6 +187,16 @@ def main(argv=None) -> int:
             raise SystemExit(f"--against {item}: want a new LABEL=DIR with attention_fwd.cu")
         versions[label] = Kernel("attention_fwd", str(src), attention.KERNEL.argtypes,
                                  replaces=attention.KERNEL.replaces)
+    tmp = tempfile.TemporaryDirectory(prefix="attention_bodies_")
+    for item in args.set:
+        label, _, consts = item.partition(":")
+        pairs = [c.partition("=") for c in consts.split(",")]
+        if not consts or label in versions or any(not name or not value for name, _, value in pairs):
+            raise SystemExit(f"--set {item}: want a new LABEL:NAME=VALUE[,NAME=VALUE]")
+        versions[label] = source_variant(Path(tmp.name), label,
+                                         **{name: value for name, _, value in pairs})
+    if len(versions) == 1:
+        raise SystemExit("give at least one --against or --set")
     card = card_line()
     print(card, flush=True)
     builds = {label: kernel.start_build() for label, kernel in versions.items()}

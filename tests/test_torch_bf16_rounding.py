@@ -3,7 +3,8 @@ the CPU: the port's plain versions in bfloat16 against the reference's
 Pallas kernels in interpret mode, on the same bf16 inputs.
 
 * attention (K1): logits, softmax and its normalisation in float32, p
-  rounded to bf16 before the product with v, the output rounded once;
+  rounded to bf16 before the product with v, the output rounded once (also
+  at N = 50, 197 and 257 with 12 heads, the persistent body's lengths);
 * fused MLP forward (K2): u and g rounded to bf16, h in float32 with bfc
   widened, m rounded to bf16 and added to x in bf16;
 * fused MLP backward (K3): u and dh rounded to bf16, the rest in float32,
@@ -65,14 +66,25 @@ def _assert_same_rounding(got: torch.Tensor, want: np.ndarray):
     assert (got != want).mean() <= MAX_DIFFERING
 
 
-def _qkv(n, seed):
+def _qkv(n, seed, batch=2, heads=3):
     rng = np.random.default_rng(seed)
-    return tuple(_bf16(s * rng.standard_normal((2, 3, n, 64))) for s in (0.5, 0.5, 1.0))
+    return tuple(_bf16(s * rng.standard_normal((batch, heads, n, 64))) for s in (0.5, 0.5, 1.0))
 
 
 @pytest.mark.parametrize("n", [5, 50, 197, 258, 577, 1025])
 def test_attention_ref_bf16_matches_pallas_kernel(n):
     q, k, v = _qkv(n, seed=n)
+    want = _numpy(ja._fused(_jax(q), _jax(k), _jax(v), True))  # interpret mode
+    got = ta.attention_ref(q, k, v)
+    assert got.dtype == torch.bfloat16
+    _assert_same_rounding(got, want)
+
+
+@pytest.mark.parametrize("n", [50, 197, 257])
+def test_attention_ref_bf16_matches_pallas_kernel_at_12_heads(n):
+    """The lengths K1's persistent body takes on the paths (ViT-B/32,
+    ViT-B/16, ViT-L/14 at 224 px) at ViT-B's 12 heads of 64."""
+    q, k, v = _qkv(n, seed=1000 + n, batch=1, heads=12)
     want = _numpy(ja._fused(_jax(q), _jax(k), _jax(v), True))  # interpret mode
     got = ta.attention_ref(q, k, v)
     assert got.dtype == torch.bfloat16

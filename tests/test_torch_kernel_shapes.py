@@ -16,9 +16,10 @@
   chunk computes the unpadded MLP and its backward (float64);
 * K1's bf16 body with the S tile in shared memory, with its four-stage
   and its short ring: which body runs at each (N, W) and its grid, each
-  ring's longest N mirrored from ``attention_fwd.cu``, where
-  ``static_assert``s hold each layout within the card's 232,448 bytes a
-  block;
+  ring's longest N (and the persistent body's and the register body's,
+  whose routing ``test_torch_attention_tma.py`` holds) mirrored from
+  ``attention_fwd.cu``, where ``static_assert``s hold each layout within
+  the card's 232,448 bytes a block;
 * both model families at toy width against the reference at 1e-5: a timm
   ViT with heads of 80 (EMBED_DIM 160, NUM_HEADS 2, DEPTH 2) from its
   MODEL.SPEC, its features and its first-step ``full_finetune``
@@ -139,8 +140,9 @@ def test_fused_mlp_refs_match_pallas_kernels_at_widths(c, dtype):
 def test_every_head_width_has_a_launch_plan(dtype):
     """hd 1 to 256 at every body's sequence lengths: hd padded to whole
     16-byte chunks only where it does not fill them, the instantiation the
-    next built width, the register body only for bf16 at N <= 257 and hd
-    <= 64, and the grid of the body that runs."""
+    next built width, the persistent body only for bf16 at N <= 257 and hd
+    <= 64 (the register body at none: its ceiling is 0), and the grid of
+    the body that runs (the persistent body's one block an SM at most)."""
     chunk = 128 // torch.finfo(dtype).bits  # elements in 16 bytes
     for hd in range(1, ta.MAX_HEAD_DIM + 1):
         for n in (1, 50, 197, 257, 258, 577, 640, 641, 730, 768, 769, 1025, 1280, 1281):
@@ -149,15 +151,18 @@ def test_every_head_width_has_a_launch_plan(dtype):
             assert plan.width == min(w for w in ta.BODY_WIDTHS if w >= plan.hd)
             bf16 = dtype == torch.bfloat16
             regs = bf16 and n <= ta.MAX_SEQ_REGS and plan.hd <= 64
-            tiled = bf16 and not regs and plan.hd <= 64  # a shared-memory body
+            tma = bf16 and not regs and n <= ta.TMA_MAX_SEQ and plan.hd <= 64
+            tiled = bf16 and not (regs or tma) and plan.hd <= 64  # a shared-memory body
             in_smem = tiled and n <= ta.SMEM_MAX_SEQ
             in_smem2 = tiled and ta.SMEM_MAX_SEQ < n <= ta.SMEM2_MAX_SEQ
-            assert plan.body == ("bf16_regs" if regs else "bf16_smem" if in_smem else
-                                 "bf16_smem2" if in_smem2 else "bf16_long" if bf16 else "f32")
+            assert plan.body == ("bf16_regs" if regs else "bf16_tma" if tma else
+                                 "bf16_smem" if in_smem else "bf16_smem2" if in_smem2 else
+                                 "bf16_long" if bf16 else "f32")
             one = in_smem or in_smem2
             columns = 1 if one else -(-plan.hd // min(plan.width, ta.COLUMN_CHUNK))
             assert columns == (2 if plan.hd > 128 and not one else 1)
-            assert plan.blocks == 15 * (1 if regs else -(-n // ta.QUERY_TILE) * columns)
+            per_head = 1 if regs or tma else -(-n // ta.QUERY_TILE) * columns
+            assert plan.blocks == (min(15, ta.H100_SMS) if tma else 15 * per_head)
     for hd in (0, ta.MAX_HEAD_DIM + 1):
         with pytest.raises(KernelInputError, match="hd"):
             ta.launch_plan(1, 5, 1, hd, dtype)
@@ -182,23 +187,24 @@ SMEM_LIMIT = 640
 
 @pytest.mark.parametrize("width", ta.BODY_WIDTHS)
 def test_smem_body_fits_every_length_it_takes(width):
-    """The launch plan sends bf16 heads of up to 64 past the register body
-    and up to the shared-memory body's limit to that body, with one block a
-    (batch, head, query tile), and N past it to the three-walk body; wider
-    heads run the three-walk body at every N past the register body's."""
+    """The launch plan sends bf16 heads of up to 64 past the persistent
+    body and up to the shared-memory body's limit to that body, with one
+    block a (batch, head, query tile), and N past it to the three-walk body;
+    wider heads run the three-walk body at every N past the persistent
+    body's."""
     limit = ta.SMEM_MAX_SEQ
     assert limit == SMEM_LIMIT
-    for n in (ta.MAX_SEQ_REGS + 1, 577, limit - 1, limit):
+    for n in (ta.TMA_MAX_SEQ + 1, 577, limit - 1, limit):
         plan = ta.launch_plan(2, n, 3, width, torch.bfloat16)
         if width == ta.REG_WIDTH:
             assert (plan.body, plan.blocks) == ("bf16_smem", 6 * -(-n // ta.QUERY_TILE))
         else:
             assert plan.body == "bf16_long"
     columns = 2 if width > ta.COLUMN_CHUNK else 1
-    for n in (1, ta.MAX_SEQ_REGS, limit + 1):
+    for n in (1, ta.TMA_MAX_SEQ, limit + 1):
         plan = ta.launch_plan(2, n, 3, width, torch.bfloat16)
-        if width == ta.REG_WIDTH and n <= ta.MAX_SEQ_REGS:
-            assert (plan.body, plan.blocks) == ("bf16_regs", 6)
+        if width == ta.REG_WIDTH and n <= ta.TMA_MAX_SEQ:  # the persistent body
+            assert (plan.body, plan.blocks) == ("bf16_tma", 6)
         elif width == ta.REG_WIDTH:  # past the limit, the short ring
             assert (plan.body, plan.blocks) == ("bf16_smem2", 6 * -(-n // 64))
         else:
@@ -213,11 +219,12 @@ def _cu_constant(text: str, name: str) -> int:
 
 def test_smem_body_mirror_matches_the_source():
     """``ops/attention.py``'s mirrors of the shared-memory bodies' longest
-    N (with each ring) and of the register body's hold the source's
-    constants, and the source holds each layout within the card's shared
-    memory at its longest N."""
+    N (with each ring) and of the register and persistent bodies' hold the
+    source's constants, and the source holds each layout within the card's
+    shared memory at its longest N."""
     text = " ".join((CSRC / "attention_fwd.cu").read_text().split())  # one space a gap
     assert _cu_constant(text, "MAX_SEQ_REGS") == ta.MAX_SEQ_REGS
+    assert _cu_constant(text, "TMA_MAX_SEQ") == ta.TMA_MAX_SEQ
     assert _cu_constant(text, "SMEM_MAX_SEQ") == ta.SMEM_MAX_SEQ
     assert _cu_constant(text, "SMEM2_MAX_SEQ") == ta.SMEM2_MAX_SEQ
     assert _cu_constant(text, "SMEM_BUDGET") == 232448
@@ -236,7 +243,7 @@ def test_launch_plan_picks_the_short_ring_exactly_where_it_runs(width):
     it the three-walk body runs; fp32 never."""
     assert ta.SMEM2_MAX_SEQ == SHORT_RING_LIMIT
     columns = 2 if width > ta.COLUMN_CHUNK else 1
-    for n in range(ta.MAX_SEQ_REGS + 1, 1282):
+    for n in range(ta.TMA_MAX_SEQ + 1, 1282):
         plan = ta.launch_plan(2, n, 3, width, torch.bfloat16)
         short = width == ta.REG_WIDTH and ta.SMEM_MAX_SEQ < n <= ta.SMEM2_MAX_SEQ
         assert (plan.body == "bf16_smem2") == short, (n, plan)
