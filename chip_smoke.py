@@ -9,7 +9,9 @@ on):
 1. card: require CUDA, print the card's name and power limit, set TF32 off;
 2. build: compile every kernel of the serving and training paths from
    ``pevit_tpu_torch/ops/csrc`` with nvcc (one process per source, all at
-   once) and print each instantiation's ptxas registers and spills;
+   once) and print each instantiation's ptxas registers and spills; the
+   bf16 GEMM core's kernels (K2's and K3's ``gemm_*_bf16``) must spill
+   nothing, and no wgmma of theirs may be serialized by ptxas;
 3. kernels: hold the attention and fused-MLP forward kernels against their
    plain PyTorch versions on the card at the serving path's shapes and
    dtypes (and at the training batch of 128; attention also at the eval
@@ -37,18 +39,14 @@ on):
    the lower (``bound_peak`` names it).  K1's rows carry ``ms`` and
    ``library_ms`` as device time (``attention_bodies.device_ms``: calls
    replayed from a CUDA graph) and ``call_ms``, one call's CUDA-event time,
-   the host's issue included.  Then K1's persistent bf16 body (the
-   launcher's at N <= 257 and hd <= 64) at every N <= 257 row of
-   ``attention_bodies.SHAPES`` (N = 50, 197 and 257, batches 8 to 1280):
-   held against the plain version and against the register body on the
-   same inputs (2e-2, and every element within one bf16 ulp, at most 1%
-   differing) and timed in turns with the register body, and at the
-   serving batch with the body with the S tile in shared memory and the
-   three-walk long body too (each from a copy of the source built beside
-   the kernels with its ceilings set: the register body's raised to 257,
-   the persistent body's set to 0, the shared-memory bodies' set to 0
-   too), beside SDPA and the bound, and at batch 8 each body's host
-   microseconds to enqueue a call;
+   the host's issue included; so do K2's and K3's rows, here and in 3b, 3c
+   and every path's rows, their ``ms`` and ``gemm_ms`` device time.  Then
+   K1's persistent bf16 body (the launcher's at N <= 257 and hd <= 64) at
+   every N <= 257 row of ``attention_bodies.SHAPES`` (N = 50, 197 and 257,
+   batches 8 to 1280): held against the plain version (2e-2, and every
+   element within one bf16 ulp, at most 1% differing) and timed, beside
+   SDPA and the bound, and at batch 8 the host's microseconds to enqueue
+   a call;
 3b. the fused-MLP backward kernel (K3) against its plain version and, in
    fp32, against torch autograd of the plain forward, at R = 6400 rows
    (ViT-B/32 batch 128) with C = 768 and 1024, bf16 and fp32, and in bf16
@@ -75,7 +73,9 @@ on):
    ulp, at most 1% differing, the rule of
    ``tests/test_torch_bf16_rounding.py``) and by that rule against the
    three-walk body on the same inputs, timed in turns with it beside
-   SDPA;
+   SDPA (each body from a copy of K1's source built beside the kernels
+   with its ceilings set: the persistent body's at 0, and for the
+   three-walk body the shared-memory bodies' too);
 4. serving: a full-width ViT-B/32 KAdaptation classifier (random weights
    from a seed, non-zero adaptation factors, random BN statistics, a
    100-class head fitted to 100 seeded prototype images) behind
@@ -351,19 +351,16 @@ on):
    batch 128 (3 steps, one eval chunk of 64; 12 K1, K2 and K3 a step, peak
    allocation, train images/s, each kernel's share of a step, fp32
    first-step gradients at 16 images within 1e-3 of each leaf's largest
-   |g|); serving and train images/s and K1's share of a forward with the
-   persistent body and with the register body (phase 3's aid) in turns;
-   each kernel held against its plain version at every batch each path
-   gave it;
+   |g|); each kernel held against its plain version at every batch each
+   path gave it;
 18. report: one ``{"kernels": [...]}`` line: launches from phases 6 to 17,
    summed, by path and by body (each path's counts are zeroed just before
    it and read just after; phase 9's and the exported MAE probe's are the
    fresh process's, reported by it), the other numbers at the batch that
    launched the kernel most, every path's batches (and the body each ran)
    under ``by_shape``, every body's launches and numbers under ``bodies``
-   (a body no path ran, with 3c's, or, for the register body, with phase
-   3's rows at the serving batch); then the ``{"ok": true, ...}`` line
-   last.
+   (a body no path ran, with 3c's rows); then the ``{"ok": true, ...}``
+   line last.
 
 Needs one card; imports only the port, torch, numpy and the standard library.
 
@@ -414,7 +411,7 @@ def card_line() -> str:
 
 def entry_tag(entry: str) -> str:
     """A compiled kernel's name and template arguments, from ptxas's mangled
-    entry name, e.g. ``attention_fwd_bf16<17>`` or ``ln_rows_bf16<24>``."""
+    entry name, e.g. ``attention_fwd_bf16_tma<56>`` or ``ln_rows_bf16<24>``."""
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", entry)
     if m is None:
         return entry.strip()
@@ -442,6 +439,31 @@ def ptxas_summary(name: str, log: str) -> list:
         elif "spill stores" in line:
             spills = line.strip()
     return out
+
+
+# the bf16 GEMM core's kernels (csrc/wgmma_gemm.cuh's gemm_persistent) by
+# the kernel whose source holds them
+GEMM_BF16_KERNELS = {"fused_mlp_fwd": ("gemm_fc_bf16", "gemm_proj_bf16"),
+                     "fused_mlp_bwd": ("gemm_dh_bf16", "gemm_du_bf16")}
+
+
+def check_gemm_builds(logs: dict) -> None:
+    """Phase 2's rule for the bf16 GEMM core (``logs``: {kernel: nvcc log},
+    as ``build_all`` returns them, a reused build's too): each of its
+    kernels compiled once, with no spill, and ptxas serialized none of
+    their wgmmas; a source without a log fails."""
+    for name, kernels in GEMM_BF16_KERNELS.items():
+        log = logs.get(name)
+        if not log:
+            raise AssertionError(f"{name}: no nvcc log to check the GEMM core's build in")
+        lines = ptxas_summary(name, log)
+        for kernel in kernels:
+            mine = [line for line in lines if f" {kernel}:" in line]
+            if len(mine) != 1 or "0 bytes spill stores, 0 bytes spill loads" not in mine[0]:
+                raise AssertionError(f"{kernel}: want one instantiation and no spill, got {mine}")
+        serial = [line for line in log.splitlines() if "serializ" in line and "gemm_" in line]
+        if serial:
+            raise AssertionError(f"{name}: ptxas serializes the GEMM core's wgmma: {serial}")
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -630,18 +652,16 @@ def check_attention(gen, dtype, n, batch=SERVE_BATCH, heads: int = 12, hd: int =
 
 
 def k1_bodies(tmp: Path) -> dict:
-    """Phase 3's aids, K1 built from copies of its source with ``constexpr``
+    """Phase 3c's aids, K1 built from copies of its source with ``constexpr``
     ceilings set otherwise (``attention_bodies.source_variant``), so that a
     body can be timed where the launcher runs another: its bf16 shapes at
-    hd <= 64 up to 257 tokens sent to the register body ("regs":
-    ``MAX_SEQ_REGS`` 257), to the shared-memory body up to its longest N
-    ("smem": ``TMA_MAX_SEQ`` 0), and every bf16 shape to the three-walk
-    long body ("long": the shared-memory ceilings 0 too)."""
+    hd <= 64 sent to the shared-memory body up to its longest N ("smem":
+    ``TMA_MAX_SEQ`` 0), and every bf16 shape to the three-walk long body
+    ("long": the shared-memory ceilings 0 too)."""
     from pevit_tpu_torch.tools.attention_bodies import source_variant
 
-    return {"regs": source_variant(tmp, "regs", MAX_SEQ_REGS=257),
-            "smem": source_variant(tmp, "smem", MAX_SEQ_REGS=0, TMA_MAX_SEQ=0),
-            "long": source_variant(tmp, "long", MAX_SEQ_REGS=0, TMA_MAX_SEQ=0, SMEM_MAX_SEQ=0,
+    return {"smem": source_variant(tmp, "smem", TMA_MAX_SEQ=0),
+            "long": source_variant(tmp, "long", TMA_MAX_SEQ=0, SMEM_MAX_SEQ=0,
                                    SMEM2_MAX_SEQ=0)}
 
 
@@ -697,20 +717,14 @@ def enqueue_us(fn, reps: int = 200) -> float:
     return seconds / reps * 1e6
 
 
-def time_bf16_bodies(gen, bodies: dict, n, batch=SERVE_BATCH, heads: int = 12,
-                     others: tuple = ()) -> dict:
-    """K1's bf16 bodies at one N <= TMA_MAX_SEQ, hd 64: the persistent body
-    (what the launcher runs there) held against the plain version (2e-2,
-    and :func:`same_rounding`) and by :func:`same_rounding` against the
-    register body ("regs" of ``bodies``) on the same inputs, and timed in
-    turns with it (persistent, regs, ``others``..., the same backwards; the
-    mean of each one's two :func:`device_ms`), each aid of ``others``
-    ("smem", "long") held against the plain version too; beside SDPA, the
+def time_tma_body(gen, n, batch=SERVE_BATCH, heads: int = 12) -> dict:
+    """K1's persistent bf16 body at one N <= TMA_MAX_SEQ, hd 64 (what the
+    launcher runs there): held against the plain version (2e-2, and
+    :func:`same_rounding`) and timed (:func:`device_ms`) beside SDPA, the
     bound, a single call's ``time_ms`` (``call_ms``, the host's issue
-    included) and, at batch 8, each of the persistent and the register
-    body's host microseconds to enqueue a call."""
+    included) and, at batch 8, the host's microseconds to enqueue a call."""
     from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
-    from pevit_tpu_torch.tools.attention_bodies import device_ms, launching
+    from pevit_tpu_torch.tools.attention_bodies import device_ms
 
     q, k, v = qkv_bf16(gen, batch, n, heads, 64)
     t = lambda x: x.transpose(1, 2)
@@ -718,41 +732,37 @@ def time_bf16_bodies(gen, bodies: dict, n, batch=SERVE_BATCH, heads: int = 12,
     plan = launch_plan(batch, n, heads, 64, torch.bfloat16)
     what = f"attention_fwd {plan.body}<{plan.keys}> N={n} batch {batch}"
     got = attention_fwd(q, k, v)
-    row = {"shape": f"B*H={batch}*{heads} N={n} hd=64", "dtype": "bfloat16", "body": plan.body,
-           "keys": plan.keys, "max_abs_err": check_close(what, got, want, 2e-2, 2e-2)}
-    outs = {}
-    for name in ("regs", *others):
-        with launching(bodies[name]):
-            outs[name] = attention_fwd(q, k, v)
-        row[f"{name}_max_abs_err"] = check_close(f"attention_fwd {name} body N={n}",
-                                                 outs[name], want, 2e-2, 2e-2)
-    row["ulps_against"] = same_rounding(what, got, {"plain": want, "regs": outs["regs"]})
-    order = ["tma", "regs", *others]
-    turns = {name: [] for name in order}
-    for name in order + order[::-1]:
-        with launching(bodies[name]) if name in bodies else contextlib.nullcontext():
-            turns[name].append(device_ms(lambda: attention_fwd(q, k, v)))
+    call = lambda: attention_fwd(q, k, v)
     qh, kh, vh = (t(x).contiguous() for x in (q, k, v))
-    row.update({"ms": statistics.mean(turns["tma"]),
-                **{f"{name}_ms": statistics.mean(turns[name]) for name in order[1:]},
-                "turns_ms": turns, "regs_over_tma": statistics.mean(turns["regs"])
-                / statistics.mean(turns["tma"]),
-                "call_ms": time_ms(lambda: attention_fwd(q, k, v)),
-                "plain_ms": time_ms(lambda: t(attention_ref(t(q), t(k), t(v))), reps=5),
-                "library_ms": device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qh, kh, vh, scale=1.0)),
-                **bound_fields(8 * batch * heads * n * 64, 4 * batch * heads * n * n * 64,
-                               torch.bfloat16)})
+    row = {"shape": f"B*H={batch}*{heads} N={n} hd=64", "dtype": "bfloat16", "body": plan.body,
+           "keys": plan.keys, "max_abs_err": check_close(what, got, want, 2e-2, 2e-2),
+           "ulps_against": same_rounding(what, got, {"plain": want}),
+           "ms": device_ms(call), "call_ms": time_ms(call),
+           "plain_ms": time_ms(lambda: t(attention_ref(t(q), t(k), t(v))), reps=5),
+           "library_ms": device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+               qh, kh, vh, scale=1.0)),
+           **bound_fields(8 * batch * heads * n * 64, 4 * batch * heads * n * n * 64,
+                          torch.bfloat16)}
     if batch == 8:
-        row["enqueue_us"] = enqueue_us(lambda: attention_fwd(q, k, v))
-        with launching(bodies["regs"]):
-            row["regs_enqueue_us"] = enqueue_us(lambda: attention_fwd(q, k, v))
+        row["enqueue_us"] = enqueue_us(call)
     return row
 
 
-def check_fused_mlp(gen, dtype, c, rows, f: int = 0):
-    from pevit_tpu_torch.ops.fused_mlp import fused_mlp_fwd, fused_mlp_residual_ref
+def mlp_device_ms(fn) -> float:
+    """``attention_bodies.device_ms`` of a K2 or K3 row (or its products):
+    5 calls a CUDA graph, the median of 3 replays.  These rows are many (a
+    path's every batch) and long (0.03-9 ms a call), so fewer replays than
+    K1's keep the script inside its limit."""
+    from pevit_tpu_torch.tools.attention_bodies import device_ms
 
+    return device_ms(fn, calls=5, reps=3)
+
+
+def check_fused_mlp(gen, dtype, c, rows, f: int = 0):
+    """K2 against its plain forward (and, in fp32, through
+    :func:`fp32_class`), its ``ms`` and ``gemm_ms`` device time
+    (:func:`mlp_device_ms`), ``call_ms`` one call's CUDA-event time."""
+    from pevit_tpu_torch.ops.fused_mlp import fused_mlp_fwd, fused_mlp_residual_ref
     f = f or 4 * c
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     x = r(rows, c).to(dtype)
@@ -778,21 +788,24 @@ def check_fused_mlp(gen, dtype, c, rows, f: int = 0):
     u = torch.randn(rows, c, device="cuda").to(dtype)
     g = torch.randn(rows, f, device="cuda").to(dtype)
     gemms = lambda: (u @ wfc, g @ wproj)
+    call = lambda: fused_mlp_fwd(*args)
     return {"shape": f"R={rows} C={c} F={f}", "dtype": str(dtype).split(".")[-1],
             "body": "f32" if dtype == torch.float32 else "bf16",
-            "max_abs_err": err, **accuracy, "ms": time_ms(lambda: fused_mlp_fwd(*args), reps=5),
+            "max_abs_err": err, **accuracy, "ms": mlp_device_ms(call),
+            "call_ms": time_ms(call, reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_residual_ref(*args), reps=5),
-            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5),
+            "library_ms": None, "gemm_ms": mlp_device_ms(gemms),
             **bound_fields(n_bytes, 4 * rows * c * f, dtype)}
 
 
 def check_fused_mlp_bwd(gen, dtype, c, rows, f: int = 0):
     """K3 against its plain backward (same rounding points) and, in fp32,
     against torch autograd of the plain forward and through
-    :func:`fp32_class` against a float64 run of the plain backward."""
+    :func:`fp32_class` against a float64 run of the plain backward; its
+    ``ms`` and ``gemm_ms`` device time (:func:`mlp_device_ms`), ``call_ms``
+    one call's."""
     from pevit_tpu_torch.ops.fused_mlp import (fused_mlp_bwd, fused_mlp_bwd_ref,
                                                fused_mlp_residual_ref)
-
     f = f or 4 * c
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     x, dy = r(rows, c).to(dtype), r(rows, c).to(dtype)
@@ -821,9 +834,10 @@ def check_fused_mlp_bwd(gen, dtype, c, rows, f: int = 0):
     # of the same shapes and dtype (no one PyTorch call computes K3)
     u, dh = r(rows, c).to(dtype), r(rows, f).to(dtype)
     gemms = lambda: (u @ wfc, dy @ wproj.T, dh @ wfc.T)
-    return {**row, "ms": time_ms(lambda: fused_mlp_bwd(*args), reps=5),
+    call = lambda: fused_mlp_bwd(*args)
+    return {**row, "ms": mlp_device_ms(call), "call_ms": time_ms(call, reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_bwd_ref(*args), reps=5),
-            "library_ms": None, "gemm_ms": time_ms(gemms, reps=5),
+            "library_ms": None, "gemm_ms": mlp_device_ms(gemms),
             **bound_fields(n_bytes, 6 * rows * c * f, dtype)}  # the three GEMMs it runs
 
 
@@ -4434,7 +4448,7 @@ def tower_batches(spec, train: dict, evals: dict, fused_mlp_bwd: bool) -> dict:
 
 
 def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: tuple,
-                what: str, k1_body: tuple = (), after=None) -> tuple:
+                what: str, k1_body: tuple = ()) -> tuple:
     """The bf16 KAdaptation classifier on the tower ``clip`` through
     ``make_serving_fn`` on uint8 images: a K1 and a K2 launch a block a
     forward at each of ``batches``; logits and top-1 against the plain path
@@ -4442,9 +4456,8 @@ def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: t
     prototypes' features in batches of that size; images/s at the largest;
     K1's and K2's shares of a forward there from a CUDA-only profile (and,
     with ``k1_body``, the name parts of the K1 body every launch must run,
-    that body's time, which must be all of K1's); with ``after``, its
-    result on (serving fn, the largest batch's images) as ``after``.
-    Returns (summary, launches, batches, prototypes)."""
+    that body's time, which must be all of K1's).  Returns (summary,
+    launches, batches, prototypes)."""
     from pevit_tpu_torch.serve import make_serving_fn
 
     static, trainable, frozen, bn, preproc = build_classifier(
@@ -4481,8 +4494,6 @@ def tower_serve(kernels, clip, spec, rng, *, seed: int, classes: int, batches: t
     all_in_body(share, k1_body, f"{what} forward of {n}")
     summary = {"launches": launches, "vs_plain": checks, "forward_ms": ms,
                "images_per_s": n / ms * 1e3, "kernel_shares_of_forward": share}
-    if after is not None:
-        summary["after"] = after(serve, images)
     return (summary, launches, tower_batches(spec, {}, {b: 1 for b in batches}, False),
             prototypes)
 
@@ -4524,16 +4535,15 @@ def step_shares(task, data, k1_body: tuple = ()) -> dict:
 
 def tower_train(kernels, clip, spec, prototypes, rng, *, classes: int, n_train: int,
                 n_val: int, batch: int, shares: bool = False, grad_batch: int = 0,
-                k1_body: tuple = (), after=None) -> tuple:
+                k1_body: tuple = ()) -> tuple:
     """A bf16 KAdaptation run at ``batch`` (dropout 0.5): the steps of
     ``n_train`` images and one eval chunk of ``n_val`` through
     ``train_trials``, a K1, K2 and K3 launch a block a step (K1 and K2 also
     an eval chunk), the card's peak allocation; train images/s; with
     ``shares`` each kernel's share of a step (``step_shares``, ``k1_body``
     as there); first-step fp32 gradients against the plain path at phase
-    5's limits, at ``grad_batch`` images (``batch`` unless given); with
-    ``after``, its result on (task, data) as ``after``.  Returns (summary,
-    launches, batches)."""
+    5's limits, at ``grad_batch`` images (``batch`` unless given).  Returns
+    (summary, launches, batches)."""
     def noisy(n):
         labels = np.arange(n) % classes
         noise = rng.integers(-8, 9, (n,) + prototypes.shape[1:], dtype=np.int16)
@@ -4549,8 +4559,6 @@ def tower_train(kernels, clip, spec, prototypes, rng, *, classes: int, n_train: 
     summary = {**run, "peak_allocated_gb": peak / 1e9, "train_images_per_s": ips}
     if shares:
         summary["kernel_shares_of_a_step"] = step_shares(task, data, k1_body)
-    if after is not None:
-        summary["after"] = after(task, data)
     del task
     grad_batch = grad_batch or batch
     summary["first_step_grads"] = {**compare_grads(
@@ -4838,8 +4846,7 @@ def run_vith14(kernels, gen, card: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# 17. CLIP ViT-B/16 in bf16 (N = 197): K1's persistent body on the path, and
-# against the register body end to end
+# 17. CLIP ViT-B/16 in bf16 (N = 197): K1's persistent body on the path
 # ---------------------------------------------------------------------------
 
 B16_SEED = 19
@@ -4857,49 +4864,7 @@ def k1_tma_body(keys: int) -> tuple:
     return (f"attention_fwd_bf16_tma<{keys}>", f"attention_fwd_bf16_tmaILi{keys}E")
 
 
-def serving_turns(regs):
-    """``tower_serve``'s ``after``: the served batch's forward with the
-    launcher's K1 (the persistent body) and with the register body
-    (``regs``, phase 3's aid) in turns (persistent, register, register,
-    persistent): images/s, the mean of each one's two medians, and K1's
-    share of a forward under each from a CUDA-only profile."""
-    from pevit_tpu_torch.tools.attention_bodies import launching
-
-    def after(serve, images):
-        turns, shares = {"tma": [], "regs": []}, {}
-        for name in ("tma", "regs", "regs", "tma"):
-            with launching(regs) if name == "regs" else contextlib.nullcontext():
-                turns[name].append(time_ms(lambda: serve(images), reps=5))
-        for name in ("tma", "regs"):
-            with launching(regs) if name == "regs" else contextlib.nullcontext():
-                shares[name] = kernel_share(lambda: serve(images),
-                                            {"attention_fwd": KERNEL_GROUPS["attention_fwd"]})
-        n = len(images)
-        return {"forward_ms_turns": turns,
-                "images_per_s": {k: n / statistics.mean(v) * 1e3 for k, v in turns.items()},
-                "k1_share_of_forward": {k: v["attention_fwd_share"] for k, v in shares.items()},
-                "k1_ms_of_forward": {k: v["attention_fwd_ms"] for k, v in shares.items()},
-                "busy_ms_of_forward": {k: v["busy_ms"] for k, v in shares.items()}}
-    return after
-
-
-def training_turns(regs):
-    """``tower_train``'s ``after``: train images/s (``train_throughput``)
-    with the persistent body and with the register body in turns, as
-    :func:`serving_turns`."""
-    from pevit_tpu_torch.tools.attention_bodies import launching
-
-    def after(task, data):
-        turns = {"tma": [], "regs": []}
-        for name in ("tma", "regs", "regs", "tma"):
-            with launching(regs) if name == "regs" else contextlib.nullcontext():
-                turns[name].append(train_throughput(task, data))
-        return {"images_per_s_turns": turns,
-                "images_per_s": {k: statistics.mean(v) for k, v in turns.items()}}
-    return after
-
-
-def run_vitb16(kernels, gen, card: str, regs) -> tuple:
+def run_vitb16(kernels, gen, card: str) -> tuple:
     """Phase 17: CLIP ViT-B/16 (``vitb16_CLIP.yaml``: 12 x 768, patch 16, N
     = 197) at full width and depth from seeded weights, every K1 launch on
     the persistent body (the launch plan at every batch, and the CUDA-only
@@ -4907,11 +4872,10 @@ def run_vitb16(kernels, gen, card: str, regs) -> tuple:
     body's): the bf16 KAdaptation classifier served at batch 256 (12 K1 and
     12 K2 a forward, top-1 against the plain path, images/s, K1's share of
     a forward) and trained at batch 128 (3 steps and one eval chunk; 12 K1,
-    K2 and K3 a step; fp32 first-step gradients at 16 images within 1e-3 of
-    each leaf's largest |g|); serving and train images/s and K1's share of
-    a forward with the persistent body and with the register body
-    (``regs``, phase 3's aid) in turns; then every kernel against its plain
-    version at each batch each path gave it."""
+    K2 and K3 a step; each kernel's share of a step; fp32 first-step
+    gradients at 16 images within 1e-3 of each leaf's largest |g|); then
+    every kernel against its plain version at each batch each path gave
+    it."""
     from pevit_tpu_torch.core import CLIPSpec, init_clip_params
     from pevit_tpu_torch.ops.attention import launch_plan
 
@@ -4931,11 +4895,11 @@ def run_vitb16(kernels, gen, card: str, regs) -> tuple:
     rng = np.random.default_rng(B16_SEED)
     out["serve"], serve_launches, serve_batches, prototypes = tower_serve(
         kernels, clip, spec, rng, seed=B16_SEED, classes=B16_CLASSES, batches=(SERVE_BATCH,),
-        what="CLIP ViT-B/16", k1_body=body, after=serving_turns(regs))
+        what="CLIP ViT-B/16", k1_body=body)
     out["train"], train_launches, train_batches = tower_train(
         kernels, clip, spec, prototypes, rng, classes=B16_TRAIN_CLASSES, n_train=B16_TRAIN,
         n_val=B16_VAL, batch=TRAIN_BATCH, shares=True, grad_batch=B16_GRAD_BATCH,
-        k1_body=body, after=training_turns(regs))
+        k1_body=body)
     print(f"vitb16: {json.dumps(out)} [{card}]", flush=True)
     del clip
     torch.cuda.empty_cache()
@@ -4968,7 +4932,7 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     # 2. build (and, beside the kernels, K1 with its bf16 shapes sent to the
-    # shared-memory body and to the three-walk body, phase 3's aids), every
+    # shared-memory body and to the three-walk body, phase 3c's aids), every
     # nvcc started together
     from pevit_tpu_torch.ops._build import _finish
 
@@ -4982,6 +4946,7 @@ def main() -> int:
     print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         print("\n".join(ptxas_summary(name, log)), flush=True)
+    check_gemm_builds(logs)
 
     # 3. kernels
     t0 = time.perf_counter()
@@ -5013,15 +4978,10 @@ def main() -> int:
     for name, rows_ in table.items():
         for r in rows_:
             print(f"kernel {name} {json.dumps(r)} [{card}]", flush=True)
-    # K1's persistent body against the register body at every N <= 257 row
-    # of attention_bodies.SHAPES, and beside the shared-memory and three-walk
-    # bodies at the serving batch
-    body_rows = []
+    # K1's persistent body at every N <= 257 row of attention_bodies.SHAPES
     for n, heads, batch in tma_rows():
-        others = ("smem", "long") if batch == SERVE_BATCH else ()
-        body_rows.append(time_bf16_bodies(gen, bodies, n, batch, heads, others))
-        print(f"kernel attention_fwd bf16 bodies {json.dumps(body_rows[-1])} [{card}]",
-              flush=True)
+        row = time_tma_body(gen, n, batch, heads)
+        print(f"kernel attention_fwd persistent body {json.dumps(row)} [{card}]", flush=True)
     idle = [r["shape"] for rows_ in table.values() for r in rows_
             if r["dtype"] == "float32" and not r["tf32_engaged"]]
     if idle:
@@ -5036,6 +4996,7 @@ def main() -> int:
         for r in rows_:
             print(f"kernel shapes {name} {json.dumps(r)} [{card}]", flush=True)
     smem_rows = check_smem_body(gen, bodies)
+    bodies_dir.cleanup()
     for r in smem_rows:
         print(f"kernel smem body {json.dumps(r)} [{card}]", flush=True)
     print(f"phase 3c: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5173,13 +5134,11 @@ def main() -> int:
     h14_launches, h14_table, seconds = run_vith14(KERNELS, gen, card)
     print(f"phase 16: {seconds:.1f} s", flush=True)
 
-    # 17. CLIP ViT-B/16 in bf16: K1's persistent body on the path, against
-    # the register body (phase 3's aid) in turns
-    b16_launches, b16_table, seconds = run_vitb16(KERNELS, gen, card, bodies["regs"])
-    bodies_dir.cleanup()
+    # 17. CLIP ViT-B/16 in bf16: K1's persistent body on the path
+    b16_launches, b16_table, seconds = run_vitb16(KERNELS, gen, card)
     print(f"phase 17: {seconds:.1f} s", flush=True)
 
-    # 18. report (the register body, on no path, with phase 3's rows)
+    # 18. report
     launches = {"command": command["launches"], **launches, **base_launches, **deploy_launches,
                 **aux_launches, **stream_launches, **trial_launches_, **axis_launches,
                 **mesh_launches, **l336_launches, **h14_launches, **b16_launches}
@@ -5187,10 +5146,7 @@ def main() -> int:
              + deploy_table[name] + aux_table[name] + stream_table[name] + trial_table[name]
              + axis_table[name] + mesh_table[name] + l336_table[name] + h14_table[name]
              + b16_table[name] for name in command_table}
-    regs_rows = [{**r, "body": "bf16_regs", "max_abs_err": r["regs_max_abs_err"],
-                  "ms": r["regs_ms"]} for r in body_rows if r["shape"].startswith(
-                      f"B*H={SERVE_BATCH}*")]
-    report = kernel_report(KERNELS, launches, table, {"attention_fwd": smem_rows + regs_rows})
+    report = kernel_report(KERNELS, launches, table, {"attention_fwd": smem_rows})
     print(f"script: {time.perf_counter() - start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": report}))

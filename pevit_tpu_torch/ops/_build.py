@@ -6,7 +6,9 @@ built or loaded at import time: a library is built at its first launch, or
 ahead of time by :func:`build_all`, which starts one ``nvcc`` per source and
 waits for all of them.  Builds land in ``BUILD_DIR`` (listed in .gitignore),
 named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source or header rebuilds and an unchanged one is reused.
+flags, so an edited source or header rebuilds and an unchanged one is reused;
+nvcc's log (ptxas's registers and spills) is kept beside each library, so a
+reused build still reports it.
 """
 
 from __future__ import annotations
@@ -86,10 +88,11 @@ class Kernel:
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def start_build(self):
-        """Start ``nvcc`` for this source unless its library exists; returns
-        ``(process, tmp_path, final_path)`` or None — :func:`_finish` waits."""
+        """Start ``nvcc`` for this source unless its library and its log
+        exist; returns ``(process, tmp_path, final_path)`` or None —
+        :func:`_finish` waits."""
         out = self.library_path()
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -119,31 +122,37 @@ class Kernel:
 
 
 def _finish(build) -> str:
-    """Wait for one build; install its library or raise with nvcc's log."""
+    """Wait for one build; install its library and its log beside it, or
+    raise with nvcc's log."""
     if build is None:
         return ""
     proc, tmp, out = build
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed ({proc.returncode}) for {out.name}:\n{log}")
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, out.with_suffix(".log"))
     os.replace(tmp, out)
     return log
 
 
 def build_all(kernels) -> dict:
     """Build every kernel's library at once (one ``nvcc`` per source, all
-    started together); returns ``{name: nvcc log}`` for the ones built.
-    Every build is waited for before a failure is raised."""
+    started together); returns ``{name: nvcc log}`` for every kernel, read
+    from beside its library where an earlier build is reused.  Every build
+    is waited for before a failure is raised."""
+    kernels = list(kernels)
     builds = {k.name: k.start_build() for k in kernels}
-    logs, errors = {}, []
-    for name, build in builds.items():
+    errors = []
+    for build in builds.values():
         try:
-            logs[name] = _finish(build)
+            _finish(build)
         except KernelBuildError as e:
             errors.append(str(e))
     if errors:
         raise KernelBuildError("\n".join(errors))
-    return {name: log for name, log in logs.items() if builds[name] is not None}
+    return {k.name: k.library_path().with_suffix(".log").read_text() for k in kernels}
 
 
 def device_kind(op: str, *tensors) -> str:

@@ -45,18 +45,15 @@ KERNEL = Kernel(
 # head)s, S rows in wgmma's accumulators) up to TMA_MAX_SEQ tokens, there
 # its body with the S tile in shared memory (a block per (batch, head,
 # 64-query tile)) up to SMEM_MAX_SEQ tokens, the same body with a shorter
-# ring up to SMEM2_MAX_SEQ, and its three-walk long body otherwise; its
-# register body (a block per (batch, head)) takes N <= MAX_SEQ_REGS, which
-# is 0: no shape, and phase 3 of chip_smoke.py times it in turns from a copy
-# of the source with the ceiling raised.  fp32 runs one body.  The long body
-# and fp32 launch a block per (batch, head, 64-query tile, chunk of at most
-# COLUMN_CHUNK output columns).  A body is built for a head width of
+# ring up to SMEM2_MAX_SEQ, and its three-walk long body otherwise.  fp32
+# runs one body.  The long body and fp32 launch a block per (batch, head,
+# 64-query tile, chunk of at most COLUMN_CHUNK output columns).  A body is
+# built for a head width of
 # BODY_WIDTHS (hd rounded up; the kernel stages the columns past hd as
 # zeros), and the kernel takes hd in whole 16-byte chunks: the wrapper
 # zero-pads any other hd, as the reference pads hd to a multiple of 8.  The
 # launchers count the grid's blocks (the persistent body its work items, B
 # * H) in a 32-bit int; every pointer offset is 64-bit
-MAX_SEQ_REGS = 0
 REG_WIDTH = 64
 BODY_WIDTHS = (64, 80, 96, 128, 256)
 MAX_HEAD_DIM = BODY_WIDTHS[-1]
@@ -83,7 +80,7 @@ SMEM2_MAX_SEQ = 768
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """How the kernel runs one call: ``body`` ("bf16_tma" (the persistent
-    body), "bf16_regs", "bf16_smem", "bf16_smem2" (the short ring),
+    body), "bf16_smem", "bf16_smem2" (the short ring),
     "bf16_long" or "f32"), the head width ``width`` its instantiation is
     built for, the head width ``hd`` it is handed (the caller's, or
     zero-padded to whole 16-byte chunks), its grid's ``blocks`` and, for the
@@ -111,9 +108,7 @@ def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
     padded = -(-hd // chunk) * chunk
     width = next(w for w in BODY_WIDTHS if w >= padded)
     keys, items = 0, B * H
-    if dtype == torch.bfloat16 and N <= MAX_SEQ_REGS and padded <= REG_WIDTH:
-        body, blocks = "bf16_regs", items
-    elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= TMA_MAX_SEQ:
+    if dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= TMA_MAX_SEQ:
         body, blocks, keys = "bf16_tma", min(H100_SMS, items), next(k for k in TMA_KEYS if k >= N)
     elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM_MAX_SEQ:
         body, blocks = "bf16_smem", B * H * -(-N // QUERY_TILE)

@@ -25,10 +25,6 @@
 // shared memory from 258 up to 640 tokens, where its tile fits beside a
 // ring of four stages, and up to 768 with a ring of two; the three-walk
 // long body otherwise), chosen by shape; no body falls back to another.
-// The register body takes N <= MAX_SEQ_REGS, which is 0: the persistent
-// body is faster at every shape timed (chip_smoke.py phase 3), and the
-// register body stays only as the yardstick it is timed against there, in
-// a copy of this source with the ceiling raised.
 //
 // Head widths.  The reference takes any hd (it pads hd to a multiple of 8
 // for its lanes).  Here every body is built for a head width W, hd rounded
@@ -38,43 +34,17 @@
 // q meets a zero column of k) and only adds output columns that are never
 // stored, so the result is the reference's at every hd.  hd must fill
 // whole 16-byte chunks (a multiple of 8 in bf16, of 4 in float32); the
-// wrapper zero-pads any other hd, as the reference does.  The register
-// body is built for W = 64 only; a wider head goes to the query-tiled
-// bodies at every N.  Their output is cut into chunks of at most 128
-// columns, one block a chunk (two at hd > 128): a block recomputes S over
+// wrapper zero-pads any other hd, as the reference does.  The persistent
+// and the shared-memory bodies are built for W = 64 only; a wider head
+// goes to the query-tiled bodies at every N.  Their output is cut into
+// chunks of at most 128 columns, one block a chunk (two at hd > 128): a
+// block recomputes S over
 // the whole hd for its chunk of v's columns, which is exact, since p does
 // not depend on v, and keeps a block's accumulators within its registers.
 // A tile of rows a multiple of 64 elements wide keeps the XOR swizzle of
 // 16-byte chunks by (row & 7); other widths (80, 96) pad each row by 16
 // bytes, an odd number of 16-byte chunks, so that 8 consecutive rows'
 // chunks of one column still meet 8 distinct bank groups (Tile below).
-//
-// bfloat16 register body, N <= MAX_SEQ_REGS (0; up to 257 in phase 3's
-// copy), hd <= 64 (tensor cores): one block per (batch, head), which reads
-// the head's rows of q, k and v exactly once.
-// Bytes bound the kernel at these lengths, so the design aims to keep the
-// arithmetic off the critical path and the loads wide:
-//   * staging: q, k and v rows (128 bytes each at W = 64) go to shared
-//     memory by 16-byte cp.async, with the 16-byte chunks of a row XOR-
-//     swizzled by (row & 7) so that ldmatrix reads are free of bank
-//     conflicts; the keys are padded to a multiple of 16 (NP) with zero
-//     rows (a padded v row must be zero: p = 0 times garbage may be NaN);
-//   * logits: each warp owns a 16-query-row tile and computes S = Q K^T
-//     with mma.sync m16n8k16 (bf16 in, float32 accumulators), operands by
-//     ldmatrix; padded key columns are set to -inf;
-//   * softmax: row max and sum in float32 across the 4 lanes of a quad
-//     (shuffles); p = exp(s - max) / sum in float32, then rounded to bf16:
-//     the rounded p of a 16-key tile is exactly the A fragment of P V, so it
-//     never goes through shared memory;
-//   * output: V fragments by ldmatrix.trans, float32 accumulators, rounded
-//     once, staged in the warp's own q rows and written with 16-byte stores.
-// The whole (16 x NP) float32 S tile lives in registers: at N = 257 (NP =
-// 272) that is 136 per lane; P V consumes it 16 keys at a time.  ptxas
-// fits the largest instantiations in 255 registers without spills, so one
-// pass over K suffices (no second pass that recomputes S).  The key count
-// is rounded up to one of four instantiations (NP = 64, 128, 208, 272),
-// and no more fit: a longer row of S does not, nor a wider head's
-// fragments beside it.
 //
 // bfloat16 persistent body, N <= 257, hd <= 64 (Hopper's TMA, wgmma,
 // mbarriers and setmaxnreg), for the S rows that fit a warpgroup's wgmma
@@ -83,8 +53,8 @@
 // batch 256 x 12 heads), each SM's issue slots above (a logit takes the
 // row max, s - m, expf, the sum, the correctly rounded quotient's three
 // instructions and half a pack; the tensor cores' products are the
-// smaller part).  The design
-// against the register body's losses (a block of 4 warps a head that
+// smaller part).  The design against the losses of the mma.sync body
+// with S in registers that it replaced (a block of 4 warps a head that
 // loads, waits, then computes; 2 blocks an SM; a division a logit):
 //   * persistent: one block an SM walks the (batch, head) items, items
 //     blockIdx.x + i gridDim.x, so a block's loads and products overlap
@@ -101,12 +71,11 @@
 //   * S = Q K^T by wgmma with q and K from shared memory (products of at
 //     most 128 keys, the descriptors formed where they are issued so that
 //     none is held across the softmax), in the accumulators, which hold a
-//     lane's keys as mma.sync's do: the row max, the sum in the register
+//     lane's keys as mma.sync's do: the row max, the sum in the replaced
 //     body's order (a lane's columns, then the quad), e = expf(s - m) once,
 //     p = e / l correctly rounded (1 / l once a row and the Markstein
 //     residual a logit) and packed to bf16 as P V's A fragments: the
-//     register body's numbers bit for bit (phase 3 counts the elements that
-//     differ);
+//     replaced body's numbers bit for bit;
 //   * keys past N masked only in the 8-key groups at or past the next
 //     smaller instantiation's key count (N exceeds it), instantiations at
 //     56, 64, 128, 200 and 264 keys (N = 50, 197, 257 take 56, 200, 264);
@@ -117,8 +86,9 @@
 // alone leaves the issue slots idle), three consumers (they spill at 200
 // and 264 keys and gain at most a few percent below).
 //
-// bfloat16 long body, hd > 64 or N > 768 (tensor cores, the same mma.sync,
-// ldmatrix, tiles and output staging as the register body).  The rounding
+// bfloat16 long body, hd > 64 or N > 768 (tensor cores: mma.sync m16n8k16
+// on ldmatrix fragments of swizzled shared tiles, the output staged in the
+// warp's own q rows).  The rounding
 // point rules out a one-pass online softmax: p must be normalised by the
 // row's final sum before it is rounded.  So the body holds one chunk's S
 // (64 keys, 32 floats a lane) and walks the keys three times: the exact row
@@ -215,17 +185,15 @@
 // The launchers raise each kernel's dynamic shared memory limit with
 // cudaFuncSetAttribute before its launch.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
-#include <mutex>
 #include <type_traits>
 
 #include "tf32x3.cuh"
+#include "tma.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -233,18 +201,14 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int QROWS = WARPS * 16;  // query rows a block (the fp32 and the long bf16 body)
-// the longest sequence the bf16 register body takes (its S row in
-// registers): none, the persistent body takes them (a copy of this source
-// with 257 here is phase 3's yardstick)
-constexpr int MAX_SEQ_REGS = 0;
-constexpr int REG_WIDTH = 64;      // the one head width the register body is built for
+constexpr int REG_WIDTH = 64;      // the head width of the persistent and shared-memory bodies
 constexpr int MAX_HD = 256;
 constexpr int COL_CHUNK = 128;     // output columns a query-tiled block computes, at most
 
 // ---------------------------------------------------------------------------
-// bfloat16 body (tensor cores); its copy and quad helpers serve the bf16
-// bodies (bf16, smem_u32, cp_async16 and the wgmma descriptors come from
-// wgmma_gemm.cuh)
+// the bf16 bodies' copy, fragment and quad helpers (bf16, smem_u32,
+// cp_async16 and the wgmma descriptors come from wgmma_gemm.cuh, the
+// mbarriers and the TMA maps from tma.cuh)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -313,125 +277,6 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long
       cp_async16(smem_u32(d), src + (r0 + r) * sn + col0 + c * 8);
     else
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// KT: 16-key tiles held in registers (NP = 16 KT >= N); hd <= 64
-template <int KT>
-__global__ void __launch_bounds__(THREADS)
-attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, int H, int N, int hd,
-                   long long qsb, long long qsn, long long qsh,
-                   long long ksb, long long ksn, long long ksh,
-                   long long vsb, long long vsn, long long vsh) {
-  constexpr int NP = 16 * KT;
-  typedef Tile<REG_WIDTH> T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + NP * T::LD;
-  bf16* v_s = k_s + NP * T::LD;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  stage_tile<REG_WIDTH>(q_s, q + b * qsb + h * qsh, qsn, 0, NP, N, 0, hd);
-  stage_tile<REG_WIDTH>(k_s, k + b * ksb + h * ksh, ksn, 0, NP, N, 0, hd);
-  stage_tile<REG_WIDTH>(v_s, v + b * vsb + h * vsh, vsn, 0, NP, N, 0, hd);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int n_tiles = (N + 15) >> 4;
-  for (int qt = warp; qt < n_tiles; qt += WARPS) {
-    // Q fragments: 4 steps of 16 along hd
-    uint32_t qa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int r = qt * 16 + (lane & 15);
-      ldmatrix_x4(qa[kk], smem_u32(q_s + T::at(r, 2 * kk + (lane >> 4))));
-    }
-
-    // S = Q K^T: n8 tile j covers keys 8j..8j+7
-    float s[2 * KT][4];
-#pragma unroll
-    for (int j = 0; j < 2 * KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      const int r = kt * 16 + (lane & 7) + ((lane >> 4) << 3);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, smem_u32(k_s + T::at(r, 2 * kk + ((lane >> 3) & 1))));
-        mma_16816(s[2 * kt], qa[kk], kb[0], kb[1]);
-        mma_16816(s[2 * kt + 1], qa[kk], kb[2], kb[3]);
-      }
-    }
-
-    // softmax in float32; a lane holds rows g (s[j][0..1]) and g + 8
-    // (s[j][2..3]), columns 8j + 2t and 8j + 2t + 1
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 2 * KT; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col >= N) s[j][0] = s[j][2] = -INFINITY;
-      if (col + 1 >= N) s[j][1] = s[j][3] = -INFINITY;
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2 * KT; ++j) {
-      s[j][0] = expf(s[j][0] - mx0);
-      s[j][1] = expf(s[j][1] - mx0);
-      s[j][2] = expf(s[j][2] - mx1);
-      s[j][3] = expf(s[j][3] - mx1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    sum0 = quad_sum(sum0);
-    sum1 = quad_sum(sum1);
-
-    // O = P V, 16 keys at a time; p normalised in float32, then rounded
-    float o[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kt][0] / sum0, s[2 * kt][1] / sum0),
-          pack_bf16(s[2 * kt][2] / sum1, s[2 * kt][3] / sum1),
-          pack_bf16(s[2 * kt + 1][0] / sum0, s[2 * kt + 1][1] / sum0),
-          pack_bf16(s[2 * kt + 1][2] / sum1, s[2 * kt + 1][3] / sum1)};
-      const int r = kt * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, smem_u32(v_s + T::at(r, 2 * dn + (lane >> 4))));
-        mma_16816(o[2 * dn], pa, vb[0], vb[1]);
-        mma_16816(o[2 * dn + 1], pa, vb[2], vb[3]);
-      }
-    }
-
-    // round once, stage in this warp's own q rows, 16-byte stores of the
-    // columns below hd
-    __syncwarp();
-    const int r0 = qt * 16 + (lane >> 2), r1 = r0 + 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<uint32_t*>(q_s + T::at(r0, j) + 2 * t) = pack_bf16(o[j][0], o[j][1]);
-      *reinterpret_cast<uint32_t*>(q_s + T::at(r1, j) + 2 * t) = pack_bf16(o[j][2], o[j][3]);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = lane + 32 * i;
-      const int r = qt * 16 + (e >> 3), c = e & 7;
-      if (r < N && c * 8 < hd)
-        *reinterpret_cast<uint4*>(out + (((size_t)b * N + r) * H + h) * hd + c * 8) =
-            *reinterpret_cast<const uint4*>(q_s + T::at(r, c));
-    }
   }
 }
 
@@ -656,11 +501,10 @@ attention_fwd_bf16_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // SMEM2_MAX_SEQ with a ring of SHORT_RING
 // ---------------------------------------------------------------------------
 
-constexpr int SMEM_BUDGET = 232448;  // shared memory a block may use on Hopper (227 KB)
 constexpr int RING = 4, SHORT_RING = 2;  // the ring's stages: deep, and where S leaves no room
 // the longest N the body takes with each ring, five and six items of S
 // (ops/attention.py mirrors them; the static_asserts below hold each
-// layout to SMEM_BUDGET there)
+// layout to SMEM_BUDGET, tma.cuh's, there)
 constexpr int SMEM_MAX_SEQ = 640;
 constexpr int SMEM2_MAX_SEQ = 768;
 
@@ -715,32 +559,8 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 // MN-major), rows at or past N and columns at or past hd zero-filled by the
 // copy; each completes on its stage's mbarrier for the warpgroup.  One
 // thread issues a warpgroup's boxes, so no thread spends issue slots on
-// addresses or copies
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// a (64 columns x rows) box at (column, head, row, batch) of a (B, N, H, hd)
+// addresses or copies.
+// A (64 columns x rows) box at (column, head, row, batch) of a (B, N, H, hd)
 // tensor's map into shared memory at dst
 __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, uint32_t bar, int col,
                                         int head, int row, int batch) {
@@ -1058,7 +878,7 @@ attention_fwd_bf16_smem(const SmemArgs a, const __grid_constant__ CUtensorMap km
 
 // ---------------------------------------------------------------------------
 // bfloat16 persistent body (wgmma, TMA, warp-specialised), hd <= 64,
-// MAX_SEQ_REGS < N <= TMA_MAX_SEQ
+// N <= TMA_MAX_SEQ
 // ---------------------------------------------------------------------------
 
 // the longest N of the persistent body (ops/attention.py mirrors it)
@@ -1331,7 +1151,7 @@ struct TmaArgs {
 //   the exact row max and the float32 row sum of e = exp(s - m) by quad
 //     shuffles (a lane holds rows g and g + 8 of its warp's 16, keys 8j +
 //     2t and + 1 as mma.sync's accumulators hold them, so the sum runs in
-//     the register body's order);
+//     the order of the mma.sync body it replaced);
 //   p = e / l correctly rounded (1 / l rounded once a row, then a product
 //     and its Markstein residual a logit), rounded to bf16 straight into
 //     wgmma's A fragments;
@@ -1780,18 +1600,6 @@ int set_smem(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int KT>
-int launch_bf16(const Args& a) {
-  const size_t smem = (size_t)3 * 16 * KT * Tile<REG_WIDTH>::LD * sizeof(bf16);
-  int err = set_smem(attention_fwd_bf16<KT>, smem);
-  if (err != 0) return err;
-  attention_fwd_bf16<KT><<<a.B * a.H, THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.H, a.N, a.hd, a.qsb, a.qsn,
-      a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh);
-  return (int)cudaGetLastError();
-}
-
 template <int W>
 int launch_bf16_long(const Args& a) {
   constexpr int DV = col_width(W);
@@ -1806,83 +1614,16 @@ int launch_bf16_long(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query,
-// so the library links against nothing but the runtime
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-int encode_tiled(EncodeTiledFn* fn) {
-  static EncodeTiledFn found_fn = nullptr;
-  if (found_fn == nullptr) {
-    void* entry = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const int err = (int)cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &entry, 12000,
-                                                          cudaEnableDefault, &found);
-#else
-    const int err =
-        (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
-#endif
-    if (err != 0) return err;
-    if (found != cudaDriverEntryPointSuccess || entry == nullptr) return (int)cudaErrorNotSupported;
-    found_fn = reinterpret_cast<EncodeTiledFn>(entry);
-  }
-  *fn = found_fn;
-  return 0;
-}
-
 // the TMA map of a (B, N, H, hd) bf16 operand with (batch, token, head)
 // element strides sb, sn, sh: boxes of 64 columns by `rows` tokens of one
 // head, in the 128-byte swizzle; columns past hd and tokens past N read as
-// zeros.  The last maps encoded are kept, keyed by all that goes into
-// them, so that a call on the tensors of an earlier one (the caching
-// allocator hands a model's layers the same buffers) skips the encoding,
-// which is most of a launch's host time
+// zeros (tma.cuh's bf16_map, which keeps the maps it encoded)
 int head_map(CUtensorMap* map, const void* base, const Args& a, long long sb, long long sn,
              long long sh, int rows) {
-  struct Key {
-    const void* base;
-    long long sb, sn, sh;
-    int B, H, N, hd, rows;
-  };
-  struct Entry {
-    Key key;
-    CUtensorMap map;
-  };
-  static std::mutex lock;
-  static Entry kept[32];
-  static int used = 0, next = 0;
-  Key key;
-  memset(&key, 0, sizeof key);  // padding too: keys compare bytewise
-  key.base = base;
-  key.sb = sb, key.sn = sn, key.sh = sh;
-  key.B = a.B, key.H = a.H, key.N = a.N, key.hd = a.hd, key.rows = rows;
-  {
-    std::lock_guard<std::mutex> hold(lock);
-    for (int i = 0; i < used; ++i)
-      if (memcmp(&kept[i].key, &key, sizeof key) == 0) {
-        *map = kept[i].map;
-        return 0;
-      }
-  }
-  EncodeTiledFn encode;
-  const int err = encode_tiled(&encode);
-  if (err != 0) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)a.hd, (cuuint64_t)a.H, (cuuint64_t)a.N, (cuuint64_t)a.B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1}, unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  std::lock_guard<std::mutex> hold(lock);
-  kept[next] = Entry{key, *map};
-  next = (next + 1) % 32;
-  used = used < 32 ? used + 1 : 32;
-  return 0;
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return bf16_map(map, 4, base, dims, strides, box, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 template <int ST>
@@ -1899,21 +1640,6 @@ int launch_bf16_smem(const Args& a) {
   attention_fwd_bf16_smem<ST><<<a.B * a.H * q_tiles, SmemBody::WGS * THREADS, smem,
                                a.stream>>>(sa, kmap, vmap);
   return (int)cudaGetLastError();
-}
-
-// the SMs of the current device, the persistent body's grid at most
-int sm_count(int* n) {
-  static int counts[64] = {};  // by device, once asked
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err != 0) return err;
-  if (dev < 64 && counts[dev] > 0) {
-    *n = counts[dev];
-    return 0;
-  }
-  err = (int)cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
-  if (err == 0 && dev < 64) counts[dev] = *n;
-  return err;
 }
 
 template <int NK>
@@ -1956,10 +1682,9 @@ int launch_f32(const Args& a) {
 // attention.py zero-pads any other hd).  Every body copies 16-byte chunks
 // of rows, so every base pointer must be 16-byte aligned and every stride a
 // multiple of 16 bytes (8 bf16 or 4 float32 elements).  The grid (one
-// block per (batch, head) for the bf16 register body at N <= MAX_SEQ_REGS
-// and hd <= 64; one block an SM, at most B * H, for the persistent body up
-// to TMA_MAX_SEQ, which counts its B * H items; per (batch, head, 64-query
-// tile) for the bf16 body with S in shared memory beyond, up to
+// block an SM, at most B * H, for the bf16 persistent body up to
+// TMA_MAX_SEQ at hd <= 64, which counts its B * H items; per (batch, head,
+// 64-query tile) for the bf16 body with S in shared memory beyond, up to
 // SMEM2_MAX_SEQ at hd <= 64; per (batch, head, 64-query tile, chunk of at
 // most 128 output columns) otherwise) holds at most 2^31 - 1 blocks or
 // items.  Returns the CUDA error code (0 = launched).
@@ -1972,12 +1697,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
   const long long chunk = dtype == 0 ? 4 : 8;  // elements in 16 bytes
   if (hd % chunk != 0) return (int)cudaErrorInvalidValue;
   const bool narrow = dtype == 1 && hd <= REG_WIDTH;  // bf16 heads of up to 64
-  const bool regs = narrow && N <= MAX_SEQ_REGS;
-  const bool tma = narrow && !regs && N <= TMA_MAX_SEQ;
-  const bool in_smem = narrow && !regs && !tma && N <= SMEM2_MAX_SEQ;
+  const bool tma = narrow && N <= TMA_MAX_SEQ;
+  const bool in_smem = narrow && !tma && N <= SMEM2_MAX_SEQ;
   const long long blocks =
-      (long long)B * H *
-      (regs || tma ? 1 : (long long)q_tiles_of(N) * (in_smem ? 1 : col_chunks_of(hd)));
+      (long long)B * H * (tma ? 1 : (long long)q_tiles_of(N) * (in_smem ? 1 : col_chunks_of(hd)));
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) ||
       ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & (chunk - 1)))
@@ -1995,11 +1718,5 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
   }
   if (in_smem)
     return N <= SMEM_MAX_SEQ ? launch_bf16_smem<RING>(a) : launch_bf16_smem<SHORT_RING>(a);
-  if (!regs)
-    return with_width(hd, [&](auto w) { return launch_bf16_long<decltype(w)::value>(a); });
-  const int kt = (N + 15) / 16;
-  if (kt <= 4) return launch_bf16<4>(a);
-  if (kt <= 8) return launch_bf16<8>(a);
-  if (kt <= 13) return launch_bf16<13>(a);
-  return launch_bf16<17>(a);
+  return with_width(hd, [&](auto w) { return launch_bf16_long<decltype(w)::value>(a); });
 }

@@ -53,13 +53,34 @@ BWD_KERNEL = Kernel(
 # the rows): their GEMMs zero-fill the tails of the last tiles, and they
 # copy 16-byte chunks of rows, so C and F must fill whole chunks; the
 # wrappers zero-pad any other width (``padded_widths``), and the kernels'
-# LayerNorm counts the caller's C.  Both kernels' GEMMs give each 128-row
-# tile of the R rows one block row of the grid's y dimension, which CUDA
-# caps at 65535; their index products (row x C, row x F, in elements and
+# LayerNorm counts the caller's C.  The float32 bodies' GEMMs give each
+# 128-row tile of the R rows one block row of the grid's y dimension, which
+# CUDA caps at 65535 (the bf16 bodies' persistent grid counts its tiles in
+# a 32-bit int); their index products (row x C, row x F, in elements and
 # bytes) are 64-bit, so R x F may pass 2^31 (a chunk of 16 trials'
 # 512-image eval chunks on ViT-L/14 is R = 2,105,344 rows, R x F = 8.6e9).
 MAX_ROWS = 65535 * 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The bf16 bodies' GEMM core (csrc/wgmma_gemm.cuh, ``gemm_persistent``), as
+# the sources set it (tests/test_torch_mlp_tma.py holds these to the
+# sources): output tiles of GEMM_ROWS rows, K in ring stages of GEMM_K, as
+# many stages as a block's shared memory holds but at most GEMM_MAX_STAGES;
+# a producer warpgroup and GEMM_CONSUMERS consumer warpgroups at
+# setmaxnreg's register counts, which take the tiles of a block in turn;
+# one block an SM, walking the tiles in row-major order.  GEMM_PRODUCTS:
+# each product's tile width (the sources' FC_TILE_N, PROJ_TILE_N,
+# DH_TILE_N, DU_TILE_N), its products a tile (the dh pair's two), whether
+# B is read MN-major (the weights as they lie) or K-major, and the bytes of
+# an output value its epilogue stages (bf16, or du's float32).
+GEMM_ROWS = 128
+GEMM_K = 64
+GEMM_CONSUMERS = 2
+GEMM_PRODUCER_REGS = 40
+GEMM_CONSUMER_REGS = 232
+GEMM_MAX_STAGES = 8
+GEMM_PRODUCTS = {"fc": (128, 1, True, 2), "proj": (128, 1, True, 2), "dh": (64, 2, False, 2),
+                 "du": (128, 1, False, 4)}
+
 _WEIGHTS = ("ln_scale", "ln_bias", "wfc", "bfc", "wproj", "bproj")
 
 

@@ -8,7 +8,7 @@ Each ``DIR`` holds another ``attention_fwd.cu`` with the same C interface
 (hd an argument; with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
 earlier commit unpacked by ``git archive``.  Each ``--set`` builds a copy of
 this tree's source with ``constexpr`` constants set otherwise (e.g.
-``regs:MAX_SEQ_REGS=257`` sends bf16 N <= 257 to the register body,
+``smem:TMA_MAX_SEQ=0`` sends bf16 N <= 257 to the shared-memory body,
 ``three:CONSUMERS=3`` gives the persistent body three consumer warpgroups),
 a design choice timed against the source as it is.  Every source is built by
 ``nvcc`` (ptxas registers and spills printed), then, in bfloat16 at each

@@ -7,9 +7,9 @@ CUDA cannot run:
   next instantiation, one block an SM of an H100 at most, and every other
   shape the body the constants name; ``check_grid`` counts its (batch,
   head) items;
-* the mirrors: ``TMA_MAX_SEQ``, the instantiations ``TMA_KEYS`` and the
-  register body's ceiling ``MAX_SEQ_REGS`` are the source's, and each
-  instantiation's ring holds at least two stages within 227 KB;
+* the mirrors: ``TMA_MAX_SEQ`` and the instantiations ``TMA_KEYS`` are
+  the source's, and each instantiation's ring holds at least two stages
+  within 227 KB;
 * the walk: :func:`persistent_walk`, the kernel's loops in Python (the
   source's loops are checked to be the ones it mirrors), covers every
   (item, query tile) exactly once at every grid from 1 to 264 blocks, and
@@ -49,9 +49,9 @@ def _layout(keys: int) -> dict:
 
 def test_mirrors_match_the_source():
     assert int(_constant("TMA_MAX_SEQ")) == ta.TMA_MAX_SEQ == 257
-    assert int(_constant("MAX_SEQ_REGS")) == ta.MAX_SEQ_REGS
     assert int(_constant("CONSUMERS")) == ta.TMA_CONSUMERS == 2
-    assert int(_constant("SMEM_BUDGET")) == SMEM_BUDGET
+    tma = " ".join((CSRC / "tma.cuh").read_text().split())
+    assert re.findall(r"constexpr int SMEM_BUDGET = (\d+);", tma) == [str(SMEM_BUDGET)]
     (keys,) = re.findall(r"constexpr int TMA_KEYS\[\] = \{([^}]+)\};", SOURCE)
     assert tuple(int(k) for k in keys.split(",")) == ta.TMA_KEYS
     launched = tuple(int(k) for k in re.findall(r"return launch_bf16_tma<(\d+)>\(a\);", SOURCE))
@@ -84,9 +84,7 @@ def test_every_length_lands_on_the_body_the_constants_name(hd):
     shared-memory bodies; float32 never."""
     for n in range(1, ta.SMEM2_MAX_SEQ + 2):
         plan = ta.launch_plan(3, n, 4, hd, torch.bfloat16)
-        if n <= ta.MAX_SEQ_REGS:
-            want = "bf16_regs"
-        elif n <= ta.TMA_MAX_SEQ:
+        if n <= ta.TMA_MAX_SEQ:
             want = "bf16_tma"
         elif n <= ta.SMEM_MAX_SEQ:
             want = "bf16_smem"

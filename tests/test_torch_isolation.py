@@ -80,7 +80,8 @@ def test_config_and_tokenizer_work_without_the_cards_missing_packages():
                                   "tools/fp32_grad_witness.py", "tools/profile_port_step.py",
                                   "tools/k3_fp32_variants.py",
                                   "tools/fp32_train_throughput.py",
-                                  "tools/fp32_logit_spread.py", "tools/kernel_ab.py"] + [
+                                  "tools/fp32_logit_spread.py", "tools/kernel_ab.py",
+                                  "tools/fused_mlp_ab.py", "tools/gemm_stamps.py"] + [
     str(p.relative_to(REPO)) for p in sorted((REPO / "pevit_tpu_torch").rglob("*.py"))])
 def test_no_forbidden_import_statement(path):
     assert not _imported_roots(REPO / path) & set(FORBIDDEN)
@@ -104,6 +105,28 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     kernel = _build.Kernel("attention_fwd", "attention_fwd.cu", [], replaces="-")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel.start_build()
+
+
+def test_a_reused_build_returns_its_nvcc_log(monkeypatch, tmp_path):
+    """``build_all`` returns nvcc's log for every kernel, a reused library's
+    read from the log kept beside it, so ptxas's registers and spills are
+    checked on every run; a library whose log is gone is built again."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n'
+                    'echo call >> "$NVCC_CALLS"\necho "ptxas info : Used 168 registers"\n')
+    nvcc.chmod(0o755)
+    calls = tmp_path / "calls"
+    monkeypatch.setenv("CUDA_HOME", str(nvcc.parents[1]))
+    monkeypatch.setenv("NVCC_CALLS", str(calls))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    kernel = _build.Kernel("attention_fwd", "attention_fwd.cu", [], replaces="-")
+    want = {"attention_fwd": "ptxas info : Used 168 registers\n"}
+    assert _build.build_all([kernel]) == want and kernel.library_path().exists()
+    assert _build.build_all([kernel]) == want and calls.read_text().count("call") == 1
+    kernel.library_path().with_suffix(".log").unlink()
+    assert _build.build_all([kernel]) == want and calls.read_text().count("call") == 2
+    assert sorted(p.suffix for p in (tmp_path / "build").iterdir()) == [".log", ".so"]
 
 
 def test_library_path_follows_shared_headers(monkeypatch, tmp_path):

@@ -141,8 +141,8 @@ def test_every_head_width_has_a_launch_plan(dtype):
     """hd 1 to 256 at every body's sequence lengths: hd padded to whole
     16-byte chunks only where it does not fill them, the instantiation the
     next built width, the persistent body only for bf16 at N <= 257 and hd
-    <= 64 (the register body at none: its ceiling is 0), and the grid of
-    the body that runs (the persistent body's one block an SM at most)."""
+    <= 64, and the grid of the body that runs (the persistent body's one
+    block an SM at most)."""
     chunk = 128 // torch.finfo(dtype).bits  # elements in 16 bytes
     for hd in range(1, ta.MAX_HEAD_DIM + 1):
         for n in (1, 50, 197, 257, 258, 577, 640, 641, 730, 768, 769, 1025, 1280, 1281):
@@ -150,18 +150,17 @@ def test_every_head_width_has_a_launch_plan(dtype):
             assert plan.hd % chunk == 0 and hd <= plan.hd < hd + chunk
             assert plan.width == min(w for w in ta.BODY_WIDTHS if w >= plan.hd)
             bf16 = dtype == torch.bfloat16
-            regs = bf16 and n <= ta.MAX_SEQ_REGS and plan.hd <= 64
-            tma = bf16 and not regs and n <= ta.TMA_MAX_SEQ and plan.hd <= 64
-            tiled = bf16 and not (regs or tma) and plan.hd <= 64  # a shared-memory body
+            tma = bf16 and n <= ta.TMA_MAX_SEQ and plan.hd <= 64
+            tiled = bf16 and not tma and plan.hd <= 64  # a shared-memory body
             in_smem = tiled and n <= ta.SMEM_MAX_SEQ
             in_smem2 = tiled and ta.SMEM_MAX_SEQ < n <= ta.SMEM2_MAX_SEQ
-            assert plan.body == ("bf16_regs" if regs else "bf16_tma" if tma else
+            assert plan.body == ("bf16_tma" if tma else
                                  "bf16_smem" if in_smem else "bf16_smem2" if in_smem2 else
                                  "bf16_long" if bf16 else "f32")
             one = in_smem or in_smem2
             columns = 1 if one else -(-plan.hd // min(plan.width, ta.COLUMN_CHUNK))
             assert columns == (2 if plan.hd > 128 and not one else 1)
-            per_head = 1 if regs or tma else -(-n // ta.QUERY_TILE) * columns
+            per_head = 1 if tma else -(-n // ta.QUERY_TILE) * columns
             assert plan.blocks == (min(15, ta.H100_SMS) if tma else 15 * per_head)
     for hd in (0, ta.MAX_HEAD_DIM + 1):
         with pytest.raises(KernelInputError, match="hd"):
@@ -219,15 +218,14 @@ def _cu_constant(text: str, name: str) -> int:
 
 def test_smem_body_mirror_matches_the_source():
     """``ops/attention.py``'s mirrors of the shared-memory bodies' longest
-    N (with each ring) and of the register and persistent bodies' hold the
+    N (with each ring) and of the persistent body's hold the
     source's constants, and the source holds each layout within the card's
     shared memory at its longest N."""
     text = " ".join((CSRC / "attention_fwd.cu").read_text().split())  # one space a gap
-    assert _cu_constant(text, "MAX_SEQ_REGS") == ta.MAX_SEQ_REGS
     assert _cu_constant(text, "TMA_MAX_SEQ") == ta.TMA_MAX_SEQ
     assert _cu_constant(text, "SMEM_MAX_SEQ") == ta.SMEM_MAX_SEQ
     assert _cu_constant(text, "SMEM2_MAX_SEQ") == ta.SMEM2_MAX_SEQ
-    assert _cu_constant(text, "SMEM_BUDGET") == 232448
+    assert _cu_constant((CSRC / "tma.cuh").read_text(), "SMEM_BUDGET") == 232448
     assert "static_assert(SmemBody::bytes(SMEM_MAX_SEQ, RING) <= SMEM_BUDGET" in text
     assert "static_assert(SmemBody::bytes(SMEM2_MAX_SEQ, SHORT_RING) <= SMEM_BUDGET" in text
 

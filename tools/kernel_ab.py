@@ -1,4 +1,4 @@
-"""K1, K2 and K3 of this checkout against the same kernels built from another
+"""K1 (attention) of this checkout against the same kernel built from another
 checkout's sources, timed in turns on one CUDA card.
 
     python3 tools/kernel_ab.py OTHER_CSRC
@@ -9,14 +9,15 @@ checkout's take (``attention_fwd``'s hd, the fused MLP's LayerNorm count):
 then the other version runs at the shapes both take, head width 64 and
 the model widths 768 and 1024, where those arguments are the defaults.
 Every source is built by ``nvcc``; at ViT-B's serving and training shapes
-(K1 at batch 256 and N = 50, 197, 257 in bf16 and at 64 images, N = 197,
-in fp32; K2 at R = 12800 and 6400 and K3 at R = 6400 with C = 768, both
-dtypes) each version is held against the plain version and timed through this
-checkout's wrappers in turns, other, this, this, other (median
-CUDA-event ms of each turn, the mean of a version's two).  One JSON line
-a shape; the card's name and power limit first.  It needs a CUDA card and
-exits non-zero without one, or if a version disagrees with the plain
-version.
+(batch 256 and N = 50, 197, 257 in bf16 and 64 images, N = 197, in fp32)
+each version is held against the plain version and timed through this
+checkout's wrappers in turns, other, this, this, other (median CUDA-event
+ms of each turn, the mean of a version's two).  One JSON line a shape; the
+card's name and power limit first.  It needs a CUDA card and exits
+non-zero without one, or if a version disagrees with the plain version.
+K2 and K3 (the fused MLP) have their own A/B, ``tools/fused_mlp_ab.py``,
+which builds the other version with :func:`other_kernels` and swaps it in
+with :func:`launching`.
 """
 
 from __future__ import annotations
@@ -85,7 +86,6 @@ def cases(gen):
     import torch
 
     from pevit_tpu_torch.ops import attention as ta
-    from pevit_tpu_torch.ops import fused_mlp as tf
 
     t = lambda x: x.transpose(1, 2)
     for dtype, shapes in ((torch.bfloat16, ((256, 50), (256, 197), (256, 257))),
@@ -97,22 +97,6 @@ def cases(gen):
             yield ("attention_fwd", f"B*H={b}*12 N={n} hd=64", dtype,
                    lambda q=q, k=k, v=v: ta.attention_fwd(q, k, v),
                    lambda q=q, k=k, v=v: t(ta.attention_ref(t(q), t(k), t(v))))
-    c, f = 768, 3072
-    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
-    for dtype in (torch.bfloat16, torch.float32):
-        ln_s, ln_b = 1 + 0.1 * r(c), 0.1 * r(c)
-        wfc, bfc = (r(c, f) * c ** -0.5).to(dtype), (0.1 * r(f)).to(dtype)
-        wproj, bproj = (r(f, c) * f ** -0.5).to(dtype), (0.1 * r(c)).to(dtype)
-        for rows in (12800, 6400):
-            x = r(rows, c).to(dtype)
-            fwd = (x, ln_s, ln_b, wfc, bfc, wproj, bproj)
-            yield ("fused_mlp_fwd", f"R={rows} C={c} F={f}", dtype,
-                   lambda a=fwd: tf.fused_mlp_fwd(*a),
-                   lambda a=fwd: tf.fused_mlp_residual_ref(*a))
-        x, dy = r(6400, c).to(dtype), r(6400, c).to(dtype)
-        bwd = (dy, x, ln_s, ln_b, wfc, bfc, wproj)
-        yield ("fused_mlp_bwd", f"R=6400 C={c} F={f}", dtype,
-               lambda a=bwd: tf.fused_mlp_bwd(*a), lambda a=bwd: tf.fused_mlp_bwd_ref(*a))
 
 
 def main(argv) -> int:
