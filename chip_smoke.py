@@ -10,11 +10,12 @@ on):
 2. build: compile every kernel of the serving and training paths from
    ``pevit_tpu_torch/ops/csrc`` with nvcc (one process per source, all at
    once) and print each instantiation's ptxas registers and spills; the
-   bf16 GEMM core's kernels (K2's and K3's ``gemm_*_bf16``) must spill
-   nothing, and no wgmma of theirs may be serialized by ptxas;
+   GEMM core's kernels (K2's and K3's ``gemm_*_bf16`` and ``gemm_*_tf32``)
+   must spill nothing, and no wgmma of theirs may be serialized by ptxas;
 3. kernels: hold the attention and fused-MLP forward kernels against their
    plain PyTorch versions on the card at the serving path's shapes and
-   dtypes (and at the training batch of 128; attention also at the eval
+   dtypes (and at the training batch of 128, and K2 in fp32 at the fp32
+   artifacts' batches 1 and 8, R = 50 and 400; attention also at the eval
    remainder of 8 images, at N = 577 (ViT-L/14 at 336 px, 16 heads, phase
    15's batch of 32) and at N = 1025 (8 images), both dtypes; fp32
    attention also at a ViT-B/16 backbone's batch of 64 images, N = 197),
@@ -24,7 +25,9 @@ on):
    bf16, N and hd pick one of its bodies, below).  The fused-MLP
    forward (K2) rows carry ``gemm_ms``, its two products as ``torch.matmul``
    calls, a yardstick the port never calls.  K1's and K2's fp32 bodies run
-   three TF32 products on the tensor cores: every fp32 row of theirs, here
+   three TF32 products on the tensor cores (K2's and K3's on the GEMM
+   core's ``wgmma`` path, body ``tf32x3_wgmma``; their rows print the TF32
+   products' rate, ``tf32_tflops``): every fp32 row of theirs, here
    and in the later phases, reports its max abs error against a float64 run
    of the plain version beside the plain fp32 version's (cuBLAS, TF32 off)
    and a TF32 control's (the plain version with ``allow_tf32`` for that
@@ -441,18 +444,20 @@ def ptxas_summary(name: str, log: str) -> list:
     return out
 
 
-# the bf16 GEMM core's kernels (csrc/wgmma_gemm.cuh's gemm_persistent) by
-# the kernel whose source holds them
-GEMM_BF16_KERNELS = {"fused_mlp_fwd": ("gemm_fc_bf16", "gemm_proj_bf16"),
-                     "fused_mlp_bwd": ("gemm_dh_bf16", "gemm_du_bf16")}
+# the GEMM core's kernels (csrc/wgmma_gemm.cuh's gemm_persistent), bf16 and
+# float32, by the kernel whose source holds them
+GEMM_KERNELS = {"fused_mlp_fwd": ("gemm_fc_bf16", "gemm_proj_bf16", "gemm_fc_tf32",
+                                  "gemm_proj_tf32"),
+                "fused_mlp_bwd": ("gemm_dh_bf16", "gemm_du_bf16", "gemm_dh_tf32",
+                                  "gemm_du_tf32")}
 
 
 def check_gemm_builds(logs: dict) -> None:
-    """Phase 2's rule for the bf16 GEMM core (``logs``: {kernel: nvcc log},
-    as ``build_all`` returns them, a reused build's too): each of its
-    kernels compiled once, with no spill, and ptxas serialized none of
-    their wgmmas; a source without a log fails."""
-    for name, kernels in GEMM_BF16_KERNELS.items():
+    """Phase 2's rule for the GEMM core (``logs``: {kernel: nvcc log}, as
+    ``build_all`` returns them, a reused build's too): each of its kernels,
+    bf16 and float32, compiled once, with no spill, and ptxas serialized
+    none of their wgmmas; a source without a log fails."""
+    for name, kernels in GEMM_KERNELS.items():
         log = logs.get(name)
         if not log:
             raise AssertionError(f"{name}: no nvcc log to check the GEMM core's build in")
@@ -758,6 +763,17 @@ def mlp_device_ms(fn) -> float:
     return device_ms(fn, calls=5, reps=3)
 
 
+# K2's and K3's bodies by dtype, as the ``kernels`` line names them: the
+# float32 one three TF32 products a k-step on the GEMM core's wgmma path
+MLP_BODY = {torch.bfloat16: "bf16", torch.float32: "tf32x3_wgmma"}
+
+
+def tf32_rate(n_ops: float, ms: float, dtype) -> dict:
+    """A float32 row's TF32 products' rate: three TF32 products for each of
+    the float32 products' ``n_ops`` operations, over the device ms."""
+    return {"tf32_tflops": 3 * n_ops / ms / 1e9} if dtype == torch.float32 else {}
+
+
 def check_fused_mlp(gen, dtype, c, rows, f: int = 0):
     """K2 against its plain forward (and, in fp32, through
     :func:`fp32_class`), its ``ms`` and ``gemm_ms`` device time
@@ -789,10 +805,10 @@ def check_fused_mlp(gen, dtype, c, rows, f: int = 0):
     g = torch.randn(rows, f, device="cuda").to(dtype)
     gemms = lambda: (u @ wfc, g @ wproj)
     call = lambda: fused_mlp_fwd(*args)
+    ms = mlp_device_ms(call)
     return {"shape": f"R={rows} C={c} F={f}", "dtype": str(dtype).split(".")[-1],
-            "body": "f32" if dtype == torch.float32 else "bf16",
-            "max_abs_err": err, **accuracy, "ms": mlp_device_ms(call),
-            "call_ms": time_ms(call, reps=5),
+            "body": MLP_BODY[dtype], "max_abs_err": err, **accuracy, "ms": ms,
+            **tf32_rate(4 * rows * c * f, ms, dtype), "call_ms": time_ms(call, reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_residual_ref(*args), reps=5),
             "library_ms": None, "gemm_ms": mlp_device_ms(gemms),
             **bound_fields(n_bytes, 4 * rows * c * f, dtype)}
@@ -818,7 +834,7 @@ def check_fused_mlp_bwd(gen, dtype, c, rows, f: int = 0):
     rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     err = check_close(f"fused_mlp_bwd C={c} {dtype}", got, want, rtol, atol)
     row = {"shape": f"R={rows} C={c} F={f}", "dtype": str(dtype).split(".")[-1],
-           "body": "f32" if dtype == torch.float32 else "bf16", "max_abs_err": err}
+           "body": MLP_BODY[dtype], "max_abs_err": err}
     if dtype == torch.float32:
         xg = x.clone().requires_grad_()
         y = fused_mlp_residual_ref(xg, ln_s, ln_b, wfc, bfc, wproj, bproj)
@@ -835,7 +851,9 @@ def check_fused_mlp_bwd(gen, dtype, c, rows, f: int = 0):
     u, dh = r(rows, c).to(dtype), r(rows, f).to(dtype)
     gemms = lambda: (u @ wfc, dy @ wproj.T, dh @ wfc.T)
     call = lambda: fused_mlp_bwd(*args)
-    return {**row, "ms": mlp_device_ms(call), "call_ms": time_ms(call, reps=5),
+    ms = mlp_device_ms(call)
+    return {**row, "ms": ms, **tf32_rate(6 * rows * c * f, ms, dtype),
+            "call_ms": time_ms(call, reps=5),
             "plain_ms": time_ms(lambda: fused_mlp_bwd_ref(*args), reps=5),
             "library_ms": None, "gemm_ms": mlp_device_ms(gemms),
             **bound_fields(n_bytes, 6 * rows * c * f, dtype)}  # the three GEMMs it runs
@@ -4408,11 +4426,12 @@ def load_vitl14_336(tmp: Path) -> tuple:
 
 
 # the kernels of each of K1-K3 by name, for a profile's shares: K2's and
-# K3's GEMMs and K3's own row passes and transposes (the LayerNorm row
-# pass, which both run, apart)
+# K3's GEMMs and float32 weight splits, and K3's own row passes and
+# transposes (the LayerNorm row pass, which both run, apart)
 KERNEL_GROUPS = {"attention_fwd": ("attention_fwd",),
-                 "fused_mlp_fwd": ("gemm_fc_", "gemm_proj_"),
-                 "fused_mlp_bwd": ("gemm_dh_", "gemm_du_", "ln_bwd_rows", "transpose_kernel"),
+                 "fused_mlp_fwd": ("gemm_fc_", "gemm_proj_", "split_weights_fwd"),
+                 "fused_mlp_bwd": ("gemm_dh_", "gemm_du_", "ln_bwd_rows", "transpose_kernel",
+                                   "split_weights_bwd"),
                  "ln_rows": ("ln_rows_kernel",)}
 
 
@@ -4966,6 +4985,9 @@ def main() -> int:
     # a ViT-B/16 backbone's 64-image fp32 forward (phase 10)
     table["attention_fwd"].append(check_attention(gen, torch.float32, 197, AUX_BATCH))
     table["fused_mlp_fwd"].append(check_fused_mlp(gen, torch.bfloat16, 768, TRAIN_BATCH * 50))
+    # K2's float32 body at the fp32 serving artifacts' batches 1 and 8
+    for batch in (1, 8):
+        table["fused_mlp_fwd"].append(check_fused_mlp(gen, torch.float32, 768, batch * 50))
 
     # 3b. the fused-MLP backward, and the attention core's plain backward
     for dtype in (torch.bfloat16, torch.float32):

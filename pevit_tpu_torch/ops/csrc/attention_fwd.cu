@@ -1617,13 +1617,14 @@ int launch_bf16_long(const Args& a) {
 // the TMA map of a (B, N, H, hd) bf16 operand with (batch, token, head)
 // element strides sb, sn, sh: boxes of 64 columns by `rows` tokens of one
 // head, in the 128-byte swizzle; columns past hd and tokens past N read as
-// zeros (tma.cuh's bf16_map, which keeps the maps it encoded)
+// zeros (tma.cuh's tensor_map, which keeps the maps it encoded)
 int head_map(CUtensorMap* map, const void* base, const Args& a, long long sb, long long sn,
              long long sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)a.hd, (cuuint64_t)a.H, (cuuint64_t)a.N, (cuuint64_t)a.B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return bf16_map(map, 4, base, dims, strides, box, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 template <int ST>

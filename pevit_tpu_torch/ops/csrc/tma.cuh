@@ -1,12 +1,12 @@
 // Hopper's Tensor Memory Accelerator (TMA) and mbarriers, shared by every
 // kernel that streams its operands by TMA boxes: attention_fwd.cu's
-// shared-memory and persistent bf16 bodies, and the fused MLP's bf16 GEMM
-// core (wgmma_gemm.cuh).  Device side: the mbarrier operations a ring of
-// full / empty barriers needs.  Host side: cuTensorMapEncodeTiled, looked
-// up through the runtime's entry-point query so that no library links
-// against libcuda; an encoder of bf16 maps in the 128-byte swizzle that
-// keeps the last maps it encoded; and the device's SM count, the grid of a
-// persistent kernel.
+// shared-memory and persistent bf16 bodies, and the fused MLP's GEMM core
+// (wgmma_gemm.cuh), bf16 and float32.  Device side: the mbarrier operations
+// a ring of full / empty barriers needs.  Host side: cuTensorMapEncodeTiled,
+// looked up through the runtime's entry-point query so that no library
+// links against libcuda; an encoder of maps in the 128-byte swizzle, of
+// any element type, that keeps the last maps it encoded; and the device's
+// SM count, the grid of a persistent kernel.
 
 #pragma once
 
@@ -78,22 +78,24 @@ int encode_tiled(EncodeTiledFn* fn) {
 constexpr int MAX_MAP_RANK = 5;
 constexpr int KEPT_MAPS = 64;
 
-// The TMA map of a bf16 tensor of `rank` dimensions (dims innermost first,
-// strides in bytes of dimensions 1 and up), read in boxes of `box`
-// elements in the 128-byte swizzle, elements out of bounds read as zeros.
+// The TMA map of a tensor of `type` (bf16 or float32) and `rank`
+// dimensions (dims innermost first, strides in bytes of dimensions 1 and
+// up), read in boxes of `box` elements in the 128-byte swizzle, elements
+// out of bounds read as zeros.
 // The last KEPT_MAPS maps encoded are kept, keyed by all that goes into
 // them, so that a call on the tensors of an earlier one (the caching
 // allocator hands a model's layers the same buffers) skips the encoding,
 // which is most of a launch's host time.  Returns a CUDA error code
 // (cudaErrorInvalidValue where the encoder refuses the map: a base or a
 // stride that is not 16-byte aligned, a box past 256).
-int bf16_map(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dims,
-             const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapL2promotion promotion) {
+int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+               const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+               CUtensorMapL2promotion promotion) {
   struct Key {
     const void* base;
     cuuint64_t dims[MAX_MAP_RANK], strides[MAX_MAP_RANK - 1];
     cuuint32_t box[MAX_MAP_RANK];
-    int rank, promotion;
+    int type, rank, promotion;
   };
   struct Entry {
     Key key;
@@ -106,7 +108,7 @@ int bf16_map(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dim
   Key key;
   memset(&key, 0, sizeof key);  // padding too: keys compare bytewise
   key.base = base;
-  key.rank = rank, key.promotion = (int)promotion;
+  key.type = (int)type, key.rank = rank, key.promotion = (int)promotion;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -124,9 +126,8 @@ int bf16_map(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dim
   const int err = encode_tiled(&encode);
   if (err != 0) return err;
   cuuint32_t unit[MAX_MAP_RANK] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, promotion,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   std::lock_guard<std::mutex> hold(lock);

@@ -53,33 +53,47 @@ BWD_KERNEL = Kernel(
 # the rows): their GEMMs zero-fill the tails of the last tiles, and they
 # copy 16-byte chunks of rows, so C and F must fill whole chunks; the
 # wrappers zero-pad any other width (``padded_widths``), and the kernels'
-# LayerNorm counts the caller's C.  The float32 bodies' GEMMs give each
-# 128-row tile of the R rows one block row of the grid's y dimension, which
-# CUDA caps at 65535 (the bf16 bodies' persistent grid counts its tiles in
-# a 32-bit int); their index products (row x C, row x F, in elements and
-# bytes) are 64-bit, so R x F may pass 2^31 (a chunk of 16 trials'
-# 512-image eval chunks on ViT-L/14 is R = 2,105,344 rows, R x F = 8.6e9).
+# LayerNorm counts the caller's C.  A launch takes at most 65535 tiles of
+# 128 rows (a larger batch is split by its caller): the persistent GEMMs
+# count their tiles in a 32-bit int; their index products (row x C, row x
+# F, in elements and bytes) are 64-bit, so R x F may pass 2^31 (a chunk of
+# 16 trials' 512-image eval chunks on ViT-L/14 is R = 2,105,344 rows, R x F
+# = 8.6e9).
 MAX_ROWS = 65535 * 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The bf16 bodies' GEMM core (csrc/wgmma_gemm.cuh, ``gemm_persistent``), as
+# The GEMM core of both bodies (csrc/wgmma_gemm.cuh, ``gemm_persistent``), as
 # the sources set it (tests/test_torch_mlp_tma.py holds these to the
-# sources): output tiles of GEMM_ROWS rows, K in ring stages of GEMM_K, as
-# many stages as a block's shared memory holds but at most GEMM_MAX_STAGES;
-# a producer warpgroup and GEMM_CONSUMERS consumer warpgroups at
-# setmaxnreg's register counts, which take the tiles of a block in turn;
-# one block an SM, walking the tiles in row-major order.  GEMM_PRODUCTS:
-# each product's tile width (the sources' FC_TILE_N, PROJ_TILE_N,
-# DH_TILE_N, DU_TILE_N), its products a tile (the dh pair's two), whether
-# B is read MN-major (the weights as they lie) or K-major, and the bytes of
-# an output value its epilogue stages (bf16, or du's float32).
+# sources): output tiles of GEMM_ROWS rows, K in ring stages of one
+# 128-byte row, GEMM_K bf16 or GEMM_K_F32 float32 values, as many stages as
+# a block's shared memory holds but at most GEMM_MAX_STAGES; a producer
+# warpgroup and GEMM_CONSUMERS consumer warpgroups at setmaxnreg's register
+# counts, which take the tiles of a block in turn; one block an SM, walking
+# the tiles in row-major order.  GEMM_PRODUCTS (bf16) and
+# GEMM_PRODUCTS_F32 (float32): each product's tile width (the sources'
+# FC_TILE_N, PROJ_TILE_N, DH_TILE_N, DU_TILE_N, and FC_F32_TILE_N, ...),
+# its products a tile (the dh pair's two), whether B is read MN-major (the
+# weights as they lie) or K-major, and the bytes of an output value its
+# epilogue stages (bf16, or float32).  The float32 path reads B as two
+# K-major planes (GEMM_F32_PLANES: the weights' TF32 hi and lo parts); both
+# its consumers take every tile, a 64-row half each, and each holds,
+# beside its accumulators, GEMM_F32_PARTIALS partial sums of a k-step in
+# flight (GEMM_F32_PAIR_PARTIALS for the dh pair's two products), and
+# takes GEMM_F32_CHUNK ring entries a turn of its loop.
 GEMM_ROWS = 128
 GEMM_K = 64
+GEMM_K_F32 = 32
 GEMM_CONSUMERS = 2
 GEMM_PRODUCER_REGS = 40
 GEMM_CONSUMER_REGS = 232
 GEMM_MAX_STAGES = 8
 GEMM_PRODUCTS = {"fc": (128, 1, True, 2), "proj": (128, 1, True, 2), "dh": (64, 2, False, 2),
                  "du": (128, 1, False, 4)}
+GEMM_PRODUCTS_F32 = {"fc": (64, 1, False, 4), "proj": (64, 1, False, 4),
+                     "dh": (64, 2, False, 4), "du": (64, 1, False, 4)}
+GEMM_F32_PLANES = 2
+GEMM_F32_PARTIALS = 3
+GEMM_F32_PAIR_PARTIALS = 2
+GEMM_F32_CHUNK = 8
 
 _WEIGHTS = ("ln_scale", "ln_bias", "wfc", "bfc", "wproj", "bproj")
 
@@ -187,10 +201,15 @@ def _total(layout) -> int:
 
 def fwd_workspace_layout(dtype, R: int, C: int, F: int) -> list:
     """The forward launch's scratch as ``csrc/fused_mlp_fwd.cu`` carves it:
-    u (R x C) and then g (R x F), in x's dtype (float32 or bf16), each
-    region 16-byte aligned."""
+    u (R x C) and then g (R x F), in x's dtype (float32 or bf16), and in
+    float32 then the weights' TF32 planes, K-major: Wfc^T's hi and lo (F x
+    C) and Wproj^T's (C x F); each region 16-byte aligned."""
     size = 4 if dtype == torch.float32 else 2
-    return _layout([("u", R * C * size), ("g", R * F * size)])
+    regions = [("u", R * C * size), ("g", R * F * size)]
+    if dtype == torch.float32:
+        regions += [(name, C * F * 4) for name in ("wfc_t_hi", "wfc_t_lo", "wproj_t_hi",
+                                                    "wproj_t_lo")]
+    return _layout(regions)
 
 
 def fwd_workspace_bytes(dtype, R: int, C: int, F: int) -> int:
@@ -244,13 +263,16 @@ def fused_mlp_fwd(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, eps: float = 1e-
 
 def bwd_workspace_layout(dtype, R: int, C: int, F: int) -> list:
     """The backward launch's scratch as ``csrc/fused_mlp_bwd.cu`` carves it,
-    each region 16-byte aligned.  float32: Wfc^T, Wproj^T, u, dh and du,
-    all float32, and (mean, rstd) per row (~137 MB at R = 6400, C = 768,
-    F = 3072).  bfloat16: Wfc^T, u and dh (bf16), du (float32) and (mean,
-    rstd) per row."""
+    each region 16-byte aligned.  float32: the weights' TF32 planes, K-major
+    (the hi and lo parts of Wfc^T, of Wproj and of Wfc), u, dh and du, all
+    float32, and (mean, rstd) per row (~175 MB at R = 6400, C = 768, F =
+    3072).  bfloat16: Wfc^T, u and dh (bf16), du (float32) and (mean, rstd)
+    per row."""
     if dtype == torch.float32:
-        return _layout([("wfc_t", F * C * 4), ("wproj_t", C * F * 4), ("u", R * C * 4),
-                        ("dh", R * F * 4), ("du", R * C * 4), ("stats", R * 8)])
+        planes = [(name, F * C * 4) for name in ("wfc_t_hi", "wfc_t_lo", "wproj_hi", "wproj_lo",
+                                                  "wfc_hi", "wfc_lo")]
+        return _layout(planes + [("u", R * C * 4), ("dh", R * F * 4), ("du", R * C * 4),
+                                 ("stats", R * 8)])
     return _layout([("wfc_t", F * C * 2), ("u", R * C * 2), ("dh", R * F * 2),
                     ("du", R * C * 4), ("stats", R * 8)])
 

@@ -76,10 +76,14 @@ WORKSPACE_WIDTHS = [256, 512, 768, 1024, 192, 200, 384, 1280, 1408]
 @pytest.mark.parametrize("width", WORKSPACE_WIDTHS)
 def test_fwd_workspace_bytes(R, width):
     """Both bodies carve u (R x C) and then g (R x F) in x's dtype, and g's
-    16-byte loads need it to start aligned."""
+    16-byte loads need it to start aligned; the float32 body then carves
+    the weights' four TF32 planes (C x F float32 each), each aligned."""
     F = 4 * width
     for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
         u, g = R * width * size, R * F * size
-        assert tf.fwd_workspace_bytes(dtype, R, width, F) == u + g
-        assert u % 16 == 0
-        assert [off for _, off, _ in tf.fwd_workspace_layout(dtype, R, width, F)] == [0, u]
+        planes = 4 * width * F * 4 if dtype == torch.float32 else 0
+        assert tf.fwd_workspace_bytes(dtype, R, width, F) == u + g + planes
+        assert u % 16 == 0 and g % 16 == 0
+        offsets = [off for _, off, _ in tf.fwd_workspace_layout(dtype, R, width, F)]
+        want = [0, u] + ([u + g + i * width * F * 4 for i in range(4)] if planes else [])
+        assert offsets == want

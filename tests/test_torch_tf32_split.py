@@ -55,13 +55,15 @@ def toward_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, truncate: bool = False) -> torch.Tensor:
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, truncate: bool = False,
+                  planes: tuple = None) -> torch.Tensor:
     """(M, K) float32 . (K, N) float32 as the kernels compute it: per k-step
     of 8 the three products of the split, exact, rounded once to float32,
     then added to the float32 accumulator (rounding toward zero where
-    ``truncate``)."""
+    ``truncate``).  ``planes``: b's hi and lo parts as given, split ahead
+    (the fused MLP's weights), in place of ``split(b)``."""
     a_hi, a_lo = split(a)
-    b_hi, b_lo = split(b)
+    b_hi, b_lo = split(b) if planes is None else planes
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
     for k0 in range(0, a.shape[1], K_STEP):
         s = slice(k0, k0 + K_STEP)

@@ -6,24 +6,26 @@ on one CUDA card.
 
 The float32 bodies of K1, K2 and K3 sum three TF32 products a k-step of 8
 on the tensor cores, from zero, and add that partial sum to a float32
-accumulator once, rounded (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``).  The
-tensor core truncates as it accumulates, so every variant below that lets
-more of the sum run on the tensor core, or truncates the add, leaves its
-results biased toward zero.  For the shipped sources and for each variant,
-built from a copy of the sources in a temporary directory (the checkout is
-not touched), it runs phase 3's and 3b's float32 rows through
-``chip_smoke``'s own checks (``check_attention``: N = 50, 197, 257 at batch
-256 and N = 197 at batch 64; ``check_fused_mlp``: C = 768 and 1024 at
-R = 12800; ``check_fused_mlp_bwd``: C = 768 and 1024 at R = 6400) and
-prints one JSON line a row: passed, or the check that refused it, with
-``fp32_class``'s readings.  Variants:
+accumulator once, rounded (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``: K1's
+``mma.sync`` form; ``wgmma_gemm.cuh``: the GEMM core's ``wgmma`` form, under
+K2 and K3).  The tensor core truncates as it accumulates, so every variant
+below that lets more of the sum run on the tensor core, or truncates the
+add, leaves its results biased toward zero.  For the shipped sources and
+for each variant, built from a copy of the sources in a temporary
+directory (the checkout is not touched), it runs phase 3's and 3b's
+float32 rows through ``chip_smoke``'s own checks (``check_attention``: N =
+50, 197, 257 at batch 256 and N = 197 at batch 64; ``check_fused_mlp``: C =
+768 and 1024 at R = 12800; ``check_fused_mlp_bwd``: C = 768 and 1024 at R =
+6400) and prints one JSON line a row: passed, or the check that refused
+it, with ``fp32_class``'s readings.  Variants, each made in both forms
+where it names all three kernels:
 
 * ``bigfirst``: the k-step's hi·hi product first, the small ones added to it;
 * ``rz``: the partial sum added to the accumulator rounding toward zero;
 * ``chain``: every product accumulated on the tensor core, no rounded add;
 * ``k1_pairs``: K1's k-steps two to a chain (six products) before the add;
 * ``k3_pairs``: the same in the GEMM core that K2 and K3 share
-  (``tf32x3_gemm.cuh``).
+  (``wgmma_gemm.cuh``).
 
 A last line gives, for each variant and each kernel it changes, whether
 some row of that kernel was refused.  It exits non-zero if the shipped
@@ -49,6 +51,14 @@ _SPLIT = ("  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
           "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n"
           "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n")
 _ADD = "  for (int i = 0; i < 4; ++i) acc[i] += d[i];\n"
+# the GEMM core's float32 group (a k-step of one 64-row half) and its add
+_CORE = "wgmma_gemm.cuh"
+_GROUP = ("          WgmmaTf32<BN>::mma(part[q % P], lo, b_hi, 0);  // from zero, the small terms "
+          "first\n"
+          "          WgmmaTf32<BN>::mma(part[q % P], hi, b_lo, 1);\n"
+          "          WgmmaTf32<BN>::mma(part[q % P], hi, b_hi, 1);\n")
+_CORE_ADD = "    acc[i] += part[i];\n"
+_ADD_GROUP = "          add_partial(acc[q / KS % NP], part[q % P]);\n"
 
 ALL = ("attention_fwd", "fused_mlp_fwd", "fused_mlp_bwd")
 # variant: (the kernels it changes, [(file, old text, new text), ...])
@@ -56,10 +66,18 @@ VARIANTS = {
     "bigfirst": (ALL, [("tf32x3.cuh", _SPLIT,
                         "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n"
                         "  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
-                        "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n")]),
+                        "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n"),
+                       (_CORE, _GROUP,
+                        "          WgmmaTf32<BN>::mma(part[q % P], hi, b_hi, 0);\n"
+                        "          WgmmaTf32<BN>::mma(part[q % P], lo, b_hi, 1);\n"
+                        "          WgmmaTf32<BN>::mma(part[q % P], hi, b_lo, 1);\n")]),
     "rz": (ALL, [("tf32x3.cuh", _ADD,
-                  "  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rz(acc[i], d[i]);\n")]),
-    "chain": (ALL, [("tf32x3.cuh", _SPLIT, _SPLIT.replace("(d, ", "(acc, "))]),
+                  "  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rz(acc[i], d[i]);\n"),
+                 (_CORE, _CORE_ADD, "    acc[i] = __fadd_rz(acc[i], part[i]);\n")]),
+    "chain": (ALL, [("tf32x3.cuh", _SPLIT, _SPLIT.replace("(d, ", "(acc, ")),
+                    (_CORE, _GROUP, _GROUP.replace("part[q % P]", "acc[q / KS % NP]").replace(
+                        "b_hi, 0);  // from zero, the small terms first", "b_hi, 1);")),
+                    (_CORE, _CORE_ADD, "    (void)acc[i];\n")]),
     "k1_pairs": (("attention_fwd",), [
         ("attention_fwd.cu",
          "void pv_step(float (&o)[DV / 8][4], const float (&p)[4],\n"
@@ -87,20 +105,16 @@ VARIANTS = {
          "          mma_tf32(pd, q_hi[kk], b_hi[0], b_hi[1]);\n"
          "          if (kk & 1) for (int i = 0; i < 4; ++i) s[j][i] += pd[i];\n"),
     ]),
+    # a pair of k-steps (an even one and the next) shares a partial: the
+    # even one's group starts it, the odd one's adds to it on the tensor
+    # core, and only the odd one's is added (no pair crosses an entry or a
+    # turn of the loop, each of an even count of groups)
     "k3_pairs": (("fused_mlp_fwd", "fused_mlp_bwd"), [
-        ("tf32x3_gemm.cuh", "      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;\n",
-         "      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;\n"
-         "  float dd[X3_MT][NT][4];\n"),
-        ("tf32x3_gemm.cuh",
-         "          mma_tf32x3(acc[mi][ni], a_hi[mi], a_lo[mi], b_hi, b_lo);\n",
-         "        {\n"
-         "          float (&d)[4] = dd[mi][ni];\n"
-         "          if ((kk & 1) == 0) d[0] = d[1] = d[2] = d[3] = 0.f;\n"
-         "          mma_tf32(d, a_lo[mi], b_hi[0], b_hi[1]);\n"
-         "          mma_tf32(d, a_hi[mi], b_lo[0], b_lo[1]);\n"
-         "          mma_tf32(d, a_hi[mi], b_hi[0], b_hi[1]);\n"
-         "          if (kk & 1) for (int j = 0; j < 4; ++j) acc[mi][ni][j] += d[j];\n"
-         "        }\n"),
+        (_CORE, _GROUP,
+         _GROUP.replace("part[q % P]", "part[q / 2 % P]").replace(
+             "b_hi, 0);  // from zero, the small terms first", "b_hi, kk % 2);")),
+        (_CORE, _ADD_GROUP,
+         "          if (q % 2 == 1) add_partial(acc[q / KS % NP], part[q / 2 % P]);\n"),
     ]),
 }
 

@@ -1,6 +1,7 @@
 """K2 and K3 (the fused MLP forward and backward kernels) of this checkout
-against the same kernels built from another checkout's sources: their bf16
-outputs compared bit for bit, and their device time in turns.
+against the same kernels built from another checkout's sources: their
+outputs compared bit for bit, and their device time in turns, in bf16 and
+in float32.
 
     python3 tools/fused_mlp_ab.py OTHER_CSRC [--shapes KIND:R:C:F ...] [--launches]
         [--time-only] [--out FILE]
@@ -13,8 +14,10 @@ spills of this checkout's GEMM kernels printed); at each row of ``SHAPES``
 the ragged rows training hits, at C = 1024 and 1280 and at widths that fill
 no tile or no 16-byte row) each version runs through this checkout's
 wrapper on the same seeded inputs, is held against the plain version
-(2e-2), and the two outputs are compared element by element
-(``bit_equal``, ``share_differing``, ``max_abs_diff``); then each is timed
+(2e-2 in bf16; in float32 1e-4 and ``chip_smoke.fp32_class`` against a
+float64 run, its readings under ``this_fp32`` and ``other_fp32``), and the
+two outputs are compared element by element (``bit_equal``,
+``share_differing``, ``max_abs_diff``: reported, not required); then each is timed
 in turns, other, this, this, other (``device_ms``: the median device time
 of a call replayed from a CUDA graph, so the host's issue stays out; the
 mean of a version's two turns), beside one call's CUDA-event time of each
@@ -50,25 +53,35 @@ sys.path.insert(0, str(REPO))
 # whole 16-byte row: the wrapper zero-pads it); "fwdx" and "bwdx" with every
 # fourth hidden unit's bias from -53.5 to -49.5, so that its pre-activations
 # reach the range where the sigmoid's reciprocal leaves the fast path
-# (below about -51.3: 1 / x subnormal, then 0)
+# (below about -51.3: 1 / x subnormal, then 0).  A kind ending in "32" is
+# the float32 body's row: K2 at ViT-B/32's serving batch and the fp32
+# artifacts' batches 1 and 8 (R = 50, 400), K3 at its training batch, both
+# at C = 1280 and at a width the wrapper zero-pads, and with the extreme
+# biases
 SHAPES = (("fwd", 12800, 768, 3072), ("fwd", 6400, 768, 3072), ("bwd", 6400, 768, 3072),
           ("fwdx", 6400, 768, 3072), ("bwdx", 6400, 768, 3072),
           ("fwd", 5800, 768, 3072), ("bwd", 5800, 768, 3072), ("fwd", 400, 768, 3072),
           ("bwd", 400, 768, 3072), ("fwd", 18464, 1024, 4096), ("bwd", 18464, 1024, 4096),
           ("fwd", 8224, 1280, 5120), ("bwd", 8224, 1280, 5120), ("fwd", 8224, 200, 800),
-          ("bwd", 8224, 200, 800), ("fwd", 8224, 100, 300), ("bwd", 8224, 100, 300))
+          ("bwd", 8224, 200, 800), ("fwd", 8224, 100, 300), ("bwd", 8224, 100, 300),
+          ("fwd32", 12800, 768, 3072), ("bwd32", 6400, 768, 3072), ("fwd32", 50, 768, 3072),
+          ("fwd32", 400, 768, 3072), ("bwd32", 400, 768, 3072), ("fwd32", 8224, 1280, 5120),
+          ("bwd32", 8224, 1280, 5120), ("fwd32", 8224, 100, 300), ("bwd32", 8224, 100, 300),
+          ("fwdx32", 6400, 768, 3072), ("bwdx32", 6400, 768, 3072))
 
 
-def inputs(gen, R: int, C: int, F: int, extreme: bool = False) -> dict:
-    """bf16 x, dy and weights, float32 LayerNorm scale and bias, seeded;
-    ``extreme``: every fourth hidden unit's bias from -53.5 to -49.5."""
+def inputs(gen, R: int, C: int, F: int, extreme: bool = False, dtype=None) -> dict:
+    """x, dy and weights in ``dtype`` (bf16 unless given), float32 LayerNorm
+    scale and bias, seeded; ``extreme``: every fourth hidden unit's bias
+    from -53.5 to -49.5."""
     import torch
 
+    dt = dtype or torch.bfloat16
     r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
-    t = {"x": r(R, C).bfloat16(), "dy": r(R, C).bfloat16(), "ln_s": 1 + 0.1 * r(C),
-         "ln_b": 0.1 * r(C), "wfc": (r(C, F) * C ** -0.5).bfloat16(),
-         "bfc": (0.1 * r(F)).bfloat16(), "wproj": (r(F, C) * F ** -0.5).bfloat16(),
-         "bproj": (0.1 * r(C)).bfloat16()}
+    t = {"x": r(R, C).to(dt), "dy": r(R, C).to(dt), "ln_s": 1 + 0.1 * r(C),
+         "ln_b": 0.1 * r(C), "wfc": (r(C, F) * C ** -0.5).to(dt),
+         "bfc": (0.1 * r(F)).to(dt), "wproj": (r(F, C) * F ** -0.5).to(dt),
+         "bproj": (0.1 * r(C)).to(dt)}
     if extreme:
         t["bfc"][::4] = torch.linspace(-53.5, -49.5, t["bfc"][::4].numel(), device="cuda")
     return t
@@ -76,22 +89,26 @@ def inputs(gen, R: int, C: int, F: int, extreme: bool = False) -> dict:
 
 def calls(kind: str, t: dict) -> tuple:
     """(kernel name, the kernel call, its plain version, its products as
-    torch.matmul calls)."""
+    torch.matmul calls, its float64 plain version)."""
     import torch
 
+    import chip_smoke as cs
     from pevit_tpu_torch.ops import fused_mlp as tf
 
+    dt = t["x"].dtype
     if kind.startswith("fwd"):
         args = (t["x"], t["ln_s"], t["ln_b"], t["wfc"], t["bfc"], t["wproj"], t["bproj"])
-        u = torch.randn_like(t["x"], dtype=torch.float32).bfloat16()
-        g = torch.randn(t["x"].shape[0], t["wfc"].shape[1], device="cuda").bfloat16()
+        u = torch.randn_like(t["x"], dtype=torch.float32).to(dt)
+        g = torch.randn(t["x"].shape[0], t["wfc"].shape[1], device="cuda").to(dt)
         return ("fused_mlp_fwd", lambda: tf.fused_mlp_fwd(*args),
-                lambda: tf.fused_mlp_residual_ref(*args), lambda: (u @ t["wfc"], g @ t["wproj"]))
+                lambda: tf.fused_mlp_residual_ref(*args), lambda: (u @ t["wfc"], g @ t["wproj"]),
+                lambda: cs.fused_mlp_f64(*args))
     args = (t["dy"], t["x"], t["ln_s"], t["ln_b"], t["wfc"], t["bfc"], t["wproj"])
-    u = torch.randn_like(t["x"], dtype=torch.float32).bfloat16()
-    dh = torch.randn(t["x"].shape[0], t["wfc"].shape[1], device="cuda").bfloat16()
+    u = torch.randn_like(t["x"], dtype=torch.float32).to(dt)
+    dh = torch.randn(t["x"].shape[0], t["wfc"].shape[1], device="cuda").to(dt)
     return ("fused_mlp_bwd", lambda: tf.fused_mlp_bwd(*args), lambda: tf.fused_mlp_bwd_ref(*args),
-            lambda: (u @ t["wfc"], t["dy"] @ t["wproj"].T, dh @ t["wfc"].T))
+            lambda: (u @ t["wfc"], t["dy"] @ t["wproj"].T, dh @ t["wfc"].T),
+            lambda: cs.fused_mlp_bwd_f64(*args))
 
 
 def by_kernel(fn, calls: int = 10) -> dict:
@@ -122,18 +139,26 @@ def run_row(others: dict, kind: str, R: int, C: int, F: int, gen, launches: bool
     from kernel_ab import launching
     from pevit_tpu_torch.tools.attention_bodies import device_ms
 
-    name, run, plain, gemms = calls(kind, inputs(gen, R, C, F, kind.endswith("x")))
+    f32 = kind.endswith("32")
+    dtype = torch.float32 if f32 else torch.bfloat16
+    tol = 1e-4 if f32 else 2e-2
+    name, run, plain, gemms, plain64 = calls(
+        kind, inputs(gen, R, C, F, kind.removesuffix("32").endswith("x"), dtype))
     want = plain()
     with launching(name, others[name]):
         old = run()
     new = run()
     torch.cuda.synchronize()
-    row = {"kernel": name, "kind": kind, "R": R, "C": C, "F": F, "dtype": "bfloat16",
-           "this_max_abs_err": cs.check_close(f"{name} this", new, want, 2e-2, 2e-2)}
+    row = {"kernel": name, "kind": kind, "R": R, "C": C, "F": F, "dtype": str(dtype)[6:],
+           "this_max_abs_err": cs.check_close(f"{name} this", new, want, tol, tol)}
+    if f32:
+        row["this_fp32"] = cs.fp32_class(f"{name} this", new, plain, plain64)
     if check:
-        row["other_max_abs_err"] = cs.check_close(f"{name} other", old, want, 2e-2, 2e-2)
+        row["other_max_abs_err"] = cs.check_close(f"{name} other", old, want, tol, tol)
+        if f32:
+            row["other_fp32"] = cs.fp32_class(f"{name} other", old, plain, plain64)
         diff = (new.float() - old.float()).abs()
-        bits = lambda out: out.contiguous().view(torch.int16)
+        bits = lambda out: out.contiguous().view(torch.int32 if f32 else torch.int16)
         row.update({"bit_equal": bool(torch.equal(bits(new), bits(old))),
                     "share_differing": (diff > 0).float().mean().item(),
                     "max_abs_diff": diff.max().item()})

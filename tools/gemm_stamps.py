@@ -1,5 +1,5 @@
-"""Where a tile's time goes in the fused MLP's bf16 GEMM core, split by
-``clock64`` stamps on one CUDA card.
+"""Where a tile's time goes in the fused MLP's GEMM core, bf16 or float32,
+split by ``clock64`` stamps on one CUDA card.
 
     python3 tools/gemm_stamps.py [--shapes KIND:R:C:F ...]
 
@@ -8,12 +8,15 @@ is copied to a temporary directory with stamps added to its consumers'
 loop (``STAMPS``: each an edit of the source text; the tool stops if one
 no longer applies), and K2 (``fwd``) and K3 (``bwd``) are built from the copy
 and run through this checkout's wrappers at each row of ``--shapes``
-(default: K2 at R = 12800 and K3 at R = 6400, C = 768).  Thread 0 of each
+(default: K2 at R = 12800 and K3 at R = 6400, C = 768, in bf16 and, as
+``fwd32`` and ``bwd32``, in float32).  Thread 0 of each
 consumer warpgroup sums, over the tiles it takes, the cycles of five
-phases: ``turn`` (waiting for the other consumer to have issued its main
-loop), ``issue`` (issuing the tile's wgmma groups, each after its ring
-stage is full), ``drain`` (the last groups' completion), ``epilogue``,
-and ``tiles``, into a slot for each of a call's two GEMMs (K < N: K2's
+phases: ``turn`` (bf16: waiting for the other consumer to have issued its
+main loop; float32: for the tile's first stage), ``issue`` (issuing the
+tile's wgmma groups, each after its ring stage is full; float32: with
+every group's add), ``drain`` (bf16: the last groups' completion;
+float32: none), ``epilogue``, and ``tiles``, into a slot for each of a
+call's two GEMMs (K < N: K2's
 ``fc``, K3's ``dh``; else ``proj``, ``du``: F > C at every model width);
 the sums are read back after one call and printed as the mean cycles a
 tile of each phase and consumer, beside the device ms of the call.  A
@@ -37,32 +40,53 @@ sys.path.insert(0, str(REPO / "tools"))
 
 PHASES = ("turn", "issue", "drain", "epilogue", "tiles")
 MAX_BLOCKS = 1024
-# (file, text, the text it becomes): the stamps, each text found once
+# (file, text, the text it becomes): the stamps, each text found once;
+# the bf16 consumers' five phases, and the float32 consumers' (their
+# ``turn`` the wait for a tile's first stage, ``drain`` zero: each turn of
+# their loop waits for its own groups)
+_CORE = "wgmma_gemm.cuh"
+_TICK = "unsigned long long sums[5] = {0, 0, 0, 0, 0}, t0, t1, t2, t3;\n"
+_SUM = ("sums[0] += t1 - t0, sums[1] += t2 - t1, sums[2] += t3 - t2, sums[3] += t4 - t3;\n"
+        "++sums[4];\n")
 STAMPS = [
-    ("wgmma_gemm.cuh", "// the bf16 GEMM core\n// -----",
-     "// the bf16 GEMM core\n"
+    (_CORE, "// the GEMM core\n// -----",
+     "// the GEMM core\n"
      "__device__ unsigned long long gemm_stamp_sums[2][1024][2][5];\n// -----"),
-    ("wgmma_gemm.cuh", "  int it = 0, j = 0;\n",
-     "  int it = 0, j = 0;\n"
-     "  unsigned long long sums[5] = {0, 0, 0, 0, 0}, t0, t1, t2, t3;\n"),
-    ("wgmma_gemm.cuh", "    if (j > 0)  // this consumer's turn",
-     "    t0 = clock64();\n    if (j > 0)  // this consumer's turn"),
-    ("wgmma_gemm.cuh", "    for (int ks = 0; ks < ksteps; ++ks)\n#pragma unroll\n      for (int p",
-     "    t1 = clock64();\n"
-     "    for (int ks = 0; ks < ksteps; ++ks)\n#pragma unroll\n      for (int p"),
-    ("wgmma_gemm.cuh", "    // the other consumer's turn (tile j + 1",
-     "    t2 = clock64();\n    // the other consumer's turn (tile j + 1"),
-    ("wgmma_gemm.cuh", "    release(it - 1);\n#pragma unroll\n    for (int h = 0; h < 2; ++h)\n",
-     "    release(it - 1);\n    t3 = clock64();\n#pragma unroll\n"
-     "    for (int h = 0; h < 2; ++h)\n"),
-    ("wgmma_gemm.cuh", "row0 + 64 * h + 16 * warp, n0, epi);\n  }\n}\n",
-     "row0 + 64 * h + 16 * warp, n0, epi);\n"
-     "    const unsigned long long t4 = clock64();\n"
-     "    sums[0] += t1 - t0, sums[1] += t2 - t1, sums[2] += t3 - t2, sums[3] += t4 - t3;\n"
-     "    ++sums[4];\n  }\n"
-     "  if (threadIdx.x % 128 == 0 && blockIdx.x < 1024)\n"
+    (_CORE, "  };\n  int it = 0;\n  if constexpr (TF32) {\n",
+     "  };\n  int it = 0;\n  " + _TICK + "  if constexpr (TF32) {\n"),
+    # float32
+    (_CORE, "      mbar_wait(full + 8 * (it % ST), (it / ST) & 1);\n      load_a(raw, it, 0);\n"
+            "      split();\n",
+     "      t0 = clock64();\n"
+     "      mbar_wait(full + 8 * (it % ST), (it / ST) & 1);\n      load_a(raw, it, 0);\n"
+     "      split();\n      t1 = clock64();\n"),
+    (_CORE, "#pragma unroll\n      for (int p = 0; p < NP; ++p)\n#pragma unroll\n"
+            "        for (int i = 0; i < L::ACC; ++i) fence_operand(acc[p][i]);\n",
+     "      t2 = t3 = clock64();\n#pragma unroll\n      for (int p = 0; p < NP; ++p)\n"
+     "#pragma unroll\n        for (int i = 0; i < L::ACC; ++i) fence_operand(acc[p][i]);\n"),
+    (_CORE, "      epilogue(acc, row0 + 64 * c + 16 * warp, n0, epi);\n",
+     "      epilogue(acc, row0 + 64 * c + 16 * warp, n0, epi);\n"
+     "      const unsigned long long t4 = clock64();\n" + _SUM),
+    # bf16
+    (_CORE, "      if (j > 0)  // this consumer's turn",
+     "      t0 = clock64();\n      if (j > 0)  // this consumer's turn"),
+    (_CORE, "      for (int ks = 0; ks < ksteps; ++ks)\n#pragma unroll\n"
+            "        for (int p = 0; p < NP; ++p, ++it) {\n          const int s = it % ST;\n",
+     "      t1 = clock64();\n      for (int ks = 0; ks < ksteps; ++ks)\n#pragma unroll\n"
+     "        for (int p = 0; p < NP; ++p, ++it) {\n          const int s = it % ST;\n"),
+    (_CORE, "      // the other consumer's turn (tile j + 1",
+     "      t2 = clock64();\n      // the other consumer's turn (tile j + 1"),
+    (_CORE, "      release(it - 1);\n#pragma unroll\n      for (int h = 0; h < 2; ++h)\n",
+     "      release(it - 1);\n      t3 = clock64();\n#pragma unroll\n"
+     "      for (int h = 0; h < 2; ++h)\n"),
+    (_CORE, "epilogue(acc[h], row0 + 64 * h + 16 * warp, n0, epi);\n",
+     "epilogue(acc[h], row0 + 64 * h + 16 * warp, n0, epi);\n"
+     "      const unsigned long long t4 = clock64();\n" + _SUM),
+    (_CORE, "  }\n}\n\n// 1 / x, IEEE round to nearest",
+     "  }\n  if (threadIdx.x % 128 == 0 && blockIdx.x < 1024)\n"
      "    for (int i = 0; i < 5; ++i)\n"
-     "      gemm_stamp_sums[K < N ? 0 : 1][blockIdx.x][c][i] = sums[i];\n}\n"),
+     "      gemm_stamp_sums[K < N ? 0 : 1][blockIdx.x][c][i] = sums[i];\n"
+     "}\n\n// 1 / x, IEEE round to nearest"),
 ]
 READER = """
 extern "C" int gemm_stamps_read(void* out) {
@@ -120,8 +144,9 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--shapes", nargs="+", default=["fwd:12800:768:3072",
-                                                          "bwd:6400:768:3072"])
+    parser.add_argument("--shapes", nargs="+", default=["fwd:12800:768:3072", "bwd:6400:768:3072",
+                                                          "fwd32:12800:768:3072",
+                                                          "bwd32:6400:768:3072"])
     args = parser.parse_args(argv)
     import chip_smoke as cs
     from fused_mlp_ab import calls, inputs
@@ -142,10 +167,14 @@ def main(argv) -> int:
         for shape in args.shapes:
             kind, *rest = shape.split(":")
             R, C, F = map(int, rest)
-            name, run, plain, _ = calls(kind, inputs(gen, R, C, F, kind.endswith("x")))
+            f32 = kind.endswith("32")
+            name, run, plain, _, _ = calls(kind, inputs(gen, R, C, F,
+                                                        kind.removesuffix("32").endswith("x"),
+                                                        torch.float32 if f32 else None))
             kernel = kernels[name]
             with launching(name, kernel):
-                cs.check_close(f"{name} stamped", run(), plain(), 2e-2, 2e-2)
+                tol = 1e-4 if f32 else 2e-2
+                cs.check_close(f"{name} stamped", run(), plain(), tol, tol)
                 ms = device_ms(run)
                 lib = ctypes.CDLL(str(kernel.library_path()))
                 read_sums(lib)  # zero what the timing left

@@ -4,28 +4,33 @@ card.
 
     python3 tools/k3_fp32_variants.py
 
-K3's float32 body (``pevit_tpu_torch/ops/csrc/fused_mlp_bwd.cu``) runs six
-launches: the transposed weights, the LayerNorm rows, the GEMM pair dh
-(128 x 64 tiles, its first product's loop two k-steps unrolled), du
-(128 x 64 tiles, two k-steps unrolled) and the LayerNorm backward.  This
-script builds the shipped source and each variant below from a copy of the
-sources in a temporary directory (the checkout is not touched), loads each
-library with ``ctypes`` and, at R = 6400 rows (ViT-B/32 batch 128) with
-C = 768 and 1024, checks every variant against the plain version (1e-4)
-and times the wrapper ``fused_mlp_bwd`` with each, four turns in
-alternating order, beside ``gemm_ms`` (K3's three products as
-``torch.matmul`` calls, TF32 off) and beside the shipped library called
-straight through ``ctypes`` with its scratch allocated once (the
-wrapper's Python left out).  Then it prints the device time of each launch
-of the shipped body from a ``torch.profiler`` trace, and last holds the
-shipped body to ``chip_smoke.check_fused_mlp_bwd`` (the plain version,
-autograd and ``fp32_class``) at R = 5800 and 400 (C = 768) and 50
-(C = 256), timed there.  Variants:
+K3's float32 body (``pevit_tpu_torch/ops/csrc/fused_mlp_bwd.cu``) runs five
+launches: the weights' TF32 planes, the LayerNorm rows, the GEMM pair dh
+(128 x 64 tiles) and du (128 x 64 tiles) on the persistent ``wgmma`` core
+(``wgmma_gemm.cuh``), and the LayerNorm backward.  This script builds the
+shipped source and each variant below from a copy of the sources in a
+temporary directory (the checkout is not touched), loads each library with
+``ctypes`` and, at R = 6400 rows (ViT-B/32 batch 128) with C = 768 and 1024,
+checks every variant against the plain version (1e-4) and times the wrapper
+``fused_mlp_bwd`` with each, four turns in alternating order, beside
+``gemm_ms`` (K3's three products as ``torch.matmul`` calls, TF32 off) and
+beside the shipped library called straight through ``ctypes`` with its
+scratch allocated once (the wrapper's Python left out).  Then it prints the
+device time of each launch of the shipped body from a ``torch.profiler``
+trace, and last holds the shipped body to ``chip_smoke.check_fused_mlp_bwd``
+(the plain version, autograd and ``fp32_class``) at R = 5800 and 400 (C =
+768) and 50 (C = 256), timed there.  Variants of the core's own choices:
 
-* ``du_wide``: du on 128 x 128 tiles, one k-step at a time;
-* ``dh_wide``: the GEMM pair on 128 x 128 tiles, one block an SM;
-* ``no_unroll``: every loop one k-step at a time.
+* ``du_wide``: du on 128 x 128 tiles (a consumer's accumulators and three
+  partials 256 registers: past setmaxnreg's 232, so ptxas spills), in a
+  ring of three stages of 48 KB;
+* ``dh_wide``: the GEMM pair on 128 x 128 tiles (256 registers of them),
+  three stages;
+* ``no_unroll``: one k-step's group at a time on a consumer (each group
+  waited for before the next is issued, wait_group 0); the other
+  consumer's groups still overlap.
 
+A variant that does not build is reported and left out.
 Each variant's ptxas registers and spills are printed.  The card's name
 and power limit come first.  It needs a CUDA card and exits non-zero
 without one, or if a variant fails to build or disagrees with the plain
@@ -44,21 +49,24 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 SRC = "fused_mlp_bwd.cu"
-ONE_STEP = [(SRC, "x3_gemm_mainloop<DH_NT, 2, TAILS>(dgelu",
-             "x3_gemm_mainloop<DH_NT, 1, TAILS>(dgelu"),
-            (SRC, "x3_gemm_mainloop<DU_NT, 2, TAILS>", "x3_gemm_mainloop<DU_NT, 1, TAILS>")]
+CORE = "wgmma_gemm.cuh"
+# a 128-column float32 stage (16 KB of A, 32 KB of B's planes) leaves room
+# for three stages, which the core's ring refuses (at least four)
+THREE_STAGES = (CORE, 'static_assert(STAGES >= 4 && SMEM <= SMEM_BUDGET, "four stages fit");',
+                'static_assert(STAGES >= 3 && SMEM <= SMEM_BUDGET, "three stages fit");')
 VARIANTS = {
     "shipped": [],
-    "du_wide": [(SRC, "constexpr int DU_NT = 4;", "constexpr int DU_NT = 8;"), ONE_STEP[1]],
-    "dh_wide": [(SRC, "constexpr int DH_NT = 4;", "constexpr int DH_NT = 8;"), ONE_STEP[0],
-                (SRC, "__launch_bounds__(X3_THREADS, 2)\ngemm_dh_f32",
-                 "__launch_bounds__(X3_THREADS, 1)\ngemm_dh_f32")],
-    "no_unroll": ONE_STEP,
+    "du_wide": [(SRC, "constexpr int DU_F32_TILE_N = 64;", "constexpr int DU_F32_TILE_N = 128;"),
+                THREE_STAGES],
+    "dh_wide": [(SRC, "constexpr int DH_F32_TILE_N = 64;", "constexpr int DH_F32_TILE_N = 128;"),
+                THREE_STAGES],
+    "no_unroll": [(CORE, 'asm volatile("wgmma.wait_group.sync.aligned %0;\\n" ::"n"(P - 1) : "memory");',
+                   'asm volatile("wgmma.wait_group.sync.aligned %0;\\n" ::"n"(0) : "memory");')],
 }
 
 
 def kernel_name(key: str) -> str:
-    """``gemm_dh_f32`` or ``ln_bwd_rows<float, 24>`` from a profiler key
+    """``gemm_dh_tf32`` or ``ln_bwd_rows<float, 24>`` from a profiler key
     such as ``void (anonymous namespace)::ln_bwd_rows<float, 24>(float
     const*, ...)``."""
     key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
@@ -102,10 +110,12 @@ def main() -> int:
         for name, (out, proc) in build(_build.CSRC, Path(tmp)).items():
             log, _ = proc.communicate()
             if proc.returncode:
-                print(f"{name}: nvcc failed\n{log}", flush=True)
-                return 1
+                print(f"{name}: nvcc failed, left out\n{log[-4000:]}", flush=True)
+                if name == "shipped":
+                    return 1
+                continue
             for line in cs.ptxas_summary(name, log):
-                if "_f32" in line:
+                if "_tf32" in line or "split_weights" in line:
                     print(line, flush=True)
             fn = getattr(ctypes.CDLL(str(out)), "fused_mlp_bwd")
             fn.argtypes, fn.restype = fm.BWD_KERNEL.argtypes, ctypes.c_int
