@@ -45,15 +45,19 @@ KERNEL = Kernel(
 # head)s, S rows in wgmma's accumulators) up to TMA_MAX_SEQ tokens, there
 # its body with the S tile in shared memory (a block per (batch, head,
 # 64-query tile)) up to SMEM_MAX_SEQ tokens, the same body with a shorter
-# ring up to SMEM2_MAX_SEQ, and its three-walk long body otherwise.  fp32
-# runs one body.  The long body and fp32 launch a block per (batch, head,
-# 64-query tile, chunk of at most COLUMN_CHUNK output columns).  A body is
-# built for a head width of
+# ring up to SMEM2_MAX_SEQ, and its three-walk long body otherwise.  fp32 at
+# hd <= F32_TMA_WIDTH runs its persistent body at every N (one block an SM
+# walking jobs of two 64-query tiles of a (batch, head), at N <= 64 the
+# (batch, head)s; keys in chunks split into TF32 planes in the block),
+# wider fp32 heads the mma.sync body.  The long body and the wide fp32 body launch a block per
+# (batch, head, 64-query tile, chunk of at most COLUMN_CHUNK output
+# columns).  A body is built for a head width of
 # BODY_WIDTHS (hd rounded up; the kernel stages the columns past hd as
 # zeros), and the kernel takes hd in whole 16-byte chunks: the wrapper
 # zero-pads any other hd, as the reference pads hd to a multiple of 8.  The
-# launchers count the grid's blocks (the persistent body its work items, B
-# * H) in a 32-bit int; every pointer offset is 64-bit
+# launchers count the grid's blocks (a persistent body its work items: B * H
+# in bf16, B * H * query tiles in fp32) in a 32-bit int; every pointer
+# offset is 64-bit
 REG_WIDTH = 64
 BODY_WIDTHS = (64, 80, 96, 128, 256)
 MAX_HEAD_DIM = BODY_WIDTHS[-1]
@@ -75,16 +79,23 @@ H100_SMS = 132
 # ring of two (past SMEM_MAX_SEQ), as csrc/attention_fwd.cu sets them
 SMEM_MAX_SEQ = 640
 SMEM2_MAX_SEQ = 768
+# the fp32 persistent body's widest head, its keys a chunk and the stages of
+# each plane ring, as csrc/attention_fwd.cu sets them
+F32_TMA_WIDTH = 80
+F32_CHUNK = 64
+F32_PLANE_STAGES = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How the kernel runs one call: ``body`` ("bf16_tma" (the persistent
-    body), "bf16_smem", "bf16_smem2" (the short ring),
-    "bf16_long" or "f32"), the head width ``width`` its instantiation is
-    built for, the head width ``hd`` it is handed (the caller's, or
-    zero-padded to whole 16-byte chunks), its grid's ``blocks`` and, for the
-    persistent body, the key count ``keys`` of its instantiation (else 0)."""
+    """How the kernel runs one call: ``body`` ("bf16_tma" (the bf16
+    persistent body), "bf16_smem", "bf16_smem2" (the short ring),
+    "bf16_long", "f32_tma" (the fp32 persistent body) or "f32" (the fp32
+    mma.sync body, heads wider than F32_TMA_WIDTH)), the head width
+    ``width`` its instantiation is built for, the head width ``hd`` it is
+    handed (the caller's, or zero-padded to whole 16-byte chunks), its
+    grid's ``blocks`` and, for the bf16 persistent body, the key count
+    ``keys`` of its instantiation (else 0)."""
 
     body: str
     width: int
@@ -107,19 +118,25 @@ def launch_plan(B: int, N: int, H: int, hd: int, dtype) -> LaunchPlan:
     chunk = 4 if dtype == torch.float32 else 8  # elements in 16 bytes
     padded = -(-hd // chunk) * chunk
     width = next(w for w in BODY_WIDTHS if w >= padded)
-    keys, items = 0, B * H
+    keys, units = 0, B * H
     if dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= TMA_MAX_SEQ:
-        body, blocks, keys = "bf16_tma", min(H100_SMS, items), next(k for k in TMA_KEYS if k >= N)
+        body, blocks, keys = "bf16_tma", min(H100_SMS, units), next(k for k in TMA_KEYS if k >= N)
+    elif dtype == torch.float32 and padded <= F32_TMA_WIDTH:
+        q_tiles = -(-N // QUERY_TILE)
+        units = B * H * q_tiles
+        work = B * H * -(-q_tiles // 2)  # jobs of two query tiles (a (batch, head) at N <= 64)
+        body, blocks = "f32_tma", min(H100_SMS, work)
     elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM_MAX_SEQ:
         body, blocks = "bf16_smem", B * H * -(-N // QUERY_TILE)
+        units = blocks
     elif dtype == torch.bfloat16 and padded <= REG_WIDTH and N <= SMEM2_MAX_SEQ:
         body, blocks = "bf16_smem2", B * H * -(-N // QUERY_TILE)
+        units = blocks
     else:
         body = "bf16_long" if dtype == torch.bfloat16 else "f32"
         columns = min(width, COLUMN_CHUNK)
-        blocks = B * H * -(-N // QUERY_TILE) * -(-padded // columns)
-    units = items if keys else blocks  # the persistent body counts its (batch, head)s
-    if units > MAX_BLOCKS:
+        blocks = units = B * H * -(-N // QUERY_TILE) * -(-padded // columns)
+    if units > MAX_BLOCKS:  # a persistent body counts its work items
         raise KernelInputError(f"attention kernel takes at most {MAX_BLOCKS} blocks, got {units} "
                                f"(B={B}, H={H}, N={N}, hd={hd}, {dtype})")
     return LaunchPlan(body, width, padded, blocks, keys)

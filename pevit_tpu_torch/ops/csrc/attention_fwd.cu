@@ -20,11 +20,12 @@
 // shared-memory body K and V by TMA boxes, q straight into registers), and
 // take q, k and v with (batch, token, head) strides, so the wrapper passes
 // (B, N, H, hd) views of the packed qkv projection without copies.  Every
-// N >= 1 is taken: the dtype picks the body, and in bf16 N and hd do (at
-// hd <= 64 the persistent body up to N = 257; the body with the S tile in
-// shared memory from 258 up to 640 tokens, where its tile fits beside a
-// ring of four stages, and up to 768 with a ring of two; the three-walk
-// long body otherwise), chosen by shape; no body falls back to another.
+// N >= 1 is taken: the dtype picks the body, and hd and N do (float32: the
+// persistent body at hd <= 80, the mma.sync body beyond; bf16 at hd <= 64
+// the persistent body up to N = 257; the body with the S tile in shared
+// memory from 258 up to 640 tokens, where its tile fits beside a ring of
+// four stages, and up to 768 with a ring of two; the three-walk long body
+// otherwise), chosen by shape; no body falls back to another.
 //
 // Head widths.  The reference takes any hd (it pads hd to a multiple of 8
 // for its lanes).  Here every body is built for a head width W, hd rounded
@@ -34,9 +35,10 @@
 // q meets a zero column of k) and only adds output columns that are never
 // stored, so the result is the reference's at every hd.  hd must fill
 // whole 16-byte chunks (a multiple of 8 in bf16, of 4 in float32); the
-// wrapper zero-pads any other hd, as the reference does.  The persistent
-// and the shared-memory bodies are built for W = 64 only; a wider head
-// goes to the query-tiled bodies at every N.  Their output is cut into
+// wrapper zero-pads any other hd, as the reference does.  The bf16
+// persistent and shared-memory bodies are built for W = 64 only, the
+// float32 persistent body for W = 64 and 80; a wider head goes to the
+// query-tiled bodies at every N.  Their output is cut into
 // chunks of at most 128 columns, one block a chunk (two at hd > 128): a
 // block recomputes S over
 // the whole hd for its chunk of v's columns, which is exact, since p does
@@ -146,41 +148,45 @@
 // of two stages, which prefetches one item instead of three.  Past 768 the
 // tile of S no longer fits one block's 227 KB.
 //
-// float32 body (tensor cores, 3xTF32: tf32x3.cuh).  TF32 mma.sync m16n8k8
-// with each product split in three, so it stays float32-class (not TF32:
-// see tf32x3.cuh).  The split triples the products and adds the splits and
-// the rounded adds of the partial sums, so instruction throughput and
-// latency bound the body, not bytes; it is built for warps in flight:
-//   * grid: one block per (batch, head, tile of 64 query rows, chunk of
-//     output columns), 4 warps, a warp per 16 query rows; a warp whose rows
-//     all lie past N only takes part in the block's copies and barriers;
-//   * q: the block's rows staged by 16-byte cp.async, then, up to W = 96,
-//     each warp's fragments split once into registers (W of them); wider
-//     heads keep the q tile in shared memory and split its fragments as
-//     they are used;
-//   * keys in chunks of 32 through two shared-memory buffers (K rows, then V
-//     rows, 16-byte cp.async, a row stride of W + 4 floats so that the 32
-//     lanes of a 32-bit fragment load hit 32 banks; rows past N zero): the
-//     copies of chunk c + 1 overlap the products of chunk c;
-//   * per chunk: S = Q K^T, 8-key tiles that hold no key below N skipped
-//     and padded columns set to -inf; an online softmax in float32 with
-//     quad shuffles (running row max m, sum l, the output rescaled by
-//     exp(m_old - m_new)); O += P V;
-//   * P V: a lane's S accumulators hold keys 2t and 2t + 1 of each 8-key
-//     step, where the A fragment wants keys t and t + 4.  Nothing is
-//     shuffled: A's k-index t stands for key 2t and t + 4 for key 2t + 1,
-//     and V's B fragment rows are loaded in that same order; the sum over
-//     the keys does not depend on it;
-//   * output: O / l, stored as 8-byte pairs.  The reference normalises p
-//     before the product because it rounds p to v's type there; in float32
-//     that rounding is the identity, so dividing once at the end differs
-//     only in float32 rounding.
-// One kernel a head width takes every N, in 34 KB of shared memory at W =
-// 64 and registers for two blocks an SM (three would leave ptxas too few,
-// and it spills).  Keeping the whole (16 x N) S tile in registers, as the
-// bf16 body does, would take over 200 registers at N = 197 on top of the
-// split's, and keys in chunks spend them on q's fragments instead, split
-// once.
+// float32 persistent body, hd <= 80 (3xTF32 on wgmma, TMA, warp-specialised:
+// tf32x3.cuh's arithmetic, each k-step of 8 three TF32 products summed from
+// zero on the tensor core and added to a float32 accumulator once, rounded,
+// as the GEMM core's float32 path does it, wgmma_gemm.cuh).  What bounds it:
+// at (64, 197, 12) the 3xTF32 products (30 GFLOP with the padding of
+// queries to tiles of 64 and keys to chunks of 64) take 0.06 ms at the
+// TF32 peak against 0.046 ms of q, k, v and out; below them, the issue
+// slots and the latency of a consumer's chain of groups, and the splits.
+// TF32 wgmma reads B K-major only, so K's rows serve S = Q K^T as they lie
+// and V must become V^T for P V; and K and V are new every call, so their
+// TF32 planes are made in the block.  The design:
+//   * persistent: one block an SM walks jobs of two 64-query tiles of a
+//     (batch, head) (at N <= 64, (batch, head)s, a consumer each), its
+//     producer warpgroup ahead of its two consumer warpgroups;
+//   * keys in chunks of 64: one thread streams each chunk's K and V rows
+//     by TMA boxes into a raw ring, and the producer warpgroup's 128
+//     threads split each raw chunk once into TF32 hi and lo planes, K's
+//     where its values lie, V's transposed (V^T's rows, each 8-key step in
+//     the order 0, 2, 4, 6, 1, 3, 5, 7); both consumers of a job read the
+//     same planes, so a value is split once a pair of query tiles;
+//   * a consumer holds its tile's q in registers and splits each k-step's
+//     fragment as it issues it; S = Q K^T and O += P V run a k-step a group
+//     of three wgmmas into a partial, each partial added once its group has
+//     retired, another group in flight (every group added before the chunk
+//     ends: ptxas serializes every wgmma otherwise); P's A fragments are
+//     S's accumulators as they stand (V^T's key order above);
+//   * the online softmax of the mma.sync body it replaced (the running row
+//     max, exp(m_old - m_new) on the row sum and on O, e = exp(s - m), a
+//     lane's pairs, the quad's sum at the end, O / l), with the rescale's
+//     products rounded on their own;
+//   * a last chunk whose keys below N fit 32 runs at half the width (N =
+//     257: 257 keys in 4 full chunks and one of 32), and a job's second
+//     tile past the (batch, head)'s last is not computed.
+// Heads wider than 80 run the mma.sync body below, the earlier design: 3xTF32
+// mma.sync m16n8k8 (tf32x3.cuh's mma_tf32x3), a block per (batch, head,
+// 64-query tile, chunk of at most 128 output columns), 4 warps, keys in
+// chunks of 32 through two cp.async buffers, each warp splitting the K and
+// V values it reads, the same online softmax; q split once into registers
+// up to W = 96 and kept in shared memory beyond.
 
 // The launchers raise each kernel's dynamic shared memory limit with
 // cudaFuncSetAttribute before its launch.
@@ -1335,7 +1341,484 @@ attention_fwd_bf16_tma(const TmaArgs a, const __grid_constant__ CUtensorMap qmap
 }
 
 // ---------------------------------------------------------------------------
-// float32 body (tensor cores, 3xTF32)
+// float32 persistent body (3xTF32 wgmma, TMA, warp-specialised), hd <= 80
+// ---------------------------------------------------------------------------
+
+// keys of a chunk (a multiple of 64: V^T's planes hold a 128-byte row of 32
+// TF32 keys a column block, and a narrow last chunk half of them)
+constexpr int F32_CHUNK = 64;
+// the widest head the body takes (ops/attention.py mirrors it); wider heads
+// run the mma.sync body below
+constexpr int F32_TMA_WIDTH = 80;
+// the stages of each plane ring (K's, V^T's), an even count: unpaired, a
+// consumer owns the stages of its parity
+constexpr int F32_PLANE_STAGES = 2;
+// the partial sums a consumer rotates in S = Q K^T and in O += P V (groups
+// in flight while one is added; three spill)
+constexpr int F32_S_PARTIALS = 2;
+constexpr int F32_PV_PARTIALS = 2;
+// the producer warpgroup's threads split the chunks, its thread 0 also
+// issues the TMA boxes
+constexpr int F32_SPLITTERS = THREADS;
+// setmaxnreg's counts: the producer warpgroup's (its splitters' loops
+// included), the consumers' the rest of an SM's registers
+constexpr int F32_PRODUCER_REGS = 40;
+constexpr int F32_CONSUMER_REGS = 232;
+static_assert(THREADS * (F32_PRODUCER_REGS + CONSUMERS * F32_CONSUMER_REGS) <= 65536,
+              "the warpgroups' registers fit an SM");
+
+// The body's layout at head width W (64 or 80): a raw ring, each stage a
+// chunk's K rows then its V rows as TMA writes them (column blocks of 32
+// floats, a 128-byte row of a block a key, in the 128-byte swizzle); a K
+// ring, each stage K's TF32 hi and lo planes laid out as the raw K rows
+// (S's B, K-major); a V ring, each stage V^T's hi and lo planes (column
+// blocks of 32 keys, a 128-byte row of a block a column of V: P V's B,
+// K-major); then a full and an empty mbarrier a stage of each.  As many raw
+// stages as 227 KB hold beside the planes, at most four.
+template <int W>
+struct F32TmaBody {
+  static constexpr int KC = F32_CHUNK;
+  static constexpr int CB = (W + 31) / 32;  // column blocks of a K or V row
+  static constexpr int BLOCK = KC * 128;    // a column block of a chunk's rows
+  static constexpr int RAW = 2 * CB * BLOCK;
+  static constexpr int K_PLANE = CB * BLOCK;
+  static constexpr int VT_BLOCK = W * 128;  // 32 keys of every column of V
+  static constexpr int VT_PLANE = KC / 32 * VT_BLOCK;
+  static constexpr int PS = F32_PLANE_STAGES;
+  static constexpr int SP = F32_S_PARTIALS;
+  static constexpr int VP = F32_PV_PARTIALS;
+  static constexpr int SLACK = 1024;  // the raw ring's 1024-byte alignment
+  static constexpr int PLANES = PS * (2 * K_PLANE + 16 + 2 * VT_PLANE + 16);
+  static constexpr int FIT = (SMEM_BUDGET - SLACK - PLANES) / (RAW + 16);
+  static constexpr int RS = FIT < 4 ? FIT : 4;
+  static constexpr size_t SMEM = SLACK + (size_t)RS * (RAW + 16) + PLANES;
+  static_assert(W % 16 == 0 && W <= F32_TMA_WIDTH && KC % 64 == 0, "widths wgmma takes");
+  static_assert(RS >= 1 && PS % 2 == 0 && SMEM <= SMEM_BUDGET, "the stages fit");
+  static_assert(K_PLANE % 1024 == 0 && VT_BLOCK % 1024 == 0, "tiles on the swizzle's 1024 bytes");
+};
+
+// The arguments of a launch of the float32 body but its tensor maps
+struct F32Args {
+  const float* q;
+  float* out;
+  int H, N, hd, q_tiles, work;  // work: the jobs (q_tiles > 1) or the (batch, head)s
+  long long qsb, qsn, qsh;
+};
+
+// One k-step of 8 of a float32 product on the tensor cores: the three TF32
+// products of the split (tf32x3.cuh), summed from zero into part, the small
+// terms first; A (hi, lo) a warp's fragment in registers, B's hi and lo
+// planes K-major in shared memory
+template <int NW>
+__device__ __forceinline__ void tf32x3_step(float (&part)[NW / 2], const uint32_t (&hi)[4],
+                                            const uint32_t (&lo)[4], uint64_t b_hi,
+                                            uint64_t b_lo) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  WgmmaTf32<NW>::mma(part, lo, b_hi, 0);  // from zero, the small terms first
+  WgmmaTf32<NW>::mma(part, hi, b_lo, 1);
+  WgmmaTf32<NW>::mma(part, hi, b_hi, 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// G groups, issued one after another (issue(q): group q's products into
+// partial q % P), each added once it has retired (add(q)), so that P - 1
+// groups run while one is added; every group added before it returns (a
+// group read after a loop's back edge would make ptxas serialize every
+// wgmma)
+template <int G, int P, typename Issue, typename Add>
+__device__ __forceinline__ void run_groups(Issue&& issue, Add&& add) {
+  static_assert(G >= P - 1, "the partials fill");
+  unroll<G>([&](auto qc) {
+    constexpr int q = decltype(qc)::value;
+    issue(qc);
+    if constexpr (q >= P - 1) {
+      asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(P - 1) : "memory");
+      add(std::integral_constant<int, q - (P - 1)>{});
+    }
+  });
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  unroll<P - 1>(
+      [&](auto i) { add(std::integral_constant<int, G - (P - 1) + decltype(i)::value>{}); });
+}
+
+// A fragment's four float32 values split: hi with its 13 low bits clear,
+// lo with split_tf32's (the tensor core reads the top 19)
+__device__ __forceinline__ void split_fragment(const float (&x)[4], uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    split_tf32(x[r], hi[r], lo[r]);
+    hi[r] &= 0xffffe000u;
+  }
+}
+
+// A chunk's first `rows` raw K rows split into K's TF32 planes by splitter
+// thread t of F32_SPLITTERS, each value's hi and lo where the value lies;
+// columns past W are left out (K's last block at W = 80)
+template <int W>
+__device__ __forceinline__ void split_k(const unsigned char* raw, unsigned char* k_hi, int t,
+                                        int rows) {
+  typedef F32TmaBody<W> L;
+  constexpr int Q = W / 4;  // 16-byte chunks of a row below W
+  const int TOTAL = rows * Q;
+  constexpr int BATCH = 2;                     // chunks a thread loads before it stores
+  for (int i0 = t; i0 < TOTAL; i0 += BATCH * F32_SPLITTERS) {
+    int at[BATCH];
+    float4 x[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = i0 + u * F32_SPLITTERS, r = i / Q, c = i - r * Q;
+      at[u] = c / 8 * L::BLOCK + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+      if (i < TOTAL) x[u] = *reinterpret_cast<const float4*>(raw + at[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (i0 + u * F32_SPLITTERS >= TOTAL) break;
+      uint32_t hi[4], lo[4];
+      split_tf32_rn(x[u].x, hi[0], lo[0]);
+      split_tf32_rn(x[u].y, hi[1], lo[1]);
+      split_tf32_rn(x[u].z, hi[2], lo[2]);
+      split_tf32_rn(x[u].w, hi[3], lo[3]);
+      *reinterpret_cast<uint4*>(k_hi + at[u]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(k_hi + L::K_PLANE + at[u]) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+}
+
+// A chunk's first `rows` raw V rows split into V^T's TF32 planes by
+// splitter thread t: each value into the row of its column, each 8-key
+// step's keys in the order 0, 2, 4, 6, 1, 3, 5, 7, so that a consumer lane's
+// S accumulators (keys 2t and 2t + 1 of the step) are P V's A fragment as
+// they stand (k-indices t and t + 4); the sum over the keys does not depend
+// on their order
+template <int W>
+__device__ __forceinline__ void split_v(const unsigned char* raw, unsigned char* v_hi, int t,
+                                        int rows) {
+  typedef F32TmaBody<W> L;
+  for (int i = t; i < W * (rows / 8); i += F32_SPLITTERS) {
+    const int d = i % W, s = i / W;  // V's column, the chunk's k-step
+    const unsigned char* col = raw + d / 32 * L::BLOCK + d % 4 * 4;
+    const int dc = d % 32 / 4;
+    unsigned char* row = v_hi + s / 4 * L::VT_BLOCK + d * 128;
+    float x[8];  // the step's keys at their slots, loaded before any store
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int key = 8 * s + 2 * u + odd;  // key % 8 = 2u + odd
+        x[4 * odd + u] = *reinterpret_cast<const float*>(col + key * 128 +
+                                                         ((dc ^ (2 * u + odd)) << 4));
+      }
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd) {  // keys 8s + 2u + odd at slots 4 odd + u
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) split_tf32_rn(x[4 * odd + u], hi[u], lo[u]);
+      const int at = ((s % 4 * 2 + odd) ^ (d % 8)) << 4;
+      *reinterpret_cast<uint4*>(row + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(row + L::VT_PLANE + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+}
+
+// One block an SM of three warpgroups walks jobs blockIdx.x + j gridDim.x:
+// where a (batch, head) has more than one query tile, a job is two of its
+// tiles (job w: item w / JT, tiles 2 (w % JT) and + 1), both consumers take
+// each of its chunks (the job's j-th chunk ch is entry j C + ch of the
+// block's rings), consumer c its tile 2 (w % JT) + c; at N <= 64 a unit is
+// a (batch, head), unit i of the walk goes to consumer i % 2, and its chunk
+// ch is entry 2 (C (i / 2) + ch) + i % 2, so each consumer owns the plane
+// stages of its parity (tests/test_torch_attention_f32_tma.py mirrors the
+// walk).  Keys come in chunks of F32_CHUNK.
+//   * The producer warpgroup gives up its registers (setmaxnreg).  Its
+//     thread 0 issues each entry's TMA boxes (K's and V's rows of the
+//     chunk, rows past N zero) into the raw ring up to RS entries ahead,
+//     each into a stage once every splitter is done with it; all 128 of
+//     its threads split each raw chunk once, K into the K ring once its
+//     consumers' S no longer reads the stage, V into the V ring once their
+//     P V no longer does, a warp's arrival on each mbarrier, then free the
+//     raw stage.
+//   * A consumer (setmaxnreg 232) holds its tile's q fragments (float32,
+//     from device memory) in registers and, for each chunk:
+//     S = Q K^T, each k-step of 8 along hd three wgmma m64n64k8.tf32 (n32
+//     in a narrow last chunk) from zero into a partial (tf32x3_step),
+//     added to S once its group has retired (run_groups); frees the K
+//     stage;
+//     the online softmax (keys past N at -inf, the running row max m,
+//     exp(m_old - m_new) on the row sum l and on O, rounded products,
+//     e = exp(s - m), l += e a pair of keys at a time);
+//     O += P V, each 8-key step three wgmma m64nWk8.tf32 with P's split
+//     as A from the S accumulators and V^T's planes as B, added the same
+//     way; frees the V stage.
+//     The output O / l is stored from the accumulators, rows past N and
+//     columns past hd left out.
+template <int W>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+attention_fwd_f32_tma(const F32Args a, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap) {
+  typedef F32TmaBody<W> L;
+  constexpr int RS = L::RS, PS = L::PS, KC = L::KC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = aligned_smem(smem);
+  unsigned char* raw_p = smem + (raw - smem_u32(smem));
+  const uint32_t k_ring = raw + RS * L::RAW, v_ring = k_ring + PS * 2 * L::K_PLANE;
+  unsigned char* k_ring_p = raw_p + RS * L::RAW;
+  unsigned char* v_ring_p = k_ring_p + PS * 2 * L::K_PLANE;
+  const uint32_t raw_full = v_ring + PS * 2 * L::VT_PLANE, raw_empty = raw_full + 8 * RS;
+  const uint32_t k_full = raw_empty + 8 * RS, k_empty = k_full + 8 * PS;
+  const uint32_t v_full = k_empty + 8 * PS, v_empty = v_full + 8 * PS;
+  const int N = a.N, C = (N + KC - 1) / KC;
+  const int wg = threadIdx.x / THREADS, tid = threadIdx.x % THREADS;
+  // paired: a job is two query tiles of one (batch, head) whose chunks both
+  // consumers take (JT jobs an item); else (N <= 64) each consumer takes
+  // its own units, a (batch, head) of one query tile.  The block's jobs or
+  // units, and its rings' entries (unpaired, the last pair's second unit
+  // may be missing: its entries are skipped)
+  const bool paired = a.q_tiles > 1;
+  const int JT = (a.q_tiles + 1) / 2;
+  const int mine = (a.work - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int entries = paired ? C * mine : 2 * C * ((mine + 1) / 2);
+  // entry e's item and chunk; whether it is present
+  const auto entry_at = [&](int e, int& item, int& ch) {
+    if (paired) {
+      item = ((int)blockIdx.x + e / C * (int)gridDim.x) / JT;
+      ch = e % C;
+      return true;
+    }
+    const int i = e / (2 * C) * 2 + e % 2;  // the entry's unit
+    item = (int)blockIdx.x + i * (int)gridDim.x;
+    ch = e / 2 % C;
+    return i < mine;
+  };
+  // whether chunk ch is the last and its keys below N fit KC / 2: its
+  // products then run at half the width, its split on half the rows
+  const auto narrow_last = [&](int ch) { return ch == C - 1 && N - ch * KC <= KC / 2; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RS; ++s) {
+      mbar_init(raw_full + 8 * s);
+      mbar_init(raw_empty + 8 * s, WARPS);  // a splitter warp's arrival each
+    }
+    for (int s = 0; s < PS; ++s) {
+      mbar_init(k_full + 8 * s, WARPS);
+      mbar_init(k_empty + 8 * s, paired ? 2 * WARPS : WARPS);  // its consumers' warps
+      mbar_init(v_full + 8 * s, WARPS);
+      mbar_init(v_empty + 8 * s, paired ? 2 * WARPS : WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F32_PRODUCER_REGS));
+    // thread 0 issues the present entries' TMA boxes into the raw ring (its
+    // count `issued`, from entry `next`), up to RS ahead of the splitting
+    int next = 0, issued = 0;
+    const auto issue_upto = [&](int until) {
+      for (; next < entries && issued < until; ++next) {
+        int item, ch;
+        if (!entry_at(next, item, ch)) continue;
+        const int s = issued % RS, use = issued / RS;
+        ++issued;
+        if (use > 0) mbar_wait(raw_empty + 8 * s, (use - 1) & 1);  // the splitters are done
+        const int b = item / a.H, h = item - b * a.H, row = ch * KC;
+        const uint32_t st = raw + s * L::RAW, bar = raw_full + 8 * s;
+        mbar_expect(bar, L::RAW);
+#pragma unroll
+        for (int cb = 0; cb < L::CB; ++cb) {
+          tma_box(st + cb * L::BLOCK, kmap, bar, 32 * cb, h, row, b);
+          tma_box(st + (L::CB + cb) * L::BLOCK, vmap, bar, 32 * cb, h, row, b);
+        }
+      }
+    };
+    if (tid == 0) issue_upto(RS);
+    const int lane = tid & 31;
+    // every thread splits each present entry (its count n)
+    for (int e = 0, n = 0; e < entries; ++e) {
+      int item, ch;
+      if (!entry_at(e, item, ch)) continue;
+      const int s = n % RS, rpar = n / RS & 1, ps = e % PS, ppar = e / PS & 1;
+      ++n;
+      const unsigned char* st = raw_p + s * L::RAW;
+      mbar_wait(raw_full + 8 * s, rpar);
+      if (e >= PS) mbar_wait(k_empty + 8 * ps, ppar ^ 1);  // its consumers' S is done with it
+      const int rows = narrow_last(ch) ? KC / 2 : KC;
+      split_k<W>(st, k_ring_p + ps * 2 * L::K_PLANE, tid, rows);
+      // the planes' stores before the consumers' wgmmas read them, a warp's
+      // arrival once its lanes are done (one arrival a thread serializes)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_full + 8 * ps);
+      if (e >= PS) mbar_wait(v_empty + 8 * ps, ppar ^ 1);  // its P V is done with it
+      split_v<W>(st + L::CB * L::BLOCK, v_ring_p + ps * 2 * L::VT_PLANE, tid, rows);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(v_full + 8 * ps);
+        mbar_arrive(raw_empty + 8 * s);
+      }
+      if (tid == 0) issue_upto(n + RS);  // the stage just freed, once every splitter is done
+    }
+    return;
+  }
+
+  // a consumer
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F32_CONSUMER_REGS));
+  const int c = wg - 1;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  constexpr int KS = W / 8;  // S's k-steps along hd
+  for (int j = paired ? 0 : c; j < mine; j += paired ? 1 : 2) {
+    const int w = (int)blockIdx.x + j * (int)gridDim.x;
+    const int item = paired ? w / JT : w, qt = paired ? 2 * (w % JT) + c : 0;
+    const auto entry = [&](int ch) {
+      return paired ? j * C + ch : 2 * (C * (j / 2) + ch) + c;
+    };
+    if (qt >= a.q_tiles) {  // an odd count's last job: no tile of its own, the stages passed on
+      for (int ch = 0; ch < C; ++ch) {
+        const int e = entry(ch), ps = e % PS, par = e / PS & 1;
+        mbar_wait(k_full + 8 * ps, par);
+        mbar_wait(v_full + 8 * ps, par);
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * ps);
+          mbar_arrive(v_empty + 8 * ps);
+        }
+      }
+      continue;
+    }
+    const int b = item / a.H, h = item - b * a.H;
+    const int ra = qt * QROWS + 16 * warp + g, rb = ra + 8;  // a lane's rows
+    // q's fragments: k-step kk's a0 (ra, 8kk + t), a1 (rb, 8kk + t), a2
+    // (ra, 8kk + t + 4), a3 (rb, 8kk + t + 4); rows past N, columns past hd 0
+    float qf[KS][4];
+    {
+      const float* qh = a.q + b * a.qsb + h * a.qsh;
+      const auto at = [&](int r, int col) {
+        return r < N && col < a.hd ? qh[r * a.qsn + col] : 0.f;
+      };
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        qf[kk][0] = at(ra, 8 * kk + t);
+        qf[kk][1] = at(rb, 8 * kk + t);
+        qf[kk][2] = at(ra, 8 * kk + t + 4);
+        qf[kk][3] = at(rb, 8 * kk + t + 4);
+      }
+    }
+    // O unnormalised (a lane's rows ra (o[4j], o[4j + 1]) and rb (o[4j + 2],
+    // o[4j + 3]), columns 8j + 2t and + 1), the running row max m and the
+    // lane's part of the row sum l
+    float o[W / 2];
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) o[j] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    // chunk ch's first NKC keys (all KC of it, or the narrow last chunk's
+    // KC / 2)
+    const auto chunk = [&](auto nkc, int ch) {
+      constexpr int NKC = decltype(nkc)::value, NT = NKC / 8;  // P V's k-steps
+      const int e = entry(ch), ps = e % PS, par = e / PS & 1;
+      const uint32_t kp = k_ring + ps * 2 * L::K_PLANE, vp = v_ring + ps * 2 * L::VT_PLANE;
+      // q's split is made afresh each chunk, not held (ptxas would hoist it
+      // out of the loop into W registers more)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) fence_operand(qf[kk][r]);
+
+      // S = Q K^T over the chunk: s[4j..4j+3] keys 8j + 2t, + 1 of rows ra, rb
+      float s[NKC / 2], sp[L::SP][NKC / 2];
+#pragma unroll
+      for (int j = 0; j < NKC / 2; ++j) s[j] = 0.f;
+      mbar_wait(k_full + 8 * ps, par);
+      run_groups<KS, L::SP>(
+          [&](auto kc) {
+            constexpr int kk = decltype(kc)::value;
+            uint32_t hi[4], lo[4];
+            split_fragment(qf[kk], hi, lo);
+            const uint32_t kb = kp + kk / 4 * L::BLOCK + kk % 4 * 32;  // 32 bytes a k-step
+            tf32x3_step<NKC>(sp[kk % L::SP], hi, lo, wgmma_desc(kb), wgmma_desc(kb + L::K_PLANE));
+          },
+          [&](auto kc) { add_partial(s, sp[decltype(kc)::value % L::SP]); });
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty + 8 * ps);  // every wgmma that read it has retired
+
+      // the online softmax: keys past N at -inf (every chunk holds a key
+      // below N, so the new maxima are finite)
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = ch * KC + 8 * j + 2 * t;
+        if (col >= N) s[4 * j] = s[4 * j + 2] = -INFINITY;
+        if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);  // 0 on the first chunk
+      m0 = n0;
+      m1 = n1;
+      l0 = __fmul_rn(l0, a0);  // rounded, never fused into the adds after
+      l1 = __fmul_rn(l1, a1);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        o[4 * j] = __fmul_rn(o[4 * j], a0);
+        o[4 * j + 1] = __fmul_rn(o[4 * j + 1], a0);
+        o[4 * j + 2] = __fmul_rn(o[4 * j + 2], a1);
+        o[4 * j + 3] = __fmul_rn(o[4 * j + 3], a1);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[4 * j] = expf(s[4 * j] - n0);
+        s[4 * j + 1] = expf(s[4 * j + 1] - n0);
+        s[4 * j + 2] = expf(s[4 * j + 2] - n1);
+        s[4 * j + 3] = expf(s[4 * j + 3] - n1);
+        l0 += s[4 * j] + s[4 * j + 1];
+        l1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+
+      // O += P V: step j's A fragment is keys 2t (a0, a1) and 2t + 1 (a2,
+      // a3) of rows ra, rb, which V^T's planes hold at k-indices t and t + 4
+      float op[L::VP][W / 2];
+      mbar_wait(v_full + 8 * ps, par);
+      run_groups<NT, L::VP>(
+          [&](auto jc) {
+            constexpr int j = decltype(jc)::value;
+            const float p[4] = {s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]};
+            uint32_t hi[4], lo[4];
+            split_fragment(p, hi, lo);
+            const uint32_t vb = vp + j / 4 * L::VT_BLOCK + j % 4 * 32;  // 32 bytes a k-step
+            tf32x3_step<W>(op[j % L::VP], hi, lo, wgmma_desc(vb), wgmma_desc(vb + L::VT_PLANE));
+          },
+          [&](auto jc) { add_partial(o, op[decltype(jc)::value % L::VP]); });
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty + 8 * ps);
+    };
+    for (int ch = 0; ch < C; ++ch) {
+      if (narrow_last(ch))
+        chunk(std::integral_constant<int, KC / 2>{}, ch);
+      else
+        chunk(std::integral_constant<int, KC>{}, ch);
+    }
+
+    // O / l, rows past N and columns past hd left out
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col >= a.hd) continue;
+      if (ra < N)
+        *reinterpret_cast<float2*>(a.out + (((size_t)b * N + ra) * a.H + h) * a.hd + col) =
+            make_float2(o[4 * j] / l0, o[4 * j + 1] / l0);
+      if (rb < N)
+        *reinterpret_cast<float2*>(a.out + (((size_t)b * N + rb) * a.H + h) * a.hd + col) =
+            make_float2(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32 body for heads wider than 80 (mma.sync, 3xTF32)
 // ---------------------------------------------------------------------------
 
 constexpr int KC = 32;               // keys per chunk
@@ -1614,17 +2097,19 @@ int launch_bf16_long(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// the TMA map of a (B, N, H, hd) bf16 operand with (batch, token, head)
-// element strides sb, sn, sh: boxes of 64 columns by `rows` tokens of one
-// head, in the 128-byte swizzle; columns past hd and tokens past N read as
-// zeros (tma.cuh's tensor_map, which keeps the maps it encoded)
+// the TMA map of a (B, N, H, hd) bf16 (or, with f32, float32) operand with
+// (batch, token, head) element strides sb, sn, sh: boxes of one 128-byte row
+// of columns (64 bf16, 32 float32) by `rows` tokens of one head, in the
+// 128-byte swizzle; columns past hd and tokens past N read as zeros
+// (tma.cuh's tensor_map, which keeps the maps it encoded)
 int head_map(CUtensorMap* map, const void* base, const Args& a, long long sb, long long sn,
-             long long sh, int rows) {
+             long long sh, int rows, bool f32 = false) {
+  const cuuint64_t es = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)a.hd, (cuuint64_t)a.H, (cuuint64_t)a.N, (cuuint64_t)a.B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
-                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * es, (cuuint64_t)sn * es, (cuuint64_t)sb * es};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / es), 1, (cuuint32_t)rows, 1};
+  return tensor_map(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    4, base, dims, strides, box, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 template <int ST>
@@ -1657,6 +2142,27 @@ int launch_bf16_tma(const Args& a) {
   if ((err = head_map(&vmap, a.v, a, a.vsb, a.vsn, a.vsh, L::KV_BOX)) != 0) return err;
   attention_fwd_bf16_tma<NK><<<ta.items < sms ? ta.items : sms, TMA_THREADS, L::SMEM,
                                a.stream>>>(ta, qmap, kmap, vmap);
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+int launch_f32_tma(const Args& a) {
+  typedef F32TmaBody<W> L;
+  int err = set_smem(attention_fwd_f32_tma<W>, L::SMEM);
+  int sms = 0;
+  if (err == 0) err = sm_count(&sms);
+  if (err != 0) return err;
+  // jobs of two query tiles where an item has more than one, else its
+  // units (a (batch, head) of one query tile each)
+  const int q_tiles = q_tiles_of(a.N);
+  const int work = a.B * a.H * (q_tiles > 1 ? (q_tiles + 1) / 2 : 1);
+  const F32Args fa{static_cast<const float*>(a.q), static_cast<float*>(a.out), a.H, a.N, a.hd,
+                   q_tiles, work, a.qsb, a.qsn, a.qsh};
+  CUtensorMap kmap, vmap;
+  if ((err = head_map(&kmap, a.k, a, a.ksb, a.ksn, a.ksh, L::KC, true)) != 0) return err;
+  if ((err = head_map(&vmap, a.v, a, a.vsb, a.vsn, a.vsh, L::KC, true)) != 0) return err;
+  attention_fwd_f32_tma<W><<<work < sms ? work : sms, TMA_THREADS, L::SMEM, a.stream>>>(
+      fa, kmap, vmap);
   return (int)cudaGetLastError();
 }
 
@@ -1708,8 +2214,15 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
     return (int)cudaErrorMisalignedAddress;
   const Args a{q, k, v, out, B, H, N, hd, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0)
-    return with_width(hd, [&](auto w) { return launch_f32<decltype(w)::value>(a); });
+  if (dtype == 0) {
+    switch (body_width(hd)) {
+      case 64: return launch_f32_tma<64>(a);
+      case 80: return launch_f32_tma<80>(a);
+      case 96: return launch_f32<96>(a);
+      case 128: return launch_f32<128>(a);
+      default: return launch_f32<256>(a);
+    }
+  }
   if (tma) {
     if (N <= 56) return launch_bf16_tma<56>(a);
     if (N <= 64) return launch_bf16_tma<64>(a);

@@ -1,9 +1,9 @@
 // Float32 products on Hopper's tensor cores by a three-product TF32 split
 // ("3xTF32").  The split (split_tf32) serves the float32 bodies of the
 // attention forward (attention_fwd.cu) and of the fused MLP's GEMM core
-// (wgmma_gemm.cuh, which runs the three products of a k-step as wgmmas);
-// mma_tf32 and mma_tf32x3, mma.sync's warp-level form, are the attention
-// forward's alone.
+// (wgmma_gemm.cuh); both run the three products of a k-step as wgmmas but
+// for the attention forward's body for heads wider than 80, whose
+// mma.sync warp-level form (mma_tf32, mma_tf32x3) stays here.
 //
 // A float32 x splits into hi = x rounded to TF32 (as cvt.rna: 10 mantissa
 // bits, round to nearest, ties away from zero) and lo = x - hi, which is

@@ -2,7 +2,8 @@
 turns on one CUDA card.
 
     python -m pevit_tpu_torch.tools.attention_bodies [--against LABEL=DIR ...]
-        [--set LABEL:NAME=VALUE[,NAME=VALUE] ...] [--lengths N [N ...]] [--out FILE]
+        [--set LABEL:NAME=VALUE[,NAME=VALUE] ...] [--lengths N [N ...]]
+        [--dtype bfloat16|float32] [--out FILE]
 
 Each ``DIR`` holds another ``attention_fwd.cu`` with the same C interface
 (hd an argument; with its ``*.cuh`` headers beside it), e.g. the ``csrc`` directory of an
@@ -20,8 +21,15 @@ through the wrapper ``attention_fwd`` in turns, the others, this, this, the
 others in reverse (``device_ms``: the median device time of a call
 replayed from a CUDA graph, so that the host's time to issue it stays out;
 the mean of a version's two turns), beside ``scaled_dot_product_attention``
-on contiguous copies, a yardstick the port never calls.  A version that
-refuses a shape (a launch error) is reported as refusing it.  One JSON line
+on contiguous copies, a yardstick the port never calls.  With ``--dtype
+float32`` it runs the float32 bodies at ``F32_SHAPES`` instead (the fp32
+serving artifacts' N = 50 at batches 1 to 256, a ViT-B/16 backbone's 64
+images, ViT-L/14's 257 tokens at 256, MAE ViT-H/14's heads of 80), each
+version held to the plain version at phase 3's float32 tolerance (rtol
+1e-4, atol 1e-5), each row with its bound (the lower of the bytes-or-FMA
+and the bytes-or-3xTF32 bounds, ``chip_smoke.bound_fields``' rule) and
+each other version's share of outputs that differ from this one's.  A
+version that refuses a shape (a launch error) is reported as refusing it.  One JSON line
 a shape; the card's name and power limit first.  It needs a CUDA card and
 exits non-zero without one, or if a version disagrees with the plain
 version.
@@ -54,6 +62,26 @@ SHAPES = ((50, 64, 12, (8, 32, 128, 256, 1280)), (197, 64, 12, (32, 64, 256)),
           (641, 64, 16, (16,)), (730, 64, 20, (8, 32, 64)), (768, 64, 16, (16,)),
           (769, 64, 16, (16,)), (1025, 64, 16, (8,)),
           *((n, hd, 16, (batch,)) for hd in (80, 128, 256) for n, batch in ((197, 64), (577, 32))))
+# the float32 rows, (N, hd, heads, batches): N = 50 at the fp32 serving
+# artifacts' batches 1 and 8, at 64, 128 and the zero-shot chunk of 256;
+# ViT-B/16's 197 at a backbone's 64 images; 257 (ViT-L/14's tokens) at
+# 256; MAE ViT-H/14 (heads of 80, 16 of them) at 64
+F32_SHAPES = ((50, 64, 12, (1, 8, 64, 128, 256)), (197, 64, 12, (64,)), (257, 64, 12, (256,)),
+              (257, 80, 16, (64,)))
+
+
+def f32_bound_ms(batch: int, n: int, heads: int, hd: int) -> float:
+    """The card's least time for a float32 call: the lower of the FMA
+    units' bound and three TF32 products' on the tensor cores, each the
+    larger of its operations' time and the bytes' (q, k, v read and the
+    output written once)."""
+    from pevit_tpu_torch.utils.flops import chip_peaks
+
+    peaks = chip_peaks(torch.cuda.get_device_name(0))
+    n_bytes, ops = 16 * batch * heads * n * hd, 4 * batch * heads * n * n * hd
+    t_bytes = n_bytes / (peaks.hbm_gb_s * 1e9) * 1e3
+    return min(max(t_bytes, 3 * ops / (peaks.tf32_tflops * 1e12) * 1e3),
+               max(t_bytes, ops / (peaks.fp32_tflops * 1e12) * 1e3))
 
 
 def card_line() -> str:
@@ -122,19 +150,23 @@ def launching(kernel):
         attention.KERNEL = saved
 
 
-def run_shape(versions: dict, n: int, hd: int, heads: int, batch: int, gen) -> dict:
+def run_shape(versions: dict, n: int, hd: int, heads: int, batch: int, gen,
+              dtype=torch.bfloat16) -> dict:
     from pevit_tpu_torch.ops._build import KernelLaunchError
     from pevit_tpu_torch.ops.attention import attention_fwd, attention_ref, launch_plan
 
     qk = (0.25 / hd) ** 0.25
     q, k, v = (torch.randn(batch, n, heads, hd, device="cuda", generator=gen) * s
                for s in (qk, qk, 1.0))
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     t = lambda x: x.transpose(1, 2)
     want = t(attention_ref(t(q), t(k), t(v))).float()
-    row = {"N": n, "hd": hd, "batch": batch, "heads": heads, "dtype": "bfloat16",
-           "this_body": launch_plan(batch, n, heads, hd, torch.bfloat16).body}
-    takes = {}
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+    row = {"N": n, "hd": hd, "batch": batch, "heads": heads, "dtype": str(dtype).split(".")[-1],
+           "this_body": launch_plan(batch, n, heads, hd, dtype).body}
+    if dtype == torch.float32:
+        row["bound_ms"] = f32_bound_ms(batch, n, heads, hd)
+    takes, outs = {}, {}
     for name, kernel in versions.items():
         with launching(kernel):
             try:
@@ -144,10 +176,13 @@ def run_shape(versions: dict, n: int, hd: int, heads: int, batch: int, gen) -> d
                 row[f"{name}_refuses"] = str(e)
                 continue
         err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
             raise AssertionError(f"{name} at N={n} batch {batch}: max abs err {err}")
         row[f"{name}_max_abs_err"] = err
-        takes[name] = kernel
+        takes[name], outs[name] = kernel, got
+    for name in outs:
+        if name != "this" and "this" in outs:
+            row[f"{name}_differing_this"] = (outs[name] != outs["this"]).float().mean().item()
     turns = {name: [] for name in takes}
     others = [name for name in takes if name != "this"]
     for name in others + ["this", "this"] + others[::-1]:
@@ -170,6 +205,8 @@ def main(argv=None) -> int:
                     help="copies of this tree's source with constexpr constants set otherwise")
     ap.add_argument("--lengths", nargs="+", type=int, default=None, metavar="N",
                     help="time only the shapes of these sequence lengths")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the bodies of this dtype, at SHAPES (bfloat16) or F32_SHAPES")
     ap.add_argument("--out", default=None, help="also write the JSON lines to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -208,11 +245,12 @@ def main(argv=None) -> int:
                 print(f"ptxas {label}: {line.strip()}", flush=True)
     lines = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, hd, heads, batches in SHAPES:
+    dtype = getattr(torch, args.dtype)
+    for n, hd, heads, batches in (F32_SHAPES if dtype == torch.float32 else SHAPES):
         if args.lengths and n not in args.lengths:
             continue
         for batch in batches:
-            row = run_shape(versions, n, hd, heads, batch, gen)
+            row = run_shape(versions, n, hd, heads, batch, gen, dtype)
             line = json.dumps({**row, "card": card})
             print(line, flush=True)
             lines.append(line)

@@ -81,7 +81,8 @@ def test_every_instantiation_fits_two_stages(keys):
 def test_every_length_lands_on_the_body_the_constants_name(hd):
     """bf16 at hd 8 to 64: N from 1 to 257 on the persistent body at the
     next instantiation's key count, a block an SM at most; past it the
-    shared-memory bodies; float32 never."""
+    shared-memory bodies; float32 never (its own persistent body,
+    ``tests/test_torch_attention_f32_tma.py``)."""
     for n in range(1, ta.SMEM2_MAX_SEQ + 2):
         plan = ta.launch_plan(3, n, 4, hd, torch.bfloat16)
         if n <= ta.TMA_MAX_SEQ:
@@ -98,7 +99,7 @@ def test_every_length_lands_on_the_body_the_constants_name(hd):
             assert (plan.width, plan.hd, plan.blocks) == (64, hd, 12)
         else:
             assert plan.keys == 0
-        assert ta.launch_plan(3, n, 4, hd, torch.float32).body == "f32"
+        assert ta.launch_plan(3, n, 4, hd, torch.float32).body == "f32_tma"
 
 
 @pytest.mark.parametrize("hd", [1, 7, 20, 63])

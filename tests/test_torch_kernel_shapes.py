@@ -140,9 +140,10 @@ def test_fused_mlp_refs_match_pallas_kernels_at_widths(c, dtype):
 def test_every_head_width_has_a_launch_plan(dtype):
     """hd 1 to 256 at every body's sequence lengths: hd padded to whole
     16-byte chunks only where it does not fill them, the instantiation the
-    next built width, the persistent body only for bf16 at N <= 257 and hd
-    <= 64, and the grid of the body that runs (the persistent body's one
-    block an SM at most)."""
+    next built width, the bf16 persistent body only for bf16 at N <= 257
+    and hd <= 64, the fp32 persistent body for fp32 at hd <= 64 (every N),
+    and the grid of the body that runs (a persistent body's one block an SM
+    at most)."""
     chunk = 128 // torch.finfo(dtype).bits  # elements in 16 bytes
     for hd in range(1, ta.MAX_HEAD_DIM + 1):
         for n in (1, 50, 197, 257, 258, 577, 640, 641, 730, 768, 769, 1025, 1280, 1281):
@@ -154,14 +155,17 @@ def test_every_head_width_has_a_launch_plan(dtype):
             tiled = bf16 and not tma and plan.hd <= 64  # a shared-memory body
             in_smem = tiled and n <= ta.SMEM_MAX_SEQ
             in_smem2 = tiled and ta.SMEM_MAX_SEQ < n <= ta.SMEM2_MAX_SEQ
+            f32_tma = not bf16 and plan.hd <= ta.F32_TMA_WIDTH
             assert plan.body == ("bf16_tma" if tma else
                                  "bf16_smem" if in_smem else "bf16_smem2" if in_smem2 else
-                                 "bf16_long" if bf16 else "f32")
-            one = in_smem or in_smem2
+                                 "bf16_long" if bf16 else "f32_tma" if f32_tma else "f32")
+            one = in_smem or in_smem2 or f32_tma
             columns = 1 if one else -(-plan.hd // min(plan.width, ta.COLUMN_CHUNK))
             assert columns == (2 if plan.hd > 128 and not one else 1)
             per_head = 1 if tma else -(-n // ta.QUERY_TILE) * columns
-            assert plan.blocks == (min(15, ta.H100_SMS) if tma else 15 * per_head)
+            jobs = 15 * -(-per_head // 2)  # the fp32 body's jobs: two query tiles each
+            assert plan.blocks == (min(15, ta.H100_SMS) if tma else
+                                   min(jobs, ta.H100_SMS) if f32_tma else 15 * per_head)
     for hd in (0, ta.MAX_HEAD_DIM + 1):
         with pytest.raises(KernelInputError, match="hd"):
             ta.launch_plan(1, 5, 1, hd, dtype)
@@ -172,9 +176,12 @@ def test_every_head_width_has_a_launch_plan(dtype):
     (577, 64, torch.bfloat16, 10), (641, 64, torch.bfloat16, 11), (577, 256, torch.bfloat16, 20),
     (257, 200, torch.float32, 10), (50, 20, torch.bfloat16, 1), (730, 64, torch.bfloat16, 12),
     (768, 64, torch.bfloat16, 12), (769, 64, torch.bfloat16, 13),
-    (1025, 64, torch.bfloat16, 17), (1281, 64, torch.bfloat16, 21)])
+    (1025, 64, torch.bfloat16, 17), (1281, 64, torch.bfloat16, 21),
+    (50, 64, torch.float32, 1), (257, 32, torch.float32, 5), (577, 96, torch.float32, 10)])
 def test_check_grid_counts_the_body_that_runs(n, hd, dtype, blocks_per_head):
-    """The largest batch of 16 heads a launch takes, and one more image."""
+    """The largest batch of 16 heads a launch takes, and one more image
+    (the persistent bodies count their work items: fp32's a (batch, head,
+    query tile))."""
     B = ta.MAX_BLOCKS // (16 * blocks_per_head)
     ta.check_grid(B, 16, n, dtype, hd)
     with pytest.raises(KernelInputError, match="blocks"):
@@ -238,7 +245,8 @@ def test_launch_plan_picks_the_short_ring_exactly_where_it_runs(width):
     """bf16 heads of up to 64 from SMEM_MAX_SEQ + 1 (641) to the short
     ring's limit (768, which takes CLIP ViT-H/14 at 378 px: N = 730) run it,
     with one block a (batch, head, query tile), and nothing else does: past
-    it the three-walk body runs; fp32 never."""
+    it the three-walk body runs; fp32 never (its persistent body up to hd
+    64, its mma.sync body beyond)."""
     assert ta.SMEM2_MAX_SEQ == SHORT_RING_LIMIT
     columns = 2 if width > ta.COLUMN_CHUNK else 1
     for n in range(ta.TMA_MAX_SEQ + 1, 1282):
@@ -249,7 +257,8 @@ def test_launch_plan_picks_the_short_ring_exactly_where_it_runs(width):
             assert plan.blocks == 6 * -(-n // ta.QUERY_TILE)
         elif n > ta.SMEM2_MAX_SEQ or width > ta.REG_WIDTH:
             assert (plan.body, plan.blocks) == ("bf16_long", 6 * -(-n // 64) * columns)
-        assert ta.launch_plan(2, n, 3, width, torch.float32).body == "f32"
+        assert ta.launch_plan(2, n, 3, width, torch.float32).body == (
+            "f32_tma" if width <= ta.F32_TMA_WIDTH else "f32")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

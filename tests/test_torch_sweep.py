@@ -349,19 +349,20 @@ def test_two_methods_in_one_output_dir_train_their_own_sweeps(tmp_path, monkeypa
 
 
 def test_semantics_version_keys_the_cache(monkeypatch):
-    """Version 7: bf16 attention from 641 to 768 tokens at heads of up to
-    64 runs the shared-memory body with its short ring instead of the
-    three-walk body, summing its row sum and P V in another order, so a
-    cache written by version 6 must not replay; nor one of version 5 (the
+    """Version 8: float32 attention at heads of up to 64 runs the
+    persistent wgmma body, whose outputs can differ in their last bits, so
+    a cache written by version 7 (bf16 attention from 641 to 768 tokens on
+    the short ring) must not replay; nor one of version 6 (that range on
+    the three-walk body), 5 (the
     three-walk body from 258 to 640 tokens), 4 (full fine-tuning and the
     auxiliary backbones' trials one after another), 3 (every trial alone)
     or 2 (before the fused-MLP backward's float32 body moved to the tensor
     cores)."""
     from pevit_tpu_torch.train import sweep_cache
 
-    assert sweep_cache.SEMANTICS_VERSION == 7
+    assert sweep_cache.SEMANTICS_VERSION == 8
     cfg, data = get_default_config(), _data()
     now = sweep_fingerprint(cfg, data, 10, 0, "kadaptation")
-    for old in (6, 5, 4, 3, 2):
+    for old in (7, 6, 5, 4, 3, 2):
         monkeypatch.setattr(sweep_cache, "SEMANTICS_VERSION", old)
         assert sweep_fingerprint(cfg, data, 10, 0, "kadaptation") != now

@@ -271,3 +271,16 @@ def test_every_k3_variant_still_edits_the_source(variant):
     for name, old, new in tool.VARIANTS[variant]:
         assert (CSRC / name).read_text().count(old) == 1, (variant, name, old)
         assert old != new
+
+
+def test_every_k1_stamp_still_edits_the_source():
+    """``tools/k1_f32_stamps.py`` splits K1's float32 body into phases by
+    stamps it adds after or before texts of a copy of the source; each
+    text must stand exactly once in the source as it is."""
+    tool = load_tool("k1_f32_stamps")
+    source = (CSRC / "attention_fwd.cu").read_text()
+    assert len(tool.EDITS) == 14
+    for anchor, where, _ in tool.EDITS:
+        assert source.count(anchor) == 1, anchor
+        assert where in ("after", "before")
+    assert tool.stamped(source, {}).count("STAMP(") == 12

@@ -6,9 +6,9 @@ on one CUDA card.
 
 The float32 bodies of K1, K2 and K3 sum three TF32 products a k-step of 8
 on the tensor cores, from zero, and add that partial sum to a float32
-accumulator once, rounded (``pevit_tpu_torch/ops/csrc/tf32x3.cuh``: K1's
-``mma.sync`` form; ``wgmma_gemm.cuh``: the GEMM core's ``wgmma`` form, under
-K2 and K3).  The tensor core truncates as it accumulates, so every variant
+accumulator once, rounded (``pevit_tpu_torch/ops/csrc/attention_fwd.cu``'s
+``tf32x3_step`` for K1's persistent body; ``wgmma_gemm.cuh``: the GEMM
+core's group, under K2 and K3; both add with ``add_partial``).  The tensor core truncates as it accumulates, so every variant
 below that lets more of the sum run on the tensor core, or truncates the
 add, leaves its results biased toward zero.  For the shipped sources and
 for each variant, built from a copy of the sources in a temporary
@@ -23,7 +23,8 @@ where it names all three kernels:
 * ``bigfirst``: the k-step's hi·hi product first, the small ones added to it;
 * ``rz``: the partial sum added to the accumulator rounding toward zero;
 * ``chain``: every product accumulated on the tensor core, no rounded add;
-* ``k1_pairs``: K1's k-steps two to a chain (six products) before the add;
+* ``k1_pairs``: K1's k-steps two to a chain (six products) before the add,
+  in S and in P V;
 * ``k3_pairs``: the same in the GEMM core that K2 and K3 share
   (``wgmma_gemm.cuh``).
 
@@ -47,11 +48,18 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 CSRC = Path("pevit_tpu_torch/ops/csrc")
 
-_SPLIT = ("  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
-          "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n"
-          "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n")
-_ADD = "  for (int i = 0; i < 4; ++i) acc[i] += d[i];\n"
-# the GEMM core's float32 group (a k-step of one 64-row half) and its add
+_K1 = "attention_fwd.cu"
+# K1's float32 group (a k-step of a 64-row tile, S's or P V's), its two
+# calls and their adds
+_K1_STEP = ("  WgmmaTf32<NW>::mma(part, lo, b_hi, 0);  // from zero, the small terms first\n"
+            "  WgmmaTf32<NW>::mma(part, hi, b_lo, 1);\n"
+            "  WgmmaTf32<NW>::mma(part, hi, b_hi, 1);\n")
+_K1_S = "tf32x3_step<NKC>(sp[kk % L::SP], hi, lo, wgmma_desc(kb), wgmma_desc(kb + L::K_PLANE));"
+_K1_PV = "tf32x3_step<W>(op[j % L::VP], hi, lo, wgmma_desc(vb), wgmma_desc(vb + L::VT_PLANE));"
+_K1_S_ADD = "[&](auto kc) { add_partial(s, sp[decltype(kc)::value % L::SP]); });"
+_K1_PV_ADD = "[&](auto jc) { add_partial(o, op[decltype(jc)::value % L::VP]); });"
+# the GEMM core's float32 group (a k-step of one 64-row half) and its add,
+# which K1's float32 body shares (add_partial)
 _CORE = "wgmma_gemm.cuh"
 _GROUP = ("          WgmmaTf32<BN>::mma(part[q % P], lo, b_hi, 0);  // from zero, the small terms "
           "first\n"
@@ -63,52 +71,41 @@ _ADD_GROUP = "          add_partial(acc[q / KS % NP], part[q % P]);\n"
 ALL = ("attention_fwd", "fused_mlp_fwd", "fused_mlp_bwd")
 # variant: (the kernels it changes, [(file, old text, new text), ...])
 VARIANTS = {
-    "bigfirst": (ALL, [("tf32x3.cuh", _SPLIT,
-                        "  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);\n"
-                        "  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);\n"
-                        "  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);\n"),
+    "bigfirst": (ALL, [(_K1, _K1_STEP,
+                        "  WgmmaTf32<NW>::mma(part, hi, b_hi, 0);\n"
+                        "  WgmmaTf32<NW>::mma(part, lo, b_hi, 1);\n"
+                        "  WgmmaTf32<NW>::mma(part, hi, b_lo, 1);\n"),
                        (_CORE, _GROUP,
                         "          WgmmaTf32<BN>::mma(part[q % P], hi, b_hi, 0);\n"
                         "          WgmmaTf32<BN>::mma(part[q % P], lo, b_hi, 1);\n"
                         "          WgmmaTf32<BN>::mma(part[q % P], hi, b_lo, 1);\n")]),
-    "rz": (ALL, [("tf32x3.cuh", _ADD,
-                  "  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rz(acc[i], d[i]);\n"),
-                 (_CORE, _CORE_ADD, "    acc[i] = __fadd_rz(acc[i], part[i]);\n")]),
-    "chain": (ALL, [("tf32x3.cuh", _SPLIT, _SPLIT.replace("(d, ", "(acc, ")),
+    # add_partial is K1's add too
+    "rz": (ALL, [(_CORE, _CORE_ADD, "    acc[i] = __fadd_rz(acc[i], part[i]);\n")]),
+    "chain": (ALL, [(_K1, _K1_STEP, _K1_STEP.replace(
+                         "b_hi, 0);  // from zero, the small terms first", "b_hi, 1);")),
+                    (_K1, _K1_S, _K1_S.replace("sp[kk % L::SP]", "s")),
+                    (_K1, _K1_PV, _K1_PV.replace("op[j % L::VP]", "o")),
                     (_CORE, _GROUP, _GROUP.replace("part[q % P]", "acc[q / KS % NP]").replace(
                         "b_hi, 0);  // from zero, the small terms first", "b_hi, 1);")),
                     (_CORE, _CORE_ADD, "    (void)acc[i];\n")]),
+    # a pair of k-steps (an even one and the next) shares a partial: the even
+    # one's group starts it, the odd one's adds to it on the tensor core,
+    # and only the odd one's is added (S's and P V's k-steps are even counts)
     "k1_pairs": (("attention_fwd",), [
-        ("attention_fwd.cu",
-         "void pv_step(float (&o)[DV / 8][4], const float (&p)[4],\n"
-         "                                        const float* vr) {\n",
-         "void pv_step(float (&o)[DV / 8][4], const float (&p)[4],\n"
-         "                                        const float* vr, float (&pd)[DV / 8][4],\n"
-         "                                        bool first, bool last) {\n"),
-        ("attention_fwd.cu", "    mma_tf32x3(o[dn], a_hi, a_lo, b_hi, b_lo);\n",
-         "    if (first) pd[dn][0] = pd[dn][1] = pd[dn][2] = pd[dn][3] = 0.f;\n"
-         "    mma_tf32(pd[dn], a_lo, b_hi[0], b_hi[1]);\n"
-         "    mma_tf32(pd[dn], a_hi, b_lo[0], b_lo[1]);\n"
-         "    mma_tf32(pd[dn], a_hi, b_hi[0], b_hi[1]);\n"
-         "    if (last) for (int i = 0; i < 4; ++i) o[dn][i] += pd[dn][i];\n"),
-        ("attention_fwd.cu", "    const float* vw = vc + 2 * t * LDV + g;\n",
-         "    const float* vw = vc + 2 * t * LDV + g;\n    float pdv[DV / 8][4];\n"),
-        ("attention_fwd.cu", "      if (j < nt) pv_step<DV, LDV>(o, s[j], vw + 8 * j * LDV);\n",
-         "      if (j < nt) pv_step<DV, LDV>(o, s[j], vw + 8 * j * LDV, pdv, (j & 1) == 0,\n"
-         "                                   (j & 1) == 1 || j + 1 == nt);\n"),
-        ("attention_fwd.cu", "        const float* kw = kc + (8 * j + g) * LDK + t;\n",
-         "        const float* kw = kc + (8 * j + g) * LDK + t;\n        float pd[4];\n"),
-        ("attention_fwd.cu", "          mma_tf32x3(s[j], q_hi[kk], q_lo[kk], b_hi, b_lo);\n",
-         "          if ((kk & 1) == 0) pd[0] = pd[1] = pd[2] = pd[3] = 0.f;\n"
-         "          mma_tf32(pd, q_lo[kk], b_hi[0], b_hi[1]);\n"
-         "          mma_tf32(pd, q_hi[kk], b_lo[0], b_lo[1]);\n"
-         "          mma_tf32(pd, q_hi[kk], b_hi[0], b_hi[1]);\n"
-         "          if (kk & 1) for (int i = 0; i < 4; ++i) s[j][i] += pd[i];\n"),
+        (_K1, "                                            uint64_t b_lo) {\n",
+         "                                            uint64_t b_lo, int scale = 0) {\n"),
+        (_K1, "  WgmmaTf32<NW>::mma(part, lo, b_hi, 0);  // from zero, the small terms first\n",
+         "  WgmmaTf32<NW>::mma(part, lo, b_hi, scale);\n"),
+        (_K1, _K1_S, _K1_S.replace("sp[kk % L::SP]", "sp[kk / 2 % L::SP]").replace(
+            "L::K_PLANE));", "L::K_PLANE), kk % 2);")),
+        (_K1, _K1_PV, _K1_PV.replace("op[j % L::VP]", "op[j / 2 % L::VP]").replace(
+            "L::VT_PLANE));", "L::VT_PLANE), j % 2);")),
+        (_K1, _K1_S_ADD, "[&](auto kc) { if (decltype(kc)::value % 2 == 1) "
+         "add_partial(s, sp[decltype(kc)::value / 2 % L::SP]); });"),
+        (_K1, _K1_PV_ADD, "[&](auto jc) { if (decltype(jc)::value % 2 == 1) "
+         "add_partial(o, op[decltype(jc)::value / 2 % L::VP]); });"),
     ]),
-    # a pair of k-steps (an even one and the next) shares a partial: the
-    # even one's group starts it, the odd one's adds to it on the tensor
-    # core, and only the odd one's is added (no pair crosses an entry or a
-    # turn of the loop, each of an even count of groups)
+    # the same in the GEMM core that K2 and K3 share
     "k3_pairs": (("fused_mlp_fwd", "fused_mlp_bwd"), [
         (_CORE, _GROUP,
          _GROUP.replace("part[q % P]", "part[q / 2 % P]").replace(
